@@ -1,0 +1,462 @@
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py
+
+Phases, each of which raises (and exits nonzero) on a failed check:
+
+1. build: compile ``src/repro_torch/csrc/*.cu`` with nvcc (one process per
+   source, all at once) into one library and load it;
+2. kernels: hold each hand-written kernel against its plain PyTorch version
+   on the card at the main path's shapes, and time the kernel, the plain
+   version, and one PyTorch call that computes the same function;
+3. main path: ``fit_transform`` of a seeded synthetic (70000, 784) matrix,
+   the shape of MNIST-28x28 in the paper's Table IV, under
+   ``PCAConfig(fused=True, backend="cuda", sweeps=50)``, checked against
+   float64 numpy on the CPU; every kernel must have launched;
+4. batched flush: 32 mixed-shape requests for each of eigh, svd and pca,
+   bucket-padded and solved with ``build_solver_fn``, checked against
+   float64 numpy.
+
+The last three lines are the kernels' JSON record, the card's name and
+power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
+the script exits with code 2 and prints no result.
+"""
+from __future__ import annotations
+
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+
+SEED = 0
+M, N, K = 70000, 784, 32          # MNIST-28x28 (paper Table IV), top-k
+BATCH, BM, BN = 32, 2048, 256     # the batched kernel shapes
+SWEEPS = 50
+BACKEND = "cuda"
+# batched flush: 32 requests per op, each dimension drawn from these ranges
+FLUSH_REQUESTS = 32
+FLUSH_EIGH_N = (96, 256)
+FLUSH_SVD_N = (64, 256)
+FLUSH_PCA_M, FLUSH_PCA_D = (256, 2048), (32, 256)
+# H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
+# dense on the tensor cores, HBM3
+PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
+PEAK_BYTES = 3.35e12
+# kernel vs plain version on the card: both sum in fp32, in another order
+# (cuBLAS vs the kernel's tiles), over up to 70000 terms; held to the fp32
+# covariance budget, relative Frobenius
+KERNEL_TOL = 1e-5
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def errors(got: torch.Tensor, want: torch.Tensor):
+    """(max |got - want|, that over max |want|, ||got - want|| / ||want||),
+    in float64."""
+    g = got.double()
+    w = want.double()
+    abs_err = float((g - w).abs().max())
+    fro = float(torch.linalg.norm(g - w)) / max(float(torch.linalg.norm(w)),
+                                               1e-30)
+    return abs_err, abs_err / max(float(w.abs().max()), 1e-30), fro
+
+
+def time_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Device time of one call, from CUDA events around ``reps`` calls."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, reps: int):
+    """Kernel time on the card per call, summed over the kernels that
+    ``torch.profiler`` traced while ``reps`` calls ran; None if the trace
+    shows no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(getattr(e, "device_time_total", 0.0)
+                   for e in prof.key_averages())
+    return total_us / 1e3 / reps if total_us > 0 else None
+
+
+def bound_ms(n_bytes: float, flops: float, peak_flops: float):
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    t_ops = flops / peak_flops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def synthetic_dataset(m: int, n: int, seed: int) -> np.ndarray:
+    """Decaying low-rank factors plus noise (the recipe of the benchmarks'
+    synthetic stand-ins for the paper's datasets)."""
+    rng = np.random.default_rng(seed)
+    k = min(n, 32)
+    base = rng.standard_normal((m, k)) * np.geomspace(1, 0.05, k)
+    mix = rng.standard_normal((k, n)) / np.sqrt(k)
+    x = base @ mix + 0.05 * rng.standard_normal((m, n))
+    return x.astype(np.float32)
+
+
+def rel_frobenius(a, b) -> float:
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b)) / max(float(np.linalg.norm(b)), 1e-30)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+# -- phase 2: each kernel against its plain version ---------------------------
+
+def kernel_phase(dev, rows: dict) -> None:
+    from repro_torch.core.jacobi import round_robin_rounds
+    from repro_torch.kernels import fused, mm_engine, ref
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def record(name, got, want, t_kernel, t_plain, t_lib, bound, tol,
+               main=False):
+        abs_err, rel_err, fro = errors(got, want)
+        b_ms, b_by = bound
+        log(f"kernel {name}: rel_frobenius {fro:.3e} (tol {tol:g}) "
+            f"max_rel_err {rel_err:.3e} max_abs_err {abs_err:.3e} "
+            f"kernel_ms {t_kernel:.4f} "
+            f"plain_ms {t_plain:.4f} library_ms "
+            f"{'null' if t_lib is None else f'{t_lib:.4f}'} "
+            f"bound_ms {b_ms:.4f} ({b_by})")
+        check(fro <= tol, f"{name}: kernel disagrees with its plain "
+              f"version: {fro:.3e} > {tol:g}")
+        if main:
+            rows[name.split("[")[0]].update(
+                max_abs_err=abs_err, ms=t_kernel, plain_ms=t_plain,
+                library_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
+
+    # covariance at the main path's (70000, 784), fp32 and bf16, and a batch
+    x = randn(M, N)
+    for dtype, peak in ((torch.float32, PEAK_FP32),
+                        (torch.bfloat16, PEAK_BF16)):
+        xd = x.to(dtype)
+        got = fused.fused_covariance(xd)
+        want = ref.covariance_gram(xd)
+        torch.cuda.synchronize()
+        t_k = time_ms(lambda: fused.fused_covariance(xd), 5)
+        t_p = time_ms(lambda: ref.covariance_gram(xd), 5)
+        t_l = (time_ms(lambda: torch.matmul(xd.mT, xd), 5)
+               if dtype == torch.float32 else None)
+        nbytes = xd.numel() * xd.element_size() + N * N * 4
+        record(f"covariance[{M}x{N} {str(dtype)[6:]}]", got, want, t_k, t_p,
+               t_l, bound_ms(nbytes, M * N * (N + 1), peak), KERNEL_TOL,
+               main=dtype == torch.float32)
+    del x, xd
+    xb = randn(BATCH, BM, BN)
+    got = fused.fused_covariance(xb)
+    want = ref.covariance_gram(xb)
+    record(f"covariance[{BATCH}x{BM}x{BN}]", got, want,
+           time_ms(lambda: fused.fused_covariance(xb), 5),
+           time_ms(lambda: ref.covariance_gram(xb), 5),
+           time_ms(lambda: torch.matmul(xb.mT, xb), 5),
+           bound_ms(xb.numel() * 4 + BATCH * BN * BN * 4,
+                    BATCH * BM * BN * (BN + 1), PEAK_FP32), KERNEL_TOL)
+
+    # jacobi_sweep: one round at n = 784 for each angle mode
+    g = randn(N, N)
+    C = (g @ g.mT) / N
+    V = torch.linalg.qr(randn(N, N))[0].contiguous()
+    rounds = torch.as_tensor(round_robin_rounds(N), device=dev)
+    pairs = rounds[N // 3]
+    k = pairs.shape[0]
+    sweep_bytes = 4 * N * N * 4
+    sweep_flops = 9 * N * N + 20 * k
+    for angle in ("rutishauser", "atan2", "cordic"):
+        Co, Vo = fused.jacobi_sweep_step(C, V, pairs, angle=angle)
+        Cr, Vr = ref.jacobi_sweep_step(C, V, pairs, angle=angle)
+        torch.cuda.synchronize()
+        same = int((Co == Cr).sum() + (Vo == Vr).sum())
+        log(f"jacobi_sweep[{angle}]: {same} of {2 * N * N} entries bitwise "
+            f"equal to the plain version")
+        out = (torch.empty_like(C), torch.empty_like(V))
+        t_k = time_ms(lambda: fused.jacobi_sweep_step(C, V, pairs,
+                                                       angle=angle, out=out),
+                      200)
+        t_p = time_ms(lambda: ref.jacobi_sweep_step(C, V, pairs,
+                                                     angle=angle), 50)
+        record(f"jacobi_sweep[{N} {angle}]",
+               torch.cat([Co, Vo]), torch.cat([Cr, Vr]), t_k, t_p, None,
+               bound_ms(sweep_bytes, sweep_flops, PEAK_FP32), KERNEL_TOL,
+               main=angle == "rutishauser")
+        t_dev = device_ms(lambda: fused.jacobi_sweep_step(
+            C, V, pairs, angle=angle, out=out), 50)
+        log(f"jacobi_sweep[{N} {angle}]: device_ms per round "
+            f"{'not measured' if t_dev is None else f'{t_dev:.4f}'} "
+            f"(profiler: both launches), against {t_k:.4f} ms between "
+            f"back-to-back calls")
+        if angle == "rutishauser":
+            rows["jacobi_sweep"]["device_ms"] = t_dev
+
+    # a zero-padded batch with mixed n_active: one round against the plain
+    # version, then a full sweep in which padding must stay exactly zero
+    n_act = torch.as_tensor(np.random.default_rng(SEED).integers(
+        BN // 2, BN + 1, BATCH), device=dev)
+    idx = torch.arange(BN, device=dev)
+    live = (idx[None, :] < n_act[:, None]).float()
+    mask = live[:, :, None] * live[:, None, :]
+    gb = randn(BATCH, BN, BN)
+    Cb = ((gb @ gb.mT) / BN * mask).contiguous()
+    Vb = torch.eye(BN, device=dev).expand(BATCH, BN, BN).contiguous()
+    rounds_b = torch.as_tensor(round_robin_rounds(BN), device=dev)
+    got = fused.jacobi_sweep_step(Cb, Vb, rounds_b[5])
+    want = ref.jacobi_sweep_step(Cb, Vb, rounds_b[5])
+    record(f"jacobi_sweep[{BATCH}x{BN}x{BN} padded]", torch.cat(got),
+           torch.cat(want),
+           time_ms(lambda: fused.jacobi_sweep_step(Cb, Vb, rounds_b[5]), 100),
+           time_ms(lambda: ref.jacobi_sweep_step(Cb, Vb, rounds_b[5]), 20),
+           None, bound_ms(4 * Cb.numel() * 4, 9 * Cb.numel(), PEAK_FP32),
+           KERNEL_TOL)
+    Cs, Vs = Cb, Vb
+    for pairs_b in rounds_b:
+        Cs, Vs = fused.jacobi_sweep_step(Cs, Vs, pairs_b)
+    pad = 1.0 - mask
+    eye = torch.eye(BN, device=dev).expand_as(Vs)
+    pad_c = int((Cs * pad != 0).sum())
+    pad_v = int(((Vs - eye) * pad != 0).sum())
+    log(f"jacobi_sweep padded batch after one sweep: {pad_c} nonzero padded "
+        f"C entries, {pad_v} padded V entries off the identity")
+    check(pad_c == 0 and pad_v == 0, "padded coordinates did not stay exact")
+    del C, V, Cb, Vb, Cs, Vs, gb, g
+
+    # mm_engine: the projection (70000, 784) @ (784, 32) and the batched
+    # U = A V of the SVD
+    a = randn(M, N)
+    b = randn(N, K)
+    record(f"mm_engine_matmul[{M}x{N}@{N}x{K}]", mm_engine.mm_engine(a, b),
+           ref.mm_engine(a, b),
+           time_ms(lambda: mm_engine.mm_engine(a, b), 10),
+           time_ms(lambda: ref.mm_engine(a, b), 10),
+           time_ms(lambda: torch.matmul(a, b), 10),
+           bound_ms((M * N + N * K + M * K) * 4, 2 * M * N * K, PEAK_FP32),
+           KERNEL_TOL, main=True)
+    A = randn(BATCH, BM, BN)
+    Vq = torch.linalg.qr(randn(BATCH, BN, BN))[0].contiguous()
+    record(f"mm_engine_matmul[{BATCH}x{BM}x{BN}@{BN}x{BN}]",
+           mm_engine.mm_engine(A, Vq), ref.mm_engine(A, Vq),
+           time_ms(lambda: mm_engine.mm_engine(A, Vq), 10),
+           time_ms(lambda: ref.mm_engine(A, Vq), 10),
+           time_ms(lambda: torch.matmul(A, Vq), 10),
+           bound_ms((A.numel() + Vq.numel() + A.numel()) * 4,
+                    2 * BATCH * BM * BN * BN, PEAK_FP32), KERNEL_TOL)
+
+
+# -- phase 3: the main path -----------------------------------------------
+
+def main_path(dev) -> dict:
+    import repro_torch
+    from repro_torch.core.precision import ERROR_BUDGETS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    X = synthetic_dataset(M, N, SEED)
+    config = repro_torch.PCAConfig(fused=True, backend=BACKEND, sweeps=SWEEPS,
+                                   pivot="parallel", rotation="rowcol",
+                                   angle="rutishauser")
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    Y, res = repro_torch.fit_transform(X, K, config, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"main path: fit_transform({M}x{N}, k={K}, sweeps={SWEEPS}) wall "
+        f"{wall:.3f} s, launches {json.dumps(counts)}")
+
+    X64 = X.astype(np.float64)
+    std = X64.std(axis=0)
+    std[std < 1e-8] = 1.0
+    Xs = (X64 - X64.mean(axis=0)) / std
+    w64, v64 = np.linalg.eigh(Xs.T @ Xs)
+    w64, v64 = w64[::-1], v64[:, ::-1]
+    w = res.eigenvalues.cpu().numpy()
+    err = rel_frobenius(w, w64)
+    off = float(res.off_norm)
+    comps = res.components.cpu().numpy()
+    cos = np.abs(np.sum(comps[:, :8] * v64[:, :8], axis=0))
+    Yh = Y.cpu().numpy()
+    log(f"main path: eigenvalue rel-Frobenius vs float64 numpy {err:.3e} "
+        f"(budget {ERROR_BUDGETS['fp32']['eigh']:g}), off_norm {off:.3e}, "
+        f"min |cos| of the top 8 components {cos.min():.6f}")
+    check(err <= ERROR_BUDGETS["fp32"]["eigh"], "eigenvalues off budget")
+    check(off <= 1e-5, f"off_norm {off} > 1e-5: the sweeps did not converge")
+    check(cos.min() >= 1 - 1e-3, "top components off the float64 subspace")
+    check(Yh.shape == (M, K) and np.isfinite(Yh).all(), "projection bad")
+    for name, n in counts.items():
+        check(n > 0, f"kernel {name} never launched on the main path")
+    return {"wall_s": wall, "launches": counts}
+
+
+# -- phase 4: a batched flush ----------------------------------------------
+
+def batched_flush(dev) -> dict:
+    from repro_torch.core.pca import PCAConfig
+    from repro_torch.core.precision import ERROR_BUDGETS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.batching import BucketPolicy, stack_requests
+    from repro_torch.serving.solver import build_solver_fn
+
+    rng = np.random.default_rng(SEED + 1)
+    policy = BucketPolicy(T=64, mode="pow2")
+    config = PCAConfig(fused=True, backend=BACKEND, sweeps=SWEEPS)
+    budget = ERROR_BUDGETS["fp32"]
+    requests = {"eigh": [], "svd": [], "pca": []}
+    for _ in range(FLUSH_REQUESTS):
+        n = int(rng.integers(FLUSH_EIGH_N[0], FLUSH_EIGH_N[1] + 1))
+        g = rng.standard_normal((n, n))
+        requests["eigh"].append(((g + g.T) / 2).astype(np.float32))
+        n = int(rng.integers(FLUSH_SVD_N[0], FLUSH_SVD_N[1] + 1))
+        m = int(rng.integers(n, 2 * n + 1))
+        requests["svd"].append(rng.standard_normal((m, n)).astype(np.float32))
+        d = int(rng.integers(FLUSH_PCA_D[0], FLUSH_PCA_D[1] + 1))
+        m = int(rng.integers(FLUSH_PCA_M[0], FLUSH_PCA_M[1] + 1))
+        seed = int(rng.integers(1 << 30))
+        requests["pca"].append(synthetic_dataset(m, d, seed))
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    worst = {}
+    for op, mats in requests.items():
+        solve = build_solver_fn(op, config, device=dev)
+        budget_op = "svd" if op == "svd" else "eigh"
+        buckets = {}
+        for i, a in enumerate(mats):
+            buckets.setdefault(policy.bucket_shape(a.shape), []).append(i)
+        worst[op] = 0.0
+        for shape, ids in sorted(buckets.items()):
+            batch, n_active = stack_requests([mats[i] for i in ids], shape)
+            res = solve(batch, n_active[0], n_active[-1])
+            for j, i in enumerate(ids):
+                a = mats[i].astype(np.float64)
+                if op == "eigh":
+                    n = a.shape[0]
+                    want = np.linalg.eigvalsh(a)[::-1]
+                    got = res.eigenvalues[j, :n].cpu().numpy()
+                    V = res.eigenvectors[j].cpu()
+                    eye = torch.eye(shape[0])
+                    check(bool((V[n:, :] == eye[n:, :]).all()
+                               and (V[:, n:] == eye[:, n:]).all()
+                               and (res.eigenvalues[j, n:] == 0).all()),
+                          f"eigh bucket {shape}: padding did not stay exact")
+                elif op == "svd":
+                    n = a.shape[1]
+                    want = np.linalg.svd(a, compute_uv=False)
+                    got = res.S[j, :n].cpu().numpy()
+                else:
+                    n = a.shape[1]
+                    std = a.std(axis=0)
+                    std[std < 1e-8] = 1.0
+                    xs = (a - a.mean(axis=0)) / std
+                    want = np.linalg.eigvalsh(xs.T @ xs)[::-1]
+                    got = res.eigenvalues[j, :n].cpu().numpy()
+                err = rel_frobenius(got, want)
+                worst[op] = max(worst[op], err)
+                check(np.isfinite(got).all() and err <= budget[budget_op],
+                      f"{op} request {i} in bucket {shape}: rel-Frobenius "
+                      f"{err:.3e} over budget")
+        log(f"batched flush {op}: {len(mats)} requests in {len(buckets)} "
+            f"buckets, worst rel-Frobenius vs float64 numpy {worst[op]:.3e}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"batched flush: wall {wall:.3f} s (checks included), launches "
+        f"{json.dumps(counts)}")
+    for name, n in counts.items():
+        check(n > 0, f"kernel {name} never launched in the batched flush")
+    return {"wall_s": wall, "launches": counts, "worst": worst}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke "
+              "test needs a CUDA card", file=sys.stderr)
+        return 2
+    t_start = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False  # full-fp32 yardsticks
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    card = nvidia_smi()
+    log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    from repro_torch.kernels import KERNELS, build
+    t0 = time.perf_counter()
+    build.library()
+    out = build.build_dir()
+    log(f"build: {time.perf_counter() - t0:.1f} s, {out / build.LIB_NAME}")
+    log_path = out / "build.log"
+    if log_path.exists():  # ptxas: registers, shared memory, spills
+        for line in log_path.read_text().splitlines():
+            if "Used" in line or "spill" in line:
+                log("  " + line.strip())
+
+    rows = {k.name: {"name": k.name, "route": "cuda", "source": k.source,
+                     "replaces": k.replaces} for k in KERNELS}
+    kernel_phase(dev, rows)
+    log("kernels " + json.dumps({k.name: k.launches for k in KERNELS}))
+    main_run = main_path(dev)
+    per_call = {name: row.get("device_ms") or row["ms"]
+                for name, row in rows.items()}
+    busy = sum(main_run["launches"][name] * per_call[name]
+               for name in per_call) / 1e3
+    wall = main_run["wall_s"]
+    log(f"main path: kernels busy about {busy:.3f} s of {wall:.3f} s wall "
+        f"(launches x per-call device time), idle share about "
+        f"{1 - busy / wall:.3f}")
+    flush = batched_flush(dev)
+
+    record = []
+    for k in KERNELS:
+        row = rows[k.name]
+        row["launches"] = main_run["launches"][k.name]
+        row["launches_batched_flush"] = flush["launches"][k.name]
+        record.append(row)
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": record}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

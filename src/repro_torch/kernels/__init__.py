@@ -1,0 +1,24 @@
+"""The port's kernel layer: the hand-written CUDA kernels of the hot path
+(``fused``, ``mm_engine``), their plain PyTorch versions (``ref``) and the
+registry-dispatched ops over both (``ops``).
+
+``KERNELS`` lists every kernel with its launch count; nothing here builds
+or loads a kernel until a wrapper is called on a CUDA tensor.
+"""
+from .fused import COVARIANCE, JACOBI_SWEEP
+from .launch import KernelInfo
+from .mm_engine import MM_ENGINE
+
+KERNELS = (COVARIANCE, JACOBI_SWEEP, MM_ENGINE)
+
+
+def reset_launch_counts() -> None:
+    for kernel in KERNELS:
+        kernel.launches = 0
+
+
+def launch_counts() -> dict:
+    return {kernel.name: kernel.launches for kernel in KERNELS}
+
+
+__all__ = ["KERNELS", "KernelInfo", "launch_counts", "reset_launch_counts"]

@@ -1,0 +1,85 @@
+"""Shared helpers of the port's parity tests (``tests/test_torch_*.py``).
+
+Each test feeds the same numpy input to a function of the JAX reference and
+to its port, then applies one named contract:
+
+  ``bitwise``        identical arrays;
+  ``ulp``            at most ``tol`` float32 units in the last place apart;
+  ``rel_frobenius``  ||got - want||_F / ||want||_F <= ``tol``.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+
+def to_numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
+            x = x.float()
+        return x.numpy()
+    return np.asarray(x)
+
+
+def ulp_distance(a, b) -> np.ndarray:
+    """Float32 units in the last place between a and b (elementwise)."""
+    a = np.ascontiguousarray(to_numpy(a), np.float32).view(np.int32)
+    b = np.ascontiguousarray(to_numpy(b), np.float32).view(np.int32)
+    # map the sign-magnitude bit patterns onto one ordered integer line
+    a = np.where(a < 0, np.int64(-2 ** 31) - a, a).astype(np.int64)
+    b = np.where(b < 0, np.int64(-2 ** 31) - b, b).astype(np.int64)
+    return np.abs(a - b)
+
+
+def rel_frobenius(got, want) -> float:
+    got = to_numpy(got).astype(np.float64)
+    want = to_numpy(want).astype(np.float64)
+    return float(np.linalg.norm(got - want)) / max(
+        float(np.linalg.norm(want)), 1e-30)
+
+
+def assert_contract(got, want, contract: str, tol: float = 0.0) -> None:
+    g, w = to_numpy(got), to_numpy(want)
+    assert g.shape == w.shape, (g.shape, w.shape)
+    if contract == "bitwise":
+        np.testing.assert_array_equal(g, w)
+    elif contract == "ulp":
+        worst = int(ulp_distance(g, w).max(initial=0))
+        assert worst <= tol, f"{worst} ulp > {tol}"
+    elif contract == "rel_frobenius":
+        err = rel_frobenius(g, w)
+        assert err <= tol, f"rel-Frobenius {err:.3e} > {tol:g}"
+    else:
+        raise ValueError(f"unknown contract {contract!r}")
+
+
+def subspace_cos(got, want) -> np.ndarray:
+    """|cos| between matching columns (eigenvectors up to sign)."""
+    g = to_numpy(got).astype(np.float64)
+    w = to_numpy(want).astype(np.float64)
+    g = g / np.linalg.norm(g, axis=0, keepdims=True)
+    w = w / np.linalg.norm(w, axis=0, keepdims=True)
+    return np.abs(np.sum(g * w, axis=0))
+
+
+@pytest.fixture
+def cuda_device():
+    """The first CUDA device; skips the test on a host without one (decided
+    here, while the test runs, never while the module is imported)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no "
+                    "CPU mode (run on the card with `python -m pytest -m "
+                    "cuda tests/test_torch_*.py`)")
+    return torch.device("cuda", 0)
+
+
+def sym(n: int, seed: int = 0, scale: float = 1.0) -> np.ndarray:
+    a = np.random.default_rng(seed).standard_normal((n, n)) * scale
+    return ((a + a.T) / 2).astype(np.float32)
+
+
+def data(m: int, n: int, seed: int = 0) -> np.ndarray:
+    return np.random.default_rng(seed).standard_normal((m, n)).astype(
+        np.float32)

@@ -1,0 +1,165 @@
+"""Guards of the port's boundaries: it imports neither JAX nor the JAX
+package, it never falls back from the card to the CPU, and nothing about
+the CUDA build happens before a kernel is called."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import repro_torch
+from repro_torch import _device
+from repro_torch.backends import registry
+from repro_torch.core import pca as tpca
+from repro_torch.kernels import KERNELS, build, launch_counts
+from repro_torch.kernels import ops as tops
+from repro_torch.serving import solver as tsolver
+
+PKG = pathlib.Path(repro_torch.__file__).resolve().parent
+SRC = PKG.parent
+
+
+def _run(code: str, **env) -> subprocess.CompletedProcess:
+    full_env = dict(os.environ, PYTHONPATH=str(SRC), **env)
+    return subprocess.run([sys.executable, "-c", code], env=full_env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_import_leaves_jax_and_reference_out():
+    code = ("import sys, repro_torch, repro_torch.convert, "
+            "repro_torch.kernels.ops, repro_torch.serving.solver\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
+            "print(bad)")
+    out = _run(code)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_source_imports_no_jax_and_no_reference():
+    for path in sorted(PKG.rglob("*.py")):
+        tree = ast.parse(path.read_text(), str(path))
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            for name in names:
+                root = name.split(".")[0]
+                assert root not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_build_module_imports_without_nvcc():
+    code = ("import repro_torch.kernels.build as b, repro_torch.kernels.ops\n"
+            "print(b.build_dir().name)")
+    out = _run(code, PATH="", CUDA_HOME="/nonexistent")
+    assert out.returncode == 0, out.stderr
+    assert len(out.stdout.strip()) == 16  # the source hash names the build
+
+
+def test_missing_nvcc_is_a_clear_error(monkeypatch):
+    monkeypatch.setattr(build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(build.os.path, "exists", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        build.find_nvcc()
+
+
+def test_build_hash_follows_the_sources(monkeypatch):
+    before = build.source_hash()
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ["-lineinfo"])
+    assert build.source_hash() != before
+    default = build.REPO_ROOT / "build" / "repro_torch"
+    assert build.build_dir().parent == default
+    monkeypatch.setenv(build.BUILD_ENV, "elsewhere")  # nothing is created
+    assert build.build_dir().parent == pathlib.Path("elsewhere")
+
+
+@pytest.mark.parametrize("op", ["covariance", "jacobi_sweep",
+                                "mm_engine_matmul"])
+def test_cuda_backend_on_a_cpu_tensor_raises(op):
+    x = torch.ones(4, 4)
+    pairs = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
+    before = launch_counts()
+    with pytest.raises(ValueError, match="CUDA"):
+        if op == "covariance":
+            tops.covariance(x, backend="cuda")
+        elif op == "jacobi_sweep":
+            tops.jacobi_sweep(x, torch.eye(4), pairs, backend="cuda")
+        else:
+            tops.mm_engine_matmul(x, x, backend="cuda")
+    assert launch_counts() == before
+
+
+def test_cuda_config_on_cpu_data_raises():
+    cfg = tpca.PCAConfig(fused=True, backend="cuda", sweeps=2)
+    with pytest.raises(ValueError, match="CUDA"):
+        tpca.fit(torch.ones(8, 4), cfg)
+
+
+def test_wrapper_takes_the_plain_version_only_on_the_cpu():
+    from repro_torch.kernels import fused, mm_engine
+    x = torch.randn(6, 4)
+    before = launch_counts()
+    np.testing.assert_allclose(fused.fused_covariance(x), x.T @ x, rtol=1e-6)
+    np.testing.assert_allclose(mm_engine.mm_engine(x, x.T), x @ x.T,
+                               rtol=1e-6)
+    assert launch_counts() == before  # the plain version is no launch
+    with pytest.raises(ValueError, match="CUDA"):
+        mm_engine.mm_engine(torch.ones(2, 2, device="meta"),
+                            torch.ones(2, 2, device="meta"))
+
+
+@pytest.mark.parametrize("entry", ["fit", "fit_transform", "eigh_batched",
+                                   "pca_batched"])
+def test_device_cuda_without_a_card_raises(monkeypatch, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    X = np.ones((8, 4), np.float32)
+    with pytest.raises(RuntimeError, match="is_available"):
+        if entry == "fit":
+            tpca.fit(X)  # numpy input defaults to the card
+        elif entry == "fit_transform":
+            tpca.fit_transform(X, 2, device="cuda")
+        elif entry == "eigh_batched":
+            tsolver.jacobi_eigh_batched(np.zeros((1, 4, 4), np.float32))
+        else:
+            tsolver.pca_fit_batched(np.zeros((1, 8, 4), np.float32),
+                                    device="cuda")
+
+
+def test_tensor_keeps_its_device():
+    t = torch.ones(3)
+    assert _device.as_tensor(t) is t
+    assert _device.as_tensor(np.ones(3), "cpu").device.type == "cpu"
+
+
+def test_registry_resolution_order(monkeypatch):
+    cpu = torch.ones(2)
+    assert registry.default_backend(cpu) == "torch"
+    assert registry.backends_for("covariance") == ("cuda", "torch")
+    monkeypatch.setenv(registry.ENV_VAR, "cuda")
+    assert registry.default_backend(cpu) == "cuda"
+    with registry.use_backend("torch"):
+        assert registry.default_backend(cpu) == "torch"
+    monkeypatch.setenv(registry.ENV_VAR, "tpu")
+    with pytest.raises(ValueError):
+        registry.default_backend(cpu)
+    monkeypatch.delenv(registry.ENV_VAR)
+    registry.reset_resolution_counts()
+    tops.mm_engine_matmul(cpu[:, None], cpu[None, :])
+    assert registry.resolution_counts() == {("mm_engine_matmul", "torch"): 1}
+    assert "mm_engine_matmul" in registry.describe()
+
+
+def test_kernel_records_name_their_sources():
+    root = SRC.parent
+    for k in KERNELS:
+        assert (root / k.source).is_file(), k.source
+        path, line = k.replaces.split(":")
+        text = (root / path).read_text().splitlines()
+        assert "pallas_call" in text[int(line) - 1], k.replaces
