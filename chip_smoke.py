@@ -15,11 +15,24 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    float64 numpy on the CPU; every kernel must have launched;
 4. batched flush: 32 mixed-shape requests for each of eigh, svd and pca,
    bucket-padded and solved with ``build_solver_fn``, checked against
-   float64 numpy.
+   float64 numpy;
+5. ops: the four standalone registry ops of ``repro_torch.kernels.ops``
+   (``dle_find_pivot``, ``cordic_rotate``, ``flash_attention``,
+   ``mamba_scan``) called with no ``backend=`` on CUDA tensors at full
+   width: the DLE scan and the CORDIC unit on the main path's 784 x 784
+   Gram, attention at olmo-1b's 16 heads x 128 over 4096 tokens (prefill
+   in bf16 and fp32, and one decode step), the selective scan at
+   falcon-mamba-7b's d_inner 8192 and N 16 over 4096 steps.  Each op must
+   resolve to ``cuda`` and launch its kernel; each result is held against
+   the plain version, and kernel, plain version, bound and (for attention)
+   ``scaled_dot_product_attention`` are timed.
 
-The last three lines are the kernels' JSON record, the card's name and
-power limit, and ``{"ok": true, "device": {...}}``.  Without a CUDA device
-the script exits with code 2 and prints no result.
+Each path is checked against the kernels it runs: phases 3 and 4 against
+the three PCA/SVD kernels, phase 5 against the four standalone kernels.
+The last three lines are the kernels' JSON record (each kernel's launches
+from the phase that drives it), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
+with code 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -44,6 +57,21 @@ FLUSH_REQUESTS = 32
 FLUSH_EIGH_N = (96, 256)
 FLUSH_SVD_N = (64, 256)
 FLUSH_PCA_M, FLUSH_PCA_D = (256, 2048), (32, 256)
+# ops phase: the standalone ops at the widths of configurations the repo has
+OPS_TILE = 128                       # dle_find_pivot's tile
+# two equal maxima: flat row-major order picks the first, tile order the
+# second (tile (0, 1) comes before tile (0, 3))
+TIE = ((0, 500), (100, 200))
+CORDIC_RATE_K = 1 << 20              # pivots for the CORDIC unit's rate
+# operations a pivot: two modes of 30 stages (a compare, two shifts, two
+# sign multiplies, three adds) and ~20 float steps, counted at the fp32 rate
+CORDIC_OPS = 2 * 30 * 8 + 20
+FA_BH, FA_S, FA_D = 16, 4096, 128    # olmo-1b: 16 heads x 128; train_4k
+MS_B, MS_L, MS_D, MS_N = 1, 4096, 2 * 4096, 16  # falcon-mamba-7b d_inner, N
+# the kernels each path runs
+PATH_KERNELS = ("covariance", "jacobi_sweep", "mm_engine_matmul")
+OPS_KERNELS = ("dle_find_pivot", "cordic_rotate", "flash_attention",
+               "mamba_scan")
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
 # dense on the tensor cores, HBM3
 PEAK_FP32 = 67e12
@@ -320,8 +348,9 @@ def main_path(dev) -> dict:
     check(off <= 1e-5, f"off_norm {off} > 1e-5: the sweeps did not converge")
     check(cos.min() >= 1 - 1e-3, "top components off the float64 subspace")
     check(Yh.shape == (M, K) and np.isfinite(Yh).all(), "projection bad")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} never launched on the main path")
+    for name in PATH_KERNELS:
+        check(counts[name] > 0, f"kernel {name} never launched on the main "
+              f"path")
     return {"wall_s": wall, "launches": counts}
 
 
@@ -400,9 +429,231 @@ def batched_flush(dev) -> dict:
     counts = launch_counts()
     log(f"batched flush: wall {wall:.3f} s (checks included), launches "
         f"{json.dumps(counts)}")
-    for name, n in counts.items():
-        check(n > 0, f"kernel {name} never launched in the batched flush")
+    for name in PATH_KERNELS:
+        check(counts[name] > 0, f"kernel {name} never launched in the "
+              f"batched flush")
     return {"wall_s": wall, "launches": counts, "worst": worst}
+
+
+# -- phase 5: the standalone registry ops -----------------------------------
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of the bfloat16 numbers at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.abs().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(x), e - 8)
+
+
+def ops_phase(dev, rows: dict) -> dict:
+    from repro_torch.backends import registry
+    from repro_torch.core.jacobi import round_robin_rounds
+    from repro_torch.kernels import (cordic, dle, launch_counts, ops, ref,
+                                     reset_launch_counts)
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import mamba_scan as ms
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=dev)
+
+    # DLE: the main path's Gram (standardized synthetic MNIST-28x28), a
+    # copy with one maximum tied across tiles, and a diagonal-only matrix
+    X = torch.as_tensor(synthetic_dataset(M, N, SEED), device=dev)
+    std = X.std(dim=0)
+    Xs = (X - X.mean(dim=0)) / torch.where(std < 1e-8, 1.0, std)
+    gram = ref.covariance_gram(Xs).contiguous()
+    del X, Xs
+    tie = gram.clone()
+    big = 2 * float(gram.abs().max())
+    for i, j in TIE:
+        tie[i, j] = tie[j, i] = big
+    diag = torch.diag(torch.arange(1.0, N + 1.0, device=dev))
+    # CORDIC: one round's pivots at n = 784, and 2^20 pivots for a rate
+    pairs = torch.as_tensor(round_robin_rounds(N)[N // 3], device=dev).long()
+    p, q = pairs[:, 0], pairs[:, 1]
+    round_piv = (gram[p, q].contiguous(), gram[p, p].contiguous(),
+                 gram[q, q].contiguous())
+    scale = 10.0 ** torch.randint(-3, 4, (3, CORDIC_RATE_K), generator=gen,
+                                  device=dev)
+    rate_piv = tuple(randn(3, CORDIC_RATE_K) * scale)
+    # attention: prefill in bf16 and fp32, one decode step past the prefix
+    qkv32 = tuple(randn(FA_BH, FA_S, FA_D) for _ in range(3))
+    qkv16 = tuple(t.bfloat16() for t in qkv32)
+    q_dec32 = randn(FA_BH, 1, FA_D)
+    q_dec16 = q_dec32.bfloat16()
+    # selective scan: the reference tests' distributions
+    scan = (randn(MS_B, MS_L, MS_D), rand(MS_B, MS_L, MS_D) * 0.19 + 0.01,
+            -(rand(MS_D, MS_N) * 1.5 + 0.5), randn(MS_B, MS_L, MS_N),
+            randn(MS_B, MS_L, MS_N), randn(MS_D))
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    registry.reset_resolution_counts()
+    t0 = time.perf_counter()
+    piv = {name: ops.dle_find_pivot(c, tile=OPS_TILE)
+           for name, c in (("gram", gram), ("tie", tie), ("diag", diag))}
+    rot = {"round": ops.cordic_rotate(*round_piv),
+           "rate": ops.cordic_rotate(*rate_piv)}
+    att = {"prefill_bf16": ops.flash_attention(*qkv16, causal=True),
+           "prefill_fp32": ops.flash_attention(*qkv32, causal=True),
+           "decode_bf16": ops.flash_attention(q_dec16, *qkv16[1:],
+                                              q_offset=FA_S - 1),
+           "decode_fp32": ops.flash_attention(q_dec32, *qkv32[1:],
+                                              q_offset=FA_S - 1)}
+    y = ops.mamba_scan(*scan)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    resolved = registry.resolution_counts()
+    log(f"ops: wall {wall:.3f} s, launches {json.dumps(counts)}, "
+        f"resolutions {sorted(f'{o}:{b}={n}' for (o, b), n in resolved.items())}")
+    for name in OPS_KERNELS:
+        check(counts[name] > 0, f"kernel {name} never launched in the ops "
+              f"phase")
+        check(resolved.get((name, "cuda"), 0) > 0
+              and (name, "torch") not in resolved,
+              f"op {name} did not resolve to cuda: {resolved}")
+    for name in PATH_KERNELS:
+        check(counts[name] == 0, f"the ops phase launched {name}")
+    outs = [t for pv in piv.values() for t in pv] + [
+        t for r in rot.values() for t in r] + list(att.values()) + [y]
+    check(all(t.is_cuda for t in outs), "an op returned a CPU tensor")
+
+    def row(name, err, t_k, t_p, t_l, bound, fn):
+        t_dev = device_ms(fn, 10)
+        log(f"{name}: device_ms per call "
+            f"{'not measured' if t_dev is None else f'{t_dev:.4f}'} "
+            f"(profiler), against {t_k:.4f} ms between back-to-back calls")
+        rows[name].update(max_abs_err=err, ms=t_k, plain_ms=t_p,
+                          library_ms=t_l, bound_ms=bound[0],
+                          bound_by=bound[1], device_ms=t_dev)
+
+    # dle_find_pivot: identical (value, flat index) to the plain scan
+    for name, c in (("gram", gram), ("tie", tie), ("diag", diag)):
+        pv = piv[name]
+        val, idx = ref.dle_scan(c, OPS_TILE)
+        n = c.shape[0]
+        flat = int(pv.p) * n + int(pv.q)
+        log(f"dle_find_pivot[{name} {n}x{n} tile {OPS_TILE}]: kernel "
+            f"({float(pv.apq.abs()):.9g}, {flat}), plain "
+            f"({float(val):.9g}, {int(idx)})")
+        check(flat == int(idx) and float(pv.apq.abs()) == float(val),
+              f"dle_find_pivot[{name}]: kernel and plain version differ")
+        check(float(pv.app) == float(c[pv.p, pv.p])
+              and float(pv.aqq) == float(c[pv.q, pv.q]),
+              f"dle_find_pivot[{name}]: diagonal gather wrong")
+    check((int(piv["tie"].p), int(piv["tie"].q)) == TIE[1],
+          "dle_find_pivot[tie]: not the earlier tile's maximum")
+    check(int(piv["diag"].p) == 0 and int(piv["diag"].q) == 1,
+          "dle_find_pivot[diag]: not the TPU kernel's (0, 1)")
+    t_k = time_ms(lambda: dle.dle_scan(gram, OPS_TILE), 200)
+    t_p = time_ms(lambda: ref.dle_scan(gram, OPS_TILE), 50)
+    b = bound_ms(N * N * 4 + 8, 2 * N * N, PEAK_FP32)
+    log(f"dle_find_pivot[{N}x{N}]: kernel_ms {t_k:.4f} plain_ms {t_p:.4f} "
+        f"library_ms null (no one PyTorch call masks the diagonal and "
+        f"ranks ties in tile order) bound_ms {b[0]:.5f} ({b[1]})")
+    row("dle_find_pivot", 0.0, t_k, t_p, None, b,
+        lambda: dle.dle_scan(gram, OPS_TILE))
+
+    # cordic_rotate: bitwise the plain Q2.29 arithmetic
+    for name, args in (("round", round_piv), ("rate", rate_piv)):
+        k = args[0].shape[0]
+        want = ref.cordic_rotation_params_q29(*args)
+        same = all(bool(torch.equal(g, w)) for g, w in zip(rot[name], want))
+        oracle = ref.cordic_rotation_params(*args)
+        dev_err = max(float((g - w).abs().max())
+                      for g, w in zip(rot[name], oracle))
+        reps = 200 if k < 4096 else 50
+        t_k = time_ms(lambda: cordic.cordic_rotation_params(*args), reps)
+        t_p = time_ms(lambda: ref.cordic_rotation_params_q29(*args), 5)
+        b = bound_ms(6 * 4 * k, CORDIC_OPS * k, PEAK_FP32)
+        log(f"cordic_rotate[k={k}]: bitwise {same}, max |kernel - float "
+            f"oracle| {dev_err:.3e}, kernel_ms {t_k:.4f} plain_ms "
+            f"{t_p:.4f} library_ms null (no PyTorch call does Q2.29 "
+            f"CORDIC) bound_ms {b[0]:.6f} ({b[1]}), "
+            f"{k / t_k / 1e6:.3f} G pivots/s")
+        check(same, f"cordic_rotate[k={k}]: kernel not bitwise its plain "
+              f"version")
+        if name == "round":
+            row("cordic_rotate", 0.0, t_k, t_p, None, b,
+                lambda: cordic.cordic_rotation_params(*args))
+
+    # flash_attention: fp32 within 2e-5 of the plain version; bf16 within
+    # one bf16 ulp (plus that 2e-5) of the plain version's fp32 result --
+    # two fp32 sums 1e-7 apart round to bf16 values many ulps apart near 0
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for name, out in att.items():
+        decode = name.startswith("decode")
+        bf16 = name.endswith("bf16")
+        qkv = qkv16 if bf16 else qkv32
+        qq = (q_dec16 if bf16 else q_dec32) if decode else qkv[0]
+        off = FA_S - 1 if decode else 0
+        want32 = ref.flash_attention(qq.float(), *(t.float() for t in qkv[1:]),
+                                     causal=True, q_offset=off)
+        want = want32.to(out.dtype)  # the plain version's result
+        g = out.float()
+        err = float((g - want.float()).abs().max())
+        if bf16:
+            slack = bf16_ulp(torch.maximum(g.abs(), want32.abs())) + 2e-5
+            over = int(((g - want32).abs() > slack).sum())
+            apart = int((out != want).sum())
+            note = (f" ({apart} of {out.numel()} values differ from the "
+                    f"plain version's; {over} beyond one bf16 ulp + 2e-5 "
+                    f"of its fp32 result)")
+        else:
+            note = " (tol 2e-5)"
+        del want32
+        reps = 20 if decode else 3
+        t_k = time_ms(lambda: fa.flash_attention(qq, *qkv[1:], causal=True,
+                                                 q_offset=off), reps)
+        t_p = time_ms(lambda: ref.flash_attention(qq, *qkv[1:], causal=True,
+                                                  q_offset=off), reps)
+        # (1, BH, S, D): SDPA picks its fused backends for 4-D input
+        t_l = None if decode else time_ms(
+            lambda: sdpa(qq[None], *(t[None] for t in qkv[1:]),
+                         is_causal=True), 10)
+        es = 2 if bf16 else 4
+        sq = qq.shape[1]
+        pairs_seen = FA_S * (FA_S + 1) // 2 if not decode else FA_S
+        b = bound_ms(es * FA_BH * FA_D * (2 * sq + 2 * FA_S),
+                     4 * FA_BH * FA_D * pairs_seen,
+                     PEAK_BF16 if bf16 else PEAK_FP32)
+        log(f"flash_attention[{name} {FA_BH}x{sq}x{FA_S}x{FA_D}]: max_abs_err "
+            f"{err:.3e}{note} kernel_ms {t_k:.4f} plain_ms {t_p:.4f} "
+            f"library_ms "
+            + ("null (SDPA aligns the causal mask to the top left)"
+               if t_l is None else f"{t_l:.4f}")
+            + f" bound_ms {b[0]:.4f} ({b[1]})")
+        check(torch.isfinite(out.float()).all().item(),
+              f"flash_attention[{name}]: non-finite output")
+        check(over == 0 if bf16 else err <= 2e-5,
+              f"flash_attention[{name}]: kernel disagrees with its plain "
+              f"version")
+        if name == "prefill_bf16":
+            row("flash_attention", err, t_k, t_p, t_l, b,
+                lambda: fa.flash_attention(qq, *qkv[1:], causal=True))
+
+    # mamba_scan: within rtol = atol = 1e-4 (the reference's tolerance)
+    want = ref.mamba_scan(*scan)
+    err = float((y - want).abs().max())
+    close = bool(((y - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
+    t_k = time_ms(lambda: ms.mamba_scan(*scan), 5)
+    t_p = time_ms(lambda: ref.mamba_scan(*scan), 1, warmup=0)
+    bld = MS_B * MS_L * MS_D
+    b = bound_ms(4 * (3 * bld + 2 * MS_B * MS_L * MS_N + MS_D * MS_N + MS_D),
+                 bld * (7 * MS_N + 3), PEAK_FP32)
+    log(f"mamba_scan[{MS_B}x{MS_L}x{MS_D} N={MS_N}]: max_abs_err {err:.3e} "
+        f"(rtol = atol = 1e-4: {close}) kernel_ms {t_k:.4f} plain_ms "
+        f"{t_p:.4f} library_ms null (PyTorch has no selective-scan call) "
+        f"bound_ms {b[0]:.4f} ({b[1]}; {bld * MS_N:.3g} exp besides)")
+    check(torch.isfinite(y).all().item() and close,
+          "mamba_scan: kernel disagrees with its plain version")
+    row("mamba_scan", err, t_k, t_p, None, b,
+        lambda: ms.mamba_scan(*scan))
+    return {"wall_s": wall, "launches": counts}
 
 
 def main() -> int:
@@ -433,8 +684,8 @@ def main() -> int:
     kernel_phase(dev, rows)
     log("kernels " + json.dumps({k.name: k.launches for k in KERNELS}))
     main_run = main_path(dev)
-    per_call = {name: row.get("device_ms") or row["ms"]
-                for name, row in rows.items()}
+    per_call = {name: rows[name].get("device_ms") or rows[name]["ms"]
+                for name in PATH_KERNELS}
     busy = sum(main_run["launches"][name] * per_call[name]
                for name in per_call) / 1e3
     wall = main_run["wall_s"]
@@ -442,12 +693,17 @@ def main() -> int:
         f"(launches x per-call device time), idle share about "
         f"{1 - busy / wall:.3f}")
     flush = batched_flush(dev)
+    ops_run = ops_phase(dev, rows)
 
     record = []
     for k in KERNELS:
         row = rows[k.name]
-        row["launches"] = main_run["launches"][k.name]
-        row["launches_batched_flush"] = flush["launches"][k.name]
+        if k.name in PATH_KERNELS:
+            row["launches"] = main_run["launches"][k.name]
+            row["launches_batched_flush"] = flush["launches"][k.name]
+        else:
+            row["launches"] = ops_run["launches"][k.name]
+            row["path"] = "ops phase"
         record.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))

@@ -1,12 +1,12 @@
 """Carry results of the JAX reference over into the port.
 
 The system has no weights: its carried-over state is a fitted PCA
-(components, mean and scale) or a solved eigen/SVD problem.  ``to_port``
-takes a result of the reference (``PCAResult``, ``EighResult``,
-``BatchedPCAResult``, ``BatchedEighResult``, ``BatchedSVDResult``), whose
-fields are arrays numpy can read, and returns the port's result of the same
-name with every field a tensor on ``device``.  It matches the type by name,
-so this module imports nothing of the reference.
+(components, mean and scale), a solved eigen/SVD problem or a DLE pivot.
+``to_port`` takes a result of the reference (``PCAResult``, ``EighResult``,
+``BatchedPCAResult``, ``BatchedEighResult``, ``BatchedSVDResult``,
+``Pivot``), whose fields are arrays numpy can read, and returns the port's
+result of the same name with every field a tensor on ``device``.  It
+matches the type by name, so this module imports nothing of the reference.
 """
 from __future__ import annotations
 
@@ -14,13 +14,14 @@ import numpy as np
 import torch
 
 from ._device import DeviceLike, resolve_device
+from .core.dle import Pivot
 from .core.jacobi import EighResult
 from .core.pca import PCAResult
 from .serving.solver import BatchedEighResult, BatchedPCAResult, BatchedSVDResult
 
 RESULT_TYPES = {cls.__name__: cls for cls in (
     PCAResult, EighResult, BatchedPCAResult, BatchedEighResult,
-    BatchedSVDResult)}
+    BatchedSVDResult, Pivot)}
 
 
 def to_port(result, device: DeviceLike = None):

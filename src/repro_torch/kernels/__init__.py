@@ -1,15 +1,22 @@
-"""The port's kernel layer: the hand-written CUDA kernels of the hot path
-(``fused``, ``mm_engine``), their plain PyTorch versions (``ref``) and the
-registry-dispatched ops over both (``ops``).
+"""The port's kernel layer: the hand-written CUDA kernels of the PCA/SVD
+hot path (``fused``, ``mm_engine``) and of the standalone registry ops
+(``dle``, ``cordic``, ``flash_attention``, ``mamba_scan``), their plain
+PyTorch versions (``ref``) and the registry-dispatched ops over both
+(``ops``).
 
 ``KERNELS`` lists every kernel with its launch count; nothing here builds
 or loads a kernel until a wrapper is called on a CUDA tensor.
 """
+from .cordic import CORDIC
+from .dle import DLE_SCAN
+from .flash_attention import FLASH_ATTENTION
 from .fused import COVARIANCE, JACOBI_SWEEP
 from .launch import KernelInfo
+from .mamba_scan import MAMBA_SCAN
 from .mm_engine import MM_ENGINE
 
-KERNELS = (COVARIANCE, JACOBI_SWEEP, MM_ENGINE)
+KERNELS = (COVARIANCE, JACOBI_SWEEP, MM_ENGINE, DLE_SCAN, CORDIC,
+           FLASH_ATTENTION, MAMBA_SCAN)
 
 
 def reset_launch_counts() -> None:

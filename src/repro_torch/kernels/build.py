@@ -33,6 +33,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so ctypes does not cut them to 32 bits)
 SIGNATURES = {
@@ -41,6 +42,12 @@ SIGNATURES = {
     "repro_jacobi_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "repro_mm": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
                  _P],
+    "repro_dle_scan": [_P, _P, _P, _P, _P, _I, _I, _P],
+    "repro_cordic": [_P, _P, _P, _P, _P, _P, _I, _P],
+    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
+                              _I, _P],
+    "repro_mamba_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _P],
 }
 
 _LOCK = threading.Lock()

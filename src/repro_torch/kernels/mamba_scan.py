@@ -1,0 +1,78 @@
+"""Wrapper of the selective-scan kernel (``csrc/mamba_scan.cu``).
+
+``mamba_scan`` replaces ``repro/kernels/mamba_scan.py::mamba_scan``
+(``pallas_call`` at :67): x_t = exp(dt_t A) x_{t-1} + (dt_t u_t) B_t,
+y_t = x_t . C_t + D u_t with an fp32 state.  One thread per (b, d)
+channel holds its N <= 16 state values in registers and runs over all L
+steps; nothing is padded to a chunk multiple.  Bound by bytes: u and dt
+read and y written once, 403 MB at falcon-mamba-7b's d_inner 8192 and
+L 4096 (0.12 ms at 3.35 TB/s); the sequential time loop leaves it
+latency-bound.
+
+On a CPU tensor it returns the plain version (``kernels.ref.mamba_scan``);
+on a CUDA tensor it launches the kernel or raises.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+from . import ref as _ref
+from .launch import KernelInfo, require, require_cuda, stream
+
+MAMBA_SCAN = KernelInfo("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
+                        "src/repro/kernels/mamba_scan.py:67")
+
+MAX_STATE = 16  # N limit of csrc/mamba_scan.cu (state in registers)
+
+
+def mamba_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
+               B: torch.Tensor, C: torch.Tensor,
+               D_skip: torch.Tensor) -> torch.Tensor:
+    """y (batch, L, D) for u, delta (batch, L, D), A (D, N), B, C
+    (batch, L, N) and D_skip (D,).  u, delta, B and C share one dtype,
+    float32 or bfloat16, which y takes; A and D_skip are used in fp32."""
+    tensors = (u, delta, A, B, C, D_skip)
+    if all(t.device.type == "cpu" for t in tensors):
+        return _ref.mamba_scan(u, delta, A, B, C, D_skip)
+    what = "mamba_scan"
+    dev = require_cuda(what, *tensors)
+    require(u.ndim == 3 and delta.shape == u.shape, what,
+            f"u and delta must be (batch, L, D), got {tuple(u.shape)} and "
+            f"{tuple(delta.shape)}")
+    batch, L, D = u.shape
+    require(A.ndim == 2 and A.shape[0] == D, what,
+            f"A must be (D, N) with D = {D}, got {tuple(A.shape)}")
+    N = A.shape[1]
+    require(0 < N <= MAX_STATE, what,
+            f"state size {N} is outside 1..{MAX_STATE}")
+    require(B.shape == (batch, L, N) and C.shape == (batch, L, N), what,
+            f"B and C must be {(batch, L, N)}, got {tuple(B.shape)} and "
+            f"{tuple(C.shape)}")
+    require(D_skip.shape == (D,), what,
+            f"D_skip must be ({D},), got {tuple(D_skip.shape)}")
+    require(u.dtype == delta.dtype == B.dtype == C.dtype
+            and u.dtype in (torch.float32, torch.bfloat16), what,
+            f"u, delta, B and C must all be float32 or all bfloat16, got "
+            f"{u.dtype}, {delta.dtype}, {B.dtype}, {C.dtype}")
+    require(A.is_floating_point() and D_skip.is_floating_point(), what,
+            "A and D_skip must be floating point")
+    require(all(t.is_contiguous() for t in (u, delta, B, C)), what,
+            "u, delta, B and C must be contiguous")
+    require(batch <= 65535 and L < 2 ** 31 and D < 2 ** 31, what,
+            f"shape {tuple(u.shape)} exceeds the launch grid")
+    y = torch.empty_like(u)
+    if y.numel() == 0:  # an empty grid is no launch
+        return y
+    # the reference kernel also takes A and D_skip in fp32; both are small
+    A32 = A.to(torch.float32).contiguous()
+    D32 = D_skip.to(torch.float32).contiguous()
+    lib = build.library()
+    with torch.cuda.device(dev):
+        build.check(lib.repro_mamba_scan(
+            u.data_ptr(), delta.data_ptr(), A32.data_ptr(), B.data_ptr(),
+            C.data_ptr(), D32.data_ptr(), y.data_ptr(),
+            int(u.dtype == torch.bfloat16), batch, L, D, N, stream(dev)),
+            what)
+    MAMBA_SCAN.launches += 1
+    return y

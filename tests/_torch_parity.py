@@ -33,6 +33,12 @@ def ulp_distance(a, b) -> np.ndarray:
     return np.abs(a - b)
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """Spacing of the bfloat16 numbers at |x| (8 significant bits)."""
+    _, e = torch.frexp(x.abs().float().clamp_min(2.0 ** -126))
+    return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8)
+
+
 def rel_frobenius(got, want) -> float:
     got = to_numpy(got).astype(np.float64)
     want = to_numpy(want).astype(np.float64)

@@ -128,10 +128,13 @@ def test_cordic_constants_match_reference_and_kernel():
     # kernel's round(2^29 / K)
     seed = int(np.asarray(jcordic._to_fixed(np.float32(1.0 / jcordic._GAIN))))
     assert tcordic._X0_FIXED == seed == 326016448
-    src = (CSRC / "jacobi_sweep.cu").read_text()
-    table = re.search(r"kAtanFixed\[CORDIC_ITERS\] = \{([^}]*)\}", src)
+    # the table is shared by both CORDIC kernels (cordic.cuh); the core's
+    # seed is the sweep kernel's
+    shared = (CSRC / "cordic.cuh").read_text()
+    table = re.search(r"kAtanFixed\[CORDIC_ITERS\] = \{([^}]*)\}", shared)
     assert [int(v) for v in table.group(1).split(",")] == list(
         tcordic._ATAN_FIXED)
+    src = (CSRC / "jacobi_sweep.cu").read_text()
     assert re.search(r"kX0Fixed = (\d+);", src).group(1) == str(seed)
 
 

@@ -10,7 +10,12 @@ card (the kernel rounds every product and sum as the separate PyTorch
 operations do); the Gram and the matmul sum in another order than cuBLAS:
 the Gram is held to the fp32 covariance budget, relative Frobenius 1e-5
 (over 1000 samples the bf16 case measured 1.3e-6 on an H100), the fp32
-matmul to 1e-6 and the bf16-output matmul to 1e-2.
+matmul to 1e-6 and the bf16-output matmul to 1e-2.  The standalone
+kernels: the DLE scan identical in (value, index), ties included; the
+CORDIC unit bitwise; flash attention within 2e-5 in fp32 and, in bf16,
+within one bf16 ulp plus 2e-5 of the plain version's fp32 result (two fp32
+sums 1e-7 apart round to bf16 values many ulps apart near zero); the
+selective scan within rtol = atol = 1e-4.
 """
 import numpy as np
 import pytest
@@ -18,9 +23,11 @@ import torch
 
 from repro_torch.core import pca as tpca
 from repro_torch.core.jacobi import cyclic_pairs, round_robin_rounds
-from repro_torch.kernels import fused, launch_counts, mm_engine, ref
+from repro_torch.kernels import (cordic, dle, flash_attention, fused,
+                                 launch_counts, mamba_scan, mm_engine, ref)
 
-from _torch_parity import assert_contract, cuda_device, sym  # noqa: F401
+from _torch_parity import (assert_contract, bf16_ulp,  # noqa: F401
+                           cuda_device, sym)
 
 pytestmark = pytest.mark.cuda
 
@@ -87,9 +94,80 @@ def test_fit_on_the_card_matches_the_cpu(cuda_device):
     before = launch_counts()
     Y, res = tpca.fit_transform(X, 5, cfg, device=cuda_device)
     after = launch_counts()
-    assert all(after[k] > before[k] for k in after)
+    for name in ("covariance", "jacobi_sweep", "mm_engine_matmul"):
+        assert after[name] > before[name], name
     Yc, cpu = tpca.fit_transform(X, 5, tpca.PCAConfig(fused=True, sweeps=12),
                                  device="cpu")
     assert_contract(res.eigenvalues.cpu(), cpu.eigenvalues, "rel_frobenius",
                     1e-5)
     assert Y.device.type == "cuda" and Y.shape == (500, 5)
+
+
+def test_dle_kernel_matches_its_plain_version(cuda_device):
+    cases = [(torch.from_numpy(sym(n, seed=n)), tile)
+             for n, tile in [(64, 32), (100, 32), (33, 16), (784, 128)]]
+    diag = torch.diag(torch.arange(1.0, 9.0))
+    tie = torch.zeros(8, 8)
+    tie[0, 5] = tie[5, 0] = tie[1, 2] = tie[2, 1] = 3.0
+    cases += [(diag, 4), (tie, 4), (torch.ones(1, 1), 4)]
+    for c, tile in cases:
+        c = c.to(cuda_device)
+        before = dle.DLE_SCAN.launches
+        got = dle.dle_scan(c, tile)
+        assert dle.DLE_SCAN.launches == before + 1
+        want = ref.dle_scan(c, tile)
+        assert (float(got[0]), int(got[1])) == (float(want[0]),
+                                                int(want[1])), (c.shape,
+                                                                tile)
+
+
+def test_cordic_kernel_bitwise(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    scale = 10.0 ** torch.randint(-6, 7, (3, 4099), generator=g,
+                                  device=cuda_device)
+    apq, app, aqq = torch.randn(3, 4099, generator=g,
+                                device=cuda_device) * scale
+    apq[::17] = 0.0
+    aqq[::13] = app[::13]
+    got = cordic.cordic_rotation_params(apq, app, aqq)
+    want = ref.cordic_rotation_params_q29(apq, app, aqq)
+    for gg, w in zip(got, want):
+        assert_contract(gg, w, "bitwise")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel(cuda_device, dtype):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    # ragged lengths, D not a multiple of 16, decode past the prefix
+    cases = [(3, 100, 100, 40, True, 0), (2, 64, 150, 128, False, 0),
+             (2, 5, 77, 64, True, 72), (2, 1, 300, 128, True, 299),
+             (1, 70, 90, 16, True, -10)]
+    for bh, sq, skv, d, causal, off in cases:
+        q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda_device)
+                   .to(dtype) for s in (sq, skv, skv))
+        got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                              q_offset=off)
+        want = ref.flash_attention(q.float(), k.float(), v.float(),
+                                   causal=causal, q_offset=off)
+        assert got.dtype == dtype
+        err = (got.float() - want).abs()
+        if dtype == torch.float32:
+            assert float(err.max()) <= 2e-5, (bh, sq, skv, d, causal, off)
+        else:
+            slack = bf16_ulp(torch.maximum(got.float().abs(), want.abs()))
+            assert bool((err <= slack + 2e-5).all()), (bh, sq, skv, d, off)
+
+
+def test_mamba_scan_kernel(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    for b, L, D, N in [(2, 50, 16, 8), (1, 300, 200, 16), (3, 33, 8, 4)]:
+        def rnd(*shape):
+            return torch.randn(*shape, generator=g, device=cuda_device)
+        u, Bm, Cm = rnd(b, L, D), rnd(b, L, N), rnd(b, L, N)
+        dt = torch.rand(b, L, D, generator=g, device=cuda_device) * 0.19 \
+            + 0.01
+        A = -(torch.rand(D, N, generator=g, device=cuda_device) * 1.5 + 0.5)
+        Dskip = rnd(D)
+        got = mamba_scan.mamba_scan(u, dt, A, Bm, Cm, Dskip)
+        want = ref.mamba_scan(u, dt, A, Bm, Cm, Dskip)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -81,7 +81,9 @@ def test_build_hash_follows_the_sources(monkeypatch):
 
 
 @pytest.mark.parametrize("op", ["covariance", "jacobi_sweep",
-                                "mm_engine_matmul"])
+                                "mm_engine_matmul", "dle_find_pivot",
+                                "cordic_rotate", "flash_attention",
+                                "mamba_scan"])
 def test_cuda_backend_on_a_cpu_tensor_raises(op):
     x = torch.ones(4, 4)
     pairs = torch.tensor([[0, 1], [2, 3]], dtype=torch.int32)
@@ -91,8 +93,17 @@ def test_cuda_backend_on_a_cpu_tensor_raises(op):
             tops.covariance(x, backend="cuda")
         elif op == "jacobi_sweep":
             tops.jacobi_sweep(x, torch.eye(4), pairs, backend="cuda")
-        else:
+        elif op == "mm_engine_matmul":
             tops.mm_engine_matmul(x, x, backend="cuda")
+        elif op == "dle_find_pivot":
+            tops.dle_find_pivot(x, backend="cuda")
+        elif op == "cordic_rotate":
+            tops.cordic_rotate(x[0], x[1], x[2], backend="cuda")
+        elif op == "flash_attention":
+            tops.flash_attention(x[None], x[None], x[None], backend="cuda")
+        else:
+            u = x[None]
+            tops.mamba_scan(u, u, x, u, u, x[0], backend="cuda")
     assert launch_counts() == before
 
 
@@ -113,6 +124,54 @@ def test_wrapper_takes_the_plain_version_only_on_the_cpu():
     with pytest.raises(ValueError, match="CUDA"):
         mm_engine.mm_engine(torch.ones(2, 2, device="meta"),
                             torch.ones(2, 2, device="meta"))
+
+
+def _plain_cases():
+    """(wrapper, its plain version, arguments) for each standalone kernel."""
+    from repro_torch.kernels import cordic, dle, flash_attention, mamba_scan
+    from repro_torch.kernels import ref
+    g = torch.Generator().manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g)
+
+    c = randn(9, 9)
+    piv = (randn(7), randn(7), randn(7))
+    qkv = (randn(2, 5, 8), randn(2, 7, 8), randn(2, 7, 8))
+    scan = (randn(1, 6, 4), torch.rand(1, 6, 4, generator=g) * 0.2,
+            -torch.rand(4, 3, generator=g), randn(1, 6, 3), randn(1, 6, 3),
+            randn(4))
+    return {
+        "dle_find_pivot": (lambda: dle.dle_scan(c, 4),
+                           lambda: ref.dle_scan(c, 4), (c,)),
+        "cordic_rotate": (lambda: cordic.cordic_rotation_params(*piv),
+                          lambda: ref.cordic_rotation_params_q29(*piv), piv),
+        "flash_attention": (
+            lambda: flash_attention.flash_attention(*qkv, q_offset=2),
+            lambda: ref.flash_attention(*qkv, q_offset=2), qkv),
+        "mamba_scan": (lambda: mamba_scan.mamba_scan(*scan),
+                       lambda: ref.mamba_scan(*scan), scan),
+    }
+
+
+@pytest.mark.parametrize("op", ["dle_find_pivot", "cordic_rotate",
+                                "flash_attention", "mamba_scan"])
+def test_standalone_wrapper_takes_its_plain_version_only_on_the_cpu(op):
+    from repro_torch.kernels import cordic, dle, flash_attention, mamba_scan
+    wrapper, plain, args = _plain_cases()[op]
+    before = launch_counts()
+    got, want = wrapper(), plain()
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        assert bool((g == w).all())
+    assert launch_counts() == before  # the plain version is no launch
+    meta = [t.to("meta") for t in args]
+    fn = {"dle_find_pivot": lambda: dle.dle_scan(*meta),
+          "cordic_rotate": lambda: cordic.cordic_rotation_params(*meta),
+          "flash_attention": lambda: flash_attention.flash_attention(*meta),
+          "mamba_scan": lambda: mamba_scan.mamba_scan(*meta)}[op]
+    with pytest.raises(ValueError, match="CUDA"):
+        fn()
 
 
 @pytest.mark.parametrize("entry", ["fit", "fit_transform", "eigh_batched",
