@@ -21,14 +21,18 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    ``mamba_scan``) called with no ``backend=`` on CUDA tensors at full
    width: the DLE scan and the CORDIC unit on the main path's 784 x 784
    Gram, attention at olmo-1b's 16 heads x 128 over 4096 tokens (prefill
-   in bf16 and fp32, and one decode step), the selective scan at
+   in bf16 and fp32, and one decode step in each), the selective scan at
    falcon-mamba-7b's d_inner 8192 and N 16 over 4096 steps.  Each op must
-   resolve to ``cuda`` and launch its kernel; each result is held against
-   the plain version, and kernel, plain version, bound and (for attention)
+   resolve to ``cuda`` and launch its kernel -- for attention, each call
+   the one of its three kernels that its shape and dtype call for (the
+   tensor-core kernel for bf16 prefill, split-KV for decode, SIMT for fp32
+   prefill); each result is held against the plain version, and kernel,
+   plain version, bound and (for attention)
    ``scaled_dot_product_attention`` are timed.
 
 Each path is checked against the kernels it runs: phases 3 and 4 against
-the three PCA/SVD kernels, phase 5 against the four standalone kernels.
+the three PCA/SVD kernels, phase 5 against the six kernels of the four
+standalone ops.
 The last three lines are the kernels' JSON record (each kernel's launches
 from the phase that drives it), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -38,6 +42,7 @@ from __future__ import annotations
 
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -70,8 +75,17 @@ FA_BH, FA_S, FA_D = 16, 4096, 128    # olmo-1b: 16 heads x 128; train_4k
 MS_B, MS_L, MS_D, MS_N = 1, 4096, 2 * 4096, 16  # falcon-mamba-7b d_inner, N
 # the kernels each path runs
 PATH_KERNELS = ("covariance", "jacobi_sweep", "mm_engine_matmul")
-OPS_KERNELS = ("dle_find_pivot", "cordic_rotate", "flash_attention",
+OPS = ("dle_find_pivot", "cordic_rotate", "flash_attention", "mamba_scan")
+OPS_KERNELS = ("dle_find_pivot", "cordic_rotate", "flash_attention_mma",
+               "flash_attention_splitkv", "flash_attention_simt",
                "mamba_scan")
+# the kernel each attention call of the ops phase must launch, and the
+# row of the kernels' record that it fills
+FA_ROUTE = {"prefill_bf16": "flash_attention_mma",
+            "prefill_fp32": "flash_attention_simt",
+            "decode_bf16": "flash_attention_splitkv",
+            "decode_fp32": "flash_attention_splitkv"}
+FA_ROW = {"prefill_bf16", "prefill_fp32", "decode_bf16"}
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
 # dense on the tensor cores, HBM3
 PEAK_FP32 = 67e12
@@ -163,6 +177,33 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(build_log: str, source: str) -> dict:
+    """{head dim padding DP (the template argument): registers and spill
+    bytes} of each kernel instance compiled from ``source``, read from the
+    ``-Xptxas -v`` lines of the build log."""
+    out, info, here = {}, None, False
+    for line in build_log.splitlines():
+        if line.startswith("== "):
+            here = line.split()[1] == source
+            continue
+        if not here:
+            continue
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            dp = re.search(r"ILi(\d+)EE", entry.group(1))
+            info = out.setdefault(int(dp.group(1)) if dp else entry.group(1),
+                                  {})
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+        if spill and info is not None:
+            info.update(spill_stores=int(spill.group(1)),
+                        spill_loads=int(spill.group(2)))
+        used = re.search(r"Used (\d+) registers", line)
+        if used and info is not None:
+            info["registers"] = int(used.group(1))
+    return out
 
 
 # -- phase 2: each kernel against its plain version ---------------------------
@@ -497,12 +538,16 @@ def ops_phase(dev, rows: dict) -> dict:
            for name, c in (("gram", gram), ("tie", tie), ("diag", diag))}
     rot = {"round": ops.cordic_rotate(*round_piv),
            "rate": ops.cordic_rotate(*rate_piv)}
-    att = {"prefill_bf16": ops.flash_attention(*qkv16, causal=True),
-           "prefill_fp32": ops.flash_attention(*qkv32, causal=True),
-           "decode_bf16": ops.flash_attention(q_dec16, *qkv16[1:],
-                                              q_offset=FA_S - 1),
-           "decode_fp32": ops.flash_attention(q_dec32, *qkv32[1:],
-                                              q_offset=FA_S - 1)}
+    att, att_moved = {}, {}
+    for name, args, off in (("prefill_bf16", qkv16, 0),
+                            ("prefill_fp32", qkv32, 0),
+                            ("decode_bf16", (q_dec16, *qkv16[1:]), FA_S - 1),
+                            ("decode_fp32", (q_dec32, *qkv32[1:]), FA_S - 1)):
+        before = launch_counts()
+        att[name] = ops.flash_attention(*args, causal=True, q_offset=off)
+        att_moved[name] = {k: c - before[k]
+                           for k, c in launch_counts().items()
+                           if c != before[k]}
     y = ops.mamba_scan(*scan)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -513,9 +558,16 @@ def ops_phase(dev, rows: dict) -> dict:
     for name in OPS_KERNELS:
         check(counts[name] > 0, f"kernel {name} never launched in the ops "
               f"phase")
-        check(resolved.get((name, "cuda"), 0) > 0
-              and (name, "torch") not in resolved,
-              f"op {name} did not resolve to cuda: {resolved}")
+    for op in OPS:
+        check(resolved.get((op, "cuda"), 0) > 0
+              and (op, "torch") not in resolved,
+              f"op {op} did not resolve to cuda: {resolved}")
+    # one launch of the kernel the shape calls for, and nothing else (the
+    # plain version counts no launch)
+    for name, moved in att_moved.items():
+        log(f"flash_attention[{name}]: launched {json.dumps(moved)}")
+        check(moved == {FA_ROUTE[name]: 1}, f"flash_attention[{name}] "
+              f"launched {moved}, not one {FA_ROUTE[name]}")
     for name in PATH_KERNELS:
         check(counts[name] == 0, f"the ops phase launched {name}")
     outs = [t for pv in piv.values() for t in pv] + [
@@ -608,13 +660,14 @@ def ops_phase(dev, rows: dict) -> dict:
         del want32
         reps = 20 if decode else 3
         t_k = time_ms(lambda: fa.flash_attention(qq, *qkv[1:], causal=True,
-                                                 q_offset=off), reps)
+                                                 q_offset=off), 5 * reps)
         t_p = time_ms(lambda: ref.flash_attention(qq, *qkv[1:], causal=True,
                                                   q_offset=off), reps)
-        # (1, BH, S, D): SDPA picks its fused backends for 4-D input
-        t_l = None if decode else time_ms(
-            lambda: sdpa(qq[None], *(t[None] for t in qkv[1:]),
-                         is_causal=True), 10)
+        # (1, BH, S, D): SDPA picks its fused backends for 4-D input.  The
+        # decode row sits at Skv - 1 and sees every key, so SDPA without a
+        # mask computes the same function
+        t_l = time_ms(lambda: sdpa(qq[None], *(t[None] for t in qkv[1:]),
+                                   is_causal=not decode), 10 * reps)
         es = 2 if bf16 else 4
         sq = qq.shape[1]
         pairs_seen = FA_S * (FA_S + 1) // 2 if not decode else FA_S
@@ -623,18 +676,17 @@ def ops_phase(dev, rows: dict) -> dict:
                      PEAK_BF16 if bf16 else PEAK_FP32)
         log(f"flash_attention[{name} {FA_BH}x{sq}x{FA_S}x{FA_D}]: max_abs_err "
             f"{err:.3e}{note} kernel_ms {t_k:.4f} plain_ms {t_p:.4f} "
-            f"library_ms "
-            + ("null (SDPA aligns the causal mask to the top left)"
-               if t_l is None else f"{t_l:.4f}")
-            + f" bound_ms {b[0]:.4f} ({b[1]})")
+            f"library_ms {t_l:.4f}"
+            + f" bound_ms {b[0]:.4f} ({b[1]}) [{FA_ROUTE[name]}]")
         check(torch.isfinite(out.float()).all().item(),
               f"flash_attention[{name}]: non-finite output")
         check(over == 0 if bf16 else err <= 2e-5,
               f"flash_attention[{name}]: kernel disagrees with its plain "
               f"version")
-        if name == "prefill_bf16":
-            row("flash_attention", err, t_k, t_p, t_l, b,
-                lambda: fa.flash_attention(qq, *qkv[1:], causal=True))
+        if name in FA_ROW:
+            row(FA_ROUTE[name], err, t_k, t_p, t_l, b,
+                lambda: fa.flash_attention(qq, *qkv[1:], causal=True,
+                                           q_offset=off))
 
     # mamba_scan: within rtol = atol = 1e-4 (the reference's tolerance)
     want = ref.mamba_scan(*scan)
@@ -674,13 +726,17 @@ def main() -> int:
     out = build.build_dir()
     log(f"build: {time.perf_counter() - t0:.1f} s, {out / build.LIB_NAME}")
     log_path = out / "build.log"
-    if log_path.exists():  # ptxas: registers, shared memory, spills
-        for line in log_path.read_text().splitlines():
-            if "Used" in line or "spill" in line:
-                log("  " + line.strip())
+    build_log = log_path.read_text() if log_path.exists() else ""
+    for line in build_log.splitlines():  # ptxas: registers, smem, spills
+        if "Used" in line or "spill" in line:
+            log("  " + line.strip())
 
     rows = {k.name: {"name": k.name, "route": "cuda", "source": k.source,
                      "replaces": k.replaces} for k in KERNELS}
+    mma_regs = ptxas_report(build_log, "flash_attention_mma.cu")
+    log(f"flash_attention_mma ptxas by head-dim padding: "
+        f"{json.dumps(mma_regs)}")
+    rows["flash_attention_mma"]["ptxas"] = mma_regs.get(FA_D)
     kernel_phase(dev, rows)
     log("kernels " + json.dumps({k.name: k.launches for k in KERNELS}))
     main_run = main_path(dev)

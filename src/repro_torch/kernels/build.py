@@ -46,6 +46,10 @@ SIGNATURES = {
     "repro_cordic": [_P, _P, _P, _P, _P, _P, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,
                               _I, _P],
+    "repro_flash_attention_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
+                                  _I, _P],
+    "repro_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                           _I, _I, _I, _P],
     "repro_mamba_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _P],
 }

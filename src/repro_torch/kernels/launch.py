@@ -11,8 +11,10 @@ import torch
 class KernelInfo:
     """One hand-written kernel.  ``launches`` goes up by one each time its
     wrapper launches it on the card, and nowhere else: the plain version
-    that a CPU tensor takes does not count."""
-    name: str        # the registry op it implements
+    that a CPU tensor takes does not count.  An op served by several
+    kernels (``flash_attention``) has one record for each."""
+    name: str        # the registry op it implements, or the kernel's name
+                     # where several kernels serve one op
     source: str      # its CUDA source, relative to the repository root
     replaces: str    # the TPU kernel's pallas_call, file:line
     launches: int = 0

@@ -186,7 +186,7 @@ cordic_rotate = cordic_rotation_params  # registry op name alias
 @registry.register("flash_attention", "cuda")
 def _fa_cuda(q, k, v, *, causal, scale, block_q=128, block_k=128,
              q_offset=0):
-    del block_q, block_k  # the kernel's tiles are fixed (64 x 64)
+    del block_q, block_k  # each kernel's tiles are fixed (64 x 64 keys)
     require_cuda("flash_attention", q, k, v)
     return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
                                q_offset=q_offset)

@@ -142,6 +142,17 @@ def test_flash_attention_kernel(cuda_device, dtype):
     cases = [(3, 100, 100, 40, True, 0), (2, 64, 150, 128, False, 0),
              (2, 5, 77, 64, True, 72), (2, 1, 300, 128, True, 299),
              (1, 70, 90, 16, True, -10)]
+    # Sq and Skv not multiples of 64; D 40, 64, 128 (the tensor-core kernel
+    # in bf16) and 20 (the SIMT kernel in bf16); non-causal over a ragged
+    # Skv; q_offset < 0
+    cases += [(2, 130, 333, 64, True, 203), (2, 70, 190, 40, True, 120),
+              (1, 129, 129, 128, True, 0), (2, 90, 100, 20, True, 10),
+              (1, 200, 77, 128, False, 0), (2, 80, 200, 64, True, -30),
+              (1, 33, 65, 128, True, -40)]
+    # decode: one, several and a ragged last split of 256 keys
+    cases += [(2, sq, skv, 64, True, skv - sq) for sq in (1, 7, 16)
+              for skv in (1, 255, 3000)]
+    cases += [(3, 16, 700, 128, False, 0), (1, 7, 300, 20, True, -3)]
     for bh, sq, skv, d, causal, off in cases:
         q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda_device)
                    .to(dtype) for s in (sq, skv, skv))
@@ -156,6 +167,28 @@ def test_flash_attention_kernel(cuda_device, dtype):
         else:
             slack = bf16_ulp(torch.maximum(got.float().abs(), want.abs()))
             assert bool((err <= slack + 2e-5).all()), (bh, sq, skv, d, off)
+
+
+def test_flash_attention_takes_the_kernel_its_shape_calls_for(cuda_device):
+    """Each call launches exactly one of the three kernels: split-KV for
+    Sq <= 16, the tensor-core kernel for bf16 prefill with D % 8 == 0, the
+    SIMT kernel for the rest."""
+    shapes = [(1, torch.bfloat16, 64, "flash_attention_splitkv"),
+              (16, torch.float32, 128, "flash_attention_splitkv"),
+              (17, torch.bfloat16, 128, "flash_attention_mma"),
+              (100, torch.bfloat16, 40, "flash_attention_mma"),
+              (100, torch.bfloat16, 20, "flash_attention_simt"),
+              (100, torch.float32, 128, "flash_attention_simt")]
+    for sq, dtype, d, name in shapes:
+        q, k, v = (torch.randn(2, s, d, device=cuda_device).to(dtype)
+                   for s in (sq, 90, 90))
+        before = launch_counts()
+        flash_attention.flash_attention(q, k, v, q_offset=90 - sq)
+        after = launch_counts()
+        moved = {n: after[n] - before[n] for n in after
+                 if after[n] != before[n]}
+        assert moved == {name: 1}, (sq, dtype, d, moved)
+        assert flash_attention.choose_kernel(sq, d, dtype).name == name
 
 
 def test_mamba_scan_kernel(cuda_device):
