@@ -8,7 +8,10 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    source, all at once) into one library and load it;
 2. kernels: hold each hand-written kernel against its plain PyTorch version
    on the card at the main path's shapes, and time the kernel, the plain
-   version, and one PyTorch call that computes the same function;
+   version, and one PyTorch call that computes the same function; the
+   MM-Engine also with a transposed a (its tensor-core kernel) and a
+   strided a (its SIMT kernel), each checked to launch the kernel its
+   layout calls for;
 3. main path: ``fit_transform`` of a seeded synthetic (70000, 784) matrix,
    the shape of MNIST-28x28 in the paper's Table IV, under
    ``PCAConfig(fused=True, backend="cuda", sweeps=50)``, checked against
@@ -22,17 +25,20 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    width: the DLE scan and the CORDIC unit on the main path's 784 x 784
    Gram, attention at olmo-1b's 16 heads x 128 over 4096 tokens (prefill
    in bf16 and fp32, and one decode step in each), the selective scan at
-   falcon-mamba-7b's d_inner 8192 and N 16 over 4096 steps.  Each op must
-   resolve to ``cuda`` and launch its kernel -- for attention, each call
-   the one of its three kernels that its shape and dtype call for (the
-   tensor-core kernel for bf16 prefill, split-KV for decode, SIMT for fp32
-   prefill); each result is held against the plain version, and kernel,
-   plain version, bound and (for attention)
+   falcon-mamba-7b's d_inner 8192 and N 16 over 4096 steps; and
+   ``mm_engine_matmul`` on a strided view (every other feature of the main
+   path's data, projected onto 32 directions), the layout that goes to
+   the SIMT MM-Engine.  Each op must resolve to ``cuda`` and launch its
+   kernel -- for the strided projection ``mm_engine_simt``, for attention
+   each call the one of its three kernels that its shape and dtype call
+   for (the tensor-core kernel for bf16 prefill, split-KV for decode, SIMT
+   for fp32 prefill); each result is held against the plain version, and
+   kernel, plain version, bound and (for attention)
    ``scaled_dot_product_attention`` are timed.
 
 Each path is checked against the kernels it runs: phases 3 and 4 against
-the three PCA/SVD kernels, phase 5 against the six kernels of the four
-standalone ops.
+the three PCA/SVD kernels, phase 5 against the seven kernels of its five
+ops.
 The last three lines are the kernels' JSON record (each kernel's launches
 from the phase that drives it), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -75,10 +81,11 @@ FA_BH, FA_S, FA_D = 16, 4096, 128    # olmo-1b: 16 heads x 128; train_4k
 MS_B, MS_L, MS_D, MS_N = 1, 4096, 2 * 4096, 16  # falcon-mamba-7b d_inner, N
 # the kernels each path runs
 PATH_KERNELS = ("covariance", "jacobi_sweep", "mm_engine_matmul")
-OPS = ("dle_find_pivot", "cordic_rotate", "flash_attention", "mamba_scan")
+OPS = ("dle_find_pivot", "cordic_rotate", "flash_attention", "mamba_scan",
+       "mm_engine_matmul")
 OPS_KERNELS = ("dle_find_pivot", "cordic_rotate", "flash_attention_mma",
                "flash_attention_splitkv", "flash_attention_simt",
-               "mamba_scan")
+               "mamba_scan", "mm_engine_simt")
 # the kernel each attention call of the ops phase must launch, and the
 # row of the kernels' record that it fills
 FA_ROUTE = {"prefill_bf16": "flash_attention_mma",
@@ -90,6 +97,9 @@ FA_ROW = {"prefill_bf16", "prefill_fp32", "decode_bf16"}
 # dense on the tensor cores, HBM3
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
+PEAK_TF32 = 495e12
+# the tensor-core GEMM tile does three tf32 products for each fp32 one
+TF32_PRODUCTS = 3
 PEAK_BYTES = 3.35e12
 # kernel vs plain version on the card: both sum in fp32, in another order
 # (cuBLAS vs the kernel's tiles), over up to 70000 terms; held to the fp32
@@ -179,10 +189,35 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def ptxas_report(build_log: str, source: str) -> dict:
-    """{head dim padding DP (the template argument): registers and spill
-    bytes} of each kernel instance compiled from ``source``, read from the
-    ``-Xptxas -v`` lines of the build log."""
+def flash_instance(entry: str):
+    """The head-dim padding DP (the template argument) of a
+    flash_attention_mma instance, or its mangled name."""
+    dp = re.search(r"ILi(\d+)EE", entry)
+    return int(dp.group(1)) if dp else entry
+
+
+def gemm_instance(entry: str) -> str:
+    """A GEMM-tile instance by kernel, dtype, block tile (BM x BN x BK) and
+    each operand's contiguous dim, e.g. "mm fp32 64x32x32 a:k b:mn"; any
+    other kernel by its mangled name."""
+    if "gram_kernel" not in entry and "mm_kernel" not in entry:
+        return entry
+    kernel = "gram" if "gram_kernel" in entry else "mm"
+    dtype = "bf16" if "nv_bfloat16" in entry else "fp32"
+    tile = re.search(r"TileI((?:Li\d+E)+)E", entry)
+    dims = re.findall(r"\d+", tile.group(1)) if tile else ["?"] * 3
+    name = f"{kernel} {dtype} {'x'.join(dims[:3])}"
+    if kernel == "mm":
+        a_mn, b_mn = (flag == "1" for flag in re.findall(r"Lb([01])E",
+                                                          entry)[-2:])
+        name += f" a:{'mn' if a_mn else 'k'} b:{'mn' if b_mn else 'k'}"
+    return name
+
+
+def ptxas_report(build_log: str, source: str, key=flash_instance) -> dict:
+    """{key(entry name): registers and spill bytes} of each kernel instance
+    compiled from ``source``, read from the ``-Xptxas -v`` lines of the
+    build log."""
     out, info, here = {}, None, False
     for line in build_log.splitlines():
         if line.startswith("== "):
@@ -192,9 +227,7 @@ def ptxas_report(build_log: str, source: str) -> dict:
             continue
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
-            dp = re.search(r"ILi(\d+)EE", entry.group(1))
-            info = out.setdefault(int(dp.group(1)) if dp else entry.group(1),
-                                  {})
+            info = out.setdefault(key(entry.group(1)), {})
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", line)
         if spill and info is not None:
@@ -210,7 +243,7 @@ def ptxas_report(build_log: str, source: str) -> dict:
 
 def kernel_phase(dev, rows: dict) -> None:
     from repro_torch.core.jacobi import round_robin_rounds
-    from repro_torch.kernels import fused, mm_engine, ref
+    from repro_torch.kernels import fused, launch_counts, mm_engine, ref
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
 
@@ -218,7 +251,10 @@ def kernel_phase(dev, rows: dict) -> None:
         return torch.randn(*shape, generator=gen, device=dev)
 
     def record(name, got, want, t_kernel, t_plain, t_lib, bound, tol,
-               main=False):
+               main=False, design=None):
+        """``design`` is the bound at the rate of the kernel's own
+        arithmetic (the GEMM tile's tensor cores), beside ``bound`` at
+        the fp32 CUDA-core rate."""
         abs_err, rel_err, fro = errors(got, want)
         b_ms, b_by = bound
         log(f"kernel {name}: rel_frobenius {fro:.3e} (tol {tol:g}) "
@@ -226,40 +262,55 @@ def kernel_phase(dev, rows: dict) -> None:
             f"kernel_ms {t_kernel:.4f} "
             f"plain_ms {t_plain:.4f} library_ms "
             f"{'null' if t_lib is None else f'{t_lib:.4f}'} "
-            f"bound_ms {b_ms:.4f} ({b_by})")
+            f"bound_ms {b_ms:.4f} ({b_by})"
+            + ("" if design is None else
+               f" design_bound_ms {design[0]:.4f} ({design[1]})"))
         check(fro <= tol, f"{name}: kernel disagrees with its plain "
               f"version: {fro:.3e} > {tol:g}")
         if main:
-            rows[name.split("[")[0]].update(
-                max_abs_err=abs_err, ms=t_kernel, plain_ms=t_plain,
-                library_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
+            row = rows[name.split("[")[0]]
+            row.update(max_abs_err=abs_err, ms=t_kernel, plain_ms=t_plain,
+                       library_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
+            if design is not None:
+                row.update(design_bound_ms=design[0],
+                           design_bound_by=design[1])
 
-    # covariance at the main path's (70000, 784), fp32 and bf16, and a batch
-    x = randn(M, N)
-    for dtype, peak in ((torch.float32, PEAK_FP32),
-                        (torch.bfloat16, PEAK_BF16)):
-        xd = x.to(dtype)
+    # covariance at the main path's (70000, 784), fp32 and bf16, and a
+    # batch; bounds at the fp32 CUDA-core rate (bf16: the bf16 tensor
+    # rate) and, as design_bound, at the tensor rate of the kernel's own
+    # arithmetic (three tf32 products for an fp32 one)
+    design = {torch.float32: PEAK_TF32 / TF32_PRODUCTS,
+              torch.bfloat16: PEAK_BF16}
+
+    def library_gram(xd):
+        # a bf16 torch.matmul rounds its output to bf16; out_dtype keeps
+        # the fp32 sums, as the kernel does
+        if xd.dtype == torch.float32:
+            return torch.matmul(xd.mT, xd)
+        mm = torch.mm if xd.ndim == 2 else torch.bmm
+        return mm(xd.mT, xd, out_dtype=torch.float32)
+
+    def gram(name, xd, reps, main=False):
         got = fused.fused_covariance(xd)
         want = ref.covariance_gram(xd)
         torch.cuda.synchronize()
-        t_k = time_ms(lambda: fused.fused_covariance(xd), 5)
-        t_p = time_ms(lambda: ref.covariance_gram(xd), 5)
-        t_l = (time_ms(lambda: torch.matmul(xd.mT, xd), 5)
-               if dtype == torch.float32 else None)
-        nbytes = xd.numel() * xd.element_size() + N * N * 4
-        record(f"covariance[{M}x{N} {str(dtype)[6:]}]", got, want, t_k, t_p,
-               t_l, bound_ms(nbytes, M * N * (N + 1), peak), KERNEL_TOL,
-               main=dtype == torch.float32)
-    del x, xd
-    xb = randn(BATCH, BM, BN)
-    got = fused.fused_covariance(xb)
-    want = ref.covariance_gram(xb)
-    record(f"covariance[{BATCH}x{BM}x{BN}]", got, want,
-           time_ms(lambda: fused.fused_covariance(xb), 5),
-           time_ms(lambda: ref.covariance_gram(xb), 5),
-           time_ms(lambda: torch.matmul(xb.mT, xb), 5),
-           bound_ms(xb.numel() * 4 + BATCH * BN * BN * 4,
-                    BATCH * BM * BN * (BN + 1), PEAK_FP32), KERNEL_TOL)
+        check(bool((got == got.mT).all()), f"{name}: Gram not symmetric")
+        b, m, n = xd.shape if xd.ndim == 3 else (1, *xd.shape)
+        nbytes = xd.numel() * xd.element_size() + b * n * n * 4
+        flops = b * m * n * (n + 1)
+        peak = PEAK_FP32 if xd.dtype == torch.float32 else PEAK_BF16
+        record(name, got, want,
+               time_ms(lambda: fused.fused_covariance(xd), reps),
+               time_ms(lambda: ref.covariance_gram(xd), reps),
+               time_ms(lambda: library_gram(xd), reps),
+               bound_ms(nbytes, flops, peak), KERNEL_TOL, main=main,
+               design=bound_ms(nbytes, flops, design[xd.dtype]))
+
+    x = randn(M, N)
+    gram(f"covariance[{M}x{N} float32]", x, 10, main=True)
+    gram(f"covariance[{M}x{N} bfloat16]", x.bfloat16(), 10)
+    del x
+    gram(f"covariance[{BATCH}x{BM}x{BN}]", randn(BATCH, BM, BN), 20)
 
     # jacobi_sweep: one round at n = 784 for each angle mode
     g = randn(N, N)
@@ -327,26 +378,47 @@ def kernel_phase(dev, rows: dict) -> None:
     check(pad_c == 0 and pad_v == 0, "padded coordinates did not stay exact")
     del C, V, Cb, Vb, Cs, Vs, gb, g
 
-    # mm_engine: the projection (70000, 784) @ (784, 32) and the batched
-    # U = A V of the SVD
+    # mm_engine: the projection (70000, 784) @ (784, 32), the same with a
+    # transposed a, the batched U = A V of the SVD, and a strided a (every
+    # other feature), which only the SIMT kernel reads; each call must
+    # launch the one kernel its layout calls for
+    def matmul(name, a, b, kernel, reps=20, main=False):
+        before = launch_counts()
+        got = mm_engine.mm_engine(a, b)
+        after = launch_counts()
+        moved = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        log(f"kernel {name}: launched {json.dumps(moved)}")
+        check(moved == {kernel: 1}, f"{name} launched {moved}, not one "
+              f"{kernel}")
+        m, k = a.shape[-2:]
+        n = b.shape[-1]
+        batch = a.shape[0] if a.ndim == 3 else 1
+        nbytes = (a.numel() + b.numel() + batch * m * n) * 4
+        flops = 2 * batch * m * n * k
+        tensor = kernel == "mm_engine_matmul"
+        record(name, got, ref.mm_engine(a, b),
+               time_ms(lambda: mm_engine.mm_engine(a, b), reps),
+               time_ms(lambda: ref.mm_engine(a, b), reps),
+               time_ms(lambda: torch.matmul(a, b), reps),
+               bound_ms(nbytes, flops, PEAK_FP32), KERNEL_TOL, main=main,
+               design=bound_ms(nbytes, flops, PEAK_TF32 / TF32_PRODUCTS)
+               if tensor else None)
+
     a = randn(M, N)
     b = randn(N, K)
-    record(f"mm_engine_matmul[{M}x{N}@{N}x{K}]", mm_engine.mm_engine(a, b),
-           ref.mm_engine(a, b),
-           time_ms(lambda: mm_engine.mm_engine(a, b), 10),
-           time_ms(lambda: ref.mm_engine(a, b), 10),
-           time_ms(lambda: torch.matmul(a, b), 10),
-           bound_ms((M * N + N * K + M * K) * 4, 2 * M * N * K, PEAK_FP32),
-           KERNEL_TOL, main=True)
+    matmul(f"mm_engine_matmul[{M}x{N}@{N}x{K}]", a, b, "mm_engine_matmul",
+           main=True)
+    at = randn(N, M).mT  # contiguous along m
+    matmul(f"mm_engine_matmul[({N}x{M}).mT@{N}x{K}]", at, b,
+           "mm_engine_matmul")
+    del at
     A = randn(BATCH, BM, BN)
     Vq = torch.linalg.qr(randn(BATCH, BN, BN))[0].contiguous()
-    record(f"mm_engine_matmul[{BATCH}x{BM}x{BN}@{BN}x{BN}]",
-           mm_engine.mm_engine(A, Vq), ref.mm_engine(A, Vq),
-           time_ms(lambda: mm_engine.mm_engine(A, Vq), 10),
-           time_ms(lambda: ref.mm_engine(A, Vq), 10),
-           time_ms(lambda: torch.matmul(A, Vq), 10),
-           bound_ms((A.numel() + Vq.numel() + A.numel()) * 4,
-                    2 * BATCH * BM * BN * BN, PEAK_FP32), KERNEL_TOL)
+    matmul(f"mm_engine_matmul[{BATCH}x{BM}x{BN}@{BN}x{BN}]", A, Vq,
+           "mm_engine_matmul")
+    matmul(f"mm_engine_simt[{M}x{N}[:, ::2]@{N // 2}x{K}]", a[:, ::2],
+           b[::2], "mm_engine_simt", main=True)
 
 
 # -- phase 3: the main path -----------------------------------------------
@@ -525,6 +597,10 @@ def ops_phase(dev, rows: dict) -> dict:
     qkv16 = tuple(t.bfloat16() for t in qkv32)
     q_dec32 = randn(FA_BH, 1, FA_D)
     q_dec16 = q_dec32.bfloat16()
+    # mm_engine_matmul on a strided view: every other feature of the main
+    # path's data onto 32 directions (no unit stride: the SIMT kernel)
+    Xg = torch.as_tensor(synthetic_dataset(M, N, SEED), device=dev)[:, ::2]
+    W = randn(N // 2, K)
     # selective scan: the reference tests' distributions
     scan = (randn(MS_B, MS_L, MS_D), rand(MS_B, MS_L, MS_D) * 0.19 + 0.01,
             -(rand(MS_D, MS_N) * 1.5 + 0.5), randn(MS_B, MS_L, MS_N),
@@ -549,6 +625,10 @@ def ops_phase(dev, rows: dict) -> dict:
                            for k, c in launch_counts().items()
                            if c != before[k]}
     y = ops.mamba_scan(*scan)
+    before = launch_counts()
+    proj = ops.mm_engine_matmul(Xg, W)
+    mm_moved = {k: c - before[k] for k, c in launch_counts().items()
+                if c != before[k]}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
@@ -568,10 +648,18 @@ def ops_phase(dev, rows: dict) -> dict:
         log(f"flash_attention[{name}]: launched {json.dumps(moved)}")
         check(moved == {FA_ROUTE[name]: 1}, f"flash_attention[{name}] "
               f"launched {moved}, not one {FA_ROUTE[name]}")
+    log(f"mm_engine_matmul[strided]: launched {json.dumps(mm_moved)}")
+    check(mm_moved == {"mm_engine_simt": 1}, f"mm_engine_matmul on a "
+          f"strided view launched {mm_moved}, not one mm_engine_simt")
     for name in PATH_KERNELS:
         check(counts[name] == 0, f"the ops phase launched {name}")
+    err = errors(proj, ref.mm_engine(Xg, W))[2]
+    log(f"mm_engine_matmul[strided {M}x{N // 2}@{N // 2}x{K}]: "
+        f"rel_frobenius {err:.3e} (tol {KERNEL_TOL:g})")
+    check(err <= KERNEL_TOL, "mm_engine_matmul on a strided view: kernel "
+          "disagrees with its plain version")
     outs = [t for pv in piv.values() for t in pv] + [
-        t for r in rot.values() for t in r] + list(att.values()) + [y]
+        t for r in rot.values() for t in r] + list(att.values()) + [y, proj]
     check(all(t.is_cuda for t in outs), "an op returned a CPU tensor")
 
     def row(name, err, t_k, t_p, t_l, bound, fn):
@@ -737,6 +825,13 @@ def main() -> int:
     log(f"flash_attention_mma ptxas by head-dim padding: "
         f"{json.dumps(mma_regs)}")
     rows["flash_attention_mma"]["ptxas"] = mma_regs.get(FA_D)
+    # the GEMM-tile instances; the rows keep the ones the main path runs
+    for source, name, main_instance in (
+            ("mm_engine.cu", "mm_engine_matmul", "mm fp32 64x32x32 a:k b:mn"),
+            ("covariance.cu", "covariance", "gram fp32 128x128x32")):
+        regs = ptxas_report(build_log, source, key=gemm_instance)
+        log(f"{name} ptxas by instance: {json.dumps(regs)}")
+        rows[name]["ptxas"] = regs.get(main_instance)
     kernel_phase(dev, rows)
     log("kernels " + json.dumps({k.name: k.launches for k in KERNELS}))
     main_run = main_path(dev)

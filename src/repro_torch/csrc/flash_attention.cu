@@ -214,12 +214,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
            cudaStream_t s) {
   const size_t bytes =
       sizeof(float) * (BQ * q_stride(d) + BK * kp_stride(d) + BK * 16 * DC);
-  // above 48 KiB dynamic shared memory must be asked for, or the launch
-  // is refused
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = repro::allow_smem(flash_kernel<T, DC>, bytes);
+  if (err) return err;
   const dim3 grid((sq + BQ - 1) / BQ, bh);
   flash_kernel<T, DC><<<grid, THREADS, bytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),

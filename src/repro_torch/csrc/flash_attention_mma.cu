@@ -329,12 +329,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int bh,
            int sq, int skv, int d, float scale, int causal, int q_offset,
            cudaStream_t s) {
   constexpr size_t bytes = smem_bytes<DP>();
-  // above 48 KiB dynamic shared memory must be asked for, or the launch
-  // is refused
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_mma_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = repro::allow_smem(flash_mma_kernel<DP>, bytes);
+  if (err) return err;
   const dim3 grid((sq + BQ - 1) / BQ, bh);
   flash_mma_kernel<DP><<<grid, THREADS, bytes, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),

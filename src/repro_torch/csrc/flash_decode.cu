@@ -298,10 +298,8 @@ int launch(const void* q, const void* k, const void* v, void* out,
            float scale, int causal, int q_offset, int n_split,
            cudaStream_t s) {
   const size_t bytes = sizeof(float) * partial_smem_floats(d);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_partial_kernel<T, VB>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  const int err = repro::allow_smem(decode_partial_kernel<T, VB>, bytes);
+  if (err) return err;
   decode_partial_kernel<T, VB><<<dim3(n_split, bh), THREADS, bytes, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), part, bh, sq, skv, kv_end, d, scale, causal,

@@ -1,121 +1,127 @@
-// Batched c = a @ b with an fp32 accumulator; c takes a's dtype.
+// Batched c = a @ b on the tensor cores with an fp32 accumulator; c takes
+// a's dtype (fp32 or bf16, rounded once from the accumulator).
 //
 // Replaces the TPU kernel repro/kernels/mm_engine.py::mm_engine (body
 // _mm_kernel): 128^3 VMEM tiles with a stationary fp32 accumulator, shapes
-// padded to block multiples by ops._mm_kernel_impl.  Here each block owns
-// one 64 x 64 output tile (4 x 4 fp32 accumulators a thread, in registers)
-// and streams 16-deep panels of a and b through shared memory.  The ragged
-// edges are masked on load and store, so nothing is padded or copied.
+// padded to block multiples by ops._mm_kernel_impl.  Here the mainloop is
+// the shared block-tile core (gemm_tile.cuh): a cp.async ring of 32-deep
+// panels, 3xTF32 mma.sync for fp32 operands (fp32-grade sums), one bf16
+// mma.sync for bf16.  The ragged edges are zero-filled by the copies and
+// masked on the store, so nothing is padded or copied.
 //
-// a is (B, m, k) and b is (B, k, n), each given by its batch, row and
-// column strides in elements (a batch stride of 0 shares the operand across
-// the batch; a transposed view is just swapped strides).  c is (B, m, n),
-// contiguous.
+// a is (B, m, k) and b is (B, k, n).  Each operand has unit stride along
+// one of its last two dims, named by a flag: a_kmajor = 0 for a row-major
+// a (contiguous along k), 1 for a transposed view (contiguous along m);
+// b_kmajor = 1 for a row-major b (contiguous along n), 0 for a transposed
+// one (contiguous along k).  lda / ldb are the other stride, sa / sb the
+// batch strides (0 shares an operand across the batch), a_vec / b_vec the
+// elements a copy moves (the wrapper picks 16, 8 or 4 bytes from the
+// alignment).  Operands with no unit stride go to mm_engine_simt.cu.  c is
+// (B, m, n), contiguous.
 //
-// Bound: on the main path (the projection (70000, 784) @ (784, 32), the
-// SVD's U = A V, the rotation products) the bytes of a dominate: 2*m*n*k
-// flops against (m*k + k*n + m*n) * 4 bytes is ~15 flop/byte at n = 32,
-// below the fp32 CUDA-core ridge (67 TFLOP/s / 3.35 TB/s = 20), so reading
-// a once bounds it.  fp32 stays off the tensor cores (no TF32 under the
-// fp32 policy); a later version would use wgmma for bf16 operands.
-#include "common.cuh"
+// Two tiles, chosen by the wrapper from n:
+//   narrow (n <= 32): 64 x 32 tiles of 4 warps, a 4-stage ring.  The
+//     projection (70000, 784) @ (784, 32) is bound by the bytes of a, read
+//     once: 220 MB, 0.068 ms at 3.35 TB/s; no thread computes a masked
+//     column, and b (100 KB) is read from L2 by every block.
+//   wide: 128 x 128 tiles of 8 warps, a 3-stage ring, for the square and
+//     batched products (U = A V, the rotation datapath); 32 x (2048 x 256)
+//     @ (256 x 256) is 8.6 GFLOP, 0.052 ms of 3xTF32 work at 495 TFLOP/s.
+// mma.sync reaches part of the tensor rate that wgmma with TMA would.
+#include "gemm_tile.cuh"
 
 namespace {
 
-constexpr int TILE = 64;
-constexpr int BK = 16;
-constexpr int THREADS = 256;
+using repro::gemm::Operand;
+using Narrow = repro::gemm::Tile<64, 32, 32, 2, 2, 4, 3>;
+using Wide = repro::gemm::Tile<128, 128, 32, 2, 4, 3, 2>;
+
+struct Args {
+  const void* a;
+  const void* b;
+  void* c;
+  int batch, m, n, k;
+  long long sa, lda;
+  int a_vec;
+  long long sb, ldb;
+  int b_vec;
+  cudaStream_t stream;
+};
+
+template <typename T, class Cfg, bool A_KMAJOR, bool B_KMAJOR>
+__global__ void __launch_bounds__(Cfg::THREADS, Cfg::MIN_BLOCKS)
+mm_kernel(const T* __restrict__ a, const T* __restrict__ b,
+          T* __restrict__ c, int m, int n, int k, long long sa,
+          long long lda, int a_vec, long long sb, long long ldb, int b_vec) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int bz = blockIdx.z;
+  const int m0 = blockIdx.x * Cfg::BM;
+  const int n0 = blockIdx.y * Cfg::BN;
+  const Operand<T> A{a + bz * sa, lda, m, m0, a_vec};
+  const Operand<T> B{b + bz * sb, ldb, n, n0, b_vec};
+  float acc[Cfg::MT][Cfg::NT][4];
+  repro::gemm::mainloop<T, Cfg, A_KMAJOR, B_KMAJOR>(acc, A, B, 0, k, smem);
+
+  int wm0, wn0;
+  repro::gemm::warp_origin<Cfg>(wm0, wn0);
+  const int g = threadIdx.x % 32 / 4;
+  const int t = threadIdx.x % 4;
+  T* cb = c + static_cast<size_t>(bz) * m * n;
+#pragma unroll
+  for (int mt = 0; mt < Cfg::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < Cfg::NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = m0 + wm0 + mt * 16 + g + 8 * (e / 2);
+        const int j = n0 + wn0 + nt * 8 + 2 * t + e % 2;
+        if (i < m && j < n)
+          cb[static_cast<size_t>(i) * n + j] =
+              repro::from_float<T>(acc[mt][nt][e]);
+      }
+}
+
+template <typename T, class Cfg, bool A_KMAJOR, bool B_KMAJOR>
+int launch(const Args& x) {
+  constexpr size_t bytes =
+      repro::gemm::smem_bytes<T, Cfg, A_KMAJOR, B_KMAJOR>();
+  auto kernel = mm_kernel<T, Cfg, A_KMAJOR, B_KMAJOR>;
+  const int err = repro::allow_smem(kernel, bytes);
+  if (err) return err;
+  const dim3 grid((x.m + Cfg::BM - 1) / Cfg::BM, (x.n + Cfg::BN - 1) / Cfg::BN,
+                  x.batch);
+  kernel<<<grid, Cfg::THREADS, bytes, x.stream>>>(
+      static_cast<const T*>(x.a), static_cast<const T*>(x.b),
+      static_cast<T*>(x.c), x.m, x.n, x.k, x.sa, x.lda, x.a_vec, x.sb, x.ldb,
+      x.b_vec);
+  return repro::launch_status();
+}
+
+template <typename T, class Cfg>
+int by_layout(const Args& x, int a_kmajor, int b_kmajor) {
+  if (a_kmajor)
+    return b_kmajor ? launch<T, Cfg, true, true>(x)
+                    : launch<T, Cfg, true, false>(x);
+  return b_kmajor ? launch<T, Cfg, false, true>(x)
+                  : launch<T, Cfg, false, false>(x);
+}
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-mm_kernel(const T* __restrict__ a, const T* __restrict__ b, T* __restrict__ c,
-          int m, int n, int k, long long sa, long long ars, long long acs,
-          long long sb, long long brs, long long bcs) {
-  const int bz = blockIdx.z;
-  a += bz * sa;
-  b += bz * sb;
-  c += static_cast<size_t>(bz) * m * n;
-  const int i0 = blockIdx.y * TILE;
-  const int j0 = blockIdx.x * TILE;
-
-  // As is stored k-major (As[kk][row]); the pad of 4 spreads the
-  // transposing store over more banks
-  __shared__ float As[BK][TILE + 4];
-  __shared__ float Bs[BK][TILE];
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-
-  float acc[4][4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r)
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) acc[r][cc] = 0.f;
-
-  for (int k0 = 0; k0 < k; k0 += BK) {
-    for (int e = threadIdx.x; e < BK * TILE; e += THREADS) {
-      // a tile: 64 rows x 16 k, read along k
-      const int row = e / BK;
-      const int kk = e % BK;
-      const int gi = i0 + row;
-      const int gk = k0 + kk;
-      As[kk][row] = (gi < m && gk < k)
-                        ? repro::to_float(a[gi * ars + gk * acs])
-                        : 0.f;
-      // b tile: 16 k x 64 columns, read along the columns
-      const int kb = e / TILE;
-      const int col = e % TILE;
-      const int gkb = k0 + kb;
-      const int gj = j0 + col;
-      Bs[kb][col] = (gkb < k && gj < n)
-                        ? repro::to_float(b[gkb * brs + gj * bcs])
-                        : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) av[r] = As[kk][ty + 16 * r];
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) bv[cc] = Bs[kk][tx + 16 * cc];
-#pragma unroll
-      for (int r = 0; r < 4; ++r)
-#pragma unroll
-        for (int cc = 0; cc < 4; ++cc)
-          acc[r][cc] = fmaf(av[r], bv[cc], acc[r][cc]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int i = i0 + ty + 16 * r;
-#pragma unroll
-    for (int cc = 0; cc < 4; ++cc) {
-      const int j = j0 + tx + 16 * cc;
-      if (i < m && j < n)
-        c[static_cast<size_t>(i) * n + j] = repro::from_float<T>(acc[r][cc]);
-    }
-  }
+int by_tile(const Args& x, int narrow, int a_kmajor, int b_kmajor) {
+  return narrow ? by_layout<T, Narrow>(x, a_kmajor, b_kmajor)
+                : by_layout<T, Wide>(x, a_kmajor, b_kmajor);
 }
 
 }  // namespace
 
 extern "C" int repro_mm(const void* a, const void* b, void* c, int is_bf16,
-                        int batch, int m, int n, int k, long long sa,
-                        long long ars, long long acs, long long sb,
-                        long long brs, long long bcs, void* stream) {
-  const dim3 grid((n + TILE - 1) / TILE, (m + TILE - 1) / TILE, batch);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    mm_kernel<__nv_bfloat16><<<grid, THREADS, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(a),
-        static_cast<const __nv_bfloat16*>(b), static_cast<__nv_bfloat16*>(c),
-        m, n, k, sa, ars, acs, sb, brs, bcs);
-  } else {
-    mm_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(a), static_cast<const float*>(b),
-        static_cast<float*>(c), m, n, k, sa, ars, acs, sb, brs, bcs);
-  }
-  return repro::launch_status();
+                        int narrow, int batch, int m, int n, int k,
+                        long long sa, long long lda, int a_kmajor, int a_vec,
+                        long long sb, long long ldb, int b_kmajor, int b_vec,
+                        void* stream) {
+  const Args x{a,   b,     c,  batch, m,     n, k,
+               sa,  lda,   a_vec, sb,  ldb, b_vec,
+               static_cast<cudaStream_t>(stream)};
+  return is_bf16 ? by_tile<__nv_bfloat16>(x, narrow, a_kmajor, b_kmajor)
+                 : by_tile<float>(x, narrow, a_kmajor, b_kmajor);
 }

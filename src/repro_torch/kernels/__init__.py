@@ -4,9 +4,9 @@ hot path (``fused``, ``mm_engine``) and of the standalone registry ops
 PyTorch versions (``ref``) and the registry-dispatched ops over both
 (``ops``).
 
-``KERNELS`` lists every kernel with its launch count (three kernels serve
-``flash_attention``); nothing here builds or loads a kernel until a
-wrapper is called on a CUDA tensor.
+``KERNELS`` lists every kernel with its launch count (two kernels serve
+``mm_engine_matmul`` and three ``flash_attention``); nothing here builds
+or loads a kernel until a wrapper is called on a CUDA tensor.
 """
 from .cordic import CORDIC
 from .dle import DLE_SCAN
@@ -14,9 +14,9 @@ from .flash_attention import FLASH_KERNELS
 from .fused import COVARIANCE, JACOBI_SWEEP
 from .launch import KernelInfo
 from .mamba_scan import MAMBA_SCAN
-from .mm_engine import MM_ENGINE
+from .mm_engine import MM_KERNELS
 
-KERNELS = (COVARIANCE, JACOBI_SWEEP, MM_ENGINE, DLE_SCAN, CORDIC,
+KERNELS = (COVARIANCE, JACOBI_SWEEP, *MM_KERNELS, DLE_SCAN, CORDIC,
            *FLASH_KERNELS, MAMBA_SCAN)
 
 

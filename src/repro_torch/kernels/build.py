@@ -37,11 +37,13 @@ _F = ctypes.c_float
 # C entry points and their argument types (pointers and the stream as
 # c_void_p, so ctypes does not cut them to 32 bits)
 SIGNATURES = {
-    "repro_cov_gram": [_P, _I, _P, _I, _I, _I, _I, _I, _P],
+    "repro_cov_gram": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_cov_reduce": [_P, _P, _L, _I, _P],
     "repro_jacobi_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "repro_mm": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L, _L,
-                 _P],
+    "repro_mm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _L, _L,
+                 _I, _I, _P],
+    "repro_mm_simt": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
+                      _L, _P],
     "repro_dle_scan": [_P, _P, _P, _P, _P, _I, _I, _P],
     "repro_cordic": [_P, _P, _P, _P, _P, _P, _I, _P],
     "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _I,

@@ -3,12 +3,15 @@ one-call Jacobi pivot round (``csrc/covariance.cu``, ``csrc/jacobi_sweep.cu``).
 
 ``fused_covariance``
     replaces ``repro/kernels/fused.py::fused_covariance`` (``pallas_call``
-    at :102).  (B, m, n) -> (B, n, n) fp32, fp32 FMA on the CUDA cores
-    over fp32 or bf16 operands.  Bound by operations: m * n * (n + 1) flops
-    for the upper triangle against 67 TFLOP/s fp32 (0.64 ms at
-    70000 x 784).  Each block computes one upper-triangle tile and mirrors
-    it; the m axis is split across blocks into fp32 partial Grams, summed
-    in a fixed order, so that the 91 tiles at n = 784 fill 132 SMs.
+    at :102).  (B, m, n) -> (B, n, n) fp32 over fp32 or bf16 operands, on
+    the tensor cores through the tile core shared with the MM-Engine
+    (``csrc/gemm_tile.cuh``): fp32 operands as three tf32 products (hi*hi
+    + hi*lo + lo*hi, fp32-grade sums), bf16 as one.  Bound by operations:
+    m * n * (n + 1) flops for the upper triangle, 0.64 ms at 70000 x 784
+    against 67 TFLOP/s fp32 (0.26 ms of 3xTF32 work at 495 TFLOP/s).  Each
+    block computes one 128 x 128 upper-triangle tile and mirrors it; the m
+    axis is split across blocks into fp32 partial Grams, summed in a fixed
+    order, so that the 28 tiles at n = 784 fill 132 SMs.
 
 ``jacobi_sweep_step``
     replaces ``repro/kernels/fused.py::jacobi_sweep_step`` (``pallas_call``
@@ -32,7 +35,7 @@ import torch
 
 from . import build
 from . import ref as _ref
-from .launch import KernelInfo, require, require_cuda, stream
+from .launch import KernelInfo, copy_bytes, require, require_cuda, stream
 
 COVARIANCE = KernelInfo("covariance", "src/repro_torch/csrc/covariance.cu",
                         "src/repro/kernels/fused.py:102")
@@ -41,7 +44,8 @@ JACOBI_SWEEP = KernelInfo("jacobi_sweep",
                           "src/repro/kernels/fused.py:162")
 
 ANGLE_CODES = {"rutishauser": 0, "atan2": 1, "cordic": 2}
-_COV_TILE = 64  # output tile edge of csrc/covariance.cu
+COV_TILE = 128          # output tile edge of csrc/covariance.cu
+COV_BLOCKS_PER_SM = 2   # blocks of it an SM holds (shared memory)
 
 
 @functools.lru_cache(maxsize=None)
@@ -50,13 +54,27 @@ def _sm_count(index: int) -> int:
 
 
 def cov_splits(m: int, n: int, batch: int, block_m: int, sms: int) -> int:
-    """How many slices of the m axis the Gram kernel runs in parallel:
-    enough blocks for about four per SM, each slice at least one
-    ``block_m`` panel."""
-    tiles = -(-n // _COV_TILE)
+    """How many slices of the m axis the Gram kernel runs in parallel: as
+    many as fit the card in one wave of ``COV_BLOCKS_PER_SM`` blocks an
+    SM, each slice at least one ``block_m`` panel.  More slices do the
+    same work in more waves and add an n x n partial each; on the H100 at
+    70000 x 784, two waves took 1% (fp32) and 7% (bf16) longer and four
+    waves 2% and 17% (``scripts/kernel_ab.py gemm``)."""
+    tiles = -(-n // COV_TILE)
     blocks = batch * tiles * (tiles + 1) // 2
-    want = -(-4 * sms // blocks)
+    want = COV_BLOCKS_PER_SM * sms // blocks
     return max(1, min(want, -(-m // block_m), 65535))
+
+
+def cov_slices(m: int, n: int, batch: int, block_m: int,
+               sms: int) -> Tuple[int, int]:
+    """(slices, rows a slice) of the m axis: ``cov_splits`` slices of whole
+    ``block_m`` panels, the last one ragged, none empty."""
+    block_m = max(block_m, 1)
+    splits = cov_splits(m, n, batch, block_m, sms)
+    rows = -(-m // splits)
+    per = -(-rows // block_m) * block_m
+    return (-(-m // per) if m else 1), per
 
 
 def fused_covariance(x: torch.Tensor, *, block_m: int = 1024) -> torch.Tensor:
@@ -75,11 +93,7 @@ def fused_covariance(x: torch.Tensor, *, block_m: int = 1024) -> torch.Tensor:
     batch, m, n = xb.shape
     require(0 < batch <= 65535 and n > 0, what,
             f"cannot launch over shape {tuple(x.shape)}")
-    block_m = max(block_m, 1)
-    splits = cov_splits(m, n, batch, block_m, _sm_count(dev.index))
-    rows = -(-m // splits)
-    per = -(-rows // block_m) * block_m  # rows per slice, whole panels
-    splits = -(-m // per) if m else 1
+    splits, per = cov_slices(m, n, batch, block_m, _sm_count(dev.index))
     out = torch.empty((batch, n, n), dtype=torch.float32, device=dev)
     partial = out if splits == 1 else torch.empty(
         (splits, batch, n, n), dtype=torch.float32, device=dev)
@@ -88,7 +102,8 @@ def fused_covariance(x: torch.Tensor, *, block_m: int = 1024) -> torch.Tensor:
         s = stream(dev)
         build.check(lib.repro_cov_gram(
             xb.data_ptr(), int(x.dtype == torch.bfloat16), partial.data_ptr(),
-            batch, m, n, splits, per, s), what)
+            batch, m, n, splits, per,
+            copy_bytes(xb, n, m * n) // xb.element_size(), s), what)
         if splits > 1:
             build.check(lib.repro_cov_reduce(
                 partial.data_ptr(), out.data_ptr(), batch * n * n, splits, s),

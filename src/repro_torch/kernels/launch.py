@@ -38,6 +38,20 @@ def require(cond: bool, what: str, msg: str) -> None:
         raise ValueError(f"{what}: {msg}")
 
 
+def copy_bytes(t: torch.Tensor, ld: int, batch_stride: int) -> int:
+    """The widest copy (16, 8 or 4 bytes, else one element) that every row
+    start of ``t`` is aligned to, for rows ``ld`` and batches
+    ``batch_stride`` elements apart: what one cp.async of the GEMM tile
+    (``csrc/gemm_tile.cuh``) moves."""
+    es = t.element_size()
+    for nbytes in (16, 8, 4):
+        e = nbytes // es
+        if (t.data_ptr() % nbytes == 0 and ld % e == 0
+                and batch_stride % e == 0):
+            return nbytes
+    return es
+
+
 def stream(dev: torch.device) -> int:
     """The handle of PyTorch's current stream on ``dev``."""
     return torch.cuda.current_stream(dev).cuda_stream

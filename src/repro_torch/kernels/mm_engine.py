@@ -1,39 +1,101 @@
-"""Wrapper of the MM-Engine kernel (``csrc/mm_engine.cu``).
+"""Wrapper of the MM-Engine kernels (``csrc/mm_engine.cu``,
+``csrc/mm_engine_simt.cu``).
 
 ``mm_engine`` replaces ``repro/kernels/mm_engine.py::mm_engine``
 (``pallas_call`` at :68): a @ b with an fp32 accumulator, the output in a's
-dtype.  The TPU kernel needs block multiples, so the reference pads; this
-kernel masks the ragged edges and reads any strides, so nothing is padded
-or copied (a transposed view goes in as it is).  Bound by bytes on the main
-path: the projection (70000, 784) @ (784, 32) reads a once, 220 MB, about
-68 us at 3.35 TB/s, against 52 us of fp32 CUDA-core work.  64 x 64 output
-tiles with 4 x 4 register accumulators a thread; no tensor cores, so no
-TF32 under the fp32 policy.
+dtype.  The TPU kernel needs block multiples, so the reference pads; these
+kernels mask the ragged edges, so nothing is padded or copied (a transposed
+view or a column slice goes in as it is).  ``choose_kernel`` picks one of
+two kernels from the operands' layouts before the launch, and nothing
+falls back after one:
+
+* ``mm_engine_matmul`` (``csrc/mm_engine.cu``), every operand with unit
+  stride along one of its last two dims: the tensor cores, fed by a
+  cp.async ring of 16-, 8- or 4-byte copies (as the base, the leading
+  stride and the batch stride allow); fp32 operands as three tf32 products
+  (hi*hi + hi*lo + lo*hi, fp32-grade sums), bf16 as one.  A narrow 64 x 32
+  tile for n <= 32 (the projection (70000, 784) @ (784, 32), bound by the
+  bytes of a: 220 MB, 68 us at 3.35 TB/s), a 128 x 128 tile otherwise.
+* ``mm_engine_simt`` (``csrc/mm_engine_simt.cu``), an operand with no unit
+  stride in its last two dims (a strided subsample): fp32 FMAs on the CUDA
+  cores over scalar loads of any strides.
 
 On a CPU tensor it returns the plain version (``kernels.ref.mm_engine``);
-on a CUDA tensor it launches the kernel or raises.
+on a CUDA tensor it launches a kernel or raises.
 """
 from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
 
 import torch
 
 from . import build
 from . import ref as _ref
-from .launch import KernelInfo, require, require_cuda, stream
+from .launch import KernelInfo, copy_bytes, require, require_cuda, stream
 
+_TPU = "src/repro/kernels/mm_engine.py:68"
 MM_ENGINE = KernelInfo("mm_engine_matmul",
-                       "src/repro_torch/csrc/mm_engine.cu",
-                       "src/repro/kernels/mm_engine.py:68")
+                       "src/repro_torch/csrc/mm_engine.cu", _TPU)
+MM_SIMT = KernelInfo("mm_engine_simt",
+                     "src/repro_torch/csrc/mm_engine_simt.cu", _TPU)
+MM_KERNELS = (MM_ENGINE, MM_SIMT)
 
-_TILE = 64  # output tile edge of csrc/mm_engine.cu
+NARROW_N = 32        # n up to this takes the 64 x 32 tile of mm_engine.cu
 
 
-def _strides(t: torch.Tensor):
-    """(batch, row, column) strides of a 2-D or 3-D operand; a 2-D operand
-    has batch stride 0, which shares it across the batch."""
-    if t.ndim == 2:
-        return (0,) + tuple(t.stride())
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """How ``csrc/mm_engine.cu`` reads one operand: ``contiguous`` names
+    the dim of unit stride ("k" along the inner dim, "mn" along the outer
+    one), ``ld`` the other dim's stride, ``batch_stride`` the batch's (0
+    shares the operand), ``copy_bytes`` the width of one copy."""
+    contiguous: str
+    ld: int
+    batch_stride: int
+    copy_bytes: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    kernel: KernelInfo
+    narrow: bool = False
+    a: Optional[Layout] = None   # None on the SIMT route
+    b: Optional[Layout] = None
+
+
+def _strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """(batch, row, column) strides of a 2-D or 3-D operand; a 2-D operand,
+    or a batch of one, has batch stride 0."""
+    if t.ndim == 2 or t.shape[0] == 1:
+        return (0,) + tuple(t.stride()[-2:])
     return tuple(t.stride())
+
+
+def _layout(t: torch.Tensor, inner: int) -> Optional[Layout]:
+    """The layout of operand ``t`` whose dim ``inner`` (-1 for a, whose
+    last dim is k; -2 for b, whose k is the row dim) is k, or None when
+    neither of its last two dims has unit stride.  A dim of size 1 has any
+    stride, so it counts as unit stride."""
+    sb, rs, cs = _strides(t)
+    rows, cols = t.shape[-2:]
+    for dim, stride, other, other_size, size in (
+            (-1, cs, rs, rows, cols), (-2, rs, cs, cols, rows)):
+        if stride == 1 or size == 1:
+            ld = other if other_size > 1 else 0
+            return Layout("k" if dim == inner else "mn", ld, sb,
+                          copy_bytes(t, ld, sb))
+    return None
+
+
+def choose_kernel(a: torch.Tensor, b: torch.Tensor) -> Route:
+    """The kernel that serves a @ b, from the operands' strides, alignment
+    and n: the tensor-core kernel when each operand has unit stride along
+    one of its last two dims, the SIMT kernel otherwise."""
+    la, lb = _layout(a, -1), _layout(b, -2)
+    if la is None or lb is None:
+        return Route(MM_SIMT)
+    return Route(MM_ENGINE, b.shape[-1] <= NARROW_N, la, lb)
 
 
 def mm_engine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -56,16 +118,32 @@ def mm_engine(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             f"batch dims differ: {tuple(a.shape)} @ {tuple(b.shape)}")
     m, k = a.shape[-2:]
     n = b.shape[-1]
-    require(-(-m // _TILE) <= 65535 and batch <= 65535, what,
-            f"shape {tuple(a.shape)} exceeds the launch grid")
+    require(max(m, k) < 2 ** 31 and -(-n // NARROW_N) <= 65535
+            and batch <= 65535, what,
+            f"shape {tuple(a.shape)} @ {tuple(b.shape)} exceeds the launch "
+            f"grid")
     out = torch.empty((batch, m, n), dtype=a.dtype, device=dev)
     if out.numel() == 0:  # an empty grid is no launch
         return out if a.ndim == 3 or b.ndim == 3 else out[0]
+    route = choose_kernel(a, b)
+    bf16 = int(a.dtype == torch.bfloat16)
     lib = build.library()
     with torch.cuda.device(dev):
-        build.check(lib.repro_mm(
-            a.data_ptr(), b.data_ptr(), out.data_ptr(),
-            int(a.dtype == torch.bfloat16), batch, m, n, k, *_strides(a),
-            *_strides(b), stream(dev)), what)
-    MM_ENGINE.launches += 1
+        if route.kernel is MM_ENGINE:
+            la, lb, es = route.a, route.b, a.element_size()
+            status = lib.repro_mm(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), bf16,
+                int(route.narrow), batch, m, n, k,
+                la.batch_stride, la.ld, int(la.contiguous == "mn"),
+                la.copy_bytes // es,
+                lb.batch_stride, lb.ld, int(lb.contiguous == "mn"),
+                lb.copy_bytes // es, stream(dev))
+        else:
+            require(-(-m // 64) <= 65535, what,
+                    f"shape {tuple(a.shape)} exceeds the SIMT kernel's grid")
+            status = lib.repro_mm_simt(
+                a.data_ptr(), b.data_ptr(), out.data_ptr(), bf16, batch, m, n,
+                k, *_strides(a), *_strides(b), stream(dev))
+        build.check(status, f"{what} ({route.kernel.name})")
+    route.kernel.launches += 1
     return out if a.ndim == 3 or b.ndim == 3 else out[0]

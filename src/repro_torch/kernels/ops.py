@@ -40,7 +40,7 @@ from .launch import require_cuda
 
 @registry.register("mm_engine_matmul", "cuda")
 def _mm_cuda(a, b, *, block: int = 0):
-    del block  # the kernel's tile is fixed (64 x 64 x 16)
+    del block  # the kernels' tiles are fixed (mm_engine.choose_kernel)
     require_cuda("mm_engine_matmul", a, b)
     return _mm.mm_engine(a, b)
 

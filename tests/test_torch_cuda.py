@@ -9,8 +9,10 @@ Contracts: the Jacobi round is bitwise equal to the plain version on the
 card (the kernel rounds every product and sum as the separate PyTorch
 operations do); the Gram and the matmul sum in another order than cuBLAS:
 the Gram is held to the fp32 covariance budget, relative Frobenius 1e-5
-(over 1000 samples the bf16 case measured 1.3e-6 on an H100), the fp32
-matmul to 1e-6 and the bf16-output matmul to 1e-2.  The standalone
+(over 1000 samples the bf16 case measured 1.3e-6 on an H100) and must come
+out exactly symmetric, the fp32 matmul to 1e-6 and the bf16-output matmul
+to 1e-2, each call on the one MM-Engine kernel its operands' layout calls
+for.  The standalone
 kernels: the DLE scan identical in (value, index), ties included; the
 CORDIC unit bitwise; flash attention within 2e-5 in fp32 and, in bf16,
 within one bf16 ulp plus 2e-5 of the plain version's fp32 result (two fp32
@@ -84,6 +86,92 @@ def test_mm_engine_kernel(cuda_device):
     ab, bb = a.bfloat16(), b.bfloat16()
     assert_contract(mm_engine.mm_engine(ab, bb).float(),
                     ref.mm_engine(ab, bb).float(), "rel_frobenius", 1e-2)
+
+
+RAGGED_N = [1, 31, 32, 33, 70, 784]
+
+
+@pytest.mark.parametrize("n", RAGGED_N)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_covariance_kernel_ragged(cuda_device, dtype, n):
+    """m not a multiple of the 32-row panel, every n edge case, a batch."""
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    x = torch.randn(3, 999, n, generator=g, device=cuda_device).to(dtype)
+    before = fused.COVARIANCE.launches
+    got = fused.fused_covariance(x, block_m=96)
+    assert fused.COVARIANCE.launches == before + 1
+    assert_contract(got, ref.covariance_gram(x), "rel_frobenius", 1e-5)
+    assert bool((got == got.mT).all())
+
+
+@pytest.mark.parametrize("n", RAGGED_N)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mm_engine_kernel_ragged(cuda_device, dtype, n):
+    g = torch.Generator(device=cuda_device).manual_seed(n)
+    a = torch.randn(3, 301, 77, generator=g, device=cuda_device).to(dtype)
+    b = torch.randn(3, 77, n, generator=g, device=cuda_device).to(dtype)
+    before = launch_counts()
+    got = mm_engine.mm_engine(a, b)
+    after = launch_counts()
+    assert {k: after[k] - before[k] for k in after
+            if after[k] != before[k]} == {"mm_engine_matmul": 1}
+    assert got.dtype == dtype
+    assert_contract(got.float(), ref.mm_engine(a, b).float(),
+                    "rel_frobenius", 1e-6 if dtype == torch.float32 else 1e-2)
+
+
+def test_mm_engine_projection_shape(cuda_device):
+    """The main path's projection (70000, 784) @ (784, 32), cut to 7000
+    rows, on the narrow tile."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    a = torch.randn(7000, 784, generator=g, device=cuda_device)
+    b = torch.randn(784, 784, generator=g, device=cuda_device)[:, :32]
+    assert mm_engine.choose_kernel(a, b).narrow
+    assert_contract(mm_engine.mm_engine(a, b), ref.mm_engine(a, b),
+                    "rel_frobenius", 1e-6)
+
+
+def _layouts(dev, dtype):
+    """Operands in ``dtype``, each view made after the cast (a cast of a
+    strided view is contiguous)."""
+    g = torch.Generator(device=dev).manual_seed(6)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+    return [
+        ("contiguous", rnd(300, 784), rnd(784, 32), "mm_engine_matmul"),
+        ("a.mT", rnd(784, 300).mT, rnd(784, 70), "mm_engine_matmul"),
+        ("J.mT batched", rnd(3, 66, 66).mT, rnd(3, 66, 66),
+         "mm_engine_matmul"),
+        ("column slice", rnd(300, 784), rnd(784, 784)[:, :33],
+         "mm_engine_matmul"),
+        ("odd leading strides", rnd(301, 70), rnd(70, 33),
+         "mm_engine_matmul"),
+        ("b.mT", rnd(300, 48), rnd(40, 48).mT, "mm_engine_matmul"),
+        ("offset view", rnd(300 * 64 + 1)[1:].view(300, 64),
+         rnd(64 * 20 + 2)[2:].view(64, 20), "mm_engine_matmul"),
+        ("batch stride 0", rnd(64, 48).expand(3, 64, 48), rnd(3, 48, 40),
+         "mm_engine_matmul"),
+        ("general stride", rnd(300, 128)[:, ::2], rnd(64, 32),
+         "mm_engine_simt"),
+        ("general stride in b", rnd(300, 64), rnd(128, 66)[::2, ::2],
+         "mm_engine_simt"),
+    ]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mm_engine_takes_the_kernel_its_layout_calls_for(cuda_device, dtype):
+    for name, a, b, kernel in _layouts(cuda_device, dtype):
+        before = launch_counts()
+        got = mm_engine.mm_engine(a, b)
+        after = launch_counts()
+        moved = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        assert moved == {kernel: 1}, (name, moved)
+        assert mm_engine.choose_kernel(a, b).kernel.name == kernel
+        assert_contract(got.float(), ref.mm_engine(a, b).float(),
+                        "rel_frobenius",
+                        1e-6 if dtype == torch.float32 else 1e-2)
 
 
 def test_fit_on_the_card_matches_the_cpu(cuda_device):

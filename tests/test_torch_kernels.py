@@ -136,16 +136,28 @@ def test_cov_block_m_matches_reference():
 
 
 @pytest.mark.parametrize("m,n,batch", [(70000, 784, 1), (2048, 256, 32),
-                                       (5, 3, 1), (100000, 64, 4)])
+                                       (5, 3, 1), (100000, 64, 4),
+                                       (7000, 784, 1), (1000, 70, 3)])
 def test_cov_splits_cover_the_sample_axis(m, n, batch):
     """The m-axis split of the Gram kernel: whole panels, every row once,
-    enough blocks to fill the card."""
+    enough blocks to fill the card in one wave of its 128-edge tiles."""
     block = tops._cov_block_m(m, 1024)
     splits = tfused.cov_splits(m, n, batch, block, sms=132)
-    assert 1 <= splits <= -(-m // block)
-    tiles = -(-n // 64)
+    most = -(-m // block)
+    assert 1 <= splits <= most
+    tiles = -(-n // tfused.COV_TILE)
     blocks = batch * tiles * (tiles + 1) // 2
-    assert blocks * splits >= min(4 * 132, blocks * -(-m // block))
+    slots = tfused.COV_BLOCKS_PER_SM * 132
+    # one wave of COV_BLOCKS_PER_SM blocks an SM (on the H100 at
+    # 70000 x 784 it beat two and four waves): every block fits in it ...
+    assert blocks * splits <= max(slots, blocks)
+    # ... and fills it as far as whole slices allow, every SM busy
+    assert blocks * splits >= min(slots - blocks + 1, blocks * most)
+    assert blocks * splits >= min(132, blocks * most)
+    # the slices the wrapper launches: whole panels, each row in one slice
+    count, per = tfused.cov_slices(m, n, batch, block, sms=132)
+    assert count <= splits and per % block == 0
+    assert count * per >= m and (count - 1) * per < m
 
 
 # -- mm_engine_matmul -------------------------------------------------------
