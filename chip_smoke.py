@@ -11,14 +11,20 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    version, and one PyTorch call that computes the same function; the
    MM-Engine also with a transposed a (its tensor-core kernel) and a
    strided a (its SIMT kernel), each checked to launch the kernel its
-   layout calls for;
+   layout calls for; one whole Jacobi sweep in one call on each of the
+   sweep's two kernels (the grid kernel at n = 784 in each angle mode and
+   on a padded 32 x 256 x 256 batch, the shared-memory kernel on a padded
+   32 x 128 x 128 batch), bitwise the plain round-by-round loop, with
+   ``torch.linalg.eigh`` of the same matrices as the solve's library time;
 3. main path: ``fit_transform`` of a seeded synthetic (70000, 784) matrix,
    the shape of MNIST-28x28 in the paper's Table IV, under
    ``PCAConfig(fused=True, backend="cuda", sweeps=50)``, checked against
-   float64 numpy on the CPU; every kernel must have launched;
+   float64 numpy on the CPU; every kernel must have launched, the sweep
+   kernel exactly once a sweep;
 4. batched flush: 32 mixed-shape requests for each of eigh, svd and pca,
    bucket-padded and solved with ``build_solver_fn``, checked against
-   float64 numpy;
+   float64 numpy; both sweep kernels must have launched, and the
+   synchronised solve calls are timed apart from the checks;
 5. ops: the four standalone registry ops of ``repro_torch.kernels.ops``
    (``dle_find_pivot``, ``cordic_rotate``, ``flash_attention``,
    ``mamba_scan``) called with no ``backend=`` on CUDA tensors at full
@@ -36,9 +42,9 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    kernel, plain version, bound and (for attention)
    ``scaled_dot_product_attention`` are timed.
 
-Each path is checked against the kernels it runs: phases 3 and 4 against
-the three PCA/SVD kernels, phase 5 against the seven kernels of its five
-ops.
+Each path is checked against the kernels it runs: phase 3 against the
+three PCA/SVD kernels, phase 4 against those and the shared-memory sweep,
+phase 5 against the seven kernels of its five ops.
 The last three lines are the kernels' JSON record (each kernel's launches
 from the phase that drives it), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -61,10 +67,12 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
 SEED = 0
 M, N, K = 70000, 784, 32          # MNIST-28x28 (paper Table IV), top-k
 BATCH, BM, BN = 32, 2048, 256     # the batched kernel shapes
+BN_SMEM = 128                     # the flush's widest shared-memory bucket
 SWEEPS = 50
 BACKEND = "cuda"
 # batched flush: 32 requests per op, each dimension drawn from these ranges
 FLUSH_REQUESTS = 32
+FLUSH_T = 64                      # BucketPolicy(T=64, mode="pow2")
 FLUSH_EIGH_N = (96, 256)
 FLUSH_SVD_N = (64, 256)
 FLUSH_PCA_M, FLUSH_PCA_D = (256, 2048), (32, 256)
@@ -81,6 +89,9 @@ FA_BH, FA_S, FA_D = 16, 4096, 128    # olmo-1b: 16 heads x 128; train_4k
 MS_B, MS_L, MS_D, MS_N = 1, 4096, 2 * 4096, 16  # falcon-mamba-7b d_inner, N
 # the kernels each path runs
 PATH_KERNELS = ("covariance", "jacobi_sweep", "mm_engine_matmul")
+# the batched flush runs those and the shared-memory sweep (buckets of 64
+# and 128)
+FLUSH_KERNELS = PATH_KERNELS + ("jacobi_sweep_smem",)
 OPS = ("dle_find_pivot", "cordic_rotate", "flash_attention", "mamba_scan",
        "mm_engine_matmul")
 OPS_KERNELS = ("dle_find_pivot", "cordic_rotate", "flash_attention_mma",
@@ -214,6 +225,14 @@ def gemm_instance(entry: str) -> str:
     return name
 
 
+def sweep_kernel(entry: str) -> str:
+    """The record name of a kernel of jacobi_sweep.cu, or its mangled
+    name."""
+    if "sweep_grid_kernel" in entry:
+        return "jacobi_sweep"
+    return "jacobi_sweep_smem" if "sweep_smem_kernel" in entry else entry
+
+
 def ptxas_report(build_log: str, source: str, key=flash_instance) -> dict:
     """{key(entry name): registers and spill bytes} of each kernel instance
     compiled from ``source``, read from the ``-Xptxas -v`` lines of the
@@ -312,71 +331,101 @@ def kernel_phase(dev, rows: dict) -> None:
     del x
     gram(f"covariance[{BATCH}x{BM}x{BN}]", randn(BATCH, BM, BN), 20)
 
-    # jacobi_sweep: one round at n = 784 for each angle mode
+    # jacobi_sweep: one full sweep (n - 1 rounds) in one call, on the grid
+    # kernel at n = 784 for each angle mode and on a padded 32 x 256 x 256
+    # batch, on the shared-memory kernel on a padded 32 x 128 x 128 batch;
+    # each bitwise the plain version's round-by-round loop.  The bound of a
+    # sweep: C and V read and written once, 9 n^2 flops a round
+    def sweep_bound(C, rounds):
+        k = rounds.shape[1]
+        return bound_ms(4 * C.numel() * 4, rounds.shape[0] * (
+            9 * C.numel() + 20 * k * (C.numel() // C.shape[-1] ** 2)),
+            PEAK_FP32)
+
+    def sweep_case(name, kernel, C, V, rounds, angle, reps, main=False,
+                   yardsticks=True):
+        before = launch_counts()
+        got = fused.jacobi_sweep_step(C, V, rounds, angle=angle)
+        after = launch_counts()
+        moved = {k: after[k] - before[k] for k in after
+                 if after[k] != before[k]}
+        want = ref.jacobi_sweep_step(C, V, rounds, angle=angle)
+        torch.cuda.synchronize()
+        same = int((got[0] == want[0]).sum() + (got[1] == want[1]).sum())
+        log(f"{name}: one call launched {json.dumps(moved)}; {same} of "
+            f"{2 * C.numel()} entries bitwise equal to the plain version's "
+            f"{rounds.shape[0]}-round loop")
+        check(moved == {kernel: 1}, f"{name} launched {moved}, not one "
+              f"{kernel}")
+        check(same == 2 * C.numel(), f"{name}: not bitwise the plain loop")
+        t_k = time_ms(lambda: fused.jacobi_sweep_step(C, V, rounds,
+                                                       angle=angle), reps)
+        t_p, t_l = float("nan"), None
+        if yardsticks:
+            t_p = time_ms(lambda: ref.jacobi_sweep_step(C, V, rounds,
+                                                         angle=angle), 1,
+                          warmup=0)
+            # the solve's library call: torch.linalg.eigh of the same
+            # matrices does the work of the whole solve, not of one sweep
+            t_l = time_ms(lambda: torch.linalg.eigh(C), 3)
+            log(f"{name}: {t_k / rounds.shape[0] * 1e3:.2f} us a round; "
+                f"the solve ({SWEEPS} sweeps) {SWEEPS * t_k:.3f} ms against "
+                f"torch.linalg.eigh {t_l:.3f} ms "
+                f"({SWEEPS * t_k / t_l:.2f}x)")
+        record(name, torch.cat(got), torch.cat(want), t_k, t_p, t_l,
+               sweep_bound(C, rounds), 0.0, main=main)
+        if main:
+            t_dev = device_ms(lambda: fused.jacobi_sweep_step(
+                C, V, rounds, angle=angle), 3)
+            log(f"{name}: device_ms per sweep "
+                f"{'not measured' if t_dev is None else f'{t_dev:.4f}'} "
+                f"(profiler)")
+            rows[kernel].update(device_ms=t_dev, solve_ms=SWEEPS * t_k,
+                                library_call="torch.linalg.eigh: the whole "
+                                f"{SWEEPS}-sweep solve, not one sweep")
+        return got
+
     g = randn(N, N)
     C = (g @ g.mT) / N
     V = torch.linalg.qr(randn(N, N))[0].contiguous()
     rounds = torch.as_tensor(round_robin_rounds(N), device=dev)
-    pairs = rounds[N // 3]
-    k = pairs.shape[0]
-    sweep_bytes = 4 * N * N * 4
-    sweep_flops = 9 * N * N + 20 * k
     for angle in ("rutishauser", "atan2", "cordic"):
-        Co, Vo = fused.jacobi_sweep_step(C, V, pairs, angle=angle)
-        Cr, Vr = ref.jacobi_sweep_step(C, V, pairs, angle=angle)
-        torch.cuda.synchronize()
-        same = int((Co == Cr).sum() + (Vo == Vr).sum())
-        log(f"jacobi_sweep[{angle}]: {same} of {2 * N * N} entries bitwise "
-            f"equal to the plain version")
-        out = (torch.empty_like(C), torch.empty_like(V))
-        t_k = time_ms(lambda: fused.jacobi_sweep_step(C, V, pairs,
-                                                       angle=angle, out=out),
-                      200)
-        t_p = time_ms(lambda: ref.jacobi_sweep_step(C, V, pairs,
-                                                     angle=angle), 50)
-        record(f"jacobi_sweep[{N} {angle}]",
-               torch.cat([Co, Vo]), torch.cat([Cr, Vr]), t_k, t_p, None,
-               bound_ms(sweep_bytes, sweep_flops, PEAK_FP32), KERNEL_TOL,
-               main=angle == "rutishauser")
-        t_dev = device_ms(lambda: fused.jacobi_sweep_step(
-            C, V, pairs, angle=angle, out=out), 50)
-        log(f"jacobi_sweep[{N} {angle}]: device_ms per round "
-            f"{'not measured' if t_dev is None else f'{t_dev:.4f}'} "
-            f"(profiler: both launches), against {t_k:.4f} ms between "
-            f"back-to-back calls")
-        if angle == "rutishauser":
-            rows["jacobi_sweep"]["device_ms"] = t_dev
+        main = angle == "rutishauser"
+        sweep_case(f"jacobi_sweep[{N} {angle}]", "jacobi_sweep", C, V,
+                   rounds, angle, 10, main=main, yardsticks=main)
 
-    # a zero-padded batch with mixed n_active: one round against the plain
-    # version, then a full sweep in which padding must stay exactly zero
-    n_act = torch.as_tensor(np.random.default_rng(SEED).integers(
-        BN // 2, BN + 1, BATCH), device=dev)
-    idx = torch.arange(BN, device=dev)
-    live = (idx[None, :] < n_act[:, None]).float()
-    mask = live[:, :, None] * live[:, None, :]
-    gb = randn(BATCH, BN, BN)
-    Cb = ((gb @ gb.mT) / BN * mask).contiguous()
-    Vb = torch.eye(BN, device=dev).expand(BATCH, BN, BN).contiguous()
-    rounds_b = torch.as_tensor(round_robin_rounds(BN), device=dev)
-    got = fused.jacobi_sweep_step(Cb, Vb, rounds_b[5])
-    want = ref.jacobi_sweep_step(Cb, Vb, rounds_b[5])
-    record(f"jacobi_sweep[{BATCH}x{BN}x{BN} padded]", torch.cat(got),
-           torch.cat(want),
-           time_ms(lambda: fused.jacobi_sweep_step(Cb, Vb, rounds_b[5]), 100),
-           time_ms(lambda: ref.jacobi_sweep_step(Cb, Vb, rounds_b[5]), 20),
-           None, bound_ms(4 * Cb.numel() * 4, 9 * Cb.numel(), PEAK_FP32),
-           KERNEL_TOL)
-    Cs, Vs = Cb, Vb
-    for pairs_b in rounds_b:
-        Cs, Vs = fused.jacobi_sweep_step(Cs, Vs, pairs_b)
-    pad = 1.0 - mask
-    eye = torch.eye(BN, device=dev).expand_as(Vs)
-    pad_c = int((Cs * pad != 0).sum())
-    pad_v = int(((Vs - eye) * pad != 0).sum())
-    log(f"jacobi_sweep padded batch after one sweep: {pad_c} nonzero padded "
-        f"C entries, {pad_v} padded V entries off the identity")
-    check(pad_c == 0 and pad_v == 0, "padded coordinates did not stay exact")
-    del C, V, Cb, Vb, Cs, Vs, gb, g
+    # zero-padded batches with mixed n_active (the flush's buckets): one
+    # sweep in one call, bitwise the plain loop, padding exactly zero; the
+    # shared-memory kernel in each angle mode (the grid kernel had them at
+    # 784)
+    def padded(bn, kernel, main, angles=("rutishauser",)):
+        n_act = torch.as_tensor(np.random.default_rng(SEED).integers(
+            bn // 2, bn + 1, BATCH), device=dev)
+        idx = torch.arange(bn, device=dev)
+        live = (idx[None, :] < n_act[:, None]).float()
+        mask = live[:, :, None] * live[:, None, :]
+        gb = randn(BATCH, bn, bn)
+        Cb = ((gb @ gb.mT) / bn * mask).contiguous()
+        Vb = torch.eye(bn, device=dev).expand(BATCH, bn, bn).contiguous()
+        rounds_b = torch.as_tensor(round_robin_rounds(bn), device=dev)
+        pad = 1.0 - mask
+        eye = torch.eye(bn, device=dev).expand(BATCH, bn, bn)
+        for angle in angles:
+            first = angle == angles[0]
+            name = f"{kernel}[{BATCH}x{bn}x{bn} padded {angle}]"
+            Cs, Vs = sweep_case(name, kernel, Cb, Vb, rounds_b, angle, 20,
+                                main=main and first, yardsticks=first)
+            pad_c = int((Cs * pad != 0).sum())
+            pad_v = int(((Vs - eye) * pad != 0).sum())
+            log(f"{name} after one sweep: {pad_c} nonzero padded C "
+                f"entries, {pad_v} padded V entries off the identity")
+            check(pad_c == 0 and pad_v == 0,
+                  "padded coordinates did not stay exact")
+
+    padded(BN, "jacobi_sweep", False)
+    padded(BN_SMEM, "jacobi_sweep_smem", True,
+           ("rutishauser", "atan2", "cordic"))
+    del C, V, g
 
     # mm_engine: the projection (70000, 784) @ (784, 32), the same with a
     # transposed a, the batched U = A V of the SVD, and a strided a (every
@@ -464,7 +513,38 @@ def main_path(dev) -> dict:
     for name in PATH_KERNELS:
         check(counts[name] > 0, f"kernel {name} never launched on the main "
               f"path")
-    return {"wall_s": wall, "launches": counts}
+    check(counts["jacobi_sweep"] == SWEEPS
+          and counts["jacobi_sweep_smem"] == 0,
+          f"the sweeps launched {counts['jacobi_sweep']} grid and "
+          f"{counts['jacobi_sweep_smem']} shared-memory kernels, not one "
+          f"grid kernel a sweep ({SWEEPS})")
+    return {"wall_s": wall, "launches": counts,
+            "profile": profile_fit(X, config, dev)}
+
+
+def profile_fit(X, config, dev) -> dict:
+    """Where the fit's time goes: the same fit once more under
+    torch.profiler (its launches are not the main path's), the device's
+    busy time summed over the traced kernels and copies, and the largest
+    of them."""
+    import repro_torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        repro_torch.fit_transform(X, K, config, device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted(((e.key, e.count, e.device_time_total / 1e6)
+                    for e in prof.key_averages()
+                    if e.device_time_total > 0), key=lambda t: -t[2])
+    busy = sum(t for _, _, t in spans)
+    top = [{"name": name[:80], "calls": calls, "s": t}
+           for name, calls, t in spans[:6]]
+    log(f"main path, profiled rerun: wall {wall:.3f} s, device busy "
+        f"{busy:.3f} s, idle share {1 - busy / wall:.3f}; by device time: "
+        f"{json.dumps(top)}")
+    return {"wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall,
+            "top": top}
 
 
 # -- phase 4: a batched flush ----------------------------------------------
@@ -477,7 +557,7 @@ def batched_flush(dev) -> dict:
     from repro_torch.serving.solver import build_solver_fn
 
     rng = np.random.default_rng(SEED + 1)
-    policy = BucketPolicy(T=64, mode="pow2")
+    policy = BucketPolicy(T=FLUSH_T, mode="pow2")
     config = PCAConfig(fused=True, backend=BACKEND, sweeps=SWEEPS)
     budget = ERROR_BUDGETS["fp32"]
     requests = {"eigh": [], "svd": [], "pca": []}
@@ -496,7 +576,7 @@ def batched_flush(dev) -> dict:
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    worst = {}
+    worst, solve_s = {}, 0.0
     for op, mats in requests.items():
         solve = build_solver_fn(op, config, device=dev)
         budget_op = "svd" if op == "svd" else "eigh"
@@ -506,7 +586,11 @@ def batched_flush(dev) -> dict:
         worst[op] = 0.0
         for shape, ids in sorted(buckets.items()):
             batch, n_active = stack_requests([mats[i] for i in ids], shape)
+            torch.cuda.synchronize()
+            t_solve = time.perf_counter()
             res = solve(batch, n_active[0], n_active[-1])
+            torch.cuda.synchronize()
+            solve_s += time.perf_counter() - t_solve
             for j, i in enumerate(ids):
                 a = mats[i].astype(np.float64)
                 if op == "eigh":
@@ -540,12 +624,14 @@ def batched_flush(dev) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
-    log(f"batched flush: wall {wall:.3f} s (checks included), launches "
-        f"{json.dumps(counts)}")
-    for name in PATH_KERNELS:
+    log(f"batched flush: solve {solve_s:.3f} s (the synchronised solve "
+        f"calls, host to device copies included), wall {wall:.3f} s (float64 "
+        f"checks included), launches {json.dumps(counts)}")
+    for name in FLUSH_KERNELS:
         check(counts[name] > 0, f"kernel {name} never launched in the "
               f"batched flush")
-    return {"wall_s": wall, "launches": counts, "worst": worst}
+    return {"wall_s": wall, "solve_s": solve_s, "launches": counts,
+            "worst": worst}
 
 
 # -- phase 5: the standalone registry ops -----------------------------------
@@ -651,7 +737,7 @@ def ops_phase(dev, rows: dict) -> dict:
     log(f"mm_engine_matmul[strided]: launched {json.dumps(mm_moved)}")
     check(mm_moved == {"mm_engine_simt": 1}, f"mm_engine_matmul on a "
           f"strided view launched {mm_moved}, not one mm_engine_simt")
-    for name in PATH_KERNELS:
+    for name in FLUSH_KERNELS:
         check(counts[name] == 0, f"the ops phase launched {name}")
     err = errors(proj, ref.mm_engine(Xg, W))[2]
     log(f"mm_engine_matmul[strided {M}x{N // 2}@{N // 2}x{K}]: "
@@ -832,6 +918,10 @@ def main() -> int:
         regs = ptxas_report(build_log, source, key=gemm_instance)
         log(f"{name} ptxas by instance: {json.dumps(regs)}")
         rows[name]["ptxas"] = regs.get(main_instance)
+    regs = ptxas_report(build_log, "jacobi_sweep.cu", key=sweep_kernel)
+    log(f"jacobi_sweep ptxas by kernel: {json.dumps(regs)}")
+    for name in ("jacobi_sweep", "jacobi_sweep_smem"):
+        rows[name]["ptxas"] = regs.get(name)
     kernel_phase(dev, rows)
     log("kernels " + json.dumps({k.name: k.launches for k in KERNELS}))
     main_run = main_path(dev)
@@ -843,6 +933,9 @@ def main() -> int:
     log(f"main path: kernels busy about {busy:.3f} s of {wall:.3f} s wall "
         f"(launches x per-call device time), idle share about "
         f"{1 - busy / wall:.3f}")
+    rows["jacobi_sweep"].update(
+        fit_wall_s=wall, fit_idle_share=1 - busy / wall,
+        fit_idle_share_profiled=main_run["profile"]["idle_share"])
     flush = batched_flush(dev)
     ops_run = ops_phase(dev, rows)
 
@@ -852,6 +945,9 @@ def main() -> int:
         if k.name in PATH_KERNELS:
             row["launches"] = main_run["launches"][k.name]
             row["launches_batched_flush"] = flush["launches"][k.name]
+        elif k.name in FLUSH_KERNELS:
+            row["launches"] = flush["launches"][k.name]
+            row["path"] = "batched flush"
         else:
             row["launches"] = ops_run["launches"][k.name]
             row["path"] = "ops phase"

@@ -34,6 +34,15 @@ then one JSON line a tree.  CASES is one of:
     ``fit_transform`` of a seeded 70000 x 784 matrix (``chip_smoke.py``'s
     data and configuration, 50 sweeps), on the host clock after a
     one-sweep warm-up.
+
+``jacobi``
+    One Jacobi sweep through ``core.jacobi._sweep_scan`` with the fused
+    ``cuda`` backend (the Rutishauser angle, the parallel pivot's n - 1
+    rounds), whatever number of calls the tree makes for it: at the main
+    path's n = 784, and on the batched flush's 32 x 256 x 256 and
+    32 x 128 x 128 buckets.  Milliseconds a sweep, and whether the result
+    is bitwise the plain version's round-by-round loop.  Then
+    ``fit_transform`` as for ``gemm``.
 """
 from __future__ import annotations
 
@@ -176,7 +185,41 @@ def fit_wall_s(dev) -> float:
     return wall
 
 
-CASES = {"attention": attention, "gemm": gemm}
+def jacobi(tree: str) -> dict:
+    import torch
+    from repro_torch.core import jacobi as jac
+    from repro_torch.core.cordic import ANGLE_MODES
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = {"tree": tree}
+    for name, batch, n, reps in (("sweep_784", None, N, 20),
+                                 ("sweep_32x256", 32, BN, 20),
+                                 ("sweep_32x128", 32, 128, 50)):
+        shape = (n, n) if batch is None else (batch, n, n)
+        g = torch.randn(*shape, generator=gen, device=dev)
+        C = (g @ g.mT / n).contiguous()
+        V = torch.eye(n, device=dev).expand(shape).contiguous()
+        rounds = torch.as_tensor(jac.round_robin_rounds(n), device=dev)
+
+        def sweep():
+            return jac._sweep_scan(C, V, rounds, ANGLE_MODES["rutishauser"],
+                                   "rowcol", None, fused=True,
+                                   fused_backend="cuda")
+        got = sweep()
+        want = (C, V)
+        for pairs in rounds:
+            want = ref.jacobi_sweep_step(*want, pairs)
+        out[name] = {
+            "bitwise": all(bool(torch.equal(a, b))
+                           for a, b in zip(got, want)),
+            "ms": time_ms(sweep, reps)}
+    out["fit_wall_s"] = fit_wall_s(dev)
+    return out
+
+
+CASES = {"attention": attention, "gemm": gemm, "jacobi": jacobi}
 
 
 def use_tree(tree: str) -> None:

@@ -8,8 +8,8 @@ modes ``"rowcol"`` (touched rows/columns only) and ``"matmul"``
 
 Every function here takes one matrix (n, n) or a batch (B, n, n): the
 batch is a leading dimension written out, and ``lax.scan``/``fori_loop``
-become Python loops over rounds (one kernel launch per round under
-``fused=True``).  The public single-problem entry point is
+become Python loops over rounds (under ``fused=True``, one op call and one
+kernel launch per sweep instead).  The public single-problem entry point is
 ``jacobi_eigh``; ``serving.solver.jacobi_eigh_batched`` drives the same
 ``_solve`` over a bucket.
 """
@@ -154,25 +154,22 @@ def _apply_rotations_matmul(C, V, p, q, c, s, matmul_fn):
 def _sweep_scan(C, V, rounds, angle_fn, rotation, matmul_fn,
                 fused: bool = False, angle: str = "rutishauser",
                 fused_backend: Optional[str] = None):
-    """One full sweep: a loop over the pivot rounds (``rounds`` is the
-    (R, k, 2) int32 tensor on C's device).
+    """One full sweep over the pivot rounds (``rounds`` is the (R, k, 2)
+    int32 tensor on C's device).
 
-    ``fused`` routes each round through the ``jacobi_sweep`` op -- gather +
-    angle + guard + row/col rotation in one kernel call -- for
-    ``rotation="rowcol"`` (the "matmul" datapath stays unfused, as in the
-    reference).  The fused op works out of place: after the first two rounds
-    the sweep owns two (C, V) pairs, which swap roles every round.  The
-    caller's C and V are never written.
+    ``fused`` hands all R rounds to one call of the ``jacobi_sweep`` op --
+    gather + angle + guard + row/col rotation, one kernel launch a sweep
+    on the card -- for ``rotation="rowcol"`` (the "matmul" datapath stays
+    unfused, as in the reference).  The op works out of place: the
+    caller's C and V are never written.  Unfused, the rounds are a Python
+    loop.
     """
     if fused and rotation == "rowcol":
         from repro_torch.kernels import ops as kops
-        spare = None
-        for i, pairs in enumerate(rounds):
-            out = kops.jacobi_sweep(C, V, pairs, angle=angle,
-                                    backend=fused_backend, out=spare)
-            spare = None if i == 0 else (C, V)
-            C, V = out
-        return C, V
+        if rounds.shape[0] == 0:
+            return C, V
+        return kops.jacobi_sweep(C, V, rounds, angle=angle,
+                                 backend=fused_backend)
     long_rounds = rounds.long()
     for pairs in long_rounds:
         p = pairs[:, 0]
@@ -297,8 +294,8 @@ def jacobi_eigh(
     "cyclic" | "paper"; ``rotation`` "rowcol" | "matmul"; ``angle``
     "rutishauser" | "atan2" | "cordic"; ``matmul_fn`` for the "matmul"
     rotation (default ``torch.matmul``); ``tol`` early-exit relative
-    off-norm; ``track_history``; ``fused`` runs each round through the
-    ``jacobi_sweep`` op (parallel/cyclic with rowcol; "paper" and "matmul"
+    off-norm; ``track_history``; ``fused`` runs each sweep through one call
+    of the ``jacobi_sweep`` op (parallel/cyclic with rowcol; "paper" and "matmul"
     stay unfused); ``fused_backend`` names its backend (None follows the
     tensor: the CUDA kernel for a CUDA tensor).
     """

@@ -37,7 +37,12 @@ class PCAConfig:
     backend: Optional[str] = None
     # precision policy of the covariance/Gram leg (repro_torch.core.precision)
     precision: str = "fp32"
-    # route the hot path through the fused ops (covariance + jacobi_sweep)
+    # route the hot path through the fused ops (covariance + jacobi_sweep).
+    # Against fused=False at fp32: on the CPU the Gram and the fit are
+    # bitwise equal (the plain Gram sums the same T-row panels in order);
+    # the CUDA Gram sums in another order and is held to relative
+    # Frobenius 1e-6 of the unfused Gram (ERROR_BUDGETS["fp32"] allows
+    # 1e-5); the CUDA sweep is bitwise its plain version.
     fused: bool = False
 
     def matmul_fn(self) -> Optional[Callable]:

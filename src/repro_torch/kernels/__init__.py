@@ -5,18 +5,18 @@ PyTorch versions (``ref``) and the registry-dispatched ops over both
 (``ops``).
 
 ``KERNELS`` lists every kernel with its launch count (two kernels serve
-``mm_engine_matmul`` and three ``flash_attention``); nothing here builds
+``jacobi_sweep``, two ``mm_engine_matmul`` and three ``flash_attention``); nothing here builds
 or loads a kernel until a wrapper is called on a CUDA tensor.
 """
 from .cordic import CORDIC
 from .dle import DLE_SCAN
 from .flash_attention import FLASH_KERNELS
-from .fused import COVARIANCE, JACOBI_SWEEP
+from .fused import COVARIANCE, JACOBI_SWEEP, JACOBI_SWEEP_SMEM
 from .launch import KernelInfo
 from .mamba_scan import MAMBA_SCAN
 from .mm_engine import MM_KERNELS
 
-KERNELS = (COVARIANCE, JACOBI_SWEEP, *MM_KERNELS, DLE_SCAN, CORDIC,
+KERNELS = (COVARIANCE, JACOBI_SWEEP, JACOBI_SWEEP_SMEM, *MM_KERNELS, DLE_SCAN, CORDIC,
            *FLASH_KERNELS, MAMBA_SCAN)
 
 

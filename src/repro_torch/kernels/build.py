@@ -39,7 +39,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "repro_cov_gram": [_P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
     "repro_cov_reduce": [_P, _P, _L, _I, _P],
-    "repro_jacobi_sweep": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "repro_jacobi_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _I, _I, _I, _P],
+    "repro_jacobi_sweep_limits": [_I, _I, _P, _P, _P],
     "repro_mm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _L, _L,
                  _I, _I, _P],
     "repro_mm_simt": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,

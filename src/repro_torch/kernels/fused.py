@@ -1,5 +1,5 @@
 """Wrappers of the fused hot-path kernels: the one-call Gram matrix and the
-one-call Jacobi pivot round (``csrc/covariance.cu``, ``csrc/jacobi_sweep.cu``).
+one-call Jacobi sweep (``csrc/covariance.cu``, ``csrc/jacobi_sweep.cu``).
 
 ``fused_covariance``
     replaces ``repro/kernels/fused.py::fused_covariance`` (``pallas_call``
@@ -15,21 +15,26 @@ one-call Jacobi pivot round (``csrc/covariance.cu``, ``csrc/jacobi_sweep.cu``).
 
 ``jacobi_sweep_step``
     replaces ``repro/kernels/fused.py::jacobi_sweep_step`` (``pallas_call``
-    at :162).  One pivot round over (B, n, n) C and V sharing one (k, 2)
-    ``pairs``: a small launch computes the angle and the null-pivot guard
-    once per (b, pair), then an out-of-place launch writes every C''[r, c]
-    from the 2 x 2 block of the old C at (pair(r), pair(c)) and every
-    V''[r, c] from V's two columns of pair(c).  Bound by bytes: C and V read
-    and written once, 16 n^2 bytes (3 us at n = 784); the host's launch per
-    round dominates that, which one launch per sweep would remove.
+    at :162).  R pivot rounds over (B, n, n) C and V sharing one (R, k, 2)
+    ``pairs`` (a whole sweep) in one launch, with C and V held on chip
+    between rounds.  ``sweep_plan`` picks one of two kernels before the
+    launch: ``jacobi_sweep_smem`` (one block per problem, C and V in
+    shared memory, where they fit: n <= 128 on the H100) or
+    ``jacobi_sweep`` (a persistent cooperative grid, C and V in L2, each
+    thread owning the 2 x 2 blocks of C and V at (pair i, pair j), reading
+    one (C, V) pair and writing the other each round, one grid barrier a
+    round).  Bound of a sweep by operations, 9 n^2 (n - 1) flops (64 us at
+    n = 784); each round's barrier and L2 round trips keep the grid kernel
+    far from it.
 
 On a CPU tensor each wrapper returns its plain version (``kernels.ref``); on
 a CUDA tensor it launches its kernel or raises.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -42,10 +47,14 @@ COVARIANCE = KernelInfo("covariance", "src/repro_torch/csrc/covariance.cu",
 JACOBI_SWEEP = KernelInfo("jacobi_sweep",
                           "src/repro_torch/csrc/jacobi_sweep.cu",
                           "src/repro/kernels/fused.py:162")
+JACOBI_SWEEP_SMEM = KernelInfo("jacobi_sweep_smem",
+                               "src/repro_torch/csrc/jacobi_sweep.cu",
+                               "src/repro/kernels/fused.py:162")
 
 ANGLE_CODES = {"rutishauser": 0, "atan2": 1, "cordic": 2}
 COV_TILE = 128          # output tile edge of csrc/covariance.cu
 COV_BLOCKS_PER_SM = 2   # blocks of it an SM holds (shared memory)
+SWEEP_TILE = (16, 32)   # (pair rows, pair columns) of a grid-kernel tile
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,7 +90,7 @@ def fused_covariance(x: torch.Tensor, *, block_m: int = 1024) -> torch.Tensor:
     """C = x^T x over the sample axis for x (m, n) or (B, m, n) of fp32 or
     bf16; fp32 out.  ``block_m`` is the granule of the m-axis split."""
     if x.device.type == "cpu":
-        return _ref.covariance_gram(x)
+        return _ref.covariance_gram(x, block_m=block_m)
     what = "fused_covariance"
     dev = require_cuda(what, x)
     require(x.ndim in (2, 3), what, f"expected (m, n) or (B, m, n), got "
@@ -112,11 +121,57 @@ def fused_covariance(x: torch.Tensor, *, block_m: int = 1024) -> torch.Tensor:
     return out if x.ndim == 3 else out[0]
 
 
+class SweepPlan(NamedTuple):
+    kernel: KernelInfo  # JACOBI_SWEEP_SMEM or JACOBI_SWEEP
+    grid: int           # blocks: one per problem, or the persistent grid
+
+
+def sweep_smem_bytes(n: int, k: int) -> int:
+    """Shared memory of the one-block-per-problem kernel: C and V with an
+    odd row pitch (n | 1), and (c, s) and (p, q) of each pair (as
+    ``smem_bytes`` in ``csrc/jacobi_sweep.cu``)."""
+    return 4 * (2 * n * (n | 1) + 4 * k)
+
+
+def sweep_plan(batch: int, n: int, k: int, smem_optin: int, sms: int,
+               blocks_per_sm: int) -> SweepPlan:
+    """Where a sweep over (batch, n, n) with k pairs a round runs: in
+    shared memory, one block per problem, where C and V fit one block's
+    opt-in shared memory (n <= 128 on the H100's 227 KiB); otherwise on
+    the cooperative grid, one block per tile of every problem but never
+    more than the ``blocks_per_sm`` x ``sms`` blocks that can be resident
+    at once (a grid barrier waits for every block).  A tile is 16 x 32
+    units, a unit being a pair or, where the k pairs cannot cover all n
+    coordinates (the cyclic pivot), also each coordinate."""
+    if sweep_smem_bytes(n, k) <= smem_optin:
+        return SweepPlan(JACOBI_SWEEP_SMEM, batch)
+    resident = blocks_per_sm * sms
+    if resident < 1:
+        raise ValueError(f"jacobi_sweep_step: no block of the grid kernel "
+                         f"fits an SM at n = {n}")
+    units = k if 2 * k >= n else k + n
+    rows, cols = SWEEP_TILE
+    tiles = batch * (-(-units // rows)) * (-(-units // cols))
+    return SweepPlan(JACOBI_SWEEP, min(tiles, resident))
+
+
+@functools.lru_cache(maxsize=None)
+def _sweep_limits(index: int, n: int, k: int) -> Tuple[int, int, int]:
+    """(opt-in shared memory a block, SMs, grid-kernel blocks an SM) of
+    CUDA device ``index`` at (n, k), from the CUDA runtime."""
+    vals = [ctypes.c_int(0) for _ in range(3)]
+    with torch.cuda.device(index):
+        build.check(build.library().repro_jacobi_sweep_limits(
+            n, k, *(ctypes.byref(v) for v in vals)), "jacobi_sweep_step")
+    return tuple(v.value for v in vals)
+
+
 def jacobi_sweep_step(C: torch.Tensor, V: torch.Tensor, pairs: torch.Tensor,
                       *, angle: str = "rutishauser",
                       out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """One pivot round over C, V (n, n) or (B, n, n) fp32 with the (k, 2)
-    int32 ``pairs`` shared across the batch; returns (C'', V'').
+    """Pivot rounds over C, V (n, n) or (B, n, n) fp32 with int32 ``pairs``
+    shared across the batch: (k, 2) for one round, (R, k, 2) for R rounds
+    applied in order; returns (C'', V'') after the last round.
 
     The kernel works out of place: ``out`` may name the two tensors to write
     (they must not be C or V); otherwise they are allocated.  The plain
@@ -131,14 +186,17 @@ def jacobi_sweep_step(C: torch.Tensor, V: torch.Tensor, pairs: torch.Tensor,
     require(V.shape == C.shape, what, "V must have C's shape")
     require(C.dtype == torch.float32 and V.dtype == torch.float32, what,
             "C and V must be float32")
-    require(pairs.dtype == torch.int32 and pairs.ndim == 2
-            and pairs.shape[1] == 2, what, "pairs must be (k, 2) int32")
+    require(pairs.dtype == torch.int32 and pairs.ndim in (2, 3)
+            and pairs.shape[-1] == 2 and pairs.numel() > 0, what,
+            "pairs must be (k, 2) or (R, k, 2) int32, k and R > 0")
     require(C.is_contiguous() and V.is_contiguous()
             and pairs.is_contiguous(), what, "C, V and pairs must be "
             "contiguous")
     n = C.shape[-1]
     batch = C.shape[0] if C.ndim == 3 else 1
-    k = pairs.shape[0]
+    rounds, k = (1, pairs.shape[0]) if pairs.ndim == 2 else pairs.shape[:2]
+    require(0 < batch and n > 0, what, f"cannot launch over shape "
+            f"{tuple(C.shape)}")
     if out is None:
         Co, Vo = torch.empty_like(C), torch.empty_like(V)
     else:
@@ -152,12 +210,18 @@ def jacobi_sweep_step(C: torch.Tensor, V: torch.Tensor, pairs: torch.Tensor,
         require(Co.data_ptr() not in ptrs and Vo.data_ptr() not in ptrs
                 and Co.data_ptr() != Vo.data_ptr(), what,
                 "out must not alias C or V")
-    cs = torch.empty((batch, k, 2), dtype=torch.float32, device=dev)
+    plan = sweep_plan(batch, n, k, *_sweep_limits(dev.index, n, k))
+    grid = plan.kernel is JACOBI_SWEEP
+    spare = (Co, Vo)  # unused by the smem kernel and by a single round
+    if grid and rounds > 1:
+        spare = (torch.empty_like(C), torch.empty_like(V))
+    barrier = torch.zeros(1 if grid else 0, dtype=torch.int32, device=dev)
     lib = build.library()
     with torch.cuda.device(dev):
         build.check(lib.repro_jacobi_sweep(
-            C.data_ptr(), V.data_ptr(), pairs.data_ptr(), cs.data_ptr(),
-            Co.data_ptr(), Vo.data_ptr(), batch, n, k, ANGLE_CODES[angle],
-            stream(dev)), what)
-    JACOBI_SWEEP.launches += 1
+            C.data_ptr(), V.data_ptr(), pairs.data_ptr(), Co.data_ptr(),
+            Vo.data_ptr(), spare[0].data_ptr(), spare[1].data_ptr(),
+            barrier.data_ptr(), batch, n, k, rounds, ANGLE_CODES[angle],
+            int(not grid), plan.grid, stream(dev)), what)
+    plan.kernel.launches += 1
     return Co, Vo

@@ -80,9 +80,9 @@ def _cov_cuda(x, *, block_m: int = 1024, precision: str = "fp32"):
 
 @registry.register("covariance", "torch")
 def _cov_torch(x, *, block_m: int = 0, precision: str = "fp32"):
-    del block_m
     xo = x.to(prec.operand_dtype(precision))
-    return _ref.covariance_gram(xo, acc_dtype=prec.acc_dtype(precision))
+    return _ref.covariance_gram(xo, acc_dtype=prec.acc_dtype(precision),
+                                block_m=block_m)
 
 
 def covariance(x, block_m: int = 1024, *, precision: str = "fp32",
@@ -90,7 +90,16 @@ def covariance(x, block_m: int = 1024, *, precision: str = "fp32",
     """Fused one-pass Gram C = x^T x over the sample axis (-2) of x (m, n)
     or (B, m, n).  ``precision`` selects the operand dtype
     (``repro_torch.core.precision``); accumulation never narrows below
-    fp32."""
+    fp32.
+
+    Against ``core.covariance.blocked_covariance`` at the same ``block_m``
+    (the unfused path): the ``torch`` backend sums the same zero-padded
+    ``block_m`` panels in the same order, so with fp32 operands it is
+    bitwise equal, as the reference's kernel path is.  The ``cuda`` kernel
+    (3xTF32 tensor-core products, the m axis split into ``cov_splits``
+    slices) sums in another order: it is held to relative Frobenius 1e-6
+    of the unfused Gram, a tenth of ``ERROR_BUDGETS["fp32"]["covariance"]``.
+    """
     c = registry.resolve("covariance", backend, like=x)(
         x, block_m=block_m, precision=precision)
     if normalize:
@@ -98,7 +107,7 @@ def covariance(x, block_m: int = 1024, *, precision: str = "fp32",
     return c
 
 
-# -- jacobi_sweep (fused pivot round) ---------------------------------------
+# -- jacobi_sweep (fused pivot rounds) --------------------------------------
 
 @registry.register("jacobi_sweep", "cuda")
 def _sweep_cuda(C, V, pairs, *, angle: str = "rutishauser", out=None):
@@ -115,10 +124,12 @@ def _sweep_torch(C, V, pairs, *, angle: str = "rutishauser", out=None):
 def jacobi_sweep(C, V, pairs, *, angle: str = "rutishauser",
                  backend: Optional[str] = None,
                  out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-    """One fused Jacobi pivot round: gather + angle + guard + row/col
-    rotation over (C, V), (n, n) or (B, n, n), with the (k, 2) disjoint
-    ``pairs`` shared across the batch.  ``out`` may name two buffers for the
-    kernel to write (not C or V); the plain version ignores it."""
+    """Fused Jacobi pivot rounds: gather + angle + guard + row/col rotation
+    over (C, V), (n, n) or (B, n, n), with the disjoint ``pairs`` shared
+    across the batch: (k, 2) for one round, or (R, k, 2) for R rounds in
+    order (a whole sweep: one kernel launch on the ``cuda`` backend).  The
+    caller's C and V are never written; ``out`` may name two buffers for
+    the kernel to write (not C or V); the plain version ignores it."""
     return registry.resolve("jacobi_sweep", backend, like=C)(
         C, V, pairs, angle=angle, out=out)
 

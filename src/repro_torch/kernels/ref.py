@@ -41,34 +41,52 @@ def mm_engine(a: torch.Tensor, b: torch.Tensor,
 
 
 def covariance_gram(x: torch.Tensor, acc_dtype: torch.dtype = torch.float32,
-                    out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                    out_dtype: Optional[torch.dtype] = None,
+                    block_m: int = 0) -> torch.Tensor:
     """Gram matrix C = x^T x over the sample axis (-2) in ``acc_dtype``.
     Operands are widened to the accumulator first: a product of two bf16
-    values is exact in float32, as it is in the kernel."""
+    values is exact in float32, as it is in the kernel.
+
+    ``block_m`` > 0 zero-pads the sample axis to a multiple of ``block_m``
+    and sums the panels' Grams in order, as
+    ``core.covariance.blocked_covariance`` does: the fp32 result is then
+    bitwise the unfused Gram at the same ``block_m``.  0 is one product."""
     out_dtype = out_dtype or acc_dtype
     xa = x.to(acc_dtype)
-    return torch.matmul(xa.mT, xa).to(out_dtype)
+    if block_m <= 0:
+        return torch.matmul(xa.mT, xa).to(out_dtype)
+    pad = (-x.shape[-2]) % block_m
+    if pad:
+        xa = torch.nn.functional.pad(xa, (0, 0, 0, pad))
+    panels = xa.split(block_m, dim=-2)
+    c = torch.matmul(panels[0].mT, panels[0])
+    for xb in panels[1:]:
+        c = c + torch.matmul(xb.mT, xb)
+    return c.to(out_dtype)
 
 
 def jacobi_sweep_step(C: torch.Tensor, V: torch.Tensor, pairs: torch.Tensor,
                       angle: str = "rutishauser"):
-    """One pivot round: gather apq/app/aqq for the (k, 2) disjoint ``pairs``
-    -> angle -> null-pivot guard -> rotate the rows, then the columns of C,
-    and the columns of V.  ``pairs`` is shared across any batch dims."""
+    """Pivot rounds, one after another: for each (k, 2) round of disjoint
+    ``pairs`` ((k, 2) is one round, (R, k, 2) R of them), gather
+    apq/app/aqq -> angle -> null-pivot guard -> rotate the rows, then the
+    columns of C, and the columns of V.  ``pairs`` is shared across any
+    batch dims."""
     from repro_torch.core.cordic import ANGLE_MODES
     from repro_torch.core.jacobi import (_apply_rotations_rowcol,
                                          _null_pivot_guard)
     pairs = pairs.to(device=C.device, dtype=torch.long)
-    p = pairs[:, 0]
-    q = pairs[:, 1]
-    apq = C[..., p, q]
-    app = C[..., p, p]
-    aqq = C[..., q, q]
-    _, c, s = ANGLE_MODES[angle](apq, app, aqq)
-    c, s = _null_pivot_guard(p, q, apq, c, s)
-    c = c.to(C.dtype)
-    s = s.to(C.dtype)
-    return _apply_rotations_rowcol(C, V, p, q, c, s)
+    for round_pairs in (pairs[None] if pairs.ndim == 2 else pairs):
+        p = round_pairs[:, 0]
+        q = round_pairs[:, 1]
+        apq = C[..., p, q]
+        app = C[..., p, p]
+        aqq = C[..., q, q]
+        _, c, s = ANGLE_MODES[angle](apq, app, aqq)
+        c, s = _null_pivot_guard(p, q, apq, c, s)
+        C, V = _apply_rotations_rowcol(C, V, p, q, c.to(C.dtype),
+                                       s.to(C.dtype))
+    return C, V
 
 
 def dle_scan(c: torch.Tensor, tile: int = 128):

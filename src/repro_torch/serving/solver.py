@@ -3,8 +3,8 @@ S-array axis as a leading batch dimension.
 
 The reference ``vmap``s the single-problem solve; here the batch is written
 out: one (B, nb, nb) tensor goes through every pivot round at once (one
-kernel launch per round under ``fused=True``), with the (k, 2) pivot pairs
-shared by the whole bucket.
+kernel launch per sweep under ``fused=True``), with the (k, 2) pivot pairs
+of each round shared by the whole bucket.
 
 Bucket-padding contract: inputs arrive zero-padded into a shared bucket
 (``serving.batching``) with per-problem true sizes ``n_active``.  The

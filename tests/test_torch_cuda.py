@@ -5,13 +5,15 @@ installed:
 
     PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py
 
-Contracts: the Jacobi round is bitwise equal to the plain version on the
-card (the kernel rounds every product and sum as the separate PyTorch
-operations do); the Gram and the matmul sum in another order than cuBLAS:
-the Gram is held to the fp32 covariance budget, relative Frobenius 1e-5
-(over 1000 samples the bf16 case measured 1.3e-6 on an H100) and must come
-out exactly symmetric, the fp32 matmul to 1e-6 and the bf16-output matmul
-to 1e-2, each call on the one MM-Engine kernel its operands' layout calls
+Contracts: a Jacobi sweep in one launch, on either residency (shared
+memory or the grid), is bitwise equal to the plain version's
+round-by-round loop on the card (the kernels round every product and sum
+as the separate PyTorch operations do); the Gram and the matmul sum in
+another order than cuBLAS: the Gram is held to the fp32 covariance budget,
+relative Frobenius 1e-5 (over 1000 samples the bf16 case measured 1.3e-6
+on an H100), to 1e-6 of the unfused panel-by-panel Gram, and must come out
+exactly symmetric, the fp32 matmul to 1e-6 and the bf16-output matmul to
+1e-2, each call on the one MM-Engine kernel its operands' layout calls
 for.  The standalone
 kernels: the DLE scan identical in (value, index), ties included; the
 CORDIC unit bitwise; flash attention within 2e-5 in fp32 and, in bf16,
@@ -29,7 +31,7 @@ from repro_torch.kernels import (cordic, dle, flash_attention, fused,
                                  launch_counts, mamba_scan, mm_engine, ref)
 
 from _torch_parity import (assert_contract, bf16_ulp,  # noqa: F401
-                           cuda_device, sym)
+                           cuda_device, data, sym)
 
 pytestmark = pytest.mark.cuda
 
@@ -46,33 +48,114 @@ def test_covariance_kernel(cuda_device, dtype):
     assert bool((got == got.mT).all())  # mirrored, exactly symmetric
 
 
+def _sweep_case(dev, n, batch=2, seed=0):
+    C = torch.from_numpy(np.stack([sym(n, seed=seed + s)
+                                   for s in range(batch)])).to(dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    V = torch.randn(batch, n, n, generator=g, device=dev)
+    return C, V
+
+
+def _launched(before):
+    after = launch_counts()
+    return {k: after[k] - before[k] for k in after if after[k] != before[k]}
+
+
+def _residency(n, k, batch=2):
+    dev = torch.cuda.current_device()
+    return fused.sweep_plan(batch, n, k,
+                            *fused._sweep_limits(dev, n, k)).kernel.name
+
+
+# n = 66 and 128: the shared-memory kernel; 258: the grid kernel
+SWEEP_N = [66, 128, 258]
+
+
+@pytest.mark.parametrize("n", SWEEP_N)
 @pytest.mark.parametrize("angle", ANGLES)
-def test_jacobi_sweep_kernel_bitwise(cuda_device, angle):
-    n = 66
-    C = torch.from_numpy(np.stack([sym(n, seed=s) for s in range(2)])).to(
-        cuda_device)
-    V = torch.randn(2, n, n, device=cuda_device)
-    for pairs in (round_robin_rounds(n)[7], cyclic_pairs(n)[40]):
-        p = torch.from_numpy(pairs).to(cuda_device)
-        got = fused.jacobi_sweep_step(C, V, p, angle=angle)
-        want = ref.jacobi_sweep_step(C, V, p, angle=angle)
+def test_jacobi_sweep_kernel_bitwise(cuda_device, angle, n):
+    """A full sweep (n - 1 rounds) in one launch is bitwise the plain
+    version's round-by-round loop, and so is a single round; each call
+    launches once, on the residency the plan names."""
+    C, V = _sweep_case(cuda_device, n)
+    rounds = torch.from_numpy(round_robin_rounds(n)).to(cuda_device)
+    kernel = _residency(n, n // 2)
+    assert kernel == ("jacobi_sweep_smem" if n <= 128 else "jacobi_sweep")
+    for pairs in (rounds, rounds[7]):
+        before = launch_counts()
+        got = fused.jacobi_sweep_step(C, V, pairs, angle=angle)
+        assert _launched(before) == {kernel: 1}
+        want = ref.jacobi_sweep_step(C, V, pairs, angle=angle)
         for g, w in zip(got, want):
             assert_contract(g, w, "bitwise")
 
 
-def test_jacobi_sweep_kernel_out_buffers_and_bad_pairs(cuda_device):
-    n = 8
+@pytest.mark.parametrize("n", [20, 180])
+def test_jacobi_sweep_kernel_cyclic_rounds(cuda_device, n):
+    """k = 1 rounds (the cyclic pivot): a full sweep of n(n-1)/2 rounds
+    on the shared-memory kernel (n = 20); on the grid kernel (n = 180),
+    its first 600 rounds, one grid barrier each."""
+    C, V = _sweep_case(cuda_device, n, seed=3)
+    rounds = torch.from_numpy(cyclic_pairs(n)).to(cuda_device)
+    if n > 128:
+        rounds = rounds[:600].contiguous()
+    kernel = _residency(n, 1)
+    assert kernel == ("jacobi_sweep_smem" if n <= 128 else "jacobi_sweep")
+    before = launch_counts()
+    got = fused.jacobi_sweep_step(C, V, rounds, angle="rutishauser")
+    assert _launched(before) == {kernel: 1}
+    want = ref.jacobi_sweep_step(C, V, rounds, angle="rutishauser")
+    for g, w in zip(got, want):
+        assert_contract(g, w, "bitwise")
+
+
+@pytest.mark.parametrize("n", [8, 200])
+def test_jacobi_sweep_kernel_out_buffers_and_bad_pairs(cuda_device, n):
+    """An out-of-range pair is no rotation, on either residency: rows and
+    columns 4.. pass through every round, and the rest is the plain
+    version without that pair.  ``out`` is written and must not alias C
+    or V.  A degenerate pair is bitwise the plain version."""
     C = torch.from_numpy(sym(n)).to(cuda_device)
     V = torch.eye(n, device=cuda_device)
-    pairs = torch.tensor([[0, 1], [2, 3], [4, 99]], dtype=torch.int32,
-                         device=cuda_device)
+    good = [[0, 1], [2, 3]]
+    rounds = torch.tensor([good + [[4, n + 91]]] * 5, dtype=torch.int32,
+                          device=cuda_device)
     out = (torch.empty_like(C), torch.empty_like(V))
-    Co, Vo = fused.jacobi_sweep_step(C, V, pairs, out=out)
+    Co, Vo = fused.jacobi_sweep_step(C, V, rounds, out=out)
     assert Co.data_ptr() == out[0].data_ptr()
-    # the out-of-range pair is no rotation: rows/cols 4.. pass through
+    assert Vo.data_ptr() == out[1].data_ptr()
     assert bool((Co[4:, 4:] == C[4:, 4:]).all())
-    with pytest.raises(ValueError, match="alias"):
-        fused.jacobi_sweep_step(C, V, pairs, out=(C, out[1]))
+    assert bool((Vo[:, 4:] == V[:, 4:]).all())
+    want = ref.jacobi_sweep_step(C, V, rounds[:, :2].contiguous())
+    assert_contract(Co, want[0], "bitwise")
+    assert_contract(Vo, want[1], "bitwise")
+    before = launch_counts()
+    for bad in ((C, out[1]), (out[0], V), (out[0], out[0])):
+        with pytest.raises(ValueError, match="alias"):
+            fused.jacobi_sweep_step(C, V, rounds, out=bad)
+    assert launch_counts() == before
+    # a degenerate pair (p == q) is the identity, written as the plain
+    # version writes it; coordinates 4, 6, 7 are in no pair
+    rounds = torch.tensor([[[0, 1], [2, 2], [3, 5]]] * 5, dtype=torch.int32,
+                          device=cuda_device)
+    got = fused.jacobi_sweep_step(C, V, rounds)
+    want = ref.jacobi_sweep_step(C, V, rounds)
+    for g, w in zip(got, want):
+        assert_contract(g, w, "bitwise")
+
+
+def test_covariance_kernel_against_the_unfused_gram(cuda_device):
+    """The CUDA Gram (3xTF32, the m axis in ``cov_splits`` slices) against
+    ``blocked_covariance`` at the same ``block_m`` (one cuBLAS product a
+    panel): relative Frobenius 1e-6, the tolerance ``PCAConfig.fused``
+    states, a tenth of the fp32 covariance budget."""
+    from repro_torch.core.covariance import blocked_covariance
+    x = torch.from_numpy(data(3000, 96, seed=4)).to(cuda_device)
+    before = fused.COVARIANCE.launches
+    got = blocked_covariance(x, block_m=128, fused=True, backend="cuda")
+    assert fused.COVARIANCE.launches == before + 1
+    want = blocked_covariance(x, block_m=128)
+    assert_contract(got, want, "rel_frobenius", 1e-6)
 
 
 def test_mm_engine_kernel(cuda_device):
@@ -181,9 +264,11 @@ def test_fit_on_the_card_matches_the_cpu(cuda_device):
     cfg = tpca.PCAConfig(fused=True, backend="cuda", sweeps=12)
     before = launch_counts()
     Y, res = tpca.fit_transform(X, 5, cfg, device=cuda_device)
-    after = launch_counts()
-    for name in ("covariance", "jacobi_sweep", "mm_engine_matmul"):
-        assert after[name] > before[name], name
+    moved = _launched(before)
+    for name in ("covariance", "mm_engine_matmul"):
+        assert moved.get(name, 0) > 0, name
+    # one launch a sweep, on the shared-memory kernel at n = 24
+    assert moved["jacobi_sweep_smem"] == 12 and "jacobi_sweep" not in moved
     Yc, cpu = tpca.fit_transform(X, 5, tpca.PCAConfig(fused=True, sweeps=12),
                                  device="cpu")
     assert_contract(res.eigenvalues.cpu(), cpu.eigenvalues, "rel_frobenius",
