@@ -36,15 +36,16 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    path's data, projected onto 32 directions), the layout that goes to
    the SIMT MM-Engine.  Each op must resolve to ``cuda`` and launch its
    kernel -- for the strided projection ``mm_engine_simt``, for attention
-   each call the one of its three kernels that its shape and dtype call
-   for (the tensor-core kernel for bf16 prefill, split-KV for decode, SIMT
-   for fp32 prefill); each result is held against the plain version, and
-   kernel, plain version, bound and (for attention)
+   each call the one of its four kernels that its shape and dtype call
+   for (the bf16 tensor-core kernel for bf16 prefill, the 3xTF32 kernel
+   for fp32 prefill, split-KV for decode, and SIMT for a small bf16
+   prefill with head dim 20); each result is held against the plain
+   version, and kernel, plain version, bound and (for attention)
    ``scaled_dot_product_attention`` are timed.
 
 Each path is checked against the kernels it runs: phase 3 against the
 three PCA/SVD kernels, phase 4 against those and the shared-memory sweep,
-phase 5 against the seven kernels of its five ops.
+phase 5 against the eight kernels of its five ops.
 The last three lines are the kernels' JSON record (each kernel's launches
 from the phase that drives it), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -86,6 +87,7 @@ CORDIC_RATE_K = 1 << 20              # pivots for the CORDIC unit's rate
 # sign multiplies, three adds) and ~20 float steps, counted at the fp32 rate
 CORDIC_OPS = 2 * 30 * 8 + 20
 FA_BH, FA_S, FA_D = 16, 4096, 128    # olmo-1b: 16 heads x 128; train_4k
+FA_S_D20, FA_D20 = 1024, 20          # a small bf16 prefill for the SIMT kernel
 MS_B, MS_L, MS_D, MS_N = 1, 4096, 2 * 4096, 16  # falcon-mamba-7b d_inner, N
 # the kernels each path runs
 PATH_KERNELS = ("covariance", "jacobi_sweep", "mm_engine_matmul")
@@ -95,15 +97,16 @@ FLUSH_KERNELS = PATH_KERNELS + ("jacobi_sweep_smem",)
 OPS = ("dle_find_pivot", "cordic_rotate", "flash_attention", "mamba_scan",
        "mm_engine_matmul")
 OPS_KERNELS = ("dle_find_pivot", "cordic_rotate", "flash_attention_mma",
-               "flash_attention_splitkv", "flash_attention_simt",
-               "mamba_scan", "mm_engine_simt")
+               "flash_attention_tf32x3", "flash_attention_splitkv",
+               "flash_attention_simt", "mamba_scan", "mm_engine_simt")
 # the kernel each attention call of the ops phase must launch, and the
 # row of the kernels' record that it fills
 FA_ROUTE = {"prefill_bf16": "flash_attention_mma",
-            "prefill_fp32": "flash_attention_simt",
+            "prefill_fp32": "flash_attention_tf32x3",
+            "prefill_d20_bf16": "flash_attention_simt",
             "decode_bf16": "flash_attention_splitkv",
             "decode_fp32": "flash_attention_splitkv"}
-FA_ROW = {"prefill_bf16", "prefill_fp32", "decode_bf16"}
+FA_ROW = {"prefill_bf16", "prefill_fp32", "prefill_d20_bf16", "decode_bf16"}
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
 # dense on the tensor cores, HBM3
 PEAK_FP32 = 67e12
@@ -202,7 +205,8 @@ def nvidia_smi() -> str:
 
 def flash_instance(entry: str):
     """The head-dim padding DP (the template argument) of a
-    flash_attention_mma instance, or its mangled name."""
+    flash_attention_mma or flash_attention_tf32x3 instance, or its mangled
+    name."""
     dp = re.search(r"ILi(\d+)EE", entry)
     return int(dp.group(1)) if dp else entry
 
@@ -679,10 +683,17 @@ def ops_phase(dev, rows: dict) -> dict:
                                   device=dev)
     rate_piv = tuple(randn(3, CORDIC_RATE_K) * scale)
     # attention: prefill in bf16 and fp32, one decode step past the prefix
+    # in each, and a small bf16 prefill of head dim 20 (q, k, v, q_offset)
     qkv32 = tuple(randn(FA_BH, FA_S, FA_D) for _ in range(3))
     qkv16 = tuple(t.bfloat16() for t in qkv32)
     q_dec32 = randn(FA_BH, 1, FA_D)
     q_dec16 = q_dec32.bfloat16()
+    fa_cases = {
+        "prefill_bf16": (*qkv16, 0), "prefill_fp32": (*qkv32, 0),
+        "prefill_d20_bf16": (*(randn(FA_BH, FA_S_D20, FA_D20).bfloat16()
+                               for _ in range(3)), 0),
+        "decode_bf16": (q_dec16, *qkv16[1:], FA_S - 1),
+        "decode_fp32": (q_dec32, *qkv32[1:], FA_S - 1)}
     # mm_engine_matmul on a strided view: every other feature of the main
     # path's data onto 32 directions (no unit stride: the SIMT kernel)
     Xg = torch.as_tensor(synthetic_dataset(M, N, SEED), device=dev)[:, ::2]
@@ -701,10 +712,7 @@ def ops_phase(dev, rows: dict) -> dict:
     rot = {"round": ops.cordic_rotate(*round_piv),
            "rate": ops.cordic_rotate(*rate_piv)}
     att, att_moved = {}, {}
-    for name, args, off in (("prefill_bf16", qkv16, 0),
-                            ("prefill_fp32", qkv32, 0),
-                            ("decode_bf16", (q_dec16, *qkv16[1:]), FA_S - 1),
-                            ("decode_fp32", (q_dec32, *qkv32[1:]), FA_S - 1)):
+    for name, (*args, off) in fa_cases.items():
         before = launch_counts()
         att[name] = ops.flash_attention(*args, causal=True, q_offset=off)
         att_moved[name] = {k: c - before[k]
@@ -814,10 +822,11 @@ def ops_phase(dev, rows: dict) -> dict:
     for name, out in att.items():
         decode = name.startswith("decode")
         bf16 = name.endswith("bf16")
-        qkv = qkv16 if bf16 else qkv32
-        qq = (q_dec16 if bf16 else q_dec32) if decode else qkv[0]
-        off = FA_S - 1 if decode else 0
-        want32 = ref.flash_attention(qq.float(), *(t.float() for t in qkv[1:]),
+        qq, kk, vv, off = fa_cases[name]
+        qkv = (qq, kk, vv)
+        bh, sq, d = qq.shape
+        skv = kk.shape[1]
+        want32 = ref.flash_attention(qq.float(), kk.float(), vv.float(),
                                      causal=True, q_offset=off)
         want = want32.to(out.dtype)  # the plain version's result
         g = out.float()
@@ -843,15 +852,20 @@ def ops_phase(dev, rows: dict) -> dict:
         t_l = time_ms(lambda: sdpa(qq[None], *(t[None] for t in qkv[1:]),
                                    is_causal=not decode), 10 * reps)
         es = 2 if bf16 else 4
-        sq = qq.shape[1]
-        pairs_seen = FA_S * (FA_S + 1) // 2 if not decode else FA_S
-        b = bound_ms(es * FA_BH * FA_D * (2 * sq + 2 * FA_S),
-                     4 * FA_BH * FA_D * pairs_seen,
-                     PEAK_BF16 if bf16 else PEAK_FP32)
-        log(f"flash_attention[{name} {FA_BH}x{sq}x{FA_S}x{FA_D}]: max_abs_err "
+        pairs_seen = skv * (skv + 1) // 2 if not decode else skv
+        n_bytes = es * bh * d * (2 * sq + 2 * skv)
+        flops = 4 * bh * d * pairs_seen
+        b = bound_ms(n_bytes, flops, PEAK_BF16 if bf16 else PEAK_FP32)
+        extra = ""
+        if FA_ROUTE[name] == "flash_attention_tf32x3":
+            # the same work as three tf32 products at the tensor-core rate
+            b3 = bound_ms(n_bytes, TF32_PRODUCTS * flops, PEAK_TF32)
+            rows[FA_ROUTE[name]].update(bound_3xtf32_ms=b3[0])
+            extra = f"; {b3[0]:.4f} ({b3[1]}) at 3xTF32"
+        log(f"flash_attention[{name} {bh}x{sq}x{skv}x{d}]: max_abs_err "
             f"{err:.3e}{note} kernel_ms {t_k:.4f} plain_ms {t_p:.4f} "
             f"library_ms {t_l:.4f}"
-            + f" bound_ms {b[0]:.4f} ({b[1]}) [{FA_ROUTE[name]}]")
+            + f" bound_ms {b[0]:.4f} ({b[1]}{extra}) [{FA_ROUTE[name]}]")
         check(torch.isfinite(out.float()).all().item(),
               f"flash_attention[{name}]: non-finite output")
         check(over == 0 if bf16 else err <= 2e-5,
@@ -907,10 +921,12 @@ def main() -> int:
 
     rows = {k.name: {"name": k.name, "route": "cuda", "source": k.source,
                      "replaces": k.replaces} for k in KERNELS}
-    mma_regs = ptxas_report(build_log, "flash_attention_mma.cu")
-    log(f"flash_attention_mma ptxas by head-dim padding: "
-        f"{json.dumps(mma_regs)}")
-    rows["flash_attention_mma"]["ptxas"] = mma_regs.get(FA_D)
+    for source, name in (("flash_attention_mma.cu", "flash_attention_mma"),
+                         ("flash_attention_tf32.cu",
+                          "flash_attention_tf32x3")):
+        regs = ptxas_report(build_log, source)
+        log(f"{name} ptxas by head-dim padding: {json.dumps(regs)}")
+        rows[name]["ptxas"] = regs.get(FA_D)
     # the GEMM-tile instances; the rows keep the ones the main path runs
     for source, name, main_instance in (
             ("mm_engine.cu", "mm_engine_matmul", "mm fp32 64x32x32 a:k b:mn"),

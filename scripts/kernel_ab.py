@@ -15,10 +15,12 @@ then one JSON line a tree.  CASES is one of:
 
 ``attention``
     ``flash_attention`` at olmo-1b's attention shape (BH 16, S 4096,
-    D 128): causal bf16 prefill, and decode of 1 and 16 query rows past
-    the prefix in bf16 and fp32.  Milliseconds a call and the outputs
-    beyond the contracts (bf16: one bf16 ulp + 2e-5 of the fp32 plain
-    version; fp32: 2e-5), which must be 0.
+    D 128): causal prefill in bf16 and fp32, and decode of 1 and 16 query
+    rows past the prefix in bf16 and fp32.  Milliseconds a call, the
+    kernel it launched, and the outputs beyond the contracts (bf16: one
+    bf16 ulp + 2e-5 of the fp32 plain version; fp32: 2e-5), which must be
+    0; for prefill also ``scaled_dot_product_attention``'s milliseconds on
+    the same inputs.
 
 ``gemm``
     The GEMM-tile kernels at the main path's shapes: the projection
@@ -81,21 +83,26 @@ def rel_frobenius(got, want) -> float:
 def attention(tree: str) -> dict:
     import torch
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import launch_counts, ref
 
+    torch.backends.cuda.matmul.allow_tf32 = False  # full-fp32 SDPA
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     qkv32 = [torch.randn(BH, S, D, generator=gen, device=dev)
              for _ in range(3)]
     qkv16 = [t.bfloat16() for t in qkv32]
-    cases = {"prefill_bf16": (qkv16[0], qkv16[1:], 0, 50)}
+    cases = {"prefill_bf16": (qkv16[0], qkv16[1:], 0, 50),
+             "prefill_fp32": (qkv32[0], qkv32[1:], 0, 20)}
     for sq in (1, 16):
         for name, qkv in (("bf16", qkv16), ("fp32", qkv32)):
             q = qkv[0][:, S - sq:].contiguous()
             cases[f"decode{sq}_{name}"] = (q, qkv[1:], S - sq, 500)
     out = {"tree": tree}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
     for name, (q, kv, off, reps) in cases.items():
+        before = launch_counts()
         got = fa.flash_attention(q, *kv, causal=True, q_offset=off).float()
+        launched = [k for k, c in launch_counts().items() if c != before[k]]
         want = ref.flash_attention(q.float(), *(t.float() for t in kv),
                                    causal=True, q_offset=off)
         err = (got - want).abs()
@@ -108,7 +115,11 @@ def attention(tree: str) -> dict:
         out[name] = {
             "ms": time_ms(lambda: fa.flash_attention(
                 q, *kv, causal=True, q_offset=off), reps),
+            "kernel": launched, "max_abs_err": float(err.max()),
             "beyond_contract": int((err > slack).sum())}
+        if name.startswith("prefill"):
+            out[name]["sdpa_ms"] = time_ms(lambda: sdpa(
+                q[None], *(t[None] for t in kv), is_causal=True), reps)
     return out
 
 

@@ -1,6 +1,9 @@
 // Forward attention with an online softmax: q (BH, Sq, D), k/v (BH, Skv, D)
-// of fp32 or bf16 -> out (BH, Sq, D) in q's dtype; fp32 scores, row max m,
-// row sum l and accumulator; D <= 128.
+// of bf16 -> out (BH, Sq, D) in bf16; fp32 scores, row max m, row sum l and
+// accumulator; D <= 128.  The wrapper sends here the bf16 prefill that the
+// tensor-core kernel does not take (D % 8 != 0 or rows not 16-byte
+// aligned); fp32 prefill goes to flash_attention_tf32.cu, Sq <= 16 to
+// flash_decode.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (body _flash_kernel): a (bh, q block, kv block) grid whose kv dimension
@@ -15,8 +18,7 @@
 //     columns tx + 16 c (c < 4) and output columns tx + 16 c (c < D / 16);
 //     a row's 16 threads all-reduce its max and sum with butterfly
 //     shuffles, which give every lane the same bits;
-//   * fp32 FMAs on the CUDA cores, no tensor cores: the fp32 contract
-//     forbids TF32, and wgmma is later work.
+//   * fp32 FMAs on the CUDA cores, no tensor cores.
 //
 // Masking follows the dense oracle (kernels/ref.py::flash_attention), not
 // the TPU wrapper's padding: a causal score above the diagonal is -1e30
@@ -26,11 +28,9 @@
 // zero).  The denominator is max(l, 1e-30) and the default scale D^-1/2
 // (chosen by the wrapper).
 //
-// Bound: causal prefill at BH 16, S 4096, D 128 does 4 BH D S (S + 1) / 2
-// = 68.7 GFLOP: 1.03 ms at 67 TFLOP/s fp32, 0.069 ms at the 989 TFLOP/s
-// bf16 tensor rate this kernel does not use.  Decode (Sq = 1) is bound by
-// reading K and V once.  With 64-row q tiles a decode block wastes 63 of
-// its rows; a split-KV decode kernel is later work.
+// Bound: causal prefill at BH 16, S 1024, D 20 does 4 BH D S (S + 1) / 2
+// = 0.67 GFLOP, 0.0007 ms at the 989 TFLOP/s bf16 tensor rate this kernel
+// does not use; reading q, k, v and writing out (2.6 MB) takes 0.0008 ms.
 #include <math.h>
 
 #include "common.cuh"
@@ -249,16 +249,12 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int bh,
 
 }  // namespace
 
-// q (bh, sq, d), k / v (bh, skv, d), out (bh, sq, d); all contiguous, one
-// dtype (is_bf16), 1 <= d <= 128.
+// q (bh, sq, d), k / v (bh, skv, d), out (bh, sq, d); all bf16 and
+// contiguous, 1 <= d <= 128.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int is_bf16,
-                                     int bh, int sq, int skv, int d,
-                                     float scale, int causal, int q_offset,
-                                     void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, out, bh, sq, skv, d,
-                                           scale, causal, q_offset, s)
-                 : dispatch<float>(q, k, v, out, bh, sq, skv, d, scale,
-                                   causal, q_offset, s);
+                                     const void* v, void* out, int bh,
+                                     int sq, int skv, int d, float scale,
+                                     int causal, int q_offset, void* stream) {
+  return dispatch<__nv_bfloat16>(q, k, v, out, bh, sq, skv, d, scale, causal,
+                                 q_offset, static_cast<cudaStream_t>(stream));
 }

@@ -4,7 +4,7 @@
 ``repro/kernels/flash_attention.py::flash_attention`` (``pallas_call`` at
 :92): online-softmax attention for q (BH, Sq, D) and k/v (BH, Skv, D) of
 fp32 or bf16, with fp32 m, l and accumulator, the causal mask offset by
-``q_offset`` (a masked score is -1e30) and the output in q's dtype.  Three
+``q_offset`` (a masked score is -1e30) and the output in q's dtype.  Four
 hand-written kernels serve the op; ``choose_kernel`` picks one from the
 shape and dtype before any launch, and nothing falls back after one:
 
@@ -17,10 +17,17 @@ shape and dtype before any launch, and nothing falls back after one:
   cp.async ring, with P split into two bf16 halves for P V so that the
   result keeps fp32 accuracy.  Bound by operations: 68.7 GFLOP for causal
   BH 16, S 4096, D 128, 0.0695 ms at 989 TFLOP/s bf16.
-* ``flash_attention_simt`` (``csrc/flash_attention.cu``), every other
-  prefill (fp32, bf16 with D % 8 != 0 or rows not 16-byte aligned): one
-  block per (bh, 64-row q tile), fp32 FMAs on the CUDA cores; TF32 would
-  break the fp32 contract.
+* ``flash_attention_tf32x3`` (``csrc/flash_attention_tf32.cu``), fp32
+  prefill at every D <= 128: mma.sync on the tensor cores with each fp32
+  operand split into tf32 hi and lo and three products (hi hi + hi lo +
+  lo hi) per k8 step, which keep the fp32 contract where one tf32 product
+  would not; 16-, 8- or 4-byte cp.async copies as D and the rows'
+  alignment allow (``copy_floats``).  Bound by operations: 68.7 GFLOP for
+  causal BH 16, S 4096, D 128, 1.026 ms at 67 TFLOP/s fp32, 0.416 ms for
+  the three tf32 products at 495 TFLOP/s.
+* ``flash_attention_simt`` (``csrc/flash_attention.cu``), bf16 prefill with
+  D % 8 != 0 or rows not 16-byte aligned: one block per (bh, 64-row q
+  tile), fp32 FMAs on the CUDA cores.
 
 Keys are masked by the true Skv, as in the dense oracle, so nothing is
 padded (the TPU wrapper pads K/V and relies on the causal mask, which lets
@@ -46,9 +53,11 @@ FLASH_SIMT = KernelInfo("flash_attention_simt", _CSRC + "flash_attention.cu",
                         _TPU)
 FLASH_MMA = KernelInfo("flash_attention_mma",
                        _CSRC + "flash_attention_mma.cu", _TPU)
+FLASH_TF32 = KernelInfo("flash_attention_tf32x3",
+                        _CSRC + "flash_attention_tf32.cu", _TPU)
 FLASH_SPLITKV = KernelInfo("flash_attention_splitkv",
                            _CSRC + "flash_decode.cu", _TPU)
-FLASH_KERNELS = (FLASH_MMA, FLASH_SPLITKV, FLASH_SIMT)
+FLASH_KERNELS = (FLASH_MMA, FLASH_TF32, FLASH_SPLITKV, FLASH_SIMT)
 
 MAX_HEAD_DIM = 128
 DECODE_MAX_SQ = 16  # query rows of one split-KV launch
@@ -58,14 +67,27 @@ SPLIT_KEYS = 256    # keys a block of csrc/flash_decode.cu covers
 def choose_kernel(sq: int, d: int, dtype: torch.dtype,
                   aligned: bool = True) -> KernelInfo:
     """The kernel that serves a CUDA call with Sq query rows of head dim d:
-    split-KV for Sq <= 16, the tensor-core kernel for bf16 prefill with
-    D % 8 == 0 and 16-byte aligned q, k, v and out (``aligned``), the SIMT
-    kernel otherwise."""
+    split-KV for Sq <= 16, the 3xTF32 kernel for fp32 prefill, the bf16
+    tensor-core kernel for bf16 prefill with D % 8 == 0 and 16-byte aligned
+    q, k, v and out (``aligned``), the SIMT kernel for the rest of bf16."""
     if sq <= DECODE_MAX_SQ:
         return FLASH_SPLITKV
-    if dtype == torch.bfloat16 and d % 8 == 0 and aligned:
+    if dtype == torch.float32:
+        return FLASH_TF32
+    if d % 8 == 0 and aligned:
         return FLASH_MMA
     return FLASH_SIMT
+
+
+def copy_floats(d: int, *tensors: torch.Tensor) -> int:
+    """Floats a cp.async of the 3xTF32 kernel moves: 4, 2 or 1, the most
+    that divides d and to whose bytes every tensor's base is aligned (rows
+    d floats apart then start aligned too)."""
+    for vec in (4, 2):
+        if d % vec == 0 and all(t.data_ptr() % (4 * vec) == 0
+                                for t in tensors):
+            return vec
+    return 1
 
 
 def visible_keys(sq: int, skv: int, causal: bool, q_offset: int) -> int:
@@ -126,15 +148,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 part.data_ptr(), int(q.dtype == torch.bfloat16), bh, sq, skv,
                 kv_end, d, scale, int(causal), int(q_offset), n_split,
                 stream(dev))
+        elif kernel is FLASH_TF32:
+            status = lib.repro_flash_attention_tf32(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
+                sq, skv, d, copy_floats(d, q, k, v), scale, int(causal),
+                int(q_offset), stream(dev))
         elif kernel is FLASH_MMA:
             status = lib.repro_flash_attention_mma(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
                 sq, skv, d, scale, int(causal), int(q_offset), stream(dev))
         else:
             status = lib.repro_flash_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                int(q.dtype == torch.bfloat16), bh, sq, skv, d, scale,
-                int(causal), int(q_offset), stream(dev))
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
+                sq, skv, d, scale, int(causal), int(q_offset), stream(dev))
         build.check(status, f"{what} ({kernel.name})")
     kernel.launches += 1
     return out

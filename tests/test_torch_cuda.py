@@ -326,11 +326,24 @@ def test_flash_attention_kernel(cuda_device, dtype):
     cases += [(2, sq, skv, 64, True, skv - sq) for sq in (1, 7, 16)
               for skv in (1, 255, 3000)]
     cases += [(3, 16, 700, 128, False, 0), (1, 7, 300, 20, True, -3)]
+    # D 20 and 8 (in fp32, the 3xTF32 kernel's 24- and 8-wide padding);
+    # several 128-row q tiles, the first rows of the first tile seeing no
+    # key (that tile visits every key, the next ones stop at the diagonal,
+    # and their warps skip the tiles above their own rows); odd D
+    # (4-byte copies) and D 18 (8-byte copies)
+    cases += [(2, 100, 120, 20, True, 0), (3, 90, 90, 8, True, 0),
+              (2, 300, 320, 128, True, -20), (1, 520, 520, 64, True, 0),
+              (2, 150, 180, 13, True, 30), (1, 140, 70, 18, False, 0)]
     for bh, sq, skv, d, causal, off in cases:
         q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda_device)
                    .to(dtype) for s in (sq, skv, skv))
+        before = launch_counts()
         got = flash_attention.flash_attention(q, k, v, causal=causal,
                                               q_offset=off)
+        kernel = flash_attention.choose_kernel(sq, d, dtype)
+        assert _launched(before) == {kernel.name: 1}
+        if dtype == torch.float32 and sq > flash_attention.DECODE_MAX_SQ:
+            assert kernel is flash_attention.FLASH_TF32
         want = ref.flash_attention(q.float(), k.float(), v.float(),
                                    causal=causal, q_offset=off)
         assert got.dtype == dtype
@@ -343,15 +356,18 @@ def test_flash_attention_kernel(cuda_device, dtype):
 
 
 def test_flash_attention_takes_the_kernel_its_shape_calls_for(cuda_device):
-    """Each call launches exactly one of the three kernels: split-KV for
-    Sq <= 16, the tensor-core kernel for bf16 prefill with D % 8 == 0, the
-    SIMT kernel for the rest."""
+    """Each call launches exactly one of the four kernels: split-KV for
+    Sq <= 16, the 3xTF32 kernel for fp32 prefill at any D and alignment,
+    the bf16 tensor-core kernel for bf16 prefill with D % 8 == 0 and
+    aligned rows, the SIMT kernel for the rest of bf16."""
     shapes = [(1, torch.bfloat16, 64, "flash_attention_splitkv"),
               (16, torch.float32, 128, "flash_attention_splitkv"),
               (17, torch.bfloat16, 128, "flash_attention_mma"),
               (100, torch.bfloat16, 40, "flash_attention_mma"),
               (100, torch.bfloat16, 20, "flash_attention_simt"),
-              (100, torch.float32, 128, "flash_attention_simt")]
+              (100, torch.float32, 128, "flash_attention_tf32x3"),
+              (17, torch.float32, 20, "flash_attention_tf32x3"),
+              (100, torch.float32, 7, "flash_attention_tf32x3")]
     for sq, dtype, d, name in shapes:
         q, k, v = (torch.randn(2, s, d, device=cuda_device).to(dtype)
                    for s in (sq, 90, 90))
@@ -362,6 +378,26 @@ def test_flash_attention_takes_the_kernel_its_shape_calls_for(cuda_device):
                  if after[n] != before[n]}
         assert moved == {name: 1}, (sq, dtype, d, moved)
         assert flash_attention.choose_kernel(sq, d, dtype).name == name
+
+
+@pytest.mark.parametrize("shift", [1, 2])
+def test_flash_attention_tf32_on_unaligned_rows(cuda_device, shift):
+    """fp32 q, k, v starting 4 or 8 bytes past a 16-byte boundary: the
+    3xTF32 kernel takes 4- or 8-byte copies and stays within 2e-5."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    bh, sq, skv, d = 2, 150, 200, 64
+    tensors = []
+    for s in (sq, skv, skv):
+        flat = torch.randn(bh * s * d + shift, generator=g,
+                           device=cuda_device)
+        tensors.append(flat[shift:].view(bh, s, d))
+    q, k, v = tensors
+    assert flash_attention.copy_floats(d, q, k, v) == shift
+    before = launch_counts()
+    got = flash_attention.flash_attention(q, k, v, causal=True, q_offset=50)
+    assert _launched(before) == {"flash_attention_tf32x3": 1}
+    want = ref.flash_attention(q, k, v, causal=True, q_offset=50)
+    assert float((got - want).abs().max()) <= 2e-5
 
 
 def test_mamba_scan_kernel(cuda_device):

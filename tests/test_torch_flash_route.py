@@ -1,8 +1,10 @@
-"""The choice among the three ``flash_attention`` kernels, and plain-PyTorch
+"""The choice among the four ``flash_attention`` kernels, and plain-PyTorch
 emulations of two of their designs, on the CPU (no card, no nvcc).
 
-* ``choose_kernel`` picks split-KV for Sq <= 16, the tensor-core kernel for
-  bf16 prefill with D % 8 == 0 and aligned rows, the SIMT kernel otherwise.
+* ``choose_kernel`` picks split-KV for Sq <= 16, the 3xTF32 kernel for fp32
+  prefill at any D and alignment, the bf16 tensor-core kernel for bf16
+  prefill with D % 8 == 0 and aligned rows, the SIMT kernel for the rest
+  of bf16.  ``copy_floats`` gives the 3xTF32 kernel's copy width.
 * The tensor-core kernel splits P into bf16 halves for P V.  At BH 2,
   S 1024, D 128, rounding P once to bf16 (as SDPA does) puts outputs
   beyond the bf16 contract, one bf16 ulp + 2e-5 of the fp32 plain
@@ -31,13 +33,30 @@ BF16, F32 = torch.bfloat16, torch.float32
     (4096, 8, BF16, True, "flash_attention_mma"),
     (4096, 20, BF16, True, "flash_attention_simt"),
     (4096, 128, BF16, False, "flash_attention_simt"),
-    (4096, 128, F32, True, "flash_attention_simt"),
-    (17, 64, F32, True, "flash_attention_simt"),
+    (4096, 128, F32, True, "flash_attention_tf32x3"),
+    (17, 64, F32, True, "flash_attention_tf32x3"),
+    (4096, 20, F32, False, "flash_attention_tf32x3"),
+    (100, 7, F32, True, "flash_attention_tf32x3"),
 ])
 def test_choose_kernel_by_shape_and_dtype(sq, d, dtype, aligned, name):
     kernel = fa.choose_kernel(sq, d, dtype, aligned)
     assert kernel.name == name
     assert kernel.replaces == "src/repro/kernels/flash_attention.py:92"
+
+
+@pytest.mark.parametrize("d,shift,want", [
+    (128, 0, 4), (20, 0, 4), (18, 0, 2), (13, 0, 1), (64, 1, 1),
+    (64, 2, 2), (64, 4, 4),
+])
+def test_copy_floats_by_head_dim_and_alignment(d, shift, want):
+    """16-byte copies where D % 4 == 0 and the bases are 16-byte aligned,
+    else 8 or 4 bytes: a base ``shift`` floats past an aligned one."""
+    flat = torch.zeros(2 * 3 * d + 8)
+    base = flat.data_ptr() % 16 // 4  # floats past a 16-byte boundary
+    t = flat[(shift - base) % 4:][:2 * 3 * d].view(2, 3, d)
+    assert t.data_ptr() % 16 == 4 * shift % 16
+    assert fa.copy_floats(d, t, t, t) == want
+    assert fa.copy_floats(d, torch.zeros(2, 3, d), t) == want
 
 
 @pytest.mark.parametrize("sq,skv,causal,off,want", [
