@@ -9,9 +9,10 @@ Phases, each of which raises (and exits nonzero) on a failed check:
 2. kernels: hold each hand-written kernel against its plain PyTorch version
    on the card at the main path's shapes, and time the kernel, the plain
    version, and one PyTorch call that computes the same function; the
-   MM-Engine also with a transposed a (its tensor-core kernel) and a
-   strided a (its SIMT kernel), each checked to launch the kernel its
-   layout calls for; one whole Jacobi sweep in one call on each of the
+   MM-Engine also with a transposed a and a strided a (every other
+   feature: one element a copy), each checked to launch the tensor-core
+   kernel, the strided one with its sector floor beside its bound; one
+   whole Jacobi sweep in one call on each of the
    sweep's two kernels (the grid kernel at n = 784 in each angle mode and
    on a padded 32 x 256 x 256 batch, the shared-memory kernel on a padded
    32 x 128 x 128 batch), bitwise the plain round-by-round loop, with
@@ -30,22 +31,22 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    ``mamba_scan``) called with no ``backend=`` on CUDA tensors at full
    width: the DLE scan and the CORDIC unit on the main path's 784 x 784
    Gram, attention at olmo-1b's 16 heads x 128 over 4096 tokens (prefill
-   in bf16 and fp32, and one decode step in each), the selective scan at
-   falcon-mamba-7b's d_inner 8192 and N 16 over 4096 steps; and
-   ``mm_engine_matmul`` on a strided view (every other feature of the main
-   path's data, projected onto 32 directions), the layout that goes to
-   the SIMT MM-Engine.  Each op must resolve to ``cuda`` and launch its
-   kernel -- for the strided projection ``mm_engine_simt``, for attention
-   each call the one of its four kernels that its shape and dtype call
-   for (the bf16 tensor-core kernel for bf16 prefill, the 3xTF32 kernel
-   for fp32 prefill, split-KV for decode, and SIMT for a small bf16
-   prefill with head dim 20); each result is held against the plain
-   version, and kernel, plain version, bound and (for attention)
-   ``scaled_dot_product_attention`` are timed.
+   in bf16 and fp32, and one decode step in each) and a small bf16
+   prefill of head dim 20, the selective scan at falcon-mamba-7b's
+   d_inner 8192 and N 16 over 4096 steps; and ``mm_engine_matmul`` on a
+   strided view (every other feature of the main path's data, projected
+   onto 32 directions).  Each op must resolve to ``cuda`` and launch its
+   kernel -- for the strided projection ``mm_engine_matmul``, for
+   attention each call the one of its three kernels that its shape and
+   dtype call for (the bf16 tensor-core kernel for bf16 prefill at any
+   head dim, the 3xTF32 kernel for fp32 prefill, split-KV for decode);
+   each result is held against the plain version, and kernel, plain
+   version, bound and (for attention) ``scaled_dot_product_attention``
+   are timed.
 
 Each path is checked against the kernels it runs: phase 3 against the
 three PCA/SVD kernels, phase 4 against those and the shared-memory sweep,
-phase 5 against the eight kernels of its five ops.
+phase 5 against the seven kernels of its five ops.
 The last three lines are the kernels' JSON record (each kernel's launches
 from the phase that drives it), the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
@@ -87,7 +88,7 @@ CORDIC_RATE_K = 1 << 20              # pivots for the CORDIC unit's rate
 # sign multiplies, three adds) and ~20 float steps, counted at the fp32 rate
 CORDIC_OPS = 2 * 30 * 8 + 20
 FA_BH, FA_S, FA_D = 16, 4096, 128    # olmo-1b: 16 heads x 128; train_4k
-FA_S_D20, FA_D20 = 1024, 20          # a small bf16 prefill for the SIMT kernel
+FA_S_D20, FA_D20 = 1024, 20          # a small bf16 prefill: 8-byte copies
 MS_B, MS_L, MS_D, MS_N = 1, 4096, 2 * 4096, 16  # falcon-mamba-7b d_inner, N
 # the kernels each path runs
 PATH_KERNELS = ("covariance", "jacobi_sweep", "mm_engine_matmul")
@@ -98,15 +99,17 @@ OPS = ("dle_find_pivot", "cordic_rotate", "flash_attention", "mamba_scan",
        "mm_engine_matmul")
 OPS_KERNELS = ("dle_find_pivot", "cordic_rotate", "flash_attention_mma",
                "flash_attention_tf32x3", "flash_attention_splitkv",
-               "flash_attention_simt", "mamba_scan", "mm_engine_simt")
+               "mamba_scan", "mm_engine_matmul")
 # the kernel each attention call of the ops phase must launch, and the
-# row of the kernels' record that it fills
+# row of the kernels' record that it fills (under the prefix given: the
+# D 20 prefill adds its numbers to flash_attention_mma's row)
 FA_ROUTE = {"prefill_bf16": "flash_attention_mma",
             "prefill_fp32": "flash_attention_tf32x3",
-            "prefill_d20_bf16": "flash_attention_simt",
+            "prefill_d20_bf16": "flash_attention_mma",
             "decode_bf16": "flash_attention_splitkv",
             "decode_fp32": "flash_attention_splitkv"}
-FA_ROW = {"prefill_bf16", "prefill_fp32", "prefill_d20_bf16", "decode_bf16"}
+FA_ROW = {"prefill_bf16": "", "prefill_fp32": "", "prefill_d20_bf16": "d20_",
+          "decode_bf16": ""}
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
 # dense on the tensor cores, HBM3
 PEAK_FP32 = 67e12
@@ -178,6 +181,16 @@ def bound_ms(n_bytes: float, flops: float, peak_flops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def sector_bytes(t: torch.Tensor) -> int:
+    """Bytes of the 32-byte DRAM sectors that hold the elements of the 2-D
+    view ``t``."""
+    rows = torch.arange(t.shape[0], device=t.device)[:, None]
+    cols = torch.arange(t.shape[1], device=t.device)[None, :]
+    byte = (t.storage_offset() + rows * t.stride(0) + cols * t.stride(1)) \
+        * t.element_size()
+    return 32 * int(torch.unique(byte // 32).numel())
+
+
 def synthetic_dataset(m: int, n: int, seed: int) -> np.ndarray:
     """Decaying low-rank factors plus noise (the recipe of the benchmarks'
     synthetic stand-ins for the paper's datasets)."""
@@ -212,9 +225,10 @@ def flash_instance(entry: str):
 
 
 def gemm_instance(entry: str) -> str:
-    """A GEMM-tile instance by kernel, dtype, block tile (BM x BN x BK) and
-    each operand's contiguous dim, e.g. "mm fp32 64x32x32 a:k b:mn"; any
-    other kernel by its mangled name."""
+    """A GEMM-tile instance by kernel, dtype, block tile (BM x BN x BK),
+    each operand's copied dim and (mm) whether it reads the operands'
+    steps, e.g. "mm fp32 64x32x32 a:k b:mn" or "... a:k b:mn strided";
+    any other kernel by its mangled name."""
     if "gram_kernel" not in entry and "mm_kernel" not in entry:
         return entry
     kernel = "gram" if "gram_kernel" in entry else "mm"
@@ -223,9 +237,10 @@ def gemm_instance(entry: str) -> str:
     dims = re.findall(r"\d+", tile.group(1)) if tile else ["?"] * 3
     name = f"{kernel} {dtype} {'x'.join(dims[:3])}"
     if kernel == "mm":
-        a_mn, b_mn = (flag == "1" for flag in re.findall(r"Lb([01])E",
-                                                          entry)[-2:])
+        a_mn, b_mn, strided = (flag == "1" for flag in re.findall(
+            r"Lb([01])E", entry)[-3:])
         name += f" a:{'mn' if a_mn else 'k'} b:{'mn' if b_mn else 'k'}"
+        name += " strided" if strided else ""
     return name
 
 
@@ -290,6 +305,8 @@ def kernel_phase(dev, rows: dict) -> None:
                f" design_bound_ms {design[0]:.4f} ({design[1]})"))
         check(fro <= tol, f"{name}: kernel disagrees with its plain "
               f"version: {fro:.3e} > {tol:g}")
+        numbers = dict(max_abs_err=abs_err, ms=t_kernel, plain_ms=t_plain,
+                       library_ms=t_lib, bound_ms=b_ms, bound_by=b_by)
         if main:
             row = rows[name.split("[")[0]]
             row.update(max_abs_err=abs_err, ms=t_kernel, plain_ms=t_plain,
@@ -297,6 +314,7 @@ def kernel_phase(dev, rows: dict) -> None:
             if design is not None:
                 row.update(design_bound_ms=design[0],
                            design_bound_by=design[1])
+        return numbers
 
     # covariance at the main path's (70000, 784), fp32 and bf16, and a
     # batch; bounds at the fp32 CUDA-core rate (bf16: the bf16 tensor
@@ -433,9 +451,9 @@ def kernel_phase(dev, rows: dict) -> None:
 
     # mm_engine: the projection (70000, 784) @ (784, 32), the same with a
     # transposed a, the batched U = A V of the SVD, and a strided a (every
-    # other feature), which only the SIMT kernel reads; each call must
-    # launch the one kernel its layout calls for
-    def matmul(name, a, b, kernel, reps=20, main=False):
+    # other feature: one element a copy); each call must launch the
+    # tensor-core kernel once
+    def matmul(name, a, b, kernel="mm_engine_matmul", reps=20, main=False):
         before = launch_counts()
         got = mm_engine.mm_engine(a, b)
         after = launch_counts()
@@ -449,29 +467,35 @@ def kernel_phase(dev, rows: dict) -> None:
         batch = a.shape[0] if a.ndim == 3 else 1
         nbytes = (a.numel() + b.numel() + batch * m * n) * 4
         flops = 2 * batch * m * n * k
-        tensor = kernel == "mm_engine_matmul"
-        record(name, got, ref.mm_engine(a, b),
-               time_ms(lambda: mm_engine.mm_engine(a, b), reps),
-               time_ms(lambda: ref.mm_engine(a, b), reps),
-               time_ms(lambda: torch.matmul(a, b), reps),
-               bound_ms(nbytes, flops, PEAK_FP32), KERNEL_TOL, main=main,
-               design=bound_ms(nbytes, flops, PEAK_TF32 / TF32_PRODUCTS)
-               if tensor else None)
+        return record(name, got, ref.mm_engine(a, b),
+                      time_ms(lambda: mm_engine.mm_engine(a, b), reps),
+                      time_ms(lambda: ref.mm_engine(a, b), reps),
+                      time_ms(lambda: torch.matmul(a, b), reps),
+                      bound_ms(nbytes, flops, PEAK_FP32), KERNEL_TOL,
+                      main=main, design=bound_ms(
+                          nbytes, flops, PEAK_TF32 / TF32_PRODUCTS))
 
     a = randn(M, N)
     b = randn(N, K)
-    matmul(f"mm_engine_matmul[{M}x{N}@{N}x{K}]", a, b, "mm_engine_matmul",
-           main=True)
+    matmul(f"mm_engine_matmul[{M}x{N}@{N}x{K}]", a, b, main=True)
     at = randn(N, M).mT  # contiguous along m
-    matmul(f"mm_engine_matmul[({N}x{M}).mT@{N}x{K}]", at, b,
-           "mm_engine_matmul")
+    matmul(f"mm_engine_matmul[({N}x{M}).mT@{N}x{K}]", at, b)
     del at
     A = randn(BATCH, BM, BN)
     Vq = torch.linalg.qr(randn(BATCH, BN, BN))[0].contiguous()
-    matmul(f"mm_engine_matmul[{BATCH}x{BM}x{BN}@{BN}x{BN}]", A, Vq,
-           "mm_engine_matmul")
-    matmul(f"mm_engine_simt[{M}x{N}[:, ::2]@{N // 2}x{K}]", a[:, ::2],
-           b[::2], "mm_engine_simt", main=True)
+    matmul(f"mm_engine_matmul[{BATCH}x{BM}x{BN}@{BN}x{BN}]", A, Vq)
+    # the strided projection: its bound counts the view's bytes once; the
+    # 32-byte sectors that hold them carry every other float too, so DRAM
+    # moves the whole rows (the sector floor)
+    strided = matmul(f"mm_engine_matmul[{M}x{N}[:, ::2]@{N // 2}x{K}]",
+                     a[:, ::2], b[::2])
+    floor = (sector_bytes(a[:, ::2]) + (b[::2].numel() + M * K) * 4) \
+        / PEAK_BYTES * 1e3
+    log(f"kernel mm_engine_matmul[strided]: sector_floor_ms {floor:.4f} "
+        f"beside bound_ms {strided['bound_ms']:.4f} (the view's bytes once)")
+    rows["mm_engine_matmul"].update(
+        {f"strided_{k}": v for k, v in strided.items()},
+        strided_sector_floor_ms=floor)
 
 
 # -- phase 3: the main path -----------------------------------------------
@@ -695,7 +719,7 @@ def ops_phase(dev, rows: dict) -> dict:
         "decode_bf16": (q_dec16, *qkv16[1:], FA_S - 1),
         "decode_fp32": (q_dec32, *qkv32[1:], FA_S - 1)}
     # mm_engine_matmul on a strided view: every other feature of the main
-    # path's data onto 32 directions (no unit stride: the SIMT kernel)
+    # path's data onto 32 directions (no unit stride: one element a copy)
     Xg = torch.as_tensor(synthetic_dataset(M, N, SEED), device=dev)[:, ::2]
     W = randn(N // 2, K)
     # selective scan: the reference tests' distributions
@@ -743,10 +767,11 @@ def ops_phase(dev, rows: dict) -> dict:
         check(moved == {FA_ROUTE[name]: 1}, f"flash_attention[{name}] "
               f"launched {moved}, not one {FA_ROUTE[name]}")
     log(f"mm_engine_matmul[strided]: launched {json.dumps(mm_moved)}")
-    check(mm_moved == {"mm_engine_simt": 1}, f"mm_engine_matmul on a "
-          f"strided view launched {mm_moved}, not one mm_engine_simt")
+    check(mm_moved == {"mm_engine_matmul": 1}, f"mm_engine_matmul on a "
+          f"strided view launched {mm_moved}, not one mm_engine_matmul")
     for name in FLUSH_KERNELS:
-        check(counts[name] == 0, f"the ops phase launched {name}")
+        if name not in OPS_KERNELS:
+            check(counts[name] == 0, f"the ops phase launched {name}")
     err = errors(proj, ref.mm_engine(Xg, W))[2]
     log(f"mm_engine_matmul[strided {M}x{N // 2}@{N // 2}x{K}]: "
         f"rel_frobenius {err:.3e} (tol {KERNEL_TOL:g})")
@@ -756,14 +781,14 @@ def ops_phase(dev, rows: dict) -> dict:
         t for r in rot.values() for t in r] + list(att.values()) + [y, proj]
     check(all(t.is_cuda for t in outs), "an op returned a CPU tensor")
 
-    def row(name, err, t_k, t_p, t_l, bound, fn):
+    def row(name, err, t_k, t_p, t_l, bound, fn, prefix=""):
         t_dev = device_ms(fn, 10)
         log(f"{name}: device_ms per call "
             f"{'not measured' if t_dev is None else f'{t_dev:.4f}'} "
             f"(profiler), against {t_k:.4f} ms between back-to-back calls")
-        rows[name].update(max_abs_err=err, ms=t_k, plain_ms=t_p,
-                          library_ms=t_l, bound_ms=bound[0],
-                          bound_by=bound[1], device_ms=t_dev)
+        numbers = dict(max_abs_err=err, ms=t_k, plain_ms=t_p, library_ms=t_l,
+                       bound_ms=bound[0], bound_by=bound[1], device_ms=t_dev)
+        rows[name].update({prefix + k: v for k, v in numbers.items()})
 
     # dle_find_pivot: identical (value, flat index) to the plain scan
     for name, c in (("gram", gram), ("tie", tie), ("diag", diag)):
@@ -874,7 +899,7 @@ def ops_phase(dev, rows: dict) -> dict:
         if name in FA_ROW:
             row(FA_ROUTE[name], err, t_k, t_p, t_l, b,
                 lambda: fa.flash_attention(qq, *qkv[1:], causal=True,
-                                           q_offset=off))
+                                           q_offset=off), FA_ROW[name])
 
     # mamba_scan: within rtol = atol = 1e-4 (the reference's tolerance)
     want = ref.mamba_scan(*scan)
@@ -927,6 +952,8 @@ def main() -> int:
         regs = ptxas_report(build_log, source)
         log(f"{name} ptxas by head-dim padding: {json.dumps(regs)}")
         rows[name]["ptxas"] = regs.get(FA_D)
+        if name == "flash_attention_mma":  # the D 20 prefill's instance
+            rows[name]["d20_ptxas"] = regs.get(16 * -(-FA_D20 // 16))
     # the GEMM-tile instances; the rows keep the ones the main path runs
     for source, name, main_instance in (
             ("mm_engine.cu", "mm_engine_matmul", "mm fp32 64x32x32 a:k b:mn"),
@@ -934,6 +961,8 @@ def main() -> int:
         regs = ptxas_report(build_log, source, key=gemm_instance)
         log(f"{name} ptxas by instance: {json.dumps(regs)}")
         rows[name]["ptxas"] = regs.get(main_instance)
+        if name == "mm_engine_matmul":  # the strided projection's instance
+            rows[name]["strided_ptxas"] = regs.get(main_instance + " strided")
     regs = ptxas_report(build_log, "jacobi_sweep.cu", key=sweep_kernel)
     log(f"jacobi_sweep ptxas by kernel: {json.dumps(regs)}")
     for name in ("jacobi_sweep", "jacobi_sweep_smem"):

@@ -16,7 +16,8 @@ then one JSON line a tree.  CASES is one of:
 ``attention``
     ``flash_attention`` at olmo-1b's attention shape (BH 16, S 4096,
     D 128): causal prefill in bf16 and fp32, and decode of 1 and 16 query
-    rows past the prefix in bf16 and fp32.  Milliseconds a call, the
+    rows past the prefix in bf16 and fp32; and a causal bf16 prefill at
+    BH 16, S 1024, D 20 (``chip_smoke.py``'s small prefill).  Milliseconds a call, the
     kernel it launched, and the outputs beyond the contracts (bf16: one
     bf16 ulp + 2e-5 of the fp32 plain version; fp32: 2e-5), which must be
     0; for prefill also ``scaled_dot_product_attention``'s milliseconds on
@@ -24,10 +25,12 @@ then one JSON line a tree.  CASES is one of:
 
 ``gemm``
     The GEMM-tile kernels at the main path's shapes: the projection
-    (70000, 784) @ (784, 32), the batched U = A V 32 x (2048 x 256) @
-    (256 x 256), the Gram of 70000 x 784 in fp32 and bf16 and the Gram
-    batch 32 x 2048 x 256, each with one PyTorch call computing the same
-    function on the same inputs beside it (``torch.matmul`` with TF32 off;
+    (70000, 784) @ (784, 32), the strided projection (70000, 784)[:, ::2]
+    @ (392, 32) (every other feature), the batched U = A V 32 x
+    (2048 x 256) @ (256 x 256), the Gram of 70000 x 784 in fp32 and bf16
+    and the Gram batch 32 x 2048 x 256, each with the kernel it launched
+    and one PyTorch call computing the same function on the same inputs
+    beside it (``torch.matmul`` with TF32 off;
     for the bf16 Gram ``torch.mm(..., out_dtype=torch.float32)``), and
     each result's relative Frobenius distance from its plain version, which
     must stay within 1e-5.  Then the 70000 x 784 Gram, fp32 and bf16, at
@@ -55,6 +58,7 @@ import sys
 import time
 
 BH, S, D = 16, 4096, 128
+S_D20, D20 = 1024, 20
 M, N, K = 70000, 784, 32
 BATCH, BM, BN = 32, 2048, 256
 GRAM_BLOCKS_PER_SM = (2, 4, 8, 8, 4, 2)
@@ -91,8 +95,11 @@ def attention(tree: str) -> dict:
     qkv32 = [torch.randn(BH, S, D, generator=gen, device=dev)
              for _ in range(3)]
     qkv16 = [t.bfloat16() for t in qkv32]
+    qkv_d20 = [torch.randn(BH, S_D20, D20, generator=gen, device=dev)
+               .bfloat16() for _ in range(3)]
     cases = {"prefill_bf16": (qkv16[0], qkv16[1:], 0, 50),
-             "prefill_fp32": (qkv32[0], qkv32[1:], 0, 20)}
+             "prefill_fp32": (qkv32[0], qkv32[1:], 0, 20),
+             "prefill_d20_bf16": (qkv_d20[0], qkv_d20[1:], 0, 200)}
     for sq in (1, 16):
         for name, qkv in (("bf16", qkv16), ("fp32", qkv32)):
             q = qkv[0][:, S - sq:].contiguous()
@@ -125,7 +132,7 @@ def attention(tree: str) -> dict:
 
 def gemm(tree: str) -> dict:
     import torch
-    from repro_torch.kernels import fused, mm_engine, ref
+    from repro_torch.kernels import fused, launch_counts, mm_engine, ref
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -145,6 +152,9 @@ def gemm(tree: str) -> dict:
     cases = {
         "projection": (mm_engine.mm_engine, ref.mm_engine, torch.matmul,
                        (x, randn(N, K)), 20),
+        "projection_strided": (mm_engine.mm_engine, ref.mm_engine,
+                               torch.matmul, (x[:, ::2], randn(N // 2, K)),
+                               20),
         "u_av": (mm_engine.mm_engine, ref.mm_engine, torch.matmul,
                  (xb, randn(BATCH, BN, BN)), 20),
         "gram_fp32": (fused.fused_covariance, ref.covariance_gram, gram,
@@ -156,8 +166,12 @@ def gemm(tree: str) -> dict:
     }
     out = {"tree": tree}
     for name, (kernel, plain, library, args, reps) in cases.items():
+        before = launch_counts()
+        got = kernel(*args)
         out[name] = {
-            "rel_frobenius": rel_frobenius(kernel(*args), plain(*args)),
+            "kernel": [k for k, c in launch_counts().items()
+                       if c != before[k]],
+            "rel_frobenius": rel_frobenius(got, plain(*args)),
             "ms": time_ms(lambda: kernel(*args), reps),
             "library_ms": time_ms(lambda: library(*args), reps)}
     rule = fused.COV_BLOCKS_PER_SM

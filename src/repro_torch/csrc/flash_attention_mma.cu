@@ -1,8 +1,8 @@
 // Forward attention in bf16 on the tensor cores: q (BH, Sq, D), k/v
 // (BH, Skv, D) of bf16 -> out (BH, Sq, D) in bf16; fp32 scores, row max m,
-// row sum l and accumulator; D % 8 == 0, D <= 128.  The wrapper sends
-// bf16 prefill (Sq > 16) here; fp32 and other D go to flash_attention.cu,
-// Sq <= 16 to flash_decode.cu.
+// row sum l and accumulator; any D <= 128, any base alignment.  The
+// wrapper sends every bf16 prefill (Sq > 16) here; fp32 prefill goes to
+// flash_attention_tf32.cu, Sq <= 16 to flash_decode.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (body _flash_kernel) for bf16 prefill.  FA2-style: one block of four
@@ -11,13 +11,17 @@
 // stream past:
 //
 //   * Q is copied once into shared memory; K and V tiles go through a
-//     two-stage ring, filled with cp.async.cg 16-byte copies while the
-//     previous tile is computed.  A row is D rounded up to 16, plus 8
-//     bf16 of padding: its stride is an odd multiple of 16 bytes, so the
-//     eight rows an ldmatrix reads hit all 32 banks once.  Rows past Sq or
-//     Skv and the 8 columns past D (when D % 16 == 8) are zero-filled by
-//     the copy itself (source size 0); nothing is padded in device memory,
-//     and zero columns add exactly zero to Q K^T.
+//     two-stage ring, filled with cp.async copies while the previous tile
+//     is computed.  A copy moves `vec` bf16: 8, 4 or 2 (16, 8 or 4 bytes),
+//     the most that divides D and to which every base is aligned (the
+//     wrapper's copy_elems; rows are D and batches Sq D or Skv D elements
+//     apart, so dividing D is enough), or one element copied synchronously.
+//     A row in shared memory is D rounded up to 16 (DP), plus 8 bf16 of
+//     padding: its stride is an odd multiple of 16 bytes, so the eight rows
+//     an ldmatrix reads hit all 32 banks once.  Rows past Sq or Skv and
+//     the columns in [D, DP) are zero-filled by the copies themselves
+//     (source size 0; vec divides D, so no copy straddles D); nothing is
+//     padded in device memory, and zero columns add exactly zero to Q K^T.
 //   * S = Q K^T is mma.sync m16n8k16 with bf16 operands and fp32 sums
 //     (bf16 products are exact in fp32; only the order of the sums differs
 //     from the plain version).  Scale, mask, row max, exp2, row sum and the
@@ -29,6 +33,9 @@
 //     2^-9 / sqrt(Skv) on outputs of about 1 / sqrt(Skv), which break the
 //     contract of one bf16 ulp + 2e-5 against the fp32 plain version; the
 //     split keeps about 16 bits of P.
+//   * The output is stored a column pair at a time where vec >= 2 (D even
+//     and out 4-byte aligned), else an element at a time; nothing past D
+//     is written.
 //
 // Masking follows the dense oracle (kernels/ref.py::flash_attention): a
 // causal score above the diagonal is -1e30 (a row that sees no key gets
@@ -40,11 +47,13 @@
 // Bound: causal prefill at BH 16, S 4096, D 128 is 4 BH D S (S + 1) / 2 =
 // 68.7 GFLOP, 0.0695 ms at the 989 TFLOP/s bf16 dense rate.  This kernel
 // issues 1.5x those multiply-adds (the P split doubles P V) on mma.sync,
-// which reaches part of the wgmma rate; wgmma with TMA is later work.
+// which reaches part of the wgmma rate; wgmma with TMA is later work.  At
+// D 20 (padded to 32) the work is 0.67 GFLOP and the bytes 2.6 MB: a
+// small call whose time is mostly launch and the K/V walk's latency.
 #include <math.h>
 #include <stdint.h>
 
-#include "common.cuh"
+#include "gemm_tile.cuh"
 
 namespace {
 
@@ -66,25 +75,12 @@ constexpr size_t smem_bytes() {
   return sizeof(bf16) * row_stride(DP) * (BQ + 2 * STAGES * BK);
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, or 16 zero bytes when !live
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool live) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(live ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using repro::gemm::copy_rows;
+using repro::gemm::cp_async_commit;
+using repro::gemm::cp_async_wait;
+using repro::gemm::row_copy;
+using repro::gemm::RowCopy;
+using repro::gemm::smem_addr;
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t a) {
   asm volatile(
@@ -136,32 +132,12 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-// rows r0 .. r0 + 63 of a (n_rows, d) bf16 matrix into a 64-row tile;
-// rows past n_rows and columns past d become zeros
-template <int DP>
-__device__ __forceinline__ void load_tile(bf16* s, const bf16* g, int r0,
-                                          int n_rows, int d) {
-  constexpr int CH = DP / 8;  // 16-byte chunks per row (even)
-  constexpr int STRIDE = row_stride(DP);
-  static_assert(BQ == 64 && BK == 64 && 64 * CH % THREADS == 0,
-                "whole chunks per thread");
-#pragma unroll
-  for (int i = 0; i < 64 * CH / THREADS; ++i) {
-    const int e = threadIdx.x + i * THREADS;
-    const int r = e / CH;
-    const int c = e % CH;
-    const bool live = r0 + r < n_rows && c * 8 < d;
-    const bf16* src = live ? g + static_cast<size_t>(r0 + r) * d + c * 8 : g;
-    cp_async16(smem_addr(s + r * STRIDE + c * 8), src, live);
-  }
-}
-
 template <int DP>
 __global__ void __launch_bounds__(THREADS, 2)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out, int sq,
-                 int skv, int d, float scale_log2, int causal,
-                 int q_offset) {
+                 int skv, int d, int vec, float scale_log2,
+                 int causal, int q_offset) {
   constexpr int STRIDE = row_stride(DP);
   constexpr int KSTEPS = DP / 16;  // 16-wide steps over the head dim
   constexpr int NT = DP / 8;       // 8-wide output column tiles
@@ -190,9 +166,11 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   const int n_tiles = (kv_end + BK - 1) / BK;
 
-  load_tile<DP>(Qs, qb, q0, sq, d);
-  load_tile<DP>(Ks, kb, 0, skv, d);
-  load_tile<DP>(Vs, vb, 0, skv, d);
+  // each 64-row tile: vec bf16 a copy, zeros past Sq / Skv and from d on
+  const RowCopy plan = row_copy<bf16, THREADS>(DP, d, vec);
+  copy_rows<BQ, STRIDE>(Qs, qb, q0, sq, d, plan);
+  copy_rows<BK, STRIDE>(Ks, kb, 0, skv, d, plan);
+  copy_rows<BK, STRIDE>(Vs, vb, 0, skv, d, plan);
   cp_async_commit();
 
   float acc[NT][4];
@@ -213,8 +191,10 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int stage = j % STAGES;
     if (j + 1 < n_tiles) {  // the next tile streams in while this one runs
       const int next = (j + 1) % STAGES;
-      load_tile<DP>(Ks + next * BK * STRIDE, kb, (j + 1) * BK, skv, d);
-      load_tile<DP>(Vs + next * BK * STRIDE, vb, (j + 1) * BK, skv, d);
+      copy_rows<BK, STRIDE>(Ks + next * BK * STRIDE, kb, (j + 1) * BK, skv,
+                            d, plan);
+      copy_rows<BK, STRIDE>(Vs + next * BK * STRIDE, vb, (j + 1) * BK, skv,
+                            d, plan);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -306,55 +286,66 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();  // this stage is refilled by the next iteration
   }
 
+  // column pairs where vec >= 2 (d even, out 4-byte aligned), else single
+  // elements; nothing at or past d is written
   bf16* ob = out + static_cast<size_t>(bh) * sq * d;
+  const bool pairs = vec >= 2;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + 8 * r;
     if (row >= sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    bf16* orow = ob + static_cast<size_t>(row) * d;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int col = n * 8 + 2 * t;
-      if (col < d)
-        *reinterpret_cast<__nv_bfloat162*>(
-            ob + static_cast<size_t>(row) * d + col) =
-            __floats2bfloat162_rn(acc[n][2 * r] / denom,
-                                  acc[n][2 * r + 1] / denom);
+      const float o0 = acc[n][2 * r] / denom;
+      const float o1 = acc[n][2 * r + 1] / denom;
+      if (pairs) {
+        if (col < d)
+          *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+              __floats2bfloat162_rn(o0, o1);
+      } else {
+        if (col < d) orow[col] = __float2bfloat16_rn(o0);
+        if (col + 1 < d) orow[col + 1] = __float2bfloat16_rn(o1);
+      }
     }
   }
 }
 
 template <int DP>
 int launch(const void* q, const void* k, const void* v, void* out, int bh,
-           int sq, int skv, int d, float scale, int causal, int q_offset,
-           cudaStream_t s) {
+           int sq, int skv, int d, int vec, float scale, int causal,
+           int q_offset, cudaStream_t s) {
   constexpr size_t bytes = smem_bytes<DP>();
   const int err = repro::allow_smem(flash_mma_kernel<DP>, bytes);
   if (err) return err;
   const dim3 grid((sq + BQ - 1) / BQ, bh);
   flash_mma_kernel<DP><<<grid, THREADS, bytes, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(out), sq, skv, d,
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), sq, skv, d, vec,
       scale * kLog2e, causal, q_offset);
   return repro::launch_status();
 }
 
 }  // namespace
 
-// q (bh, sq, d), k / v (bh, skv, d), out (bh, sq, d); all bf16,
-// contiguous and 16-byte aligned; d % 8 == 0, 8 <= d <= 128.
+// q (bh, sq, d), k / v (bh, skv, d), out (bh, sq, d); all bf16 and
+// contiguous, 1 <= d <= 128; vec = bf16 a copy (8, 4, 2 or 1), which d
+// and the alignment of q, k, v and out must allow.
 extern "C" int repro_flash_attention_mma(const void* q, const void* k,
                                          const void* v, void* out, int bh,
-                                         int sq, int skv, int d, float scale,
-                                         int causal, int q_offset,
-                                         void* stream) {
+                                         int sq, int skv, int d, int vec,
+                                         float scale, int causal,
+                                         int q_offset, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % 8 != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if ((vec != 1 && vec != 2 && vec != 4 && vec != 8) || d % vec != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch ((d + 15) / 16) {
 #define REPRO_FA_MMA_CASE(KC)                                               \
   case KC:                                                                  \
-    return launch<16 * KC>(q, k, v, out, bh, sq, skv, d, scale, causal,     \
-                           q_offset, s);
+    return launch<16 * KC>(q, k, v, out, bh, sq, skv, d, vec, scale,       \
+                           causal, q_offset, s);
     REPRO_FA_MMA_CASE(1)
     REPRO_FA_MMA_CASE(2)
     REPRO_FA_MMA_CASE(3)

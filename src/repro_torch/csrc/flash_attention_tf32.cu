@@ -1,9 +1,8 @@
 // Forward attention in fp32 on the tensor cores: q (BH, Sq, D), k/v
 // (BH, Skv, D) of fp32 -> out (BH, Sq, D) in fp32; fp32 scores, row max m,
 // row sum l and accumulator; D <= 128.  The wrapper sends fp32 prefill
-// (Sq > 16) here; bf16 prefill goes to flash_attention_mma.cu (or, for
-// D % 8 != 0 and unaligned rows, flash_attention.cu), Sq <= 16 to
-// flash_decode.cu.
+// (Sq > 16) here; bf16 prefill goes to flash_attention_mma.cu, Sq <= 16
+// to flash_decode.cu.
 //
 // Replaces the TPU kernel repro/kernels/flash_attention.py::flash_attention
 // (body _flash_kernel) for fp32 prefill.  FA2-style: one block of eight
@@ -72,10 +71,12 @@
 namespace {
 
 using repro::gemm::add_step;
-using repro::gemm::copy_chunk;
+using repro::gemm::copy_rows;
 using repro::gemm::cp_async_commit;
 using repro::gemm::cp_async_wait;
 using repro::gemm::mma_tf32;
+using repro::gemm::row_copy;
+using repro::gemm::RowCopy;
 using repro::gemm::split_tf32;
 
 constexpr int BQ = 128;      // q rows per block
@@ -104,40 +105,6 @@ constexpr size_t smem_bytes() {
 
 __device__ __forceinline__ float2 ld2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
-}
-
-// A thread's share of a tile copy: one column chunk of `vec` floats, in
-// every r_step-th row from r0 (threads past r_step * chunks copy nothing)
-struct CopyPlan {
-  int r0, r_step, col, bytes, live_bytes;
-  bool active;
-};
-
-__device__ __forceinline__ CopyPlan copy_plan(int dp, int d, int vec) {
-  const int chunks = dp / vec;  // <= 128 <= THREADS
-  CopyPlan p;
-  p.r_step = THREADS / chunks;
-  p.active = threadIdx.x < p.r_step * chunks;
-  p.r0 = threadIdx.x / chunks;
-  p.col = threadIdx.x % chunks * vec;
-  p.bytes = vec * static_cast<int>(sizeof(float));
-  p.live_bytes = max(0, min(vec, d - p.col)) * static_cast<int>(sizeof(float));
-  return p;
-}
-
-// rows r_first .. r_first + ROWS - 1 of a (n_rows, d) matrix into a tile;
-// rows past n_rows and columns past d become zeros
-template <int ROWS, int STRIDE>
-__device__ __forceinline__ void load_tile(float* s, const float* g,
-                                          int r_first, int n_rows, int d,
-                                          const CopyPlan& p) {
-  if (!p.active) return;
-  for (int r = p.r0; r < ROWS; r += p.r_step) {
-    const int gr = r_first + r;
-    const int live = gr < n_rows ? p.live_bytes : 0;
-    const float* src = live ? g + static_cast<size_t>(gr) * d + p.col : g;
-    copy_chunk(s + r * STRIDE + p.col, src, p.bytes, live);
-  }
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -217,13 +184,13 @@ flash_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       static_cast<long long>(q0) + warp * 16 + q_offset;
 
   // cp.async groups: Q with tile 0, then one tile a group
-  const CopyPlan plan = copy_plan(DP, d, vec);
+  const RowCopy plan = row_copy<float, THREADS>(DP, d, vec);
   auto load_kv = [&](int tile) {
     const int stage = tile % STAGES;
-    load_tile<BK, QKS>(Ks + stage * BK * QKS, kb, tile * BK, skv, d, plan);
-    load_tile<BK, VS>(Vs + stage * BK * VS, vb, tile * BK, skv, d, plan);
+    copy_rows<BK, QKS>(Ks + stage * BK * QKS, kb, tile * BK, skv, d, plan);
+    copy_rows<BK, VS>(Vs + stage * BK * VS, vb, tile * BK, skv, d, plan);
   };
-  load_tile<BQ, QKS>(Qs, qb, q0, sq, d, plan);
+  copy_rows<BQ, QKS>(Qs, qb, q0, sq, d, plan);
 #pragma unroll
   for (int j = 0; j < STAGES - 1; ++j) {
     if (j < n_tiles) load_kv(j);

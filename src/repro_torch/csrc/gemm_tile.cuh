@@ -1,19 +1,25 @@
 // The block-tile GEMM mainloop shared by the MM-Engine (mm_engine.cu) and
 // the Gram kernel (covariance.cu): acc[BM x BN] += A[m0.., k] B[k, n0..]
-// over a range of k, with fp32 accumulators in registers.
+// over a range of k, with fp32 accumulators in registers.  The copies
+// (copy_chunk, the cp.async groups, the row copy of row_copy / copy_rows)
+// and the tf32 split also serve the flash prefill kernels.
 //
 // Operands.  Each operand is an (extent x k) panel, A along m and B along
-// n, stored in device memory with unit stride along one of its two dims:
-//   KMAJOR = false  contiguous along k: element (mn, kk) at base[mn*ld + kk]
-//   KMAJOR = true   contiguous along mn: element (mn, kk) at base[kk*ld + mn]
+// n, stored in device memory; copies run along one of its two dims, the
+// copied dim, `step` elements apart along it (1 for a dense operand):
+//   KMAJOR = false  copied along k: element (mn, kk) at base[mn*ld + kk*step]
+//   KMAJOR = true   copied along mn: element (mn, kk) at base[kk*ld + mn*step]
 // (a row-major A is the first, a row-major B or either Gram operand, the
 // rows of X, the second).  Tiles go through a STAGES-deep cp.async ring in
 // shared memory, `vec` elements a copy: 16, 8 or 4 bytes as the base, the
 // leading stride and the batch stride allow (bf16 may take single 2-byte
-// elements, copied synchronously).  A copy that runs past the ragged edge
-// reads only its live bytes and the rest is zero-filled (source size), so
-// nothing is padded or copied in device memory and dead rows and columns
-// add exactly zero.
+// elements, copied synchronously).  An operand with step != 1 (a strided
+// view, or 0 for an expanded one) takes one element a copy: a 4-byte
+// cp.async for fp32, a synchronous element for bf16.  Only instances with
+// STRIDED = true read `step`; the others address base + row*ld + col.  A copy that runs
+// past the ragged edge reads only its live bytes and the rest is
+// zero-filled (source size), so nothing is padded or copied in device
+// memory and dead rows and columns add exactly zero.
 //
 // fp32 operands: mma.sync m16n8k8 with tf32 operands and fp32 sums, each
 // fragment value x split in registers into hi = x rounded to tf32 (as
@@ -67,7 +73,9 @@ struct Operand {
   long long ld;   // elements between stored rows
   int extent;     // live rows along m (A) or n (B)
   int mn0;        // the block's first row along m or n
-  int vec;        // elements a copy: 16, 8 or 4 bytes, or one bf16
+  int vec;        // elements a copy: 16, 8 or 4 bytes, or one element
+  long long step = 1;  // elements between neighbours along the copied dim
+                       // (read where STRIDED; vec is 1 where it is not 1)
 };
 
 constexpr int ilog2(int x) { return x <= 1 ? 0 : 1 + ilog2(x / 2); }
@@ -119,6 +127,43 @@ __device__ __forceinline__ void copy_chunk(void* dst, const void* src,
   }
 }
 
+// A thread's share of copying rows of a (n_rows, d) matrix into shared
+// memory rows `cols` wide (d rounded up), `vec` elements a copy with vec
+// dividing d (the flash kernels' tiles): one column chunk, in every
+// r_step-th row from r0; threads past r_step * chunks copy nothing.
+struct RowCopy {
+  int r0, r_step, col, bytes, live_bytes;
+  bool active;
+};
+
+template <typename T, int THREADS>
+__device__ __forceinline__ RowCopy row_copy(int cols, int d, int vec) {
+  const int chunks = cols / vec;  // at most THREADS
+  RowCopy p;
+  p.r_step = THREADS / chunks;
+  p.active = threadIdx.x < p.r_step * chunks;
+  p.r0 = threadIdx.x / chunks;
+  p.col = threadIdx.x % chunks * vec;
+  p.bytes = vec * static_cast<int>(sizeof(T));
+  p.live_bytes = p.col < d ? p.bytes : 0;  // no copy straddles d
+  return p;
+}
+
+// rows r_first .. r_first + ROWS - 1 of a (n_rows, d) matrix into rows
+// STRIDE elements apart; rows past n_rows and columns past d become zeros
+template <int ROWS, int STRIDE, typename T>
+__device__ __forceinline__ void copy_rows(T* s, const T* g, int r_first,
+                                          int n_rows, int d,
+                                          const RowCopy& p) {
+  if (!p.active) return;
+  for (int r = p.r0; r < ROWS; r += p.r_step) {
+    const int gr = r_first + r;
+    const int live = gr < n_rows ? p.live_bytes : 0;
+    const T* src = live ? g + static_cast<size_t>(gr) * d + p.col : g;
+    copy_chunk(s + r * STRIDE + p.col, src, p.bytes, live);
+  }
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -132,7 +177,8 @@ __device__ __forceinline__ void cp_async_wait() {
 // mn0 + MN - 1, dead elements (past extent or k_end) zero-filled.  A row
 // has at most THREADS copies, so each thread keeps one column and steps
 // down the rows.
-template <typename T, bool KMAJOR, int MN, int BK, int THREADS>
+template <typename T, bool KMAJOR, int MN, int BK, int THREADS,
+          bool STRIDED = false>
 __device__ __forceinline__ void load_panel(T* s, const Operand<T>& op,
                                            int k0, int k_end) {
   using P = Panel<T, KMAJOR, MN, BK>;
@@ -149,7 +195,11 @@ __device__ __forceinline__ void load_panel(T* s, const Operand<T>& op,
       max(0, min(op.vec, col_end - gcol)) * static_cast<int>(sizeof(T));
   const int row_end = KMAJOR ? k_end : op.extent;
   int grow = (KMAJOR ? k0 : op.mn0) + r0;
-  const T* src = op.base + static_cast<long long>(grow) * op.ld + gcol;
+  const T* src = op.base + static_cast<long long>(grow) * op.ld;
+  if constexpr (STRIDED)
+    src += gcol * op.step;
+  else
+    src += gcol;
   const long long src_step = static_cast<long long>(r_step) * op.ld;
   for (int r = r0; r < P::ROWS; r += r_step) {
     const int live = grow < row_end ? col_live : 0;
@@ -322,7 +372,9 @@ __device__ __forceinline__ void compute_stage(
 // for this block's tile.  smem holds smem_bytes<T, Cfg, ...>() bytes.
 // acc[mt][nt][e] is element (wm0 + mt*16 + g + 8*(e/2),
 // wn0 + nt*8 + 2*t + e%2) of the tile, with wm0, wn0 from warp_origin.
-template <typename T, class Cfg, bool A_KMAJOR, bool B_KMAJOR>
+// STRIDED reads each operand's step (the MM-Engine's strided layouts).
+template <typename T, class Cfg, bool A_KMAJOR, bool B_KMAJOR,
+          bool STRIDED = false>
 __device__ __forceinline__ void mainloop(float (&acc)[Cfg::MT][Cfg::NT][4],
                                          const Operand<T>& a,
                                          const Operand<T>& b, int k_begin,
@@ -345,9 +397,9 @@ __device__ __forceinline__ void mainloop(float (&acc)[Cfg::MT][Cfg::NT][4],
   auto load = [&](int tile) {
     const int stage = tile % Cfg::STAGES;
     const int k0 = k_begin + tile * Cfg::BK;
-    load_panel<T, A_KMAJOR, Cfg::BM, Cfg::BK, Cfg::THREADS>(
+    load_panel<T, A_KMAJOR, Cfg::BM, Cfg::BK, Cfg::THREADS, STRIDED>(
         sa + stage * PA::ELEMS, a, k0, k_end);
-    load_panel<T, B_KMAJOR, Cfg::BN, Cfg::BK, Cfg::THREADS>(
+    load_panel<T, B_KMAJOR, Cfg::BN, Cfg::BK, Cfg::THREADS, STRIDED>(
         sb + stage * PB::ELEMS, b, k0, k_end);
   };
 #pragma unroll

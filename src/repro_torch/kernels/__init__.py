@@ -5,7 +5,7 @@ PyTorch versions (``ref``) and the registry-dispatched ops over both
 (``ops``).
 
 ``KERNELS`` lists every kernel with its launch count (two kernels serve
-``jacobi_sweep``, two ``mm_engine_matmul`` and four ``flash_attention``); nothing here builds
+``jacobi_sweep`` and three ``flash_attention``); nothing here builds
 or loads a kernel until a wrapper is called on a CUDA tensor.
 """
 from .cordic import CORDIC

@@ -42,16 +42,12 @@ SIGNATURES = {
     "repro_jacobi_sweep": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _I, _I, _I, _P],
     "repro_jacobi_sweep_limits": [_I, _I, _P, _P, _P],
-    "repro_mm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _I, _I, _L, _L,
-                 _I, _I, _P],
-    "repro_mm_simt": [_P, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _L, _L,
-                      _L, _P],
+    "repro_mm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I, _L,
+                 _L, _L, _I, _I, _P],
     "repro_dle_scan": [_P, _P, _P, _P, _P, _I, _I, _P],
     "repro_cordic": [_P, _P, _P, _P, _P, _P, _I, _P],
-    "repro_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I, _I,
-                              _P],
-    "repro_flash_attention_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _I,
-                                  _I, _P],
+    "repro_flash_attention_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                                  _I, _I, _P],
     "repro_flash_attention_tf32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                    _I, _I, _P],
     "repro_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,

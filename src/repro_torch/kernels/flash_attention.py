@@ -4,7 +4,7 @@
 ``repro/kernels/flash_attention.py::flash_attention`` (``pallas_call`` at
 :92): online-softmax attention for q (BH, Sq, D) and k/v (BH, Skv, D) of
 fp32 or bf16, with fp32 m, l and accumulator, the causal mask offset by
-``q_offset`` (a masked score is -1e30) and the output in q's dtype.  Four
+``q_offset`` (a masked score is -1e30) and the output in q's dtype.  Three
 hand-written kernels serve the op; ``choose_kernel`` picks one from the
 shape and dtype before any launch, and nothing falls back after one:
 
@@ -13,10 +13,12 @@ shape and dtype before any launch, and nothing falls back after one:
   rows against every K/V row it loads, and a second launch that merges the
   splits in a fixed order.  Bound by bytes (K and V read once).
 * ``flash_attention_mma`` (``csrc/flash_attention_mma.cu``), bf16 prefill
-  with D % 8 == 0: mma.sync on the tensor cores fed by ldmatrix from a
-  cp.async ring, with P split into two bf16 halves for P V so that the
-  result keeps fp32 accuracy.  Bound by operations: 68.7 GFLOP for causal
-  BH 16, S 4096, D 128, 0.0695 ms at 989 TFLOP/s bf16.
+  at every D <= 128 and alignment: mma.sync on the tensor cores fed by
+  ldmatrix from a cp.async ring of 16-, 8- or 4-byte copies (or single
+  elements) as D and the bases' alignment allow (``copy_elems``), with P
+  split into two bf16 halves for P V so that the result keeps fp32
+  accuracy.  Bound by operations: 68.7 GFLOP for causal BH 16, S 4096,
+  D 128, 0.0695 ms at 989 TFLOP/s bf16.
 * ``flash_attention_tf32x3`` (``csrc/flash_attention_tf32.cu``), fp32
   prefill at every D <= 128: mma.sync on the tensor cores with each fp32
   operand split into tf32 hi and lo and three products (hi hi + hi lo +
@@ -25,9 +27,6 @@ shape and dtype before any launch, and nothing falls back after one:
   alignment allow (``copy_floats``).  Bound by operations: 68.7 GFLOP for
   causal BH 16, S 4096, D 128, 1.026 ms at 67 TFLOP/s fp32, 0.416 ms for
   the three tf32 products at 495 TFLOP/s.
-* ``flash_attention_simt`` (``csrc/flash_attention.cu``), bf16 prefill with
-  D % 8 != 0 or rows not 16-byte aligned: one block per (bh, 64-row q
-  tile), fp32 FMAs on the CUDA cores.
 
 Keys are masked by the true Skv, as in the dense oracle, so nothing is
 padded (the TPU wrapper pads K/V and relies on the causal mask, which lets
@@ -49,45 +48,50 @@ from .launch import KernelInfo, require, require_cuda, stream
 
 _TPU = "src/repro/kernels/flash_attention.py:92"
 _CSRC = "src/repro_torch/csrc/"
-FLASH_SIMT = KernelInfo("flash_attention_simt", _CSRC + "flash_attention.cu",
-                        _TPU)
 FLASH_MMA = KernelInfo("flash_attention_mma",
                        _CSRC + "flash_attention_mma.cu", _TPU)
 FLASH_TF32 = KernelInfo("flash_attention_tf32x3",
                         _CSRC + "flash_attention_tf32.cu", _TPU)
 FLASH_SPLITKV = KernelInfo("flash_attention_splitkv",
                            _CSRC + "flash_decode.cu", _TPU)
-FLASH_KERNELS = (FLASH_MMA, FLASH_TF32, FLASH_SPLITKV, FLASH_SIMT)
+FLASH_KERNELS = (FLASH_MMA, FLASH_TF32, FLASH_SPLITKV)
 
 MAX_HEAD_DIM = 128
 DECODE_MAX_SQ = 16  # query rows of one split-KV launch
 SPLIT_KEYS = 256    # keys a block of csrc/flash_decode.cu covers
 
 
-def choose_kernel(sq: int, d: int, dtype: torch.dtype,
-                  aligned: bool = True) -> KernelInfo:
-    """The kernel that serves a CUDA call with Sq query rows of head dim d:
-    split-KV for Sq <= 16, the 3xTF32 kernel for fp32 prefill, the bf16
-    tensor-core kernel for bf16 prefill with D % 8 == 0 and 16-byte aligned
-    q, k, v and out (``aligned``), the SIMT kernel for the rest of bf16."""
+def choose_kernel(sq: int, dtype: torch.dtype) -> KernelInfo:
+    """The kernel that serves a CUDA call with Sq query rows: split-KV for
+    Sq <= 16, the 3xTF32 kernel for fp32 prefill, the bf16 tensor-core
+    kernel for bf16 prefill (every head dim and alignment)."""
     if sq <= DECODE_MAX_SQ:
         return FLASH_SPLITKV
-    if dtype == torch.float32:
-        return FLASH_TF32
-    if d % 8 == 0 and aligned:
-        return FLASH_MMA
-    return FLASH_SIMT
+    return FLASH_TF32 if dtype == torch.float32 else FLASH_MMA
 
 
-def copy_floats(d: int, *tensors: torch.Tensor) -> int:
-    """Floats a cp.async of the 3xTF32 kernel moves: 4, 2 or 1, the most
-    that divides d and to whose bytes every tensor's base is aligned (rows
-    d floats apart then start aligned too)."""
-    for vec in (4, 2):
-        if d % vec == 0 and all(t.data_ptr() % (4 * vec) == 0
+def _copy_width(d: int, elem_bytes: int, widths, tensors) -> int:
+    """The first of ``widths`` (elements a copy) that divides d and to
+    whose bytes every tensor's base is aligned (rows d elements apart then
+    start aligned too); 1 if none."""
+    for vec in widths:
+        if d % vec == 0 and all(t.data_ptr() % (elem_bytes * vec) == 0
                                 for t in tensors):
             return vec
     return 1
+
+
+def copy_floats(d: int, *tensors: torch.Tensor) -> int:
+    """Floats a cp.async of the 3xTF32 kernel moves: 4, 2 or 1."""
+    return _copy_width(d, 4, (4, 2), tensors)
+
+
+def copy_elems(d: int, *tensors: torch.Tensor) -> int:
+    """bf16 elements a copy of the bf16 tensor-core kernel moves: 8, 4 or
+    2 (a 16-, 8- or 4-byte cp.async), or 1 (one element, copied
+    synchronously).  Given ``out`` too, it also says whether the output
+    can be stored in pairs (any width >= 2)."""
+    return _copy_width(d, 2, (8, 4, 2), tensors)
 
 
 def visible_keys(sq: int, skv: int, causal: bool, q_offset: int) -> int:
@@ -134,8 +138,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:  # an empty grid is no launch
         return out
-    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v, out))
-    kernel = choose_kernel(sq, d, q.dtype, aligned)
+    kernel = choose_kernel(sq, q.dtype)
     lib = build.library()
     with torch.cuda.device(dev):
         if kernel is FLASH_SPLITKV:
@@ -153,14 +156,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
                 sq, skv, d, copy_floats(d, q, k, v), scale, int(causal),
                 int(q_offset), stream(dev))
-        elif kernel is FLASH_MMA:
+        else:
             status = lib.repro_flash_attention_mma(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
-                sq, skv, d, scale, int(causal), int(q_offset), stream(dev))
-        else:
-            status = lib.repro_flash_attention(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh,
-                sq, skv, d, scale, int(causal), int(q_offset), stream(dev))
+                sq, skv, d, copy_elems(d, q, k, v, out), scale, int(causal),
+                int(q_offset), stream(dev))
         build.check(status, f"{what} ({kernel.name})")
     kernel.launches += 1
     return out

@@ -27,8 +27,9 @@ import torch
 
 from repro_torch.core import pca as tpca
 from repro_torch.core.jacobi import cyclic_pairs, round_robin_rounds
-from repro_torch.kernels import (cordic, dle, flash_attention, fused,
-                                 launch_counts, mamba_scan, mm_engine, ref)
+from repro_torch.kernels import (build, cordic, dle, flash_attention, fused,
+                                 launch, launch_counts, mamba_scan, mm_engine,
+                                 ref)
 
 from _torch_parity import (assert_contract, bf16_ulp,  # noqa: F401
                            cuda_device, data, sym)
@@ -236,9 +237,21 @@ def _layouts(dev, dtype):
         ("batch stride 0", rnd(64, 48).expand(3, 64, 48), rnd(3, 48, 40),
          "mm_engine_matmul"),
         ("general stride", rnd(300, 128)[:, ::2], rnd(64, 32),
-         "mm_engine_simt"),
+         "mm_engine_matmul"),
         ("general stride in b", rnd(300, 64), rnd(128, 66)[::2, ::2],
-         "mm_engine_simt"),
+         "mm_engine_matmul"),
+        ("rows and columns strided", rnd(301, 128)[::3, ::2], rnd(64, 70),
+         "mm_engine_matmul"),
+        ("a strided along m", rnd(64, 390)[::2, ::3].mT, rnd(32, 20),
+         "mm_engine_matmul"),
+        ("expanded b, step 0", rnd(300, 64), rnd(64, 2)[:, :1].expand(64, 40),
+         "mm_engine_matmul"),
+        ("expanded b, unit stride", rnd(300, 64), rnd(1, 40).expand(64, 40),
+         "mm_engine_matmul"),
+        ("batched strided a", rnd(3, 130, 128)[:, :, ::2], rnd(64, 33),
+         "mm_engine_matmul"),
+        ("batched strided b", rnd(3, 130, 64), rnd(3, 128, 66)[:, ::2, ::2],
+         "mm_engine_matmul"),
     ]
 
 
@@ -315,9 +328,8 @@ def test_flash_attention_kernel(cuda_device, dtype):
     cases = [(3, 100, 100, 40, True, 0), (2, 64, 150, 128, False, 0),
              (2, 5, 77, 64, True, 72), (2, 1, 300, 128, True, 299),
              (1, 70, 90, 16, True, -10)]
-    # Sq and Skv not multiples of 64; D 40, 64, 128 (the tensor-core kernel
-    # in bf16) and 20 (the SIMT kernel in bf16); non-causal over a ragged
-    # Skv; q_offset < 0
+    # Sq and Skv not multiples of 64; D 40, 64, 128 and 20 (8-byte copies
+    # in bf16); non-causal over a ragged Skv; q_offset < 0
     cases += [(2, 130, 333, 64, True, 203), (2, 70, 190, 40, True, 120),
               (1, 129, 129, 128, True, 0), (2, 90, 100, 20, True, 10),
               (1, 200, 77, 128, False, 0), (2, 80, 200, 64, True, -30),
@@ -340,7 +352,7 @@ def test_flash_attention_kernel(cuda_device, dtype):
         before = launch_counts()
         got = flash_attention.flash_attention(q, k, v, causal=causal,
                                               q_offset=off)
-        kernel = flash_attention.choose_kernel(sq, d, dtype)
+        kernel = flash_attention.choose_kernel(sq, dtype)
         assert _launched(before) == {kernel.name: 1}
         if dtype == torch.float32 and sq > flash_attention.DECODE_MAX_SQ:
             assert kernel is flash_attention.FLASH_TF32
@@ -356,15 +368,15 @@ def test_flash_attention_kernel(cuda_device, dtype):
 
 
 def test_flash_attention_takes_the_kernel_its_shape_calls_for(cuda_device):
-    """Each call launches exactly one of the four kernels: split-KV for
-    Sq <= 16, the 3xTF32 kernel for fp32 prefill at any D and alignment,
-    the bf16 tensor-core kernel for bf16 prefill with D % 8 == 0 and
-    aligned rows, the SIMT kernel for the rest of bf16."""
+    """Each call launches exactly one of the three kernels: split-KV for
+    Sq <= 16, the 3xTF32 kernel for fp32 prefill and the bf16 tensor-core
+    kernel for bf16 prefill, both at any D and alignment."""
     shapes = [(1, torch.bfloat16, 64, "flash_attention_splitkv"),
               (16, torch.float32, 128, "flash_attention_splitkv"),
               (17, torch.bfloat16, 128, "flash_attention_mma"),
               (100, torch.bfloat16, 40, "flash_attention_mma"),
-              (100, torch.bfloat16, 20, "flash_attention_simt"),
+              (100, torch.bfloat16, 20, "flash_attention_mma"),
+              (100, torch.bfloat16, 7, "flash_attention_mma"),
               (100, torch.float32, 128, "flash_attention_tf32x3"),
               (17, torch.float32, 20, "flash_attention_tf32x3"),
               (100, torch.float32, 7, "flash_attention_tf32x3")]
@@ -377,7 +389,7 @@ def test_flash_attention_takes_the_kernel_its_shape_calls_for(cuda_device):
         moved = {n: after[n] - before[n] for n in after
                  if after[n] != before[n]}
         assert moved == {name: 1}, (sq, dtype, d, moved)
-        assert flash_attention.choose_kernel(sq, d, dtype).name == name
+        assert flash_attention.choose_kernel(sq, dtype).name == name
 
 
 @pytest.mark.parametrize("shift", [1, 2])
@@ -398,6 +410,78 @@ def test_flash_attention_tf32_on_unaligned_rows(cuda_device, shift):
     assert _launched(before) == {"flash_attention_tf32x3": 1}
     want = ref.flash_attention(q, k, v, causal=True, q_offset=50)
     assert float((got - want).abs().max()) <= 2e-5
+
+
+def _bf16_at(dev, shape, shift, g):
+    """A random bf16 tensor of ``shape`` starting ``shift`` elements past
+    a 16-byte boundary."""
+    n = int(np.prod(shape))
+    flat = torch.randn(n + 8, generator=g, device=dev).bfloat16()
+    base = flat.data_ptr() % 16 // 2
+    t = flat[(shift - base) % 8:][:n].view(shape)
+    assert t.data_ptr() % 16 == 2 * shift % 16
+    return t
+
+
+def _within_bf16_contract(got, want32):
+    g = got.float()
+    slack = bf16_ulp(torch.maximum(g.abs(), want32.abs())) + 2e-5
+    return bool(((g - want32).abs() <= slack).all())
+
+
+@pytest.mark.parametrize("d", [1, 2, 7, 19, 20, 36, 100, 127, 128])
+def test_flash_attention_bf16_any_head_dim_and_alignment(cuda_device, d):
+    """bf16 prefill on the tensor-core kernel at head dims that take 16-,
+    8-, 4-byte and single-element copies, with q, k and v starting 0, 1, 2
+    or 4 elements past a 16-byte boundary; causal and not, Sq and Skv not
+    multiples of 64, and q_offset beyond Skv - Sq (rows see padded keys
+    in the TPU wrapper, none here).  One launch each, within one bf16 ulp
+    + 2e-5 of the fp32 plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    cases = [(2, 70, 150, True, 100), (1, 130, 90, True, 0),
+             (2, 65, 65, False, 0), (1, 100, 40, True, -20)]
+    for shift in (0, 1, 2, 4):
+        for bh, sq, skv, causal, off in cases:
+            q, k, v = (_bf16_at(cuda_device, (bh, s, d), shift, g)
+                       for s in (sq, skv, skv))
+            vec = flash_attention.copy_elems(d, q, k, v)
+            assert d % vec == 0 and q.data_ptr() % (2 * vec) == 0
+            before = launch_counts()
+            got = flash_attention.flash_attention(q, k, v, causal=causal,
+                                                  q_offset=off)
+            assert _launched(before) == {"flash_attention_mma": 1}
+            want = ref.flash_attention(q.float(), k.float(), v.float(),
+                                       causal=causal, q_offset=off)
+            assert _within_bf16_contract(got, want), (d, shift, sq, skv,
+                                                      causal, off)
+
+
+@pytest.mark.parametrize("d", [7, 19, 20])
+def test_flash_attention_bf16_store_stays_inside_out(cuda_device, d):
+    """The kernel's entry called on an ``out`` that starts one element
+    into a buffer filled with a sentinel (so out is 2-byte aligned only,
+    and the store takes single elements): the sentinel before and after
+    out stays, and out equals the wrapper's result (whose out is aligned)
+    bitwise.  At odd D a pair store past a row would land in the next."""
+    g = torch.Generator(device=cuda_device).manual_seed(d)
+    bh, sq, skv = 2, 70, 90
+    q, k, v = (torch.randn(bh, s, d, generator=g, device=cuda_device)
+               .bfloat16() for s in (sq, skv, skv))
+    want = flash_attention.flash_attention(q, k, v, causal=True)
+    sentinel = -7.0
+    buf = torch.full((bh * sq * d + 16,), sentinel, dtype=torch.bfloat16,
+                     device=cuda_device)
+    out = buf[1:1 + bh * sq * d].view(bh, sq, d)
+    vec = flash_attention.copy_elems(d, q, k, v, out)
+    assert vec == 1
+    status = build.library().repro_flash_attention_mma(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
+        skv, d, vec, d ** -0.5, 1, 0, launch.stream(cuda_device))
+    build.check(status, "flash_attention_mma")
+    torch.cuda.synchronize()
+    assert float(buf[0]) == sentinel
+    assert bool((buf[1 + bh * sq * d:] == sentinel).all())
+    assert torch.equal(out, want)
 
 
 def test_mamba_scan_kernel(cuda_device):

@@ -18,9 +18,12 @@ no nvcc).
   70000-row Gram 7.8e-5 from its plain version); a k step summed from zero
   and added to the sum with a rounded fp32 add (``add_step``) stays near
   fp32.
-* ``mm_engine.choose_kernel`` routes each layout the port's paths produce,
-  with the copy width it picks; only an operand with no unit stride in its
-  last two dims goes to the SIMT kernel.  The Gram kernel's copy width
+* ``mm_engine.choose_kernel`` routes every layout to the tensor-core
+  kernel, with the copied dim, the copy width and the element step it
+  picks: an operand with no unit stride in its last two dims is copied
+  one element a copy along its smaller stride (0 for an expanded one).
+  The kernel's address formula, base + row * ld + col * step, rebuilds
+  each operand from its flat storage.  The Gram kernel's copy width
   follows the base and the row length.
 """
 import numpy as np
@@ -164,36 +167,52 @@ def _randn(*shape, dtype=torch.float32):
 
 
 F32, BF16 = torch.float32, torch.bfloat16
-# (name, a, b, narrow, a's (contiguous, ld, copy bytes), b's); None for the
-# SIMT route
+# (name, a, b, narrow, a's (contiguous, ld, copy bytes, step), b's)
 ROUTES = [
     ("contiguous projection", lambda: _randn(100, 784),
-     lambda: _randn(784, 32), True, ("k", 784, 16), ("mn", 32, 16)),
+     lambda: _randn(784, 32), True, ("k", 784, 16, 1), ("mn", 32, 16, 1)),
     ("a.mT (unfused Gram)", lambda: _randn(784, 100).mT,
-     lambda: _randn(784, 40), False, ("mn", 100, 16), ("mn", 40, 16)),
+     lambda: _randn(784, 40), False, ("mn", 100, 16, 1), ("mn", 40, 16, 1)),
     ("J.mT, batched", lambda: _randn(3, 64, 64).mT,
-     lambda: _randn(3, 64, 64), False, ("mn", 64, 16), ("mn", 64, 16)),
+     lambda: _randn(3, 64, 64), False, ("mn", 64, 16, 1), ("mn", 64, 16, 1)),
     ("column slice components[:, :k]", lambda: _randn(50, 784),
-     lambda: _randn(784, 784)[:, :32], True, ("k", 784, 16),
-     ("mn", 784, 16)),
+     lambda: _randn(784, 784)[:, :32], True, ("k", 784, 16, 1),
+     ("mn", 784, 16, 1)),
     ("odd leading strides", lambda: _randn(100, 70),
-     lambda: _randn(70, 33), False, ("k", 70, 8), ("mn", 33, 4)),
+     lambda: _randn(70, 33), False, ("k", 70, 8, 1), ("mn", 33, 4, 1)),
     ("b.mT, contiguous along k", lambda: _randn(64, 48),
-     lambda: _randn(32, 48).mT, True, ("k", 48, 16), ("k", 48, 16)),
+     lambda: _randn(32, 48).mT, True, ("k", 48, 16, 1), ("k", 48, 16, 1)),
     ("offset view", lambda: _randn(100 * 64 + 2)[2:].view(100, 64),
-     lambda: _randn(64 * 20 + 1)[1:].view(64, 20), True, ("k", 64, 8),
-     ("mn", 20, 4)),
+     lambda: _randn(64 * 20 + 1)[1:].view(64, 20), True, ("k", 64, 8, 1),
+     ("mn", 20, 4, 1)),
     ("batch stride 0", lambda: _randn(64, 48).expand(3, 64, 48),
-     lambda: _randn(3, 48, 40), False, ("k", 48, 16), ("mn", 40, 16)),
+     lambda: _randn(3, 48, 40), False, ("k", 48, 16, 1), ("mn", 40, 16, 1)),
     ("bf16, odd n", lambda: _randn(100, 64, dtype=BF16),
-     lambda: _randn(64, 33, dtype=BF16), False, ("k", 64, 16),
-     ("mn", 33, 2)),
+     lambda: _randn(64, 33, dtype=BF16), False, ("k", 64, 16, 1),
+     ("mn", 33, 2, 1)),
     ("bf16, n of 4", lambda: _randn(100, 70, dtype=BF16),
-     lambda: _randn(70, 4, dtype=BF16), True, ("k", 70, 4), ("mn", 4, 8)),
+     lambda: _randn(70, 4, dtype=BF16), True, ("k", 70, 4, 1),
+     ("mn", 4, 8, 1)),
     ("general stride", lambda: _randn(100, 128)[:, ::2],
-     lambda: _randn(64, 32), None, None, None),
+     lambda: _randn(64, 32), True, ("k", 128, 4, 2), ("mn", 32, 16, 1)),
     ("general stride in b", lambda: _randn(100, 64),
-     lambda: _randn(128, 64)[::2, ::2], None, None, None),
+     lambda: _randn(128, 64)[::2, ::2], True, ("k", 64, 16, 1),
+     ("mn", 128, 4, 2)),
+    ("rows and columns strided", lambda: _randn(300, 128)[::3, ::2],
+     lambda: _randn(64, 40), False, ("k", 384, 4, 2), ("mn", 40, 16, 1)),
+    ("a strided along m", lambda: _randn(64, 200)[::2, ::3].mT,
+     lambda: _randn(32, 20), True, ("mn", 400, 4, 3), ("mn", 20, 16, 1)),
+    ("expanded b, step 0", lambda: _randn(100, 64),
+     lambda: _randn(64, 2)[:, :1].expand(64, 40), False, ("k", 64, 16, 1),
+     ("mn", 2, 4, 0)),
+    ("expanded b, unit stride along k", lambda: _randn(100, 64),
+     lambda: _randn(64, 1).expand(64, 40), False, ("k", 64, 16, 1),
+     ("k", 0, 16, 1)),
+    ("bf16 strided a", lambda: _randn(100, 128, dtype=BF16)[:, ::2],
+     lambda: _randn(64, 32, dtype=BF16), True, ("k", 128, 2, 2),
+     ("mn", 32, 16, 1)),
+    ("batched strided a", lambda: _randn(3, 100, 128)[:, :, ::2],
+     lambda: _randn(64, 32), True, ("k", 128, 4, 2), ("mn", 32, 16, 1)),
 ]
 
 
@@ -203,19 +222,51 @@ def test_choose_kernel_routes_each_layout(name, make_a, make_b, narrow, la,
                                           lb):
     a, b = make_a(), make_b()
     route = mm_engine.choose_kernel(a, b)
-    if narrow is None:
-        assert route.kernel is mm_engine.MM_SIMT
-        assert route.kernel.name == "mm_engine_simt"
-        return
     assert route.kernel is mm_engine.MM_ENGINE
+    assert route.kernel.name == "mm_engine_matmul"
     assert route.narrow == narrow
     for got, want in ((route.a, la), (route.b, lb)):
-        assert (got.contiguous, got.ld, got.copy_bytes) == want
-    # the plain version on the CPU computes what either kernel does
+        assert (got.contiguous, got.ld, got.copy_bytes, got.step) == want
+        if got.step != 1:  # one element a copy
+            assert got.copy_bytes == a.element_size()
+    # the plain version on the CPU computes what the kernel does
     torch.testing.assert_close(mm_engine.mm_engine(a, b),
                                (a.double() @ b.double()).to(a.dtype),
                                rtol=1e-2 if a.dtype == BF16 else 1e-5,
                                atol=1e-2 if a.dtype == BF16 else 1e-4)
+
+
+def _rebuild(t: torch.Tensor, layout, inner: int) -> torch.Tensor:
+    """Operand ``t`` read from its flat storage at the kernel's addresses:
+    element (mn, kk) of batch z at base + z * batch_stride +
+    mn * ld + kk * step when copies run along k, kk * ld + mn * step when
+    they run along mn (mn is a's row or b's column)."""
+    es = t.element_size()
+    flat = torch.empty(0, dtype=t.dtype).set_(
+        t.untyped_storage(), 0, (t.untyped_storage().nbytes() // es,), (1,))
+    rows, cols = t.shape[-2:]
+    mn_size, k_size = (rows, cols) if inner == -1 else (cols, rows)
+    batch = t.shape[0] if t.ndim == 3 else 1
+    z = torch.arange(batch)[:, None, None]
+    mn = torch.arange(mn_size)[None, :, None]
+    kk = torch.arange(k_size)[None, None, :]
+    if layout.contiguous == "k":
+        off = mn * layout.ld + kk * layout.step
+    else:
+        off = kk * layout.ld + mn * layout.step
+    got = flat[t.storage_offset() + z * layout.batch_stride + off]
+    return got if inner == -1 else got.mT  # back to b's (k, n)
+
+
+@pytest.mark.parametrize("name,make_a,make_b,narrow,la,lb", ROUTES,
+                         ids=[r[0] for r in ROUTES])
+def test_layout_addresses_rebuild_each_operand(name, make_a, make_b, narrow,
+                                               la, lb):
+    a, b = make_a(), make_b()
+    route = mm_engine.choose_kernel(a, b)
+    for t, layout, inner in ((a, route.a, -1), (b, route.b, -2)):
+        want = t if t.ndim == 3 else t[None]
+        assert torch.equal(_rebuild(t, layout, inner), want), name
 
 
 def test_batch_strides_take_part_in_the_copy_width():
