@@ -33,7 +33,8 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    Gram, attention at olmo-1b's 16 heads x 128 over 4096 tokens (prefill
    in bf16 and fp32, and one decode step in each) and a small bf16
    prefill of head dim 20, the selective scan at falcon-mamba-7b's
-   d_inner 8192 and N 16 over 4096 steps; and ``mm_engine_matmul`` on a
+   d_inner 8192 and N 16 over 4096 steps (in fp32 and in bf16); and
+   ``mm_engine_matmul`` on a
    strided view (every other feature of the main path's data, projected
    onto 32 directions).  Each op must resolve to ``cuda`` and launch its
    kernel -- for the strided projection ``mm_engine_matmul``, for
@@ -111,13 +112,15 @@ FA_ROUTE = {"prefill_bf16": "flash_attention_mma",
 FA_ROW = {"prefill_bf16": "", "prefill_fp32": "", "prefill_d20_bf16": "d20_",
           "decode_bf16": ""}
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
-# dense on the tensor cores, HBM3
+# dense on the tensor cores, HBM3; the SFU's exponentials a clock an SM
+# (CUDA C++ Programming Guide, arithmetic instructions, compute 9.0)
 PEAK_FP32 = 67e12
 PEAK_BF16 = 989e12
 PEAK_TF32 = 495e12
 # the tensor-core GEMM tile does three tf32 products for each fp32 one
 TF32_PRODUCTS = 3
 PEAK_BYTES = 3.35e12
+SFU_PER_CLOCK = 16
 # kernel vs plain version on the card: both sum in fp32, in another order
 # (cuBLAS vs the kernel's tiles), over up to 70000 terms; held to the fp32
 # covariance budget, relative Frobenius
@@ -214,6 +217,25 @@ def nvidia_smi() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def sm_clock_hz() -> float:
+    """The card's top SM clock, as ``nvidia-smi`` reports it."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
+
+
+def scan_instance(entry: str) -> str:
+    """A mamba_scan.cu instance by dtype and copy widths, e.g. "fp32
+    wide"; any other kernel by its mangled name."""
+    inst = re.search(r"scan_kernelI(f|13__nv_bfloat16)Lb([01])E", entry)
+    if not inst:
+        return entry
+    dtype = "fp32" if inst.group(1) == "f" else "bf16"
+    return f"{dtype} {'wide' if inst.group(2) == '1' else 'any'}"
 
 
 def flash_instance(entry: str):
@@ -726,6 +748,8 @@ def ops_phase(dev, rows: dict) -> dict:
     scan = (randn(MS_B, MS_L, MS_D), rand(MS_B, MS_L, MS_D) * 0.19 + 0.01,
             -(rand(MS_D, MS_N) * 1.5 + 0.5), randn(MS_B, MS_L, MS_N),
             randn(MS_B, MS_L, MS_N), randn(MS_D))
+    # the same in bf16 (u, delta, B, C; A and D_skip stay fp32)
+    scan16 = tuple(t.bfloat16() if t.ndim == 3 else t for t in scan)
 
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -742,7 +766,13 @@ def ops_phase(dev, rows: dict) -> dict:
         att_moved[name] = {k: c - before[k]
                            for k, c in launch_counts().items()
                            if c != before[k]}
-    y = ops.mamba_scan(*scan)
+    ys, scan_moved = {}, {}
+    for name, args in (("fp32", scan), ("bf16", scan16)):
+        before = launch_counts()
+        ys[name] = ops.mamba_scan(*args)
+        scan_moved[name] = {k: c - before[k]
+                            for k, c in launch_counts().items()
+                            if c != before[k]}
     before = launch_counts()
     proj = ops.mm_engine_matmul(Xg, W)
     mm_moved = {k: c - before[k] for k, c in launch_counts().items()
@@ -766,6 +796,10 @@ def ops_phase(dev, rows: dict) -> dict:
         log(f"flash_attention[{name}]: launched {json.dumps(moved)}")
         check(moved == {FA_ROUTE[name]: 1}, f"flash_attention[{name}] "
               f"launched {moved}, not one {FA_ROUTE[name]}")
+    for name, moved in scan_moved.items():
+        log(f"mamba_scan[{name}]: launched {json.dumps(moved)}")
+        check(moved == {"mamba_scan": 1}, f"mamba_scan[{name}] launched "
+              f"{moved}, not one mamba_scan")
     log(f"mm_engine_matmul[strided]: launched {json.dumps(mm_moved)}")
     check(mm_moved == {"mm_engine_matmul": 1}, f"mm_engine_matmul on a "
           f"strided view launched {mm_moved}, not one mm_engine_matmul")
@@ -778,7 +812,8 @@ def ops_phase(dev, rows: dict) -> dict:
     check(err <= KERNEL_TOL, "mm_engine_matmul on a strided view: kernel "
           "disagrees with its plain version")
     outs = [t for pv in piv.values() for t in pv] + [
-        t for r in rot.values() for t in r] + list(att.values()) + [y, proj]
+        t for r in rot.values() for t in r] + list(att.values()) + [
+        *ys.values(), proj]
     check(all(t.is_cuda for t in outs), "an op returned a CPU tensor")
 
     def row(name, err, t_k, t_p, t_l, bound, fn, prefix=""):
@@ -901,23 +936,53 @@ def ops_phase(dev, rows: dict) -> dict:
                 lambda: fa.flash_attention(qq, *qkv[1:], causal=True,
                                            q_offset=off), FA_ROW[name])
 
-    # mamba_scan: within rtol = atol = 1e-4 (the reference's tolerance)
-    want = ref.mamba_scan(*scan)
-    err = float((y - want).abs().max())
-    close = bool(((y - want).abs() <= 1e-4 + 1e-4 * want.abs()).all())
-    t_k = time_ms(lambda: ms.mamba_scan(*scan), 5)
-    t_p = time_ms(lambda: ref.mamba_scan(*scan), 1, warmup=0)
+    # mamba_scan: fp32 within rtol = atol = 1e-4 (the reference's
+    # tolerance); bf16 within one bf16 ulp + 1e-4 of the plain version's
+    # fp32 result on the same bf16 inputs.  The bound: u, dt and y once,
+    # and N exponentials a (b, t, d) on the SFU (16 a clock an SM at the
+    # card's top SM clock) beside the other arithmetic at the fp32 rate
     bld = MS_B * MS_L * MS_D
-    b = bound_ms(4 * (3 * bld + 2 * MS_B * MS_L * MS_N + MS_D * MS_N + MS_D),
-                 bld * (7 * MS_N + 3), PEAK_FP32)
-    log(f"mamba_scan[{MS_B}x{MS_L}x{MS_D} N={MS_N}]: max_abs_err {err:.3e} "
-        f"(rtol = atol = 1e-4: {close}) kernel_ms {t_k:.4f} plain_ms "
-        f"{t_p:.4f} library_ms null (PyTorch has no selective-scan call) "
-        f"bound_ms {b[0]:.4f} ({b[1]}; {bld * MS_N:.3g} exp besides)")
-    check(torch.isfinite(y).all().item() and close,
-          "mamba_scan: kernel disagrees with its plain version")
-    row("mamba_scan", err, t_k, t_p, None, b,
-        lambda: ms.mamba_scan(*scan))
+    sfu_rate = SFU_PER_CLOCK * torch.cuda.get_device_properties(
+        dev).multi_processor_count * sm_clock_hz()
+    t_sfu = bld * MS_N / sfu_rate * 1e3
+    for name, args in (("fp32", scan), ("bf16", scan16)):
+        out = ys[name]
+        prefix = "" if name == "fp32" else "bf16_"
+        es = out.element_size()
+        want = ref.mamba_scan(*(t.float() for t in args))
+        err = float((out.float() - want).abs().max())
+        if name == "fp32":
+            close = bool(((out - want).abs() <= 1e-4 + 1e-4 * want.abs())
+                         .all())
+            rule = "rtol = atol = 1e-4"
+        else:
+            slack = bf16_ulp(torch.maximum(out.float().abs(), want.abs())) \
+                + 1e-4
+            close = bool(((out.float() - want).abs() <= slack).all())
+            rule = "one bf16 ulp + 1e-4 of the fp32 plain version"
+        t_k = time_ms(lambda: ms.mamba_scan(*args), 20)
+        t_p = time_ms(lambda: ref.mamba_scan(*args), 1, warmup=0)
+        n_bytes = es * (3 * bld + 2 * MS_B * MS_L * MS_N) \
+            + 4 * (MS_D * MS_N + MS_D)
+        t_bytes = n_bytes / PEAK_BYTES * 1e3
+        t_ops = bld * (7 * MS_N + 3) / PEAK_FP32 * 1e3
+        b = max((t_bytes, "bytes"), (t_sfu, "operations"),
+                (t_ops, "operations"))
+        what = ("bytes" if b[0] == t_bytes else "the SFU's exponentials"
+                if b[0] == t_sfu else "fp32 arithmetic")
+        log(f"mamba_scan[{name} {MS_B}x{MS_L}x{MS_D} N={MS_N}]: max_abs_err "
+            f"{err:.3e} ({rule}: {close}) kernel_ms {t_k:.4f} plain_ms "
+            f"{t_p:.4f} library_ms null (PyTorch has no selective-scan "
+            f"call) bound_ms {b[0]:.4f}, bound by {what} (bytes "
+            f"{t_bytes:.4f}, {bld * MS_N:.3g} exponentials on the SFU "
+            f"{t_sfu:.4f} at {sfu_rate / 1e12:.3f} T/s, fp32 arithmetic "
+            f"{t_ops:.4f})")
+        check(torch.isfinite(out.float()).all().item() and close,
+              f"mamba_scan[{name}]: kernel disagrees with its plain version")
+        row("mamba_scan", err, t_k, t_p, None, b,
+            lambda: ms.mamba_scan(*args), prefix)
+        rows["mamba_scan"].update({prefix + "bound_bytes_ms": t_bytes,
+                                   prefix + "bound_sfu_ms": t_sfu})
     return {"wall_s": wall, "launches": counts}
 
 
@@ -963,6 +1028,10 @@ def main() -> int:
         rows[name]["ptxas"] = regs.get(main_instance)
         if name == "mm_engine_matmul":  # the strided projection's instance
             rows[name]["strided_ptxas"] = regs.get(main_instance + " strided")
+    regs = ptxas_report(build_log, "mamba_scan.cu", key=scan_instance)
+    log(f"mamba_scan ptxas by instance: {json.dumps(regs)}")
+    rows["mamba_scan"]["ptxas"] = regs.get("fp32 wide")
+    rows["mamba_scan"]["bf16_ptxas"] = regs.get("bf16 wide")
     regs = ptxas_report(build_log, "jacobi_sweep.cu", key=sweep_kernel)
     log(f"jacobi_sweep ptxas by kernel: {json.dumps(regs)}")
     for name in ("jacobi_sweep", "jacobi_sweep_smem"):

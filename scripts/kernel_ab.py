@@ -40,6 +40,14 @@ then one JSON line a tree.  CASES is one of:
     data and configuration, 50 sweeps), on the host clock after a
     one-sweep warm-up.
 
+``scan``
+    ``mamba_scan`` at falcon-mamba-7b's d_inner 8192, N 16, over 4096
+    steps (batch 1) in fp32 and bf16, and in fp32 at d_inner 2048 (a
+    quarter of the card's channels).  Milliseconds a call, the kernel it
+    launched, and the outputs beyond the contracts (fp32: rtol = atol =
+    1e-4 of the plain version; bf16: one bf16 ulp + 1e-4 of the plain
+    version's fp32 result on the same bf16 inputs), which must be 0.
+
 ``jacobi``
     One Jacobi sweep through ``core.jacobi._sweep_scan`` with the fused
     ``cuda`` backend (the Rutishauser angle, the parallel pivot's n - 1
@@ -62,6 +70,7 @@ S_D20, D20 = 1024, 20
 M, N, K = 70000, 784, 32
 BATCH, BM, BN = 32, 2048, 256
 GRAM_BLOCKS_PER_SM = (2, 4, 8, 8, 4, 2)
+SCAN_L, SCAN_D, SCAN_N = 4096, 8192, 16  # falcon-mamba-7b, one sequence
 
 
 def time_ms(fn, reps: int) -> float:
@@ -244,7 +253,51 @@ def jacobi(tree: str) -> dict:
     return out
 
 
-CASES = {"attention": attention, "gemm": gemm, "jacobi": jacobi}
+def scan(tree: str) -> dict:
+    import torch
+    from repro_torch.kernels import launch_counts, ref
+    from repro_torch.kernels import mamba_scan as ms
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def inputs(d, dtype):
+        def randn(*shape):
+            return torch.randn(*shape, generator=gen, device=dev)
+        u, b, c = randn(1, SCAN_L, d), randn(1, SCAN_L, SCAN_N), \
+            randn(1, SCAN_L, SCAN_N)
+        dt = torch.rand(1, SCAN_L, d, generator=gen, device=dev) * 0.19 \
+            + 0.01
+        a = -(torch.rand(d, SCAN_N, generator=gen, device=dev) * 1.5 + 0.5)
+        return (u.to(dtype), dt.to(dtype), a, b.to(dtype), c.to(dtype),
+                randn(d))
+
+    cases = {"fp32": (SCAN_D, torch.float32, 20),
+             "bf16": (SCAN_D, torch.bfloat16, 20),
+             "fp32_d2048": (SCAN_D // 4, torch.float32, 50)}
+    out = {"tree": tree}
+    for name, (d, dtype, reps) in cases.items():
+        args = inputs(d, dtype)
+        before = launch_counts()
+        got = ms.mamba_scan(*args).float()
+        launched = [k for k, c in launch_counts().items() if c != before[k]]
+        want = ref.mamba_scan(*(t.float() for t in args))
+        err = (got - want).abs()
+        if dtype == torch.bfloat16:
+            _, e = torch.frexp(torch.maximum(got.abs(), want.abs())
+                               .clamp_min(2.0 ** -126))
+            slack = torch.ldexp(torch.ones_like(want), e - 8) + 1e-4
+        else:
+            slack = 1e-4 + 1e-4 * want.abs()
+        out[name] = {"ms": time_ms(lambda: ms.mamba_scan(*args), reps),
+                     "kernel": launched, "max_abs_err": float(err.max()),
+                     "beyond_contract": int((err > slack).sum())}
+        del args, got, want, err, slack
+    return out
+
+
+CASES = {"attention": attention, "gemm": gemm, "jacobi": jacobi,
+         "scan": scan}
 
 
 def use_tree(tree: str) -> None:

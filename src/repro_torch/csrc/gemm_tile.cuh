@@ -150,17 +150,29 @@ __device__ __forceinline__ RowCopy row_copy(int cols, int d, int vec) {
 }
 
 // rows r_first .. r_first + ROWS - 1 of a (n_rows, d) matrix into rows
-// STRIDE elements apart; rows past n_rows and columns past d become zeros
-template <int ROWS, int STRIDE, typename T>
+// STRIDE elements apart; rows past n_rows and columns past d become zeros.
+// d is the stride between rows; the plan's d (row_copy) the live columns,
+// which may be fewer (the selective scan's column tile of a wider matrix).
+// BYTES and R_STEP, where not 0, are the plan's copy size and row step
+// known at compile time: the copies then unroll into straight-line code.
+template <int ROWS, int STRIDE, int BYTES = 0, int R_STEP = 0, typename T>
 __device__ __forceinline__ void copy_rows(T* s, const T* g, int r_first,
                                           int n_rows, int d,
                                           const RowCopy& p) {
   if (!p.active) return;
-  for (int r = p.r0; r < ROWS; r += p.r_step) {
+  auto copy = [&](int r) {
     const int gr = r_first + r;
     const int live = gr < n_rows ? p.live_bytes : 0;
     const T* src = live ? g + static_cast<size_t>(gr) * d + p.col : g;
-    copy_chunk(s + r * STRIDE + p.col, src, p.bytes, live);
+    copy_chunk(s + r * STRIDE + p.col, src, BYTES ? BYTES : p.bytes, live);
+  };
+  if constexpr (R_STEP > 0) {
+#pragma unroll
+    for (int i = 0; i < (ROWS + R_STEP - 1) / R_STEP; ++i)
+      if (ROWS % R_STEP == 0 || p.r0 + i * R_STEP < ROWS)
+        copy(p.r0 + i * R_STEP);
+  } else {
+    for (int r = p.r0; r < ROWS; r += p.r_step) copy(r);
   }
 }
 

@@ -8,107 +8,307 @@
 //
 // Replaces the TPU kernel repro/kernels/mamba_scan.py::mamba_scan (body
 // _scan_kernel): a (batch, chunk) grid whose chunk dimension runs in order
-// with the (D, N) state stationary in VMEM.  Here one thread owns one
-// (b, d) channel: its N state values and its row of A sit in registers and
-// it runs the recurrence over all L steps itself.  Consecutive threads take
-// consecutive d, so each step's loads of u and dt and store of y coalesce.
-// A block of 64 channels stages a chunk of 32 steps of u and dt (each
-// thread starts its 64 loads before the chunk's compute) and of B_t and
-// C_t (shared by the block) in shared memory.  State values past N are
-// zero with zero B and C, so they stay zero and add nothing.  expf, not
-// __expf: the 1e-4 contract of the reference holds over thousands of steps.
+// with the (D, N) state stationary in VMEM.
 //
-// Bound: u and dt read and y written once, 12 bytes a (b, t, d) -- 403 MB
-// at falcon-mamba-7b's d_inner 8192 and L 4096, 0.12 ms at 3.35 TB/s -- and
-// N exponentials a (b, t, d), 5.4e8 there.  The time loop is sequential,
-// so 8192 channels give the card only 128 blocks of two warps each: the
-// scan is latency-bound; a chunked parallel scan is later work.
-#include "common.cuh"
+// Bound.  u and dt are read and y written once: 12 bytes a (b, t, d) in
+// fp32, 403 MB at falcon-mamba-7b's d_inner 8192 and L 4096, 0.120 ms at
+// 3.35 TB/s.  N exponentials a (b, t, d) go through the SFU, 16 a clock
+// an SM: 5.4e8 there, 0.128 ms on 132 SMs at 1.98 GHz.  The time loop is
+// sequential, so the card's parallelism is batch x D x N state chains.
+// Measured there on an H100 SXM (700 W): 0.25 ms, twice the bound.  Not
+// the SFU (exponentials replaced by an FMA save 1%): the cross-lane sum of
+// y, the ring's copies, the B and C loads and the y store each take 8-20%.
+//
+// Design.  A thread owns one (b, d) channel and G = 4 of its states: a
+// channel is S = 4 adjacent lanes, NP = 16 states (with N < 16 the states
+// past N have A = B = C = 0, so they stay zero and add nothing).  At
+// d_inner 8192 that is 32 k threads, 8 warps an SM, each with 4
+// independent state chains whose only carried dependency is one FMA a
+// step.  Its 4 entries of A sit in registers multiplied by log2(e), so
+// exp(dt A) is one multiply and one ex2.approx.  A chunk's partial sums of
+// y stay in registers until the chunk is done and are then summed across
+// the channel's lanes by xor shuffles (reduce_scatter).  A block of CH =
+// 32 channels streams the time axis in chunks of TCH steps through a
+// STAGES-deep cp.async ring in shared memory: u and dt as the block's CH
+// columns of TCH rows, B and C as TCH rows of NP (16-, 8- or 4-byte
+// copies, or single bf16 elements, as the widths and the bases allow:
+// gemm_tile.cuh's row_copy / copy_rows), so B_t and C_t reach a thread as
+// one vector load.  y goes through a shared tile two chunks deep and is
+// stored a chunk late as rows of the block's CH channels, 16, 8, 4 or 2
+// bytes a store.  One barrier a chunk.  Copies past L and D are
+// zero-filled: a dead step has dt = 0, so its decay is 1 and the state is
+// unchanged, and a dead channel stays zero; neither is stored.  Nothing is
+// branched on and nothing is padded in device memory.
+#include <stdint.h>
+#include <string.h>
+
+#include "gemm_tile.cuh"
 
 namespace {
 
-constexpr int THREADS = 64;  // channels per block
-constexpr int TCH = 32;      // steps staged per chunk
-constexpr int NMAX = 16;     // state size limit
+using repro::gemm::copy_rows;
+using repro::gemm::cp_async_commit;
+using repro::gemm::cp_async_wait;
+using repro::gemm::row_copy;
+using repro::gemm::RowCopy;
+
+constexpr int G = 4;        // states a thread
+constexpr int S = 4;        // lanes a channel
+constexpr int NP = G * S;   // states a channel, N <= NP
+constexpr int CH = 32;      // channels a block
+constexpr int THREADS = CH * S;  // a block
+constexpr int TCH = 32;     // steps a chunk
+constexpr int STAGES = 3;   // chunks in the ring
+constexpr float kLog2e = 1.4426950408889634f;
+// y tile row: CH + 8 elements, so that a warp's lanes (8 channels x 4
+// state groups, each group writing its own step) hit distinct banks
+constexpr int YS = CH + 8;
 
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
+struct Smem {
+  T u[STAGES][TCH][CH];
+  T dt[STAGES][TCH][CH];
+  T b[STAGES][TCH][NP];
+  T c[STAGES][TCH][NP];
+  T y[2][TCH][YS];
+};
+
+__device__ __forceinline__ float ex2(float x) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
+
+// the G values at p (a shared-memory row, G-aligned) as floats
+__device__ __forceinline__ void load_group(const float* p, float (&v)[G]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+__device__ __forceinline__ void load_group(const __nv_bfloat16* p,
+                                           float (&v)[G]) {
+  const uint2 q = *reinterpret_cast<const uint2*>(p);
+  __nv_bfloat162 lo, hi;
+  memcpy(&lo, &q.x, sizeof(lo));
+  memcpy(&hi, &q.y, sizeof(hi));
+  const float2 fl = __bfloat1622float2(lo);
+  const float2 fh = __bfloat1622float2(hi);
+  v[0] = fl.x; v[1] = fl.y; v[2] = fh.x; v[3] = fh.y;
+}
+
+// Each of a channel's S lanes holds its partial y of the chunk's TCH steps
+// in v[tt]; afterwards lane g holds the channel's y of steps g, g + S,
+// g + 2 S, .. in v[0 ..].  Round M = 1, 2, .. S / 2 halves the steps a lane
+// keeps: of each pair of neighbours it keeps the odd one if bit M of g is
+// set, else the even one, sends the other to its partner (lane g ^ M) and
+// adds what it receives.  So a step's S partials are summed in pairs (j,
+// j ^ 1) first, then those sums in pairs j ^ 2.
+template <int M, int N>
+__device__ __forceinline__ void reduce_scatter(float (&v)[TCH], int g) {
+  if constexpr (M < S) {
+    const bool odd = g & M;
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) {
+      const float send = odd ? v[2 * j] : v[2 * j + 1];
+      const float keep = odd ? v[2 * j + 1] : v[2 * j];
+      v[j] = keep + __shfl_xor_sync(0xffffffffu, send, M);
+    }
+    reduce_scatter<2 * M, N / 2>(v, g);
+  }
+}
+
+// `bytes` (16, 8, 4 or 2) shared -> global
+__device__ __forceinline__ void store_chunk(void* dst, const void* src,
+                                            int bytes) {
+  if (bytes == 16) {
+    *static_cast<uint4*>(dst) = *static_cast<const uint4*>(src);
+  } else if (bytes == 8) {
+    *static_cast<uint2*>(dst) = *static_cast<const uint2*>(src);
+  } else if (bytes == 4) {
+    *static_cast<uint32_t*>(dst) = *static_cast<const uint32_t*>(src);
+  } else {
+    *static_cast<unsigned short*>(dst) =
+        *static_cast<const unsigned short*>(src);
+  }
+}
+
+// vec_ud, vec_bc, vec_y: elements a copy of u and dt, of B and C, and a
+// store of y (each dividing its row width, D or N, with every row start
+// aligned to it).  WIDE instances take every operand 16 bytes a copy, a
+// width known at compile time: the copies and the y store of a chunk are
+// straight-line code, with no division or branch on the width.
+template <typename T, bool WIDE>
+__global__ void __launch_bounds__(THREADS, 512 / THREADS)
 scan_kernel(const T* __restrict__ u, const T* __restrict__ dt,
             const float* __restrict__ A, const T* __restrict__ Bm,
             const T* __restrict__ Cm, const float* __restrict__ Dskip,
-            T* __restrict__ y, int L, int D, int N) {
-  __shared__ float us[TCH][THREADS];
-  __shared__ float dts[TCH][THREADS];
-  __shared__ float bs[TCH][NMAX];
-  __shared__ float cs[TCH][NMAX];
+            T* __restrict__ y, int L, int D, int N, int vec_ud, int vec_bc,
+            int vec_y) {
+  __shared__ __align__(16) Smem<T> sm;
   const int b = blockIdx.y;
-  const int d = blockIdx.x * THREADS + threadIdx.x;
-  const bool live = d < D;
+  const int d0 = blockIdx.x * CH;
+  const int width = min(CH, D - d0);  // live channels of the block
+  const int c = threadIdx.x / S;      // channel in the block
+  const int g = threadIdx.x % S;      // state group in the channel
+  const int d = d0 + c;
+  const bool live = c < width;
 
-  float a[NMAX], x[NMAX];
+  float a[G], x[G];
 #pragma unroll
-  for (int n = 0; n < NMAX; ++n) {
-    a[n] = live && n < N ? A[static_cast<size_t>(d) * N + n] : 0.f;
-    x[n] = 0.f;
+  for (int j = 0; j < G; ++j) {
+    const int n = g * G + j;
+    a[j] = live && n < N ? A[static_cast<size_t>(d) * N + n] * kLog2e : 0.f;
+    x[j] = 0.f;
   }
-  const float dskip = live ? Dskip[d] : 0.f;
-  const size_t row0 = static_cast<size_t>(b) * L;
+  // D u joins the partial sum of the channel's first lane
+  const float dskip = live && g == 0 ? Dskip[d] : 0.f;
 
-  for (int t0 = 0; t0 < L; t0 += TCH) {
-    const int steps = min(TCH, L - t0);
-    __syncthreads();  // the last chunk is no longer read
-#pragma unroll 8
-    for (int tt = 0; tt < TCH; ++tt) {
-      const size_t g = (row0 + t0 + tt) * D + d;
-      const bool in = live && tt < steps;
-      us[tt][threadIdx.x] = in ? repro::to_float(u[g]) : 0.f;
-      dts[tt][threadIdx.x] = in ? repro::to_float(dt[g]) : 0.f;
+  const size_t plane = static_cast<size_t>(L) * D;
+  const T* ub = u + b * plane + d0;
+  const T* dtb = dt + b * plane + d0;
+  T* yb = y + b * plane + d0;
+  const T* bb = Bm + static_cast<size_t>(b) * L * N;
+  const T* cb = Cm + static_cast<size_t>(b) * L * N;
+  // WIDE: the copy size, and the rows between a thread's copies of a u or
+  // dt tile (CH columns) and of a B or C tile (NP columns)
+  constexpr int VEC = 16 / sizeof(T);
+  constexpr int W_BYTES = WIDE ? 16 : 0;
+  constexpr int UD_STEP = WIDE ? THREADS / (CH / VEC) : 0;
+  constexpr int BC_STEP = WIDE ? THREADS / (NP / VEC) : 0;
+  if (WIDE) vec_ud = vec_bc = vec_y = VEC;
+  const RowCopy ud_plan = row_copy<T, THREADS>(CH, width, vec_ud);
+  const RowCopy bc_plan = row_copy<T, THREADS>(NP, N, vec_bc);
+  const int chunks = (L + TCH - 1) / TCH;
+
+  auto load = [&](int k) {
+    const int s = k % STAGES;
+    const int t0 = k * TCH;
+    copy_rows<TCH, CH, W_BYTES, UD_STEP>(&sm.u[s][0][0], ub, t0, L, D,
+                                         ud_plan);
+    copy_rows<TCH, CH, W_BYTES, UD_STEP>(&sm.dt[s][0][0], dtb, t0, L, D,
+                                         ud_plan);
+    copy_rows<TCH, NP, W_BYTES, BC_STEP>(&sm.b[s][0][0], bb, t0, L, N,
+                                         bc_plan);
+    copy_rows<TCH, NP, W_BYTES, BC_STEP>(&sm.c[s][0][0], cb, t0, L, N,
+                                         bc_plan);
+  };
+  // chunk k's y, from its tile to rows t0 .. t0 + TCH - 1
+  auto store = [&](int k) {
+    const T* ys = &sm.y[k & 1][0][0];
+    const int t0 = k * TCH;
+    const int per_row = CH / vec_y;
+    const int bytes = vec_y * static_cast<int>(sizeof(T));
+#pragma unroll
+    for (int i = 0; i < (TCH * per_row + THREADS - 1) / THREADS; ++i) {
+      const int e = threadIdx.x + i * THREADS;
+      const int r = e / per_row;
+      const int col = e % per_row * vec_y;
+      if (e < TCH * per_row && t0 + r < L && col < width)
+        store_chunk(yb + static_cast<size_t>(t0 + r) * D + col,
+                    ys + r * YS + col, bytes);
     }
-    for (int e = threadIdx.x; e < TCH * NMAX; e += THREADS) {
-      const int tt = e / NMAX;
-      const int n = e % NMAX;
-      const bool in = tt < steps && n < N;
-      const size_t g = (row0 + t0 + tt) * N + n;
-      bs[tt][n] = in ? repro::to_float(Bm[g]) : 0.f;
-      cs[tt][n] = in ? repro::to_float(Cm[g]) : 0.f;
-    }
+  };
+
+#pragma unroll
+  for (int k = 0; k < STAGES - 1; ++k) {
+    if (k < chunks) load(k);
+    cp_async_commit();
+  }
+  for (int k = 0; k < chunks; ++k) {
+    cp_async_wait<STAGES - 2>();
+    // chunk k has landed for every thread; chunk k - 1's stage is no
+    // longer read and its y tile is complete
     __syncthreads();
-    if (!live) continue;
-    for (int tt = 0; tt < steps; ++tt) {
-      const float uu = us[tt][threadIdx.x];
-      const float dd = dts[tt][threadIdx.x];
-      const float du = dd * uu;
-      float acc = 0.f;
+    if (k + STAGES - 1 < chunks) load(k + STAGES - 1);
+    cp_async_commit();
+    if (k > 0) store(k - 1);
+    const int s = k % STAGES;
+    const T* us = &sm.u[s][0][c];
+    const T* ds = &sm.dt[s][0][c];
+    const T* bs = &sm.b[s][0][g * G];
+    const T* cs = &sm.c[s][0][g * G];
+    // the chunk's steps, each lane's partial y in registers: nothing is
+    // stored to shared memory here, so every step's loads can start early
+    float acc[TCH];
 #pragma unroll
-      for (int n = 0; n < NMAX; ++n) {
-        x[n] = expf(dd * a[n]) * x[n] + du * bs[tt][n];
-        acc += x[n] * cs[tt][n];
+    for (int tt = 0; tt < TCH; ++tt) {
+      const float dd = repro::to_float(ds[tt * CH]);
+      const float uu = repro::to_float(us[tt * CH]);
+      const float du = dd * uu;
+      float bv[G], cv[G];
+      load_group(bs + tt * NP, bv);
+      load_group(cs + tt * NP, cv);
+      float p = dskip * uu;
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        x[j] = fmaf(ex2(dd * a[j]), x[j], du * bv[j]);
+        p = fmaf(x[j], cv[j], p);
       }
-      y[(row0 + t0 + tt) * D + d] = repro::from_float<T>(acc + dskip * uu);
+      acc[tt] = p;
     }
+    reduce_scatter<1, TCH>(acc, g);
+    T* ys = &sm.y[k & 1][g][c];
+#pragma unroll
+    for (int i = 0; i < TCH / S; ++i)
+      ys[i * S * YS] = repro::from_float<T>(acc[i]);
   }
+  __syncthreads();
+  if (chunks > 0) store(chunks - 1);
+}
+
+template <typename T>
+int launch(const void* u, const void* dt, const float* A, const void* B,
+           const void* C, const float* Dskip, void* y, int batch, int L,
+           int D, int N, int vec_ud, int vec_bc, int vec_y,
+           cudaStream_t s) {
+  const dim3 grid((D + CH - 1) / CH, batch);
+  constexpr int wide = 16 / sizeof(T);
+  auto kernel = vec_ud == wide && vec_bc == wide && vec_y == wide
+                    ? scan_kernel<T, true>
+                    : scan_kernel<T, false>;
+  kernel<<<grid, THREADS, 0, s>>>(
+      static_cast<const T*>(u), static_cast<const T*>(dt), A,
+      static_cast<const T*>(B), static_cast<const T*>(C), Dskip,
+      static_cast<T*>(y), L, D, N, vec_ud, vec_bc, vec_y);
+  return repro::launch_status();
+}
+
+// vec elements of elem_bytes a copy: a width the copies have, dividing
+// the row width, with the base aligned to it
+bool copy_ok(const void* base, int vec, int width, int elem_bytes) {
+  const bool listed = vec == 1 || vec == 2 || vec == 4 ||
+                      (vec == 8 && elem_bytes == 2);
+  return listed && width % vec == 0 &&
+         reinterpret_cast<uintptr_t>(base) % (vec * elem_bytes) == 0;
+}
+
+// the widest copy of elem_bytes elements that copy_ok allows at base
+int widest(const void* base, int width, int elem_bytes) {
+  for (int vec = 16 / elem_bytes; vec > 1; vec /= 2)
+    if (copy_ok(base, vec, width, elem_bytes)) return vec;
+  return 1;
 }
 
 }  // namespace
 
+// vec_ud, vec_bc: elements a copy of u and dt, and of B and C
+// (kernels/mamba_scan.py::scan_copies); y's store takes the widest width
+// its base and D allow
 extern "C" int repro_mamba_scan(const void* u, const void* dt, const float* A,
                                 const void* B, const void* C,
                                 const float* Dskip, void* y, int is_bf16,
-                                int batch, int L, int D, int N,
-                                void* stream) {
+                                int batch, int L, int D, int N, int vec_ud,
+                                int vec_bc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((D + THREADS - 1) / THREADS, batch);
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    scan_kernel<T><<<grid, THREADS, 0, s>>>(
-        static_cast<const T*>(u), static_cast<const T*>(dt), A,
-        static_cast<const T*>(B), static_cast<const T*>(C), Dskip,
-        static_cast<T*>(y), L, D, N);
-  } else {
-    scan_kernel<float><<<grid, THREADS, 0, s>>>(
-        static_cast<const float*>(u), static_cast<const float*>(dt), A,
-        static_cast<const float*>(B), static_cast<const float*>(C), Dskip,
-        static_cast<float*>(y), L, D, N);
-  }
-  return repro::launch_status();
+  const int es = is_bf16 ? 2 : 4;
+  if (N < 1 || N > NP || !copy_ok(u, vec_ud, D, es) ||
+      !copy_ok(dt, vec_ud, D, es) || !copy_ok(B, vec_bc, N, es) ||
+      !copy_ok(C, vec_bc, N, es))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec_y = widest(y, D, es);
+  if (is_bf16)
+    return launch<__nv_bfloat16>(u, dt, A, B, C, Dskip, y, batch, L, D, N,
+                                 vec_ud, vec_bc, vec_y, s);
+  return launch<float>(u, dt, A, B, C, Dskip, y, batch, L, D, N, vec_ud,
+                       vec_bc, vec_y, s);
 }

@@ -44,7 +44,7 @@ import torch
 
 from . import build
 from . import ref as _ref
-from .launch import KernelInfo, require, require_cuda, stream
+from .launch import KernelInfo, copy_width, require, require_cuda, stream
 
 _TPU = "src/repro/kernels/flash_attention.py:92"
 _CSRC = "src/repro_torch/csrc/"
@@ -70,20 +70,9 @@ def choose_kernel(sq: int, dtype: torch.dtype) -> KernelInfo:
     return FLASH_TF32 if dtype == torch.float32 else FLASH_MMA
 
 
-def _copy_width(d: int, elem_bytes: int, widths, tensors) -> int:
-    """The first of ``widths`` (elements a copy) that divides d and to
-    whose bytes every tensor's base is aligned (rows d elements apart then
-    start aligned too); 1 if none."""
-    for vec in widths:
-        if d % vec == 0 and all(t.data_ptr() % (elem_bytes * vec) == 0
-                                for t in tensors):
-            return vec
-    return 1
-
-
 def copy_floats(d: int, *tensors: torch.Tensor) -> int:
     """Floats a cp.async of the 3xTF32 kernel moves: 4, 2 or 1."""
-    return _copy_width(d, 4, (4, 2), tensors)
+    return copy_width(d, 4, (4, 2), tensors)
 
 
 def copy_elems(d: int, *tensors: torch.Tensor) -> int:
@@ -91,7 +80,7 @@ def copy_elems(d: int, *tensors: torch.Tensor) -> int:
     2 (a 16-, 8- or 4-byte cp.async), or 1 (one element, copied
     synchronously).  Given ``out`` too, it also says whether the output
     can be stored in pairs (any width >= 2)."""
-    return _copy_width(d, 2, (8, 4, 2), tensors)
+    return copy_width(d, 2, (8, 4, 2), tensors)
 
 
 def visible_keys(sq: int, skv: int, causal: bool, q_offset: int) -> int:

@@ -52,6 +52,17 @@ def copy_bytes(t: torch.Tensor, ld: int, batch_stride: int) -> int:
     return es
 
 
+def copy_width(d: int, elem_bytes: int, widths, tensors) -> int:
+    """The first of ``widths`` (elements a copy) that divides d and to
+    whose bytes every tensor's base is aligned (rows d elements apart then
+    start aligned too); 1 if none."""
+    for vec in widths:
+        if d % vec == 0 and all(t.data_ptr() % (elem_bytes * vec) == 0
+                                for t in tensors):
+            return vec
+    return 1
+
+
 def stream(dev: torch.device) -> int:
     """The handle of PyTorch's current stream on ``dev``."""
     return torch.cuda.current_stream(dev).cuda_stream

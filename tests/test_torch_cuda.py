@@ -19,7 +19,9 @@ kernels: the DLE scan identical in (value, index), ties included; the
 CORDIC unit bitwise; flash attention within 2e-5 in fp32 and, in bf16,
 within one bf16 ulp plus 2e-5 of the plain version's fp32 result (two fp32
 sums 1e-7 apart round to bf16 values many ulps apart near zero); the
-selective scan within rtol = atol = 1e-4.
+selective scan within rtol = atol = 1e-4 in fp32 and, in bf16, within one
+bf16 ulp plus 1e-4 of the plain version's fp32 result, bitwise the same
+whatever its operands' alignment.
 """
 import numpy as np
 import pytest
@@ -484,16 +486,125 @@ def test_flash_attention_bf16_store_stays_inside_out(cuda_device, d):
     assert torch.equal(out, want)
 
 
+def _scan_inputs(dev, b, L, D, N, g, dtype=torch.float32):
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+    u, Bm, Cm = rnd(b, L, D), rnd(b, L, N), rnd(b, L, N)
+    dt = torch.rand(b, L, D, generator=g, device=dev) * 0.19 + 0.01
+    A = -(torch.rand(D, N, generator=g, device=dev) * 1.5 + 0.5)
+    return (u.to(dtype), dt.to(dtype), A, Bm.to(dtype), Cm.to(dtype),
+            rnd(D))
+
+
+# ragged: L not a whole number of 32-step chunks, D of 32-channel blocks
+SCAN_SHAPES = [(2, 50, 16, 8), (1, 300, 200, 16), (3, 33, 8, 4),
+               (3, 70, 45, 1), (3, 70, 45, 3), (3, 70, 45, 4),
+               (3, 70, 45, 13), (3, 70, 45, 16)]
+
+
 def test_mamba_scan_kernel(cuda_device):
     g = torch.Generator(device=cuda_device).manual_seed(2)
-    for b, L, D, N in [(2, 50, 16, 8), (1, 300, 200, 16), (3, 33, 8, 4)]:
-        def rnd(*shape):
-            return torch.randn(*shape, generator=g, device=cuda_device)
-        u, Bm, Cm = rnd(b, L, D), rnd(b, L, N), rnd(b, L, N)
-        dt = torch.rand(b, L, D, generator=g, device=cuda_device) * 0.19 \
-            + 0.01
-        A = -(torch.rand(D, N, generator=g, device=cuda_device) * 1.5 + 0.5)
-        Dskip = rnd(D)
-        got = mamba_scan.mamba_scan(u, dt, A, Bm, Cm, Dskip)
-        want = ref.mamba_scan(u, dt, A, Bm, Cm, Dskip)
+    for b, L, D, N in SCAN_SHAPES:
+        args = _scan_inputs(cuda_device, b, L, D, N, g)
+        before = launch_counts()
+        got = mamba_scan.mamba_scan(*args)
+        assert _launched(before) == {"mamba_scan": 1}
+        want = ref.mamba_scan(*args)
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def _within_scan_bf16_contract(got, want32):
+    g = got.float()
+    slack = bf16_ulp(torch.maximum(g.abs(), want32.abs())) + 1e-4
+    return bool(((g - want32).abs() <= slack).all())
+
+
+@pytest.mark.parametrize("shape", SCAN_SHAPES)
+def test_mamba_scan_kernel_bf16(cuda_device, shape):
+    """bf16 inputs against the plain version's fp32 result on the same
+    inputs: within one bf16 ulp + 1e-4 (the state is fp32, y is rounded
+    to bf16 once)."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    args = _scan_inputs(cuda_device, *shape, g, dtype=torch.bfloat16)
+    before = launch_counts()
+    got = mamba_scan.mamba_scan(*args)
+    assert _launched(before) == {"mamba_scan": 1}
+    assert got.dtype == torch.bfloat16
+    want = ref.mamba_scan(*(t.float() for t in args))
+    assert _within_scan_bf16_contract(got, want)
+
+
+def _at(flat, shape, shift):
+    """``shape`` cut from the contiguous ``flat`` so that it starts
+    ``shift`` elements past a 16-byte boundary."""
+    n = int(np.prod(shape))
+    es = flat.element_size()
+    base = flat.data_ptr() % 16 // es
+    t = flat[(shift - base) % (16 // es):][:n].view(shape)
+    assert t.is_contiguous() and t.data_ptr() % 16 == shift * es % 16
+    return t
+
+
+@pytest.mark.parametrize("dtype,shift", [(torch.float32, 1),
+                                         (torch.float32, 2),
+                                         (torch.bfloat16, 1),
+                                         (torch.bfloat16, 2)])
+def test_mamba_scan_kernel_on_unaligned_bases(cuda_device, dtype, shift):
+    """Every operand a contiguous view starting at an odd offset: the
+    copies and the y store narrow to the alignment (one or two elements)
+    and the result is the same as on aligned copies of the inputs."""
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    b, L, D, N = 2, 90, 64, 16
+    args = _scan_inputs(cuda_device, b, L, D, N, g, dtype=dtype)
+    moved = []
+    for t in args:
+        if t.ndim == 3:
+            flat = torch.empty(t.numel() + 16, dtype=dtype,
+                               device=cuda_device)
+            view = _at(flat, t.shape, shift)
+            view.copy_(t)
+            moved.append(view)
+        else:
+            moved.append(t)
+    vec = mamba_scan.scan_copies(*moved[:2], *moved[3:5])
+    assert vec[0] == vec[1] == shift
+    got = mamba_scan.mamba_scan(*moved)
+    want = mamba_scan.mamba_scan(*args)
+    want32 = ref.mamba_scan(*(t.float() for t in args))
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want32, rtol=1e-4, atol=1e-4)
+    else:
+        assert _within_scan_bf16_contract(got, want32)
+    # the same arithmetic whatever the copies: bitwise the aligned run
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 45),
+                                     (torch.float32, 64),
+                                     (torch.bfloat16, 45),
+                                     (torch.bfloat16, 64)])
+def test_mamba_scan_store_stays_inside_y(cuda_device, dtype, D):
+    """The kernel's entry called on a y that starts one element into a
+    buffer filled with a sentinel (so the entry narrows y's stores to one
+    element):
+    the sentinel before and after y stays, and y equals the wrapper's
+    result bitwise."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    b, L, N = 3, 70, 16
+    args = _scan_inputs(cuda_device, b, L, D, N, g, dtype=dtype)
+    want = mamba_scan.mamba_scan(*args)
+    sentinel = -7.0
+    n = b * L * D
+    buf = torch.full((n + 16,), sentinel, dtype=dtype, device=cuda_device)
+    y = buf[1:1 + n].view(b, L, D)
+    u, dt, A, Bm, Cm, Dskip = args
+    status = build.library().repro_mamba_scan(
+        u.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+        Cm.data_ptr(), Dskip.data_ptr(), y.data_ptr(),
+        int(dtype == torch.bfloat16), b, L, D, N,
+        *mamba_scan.scan_copies(u, dt, Bm, Cm), launch.stream(cuda_device))
+    build.check(status, "mamba_scan")
+    torch.cuda.synchronize()
+    assert float(buf[0]) == sentinel
+    assert bool((buf[1 + n:] == sentinel).all())
+    assert torch.equal(y, want)
