@@ -30,7 +30,11 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    (``dle_find_pivot``, ``cordic_rotate``, ``flash_attention``,
    ``mamba_scan``) called with no ``backend=`` on CUDA tensors at full
    width: the DLE scan and the CORDIC unit on the main path's 784 x 784
-   Gram, attention at olmo-1b's 16 heads x 128 over 4096 tokens (prefill
+   Gram (the DLE also on copies with a cross-tile tie, a diagonal only,
+   NaN tiles and +-inf, each held bit for bit to the plain scan, its
+   pivot to C's entries; ``dle_scan`` and the op ``dle_find_pivot`` timed,
+   and the host's steps of the two small calls; the CORDIC unit's latency
+   floor read from its SASS), attention at olmo-1b's 16 heads x 128 over 4096 tokens (prefill
    in bf16 and fp32, and one decode step in each) and a small bf16
    prefill of head dim 20, the selective scan at falcon-mamba-7b's
    d_inner 8192 and N 16 over 4096 steps (in fp32 and in bf16); and
@@ -84,6 +88,12 @@ OPS_TILE = 128                       # dle_find_pivot's tile
 # two equal maxima: flat row-major order picks the first, tile order the
 # second (tile (0, 1) comes before tile (0, 3))
 TIE = ((0, 500), (100, 200))
+# a copy of the Gram with NaNs in the tile of its largest entry and its
+# mirror and at these places (those tiles are skipped whole; (3, 3) is on
+# the diagonal, masked), and one with +inf and -inf at INF_AT and its
+# mirror as well
+NAN_AT = ((3, 3), (700, 10), (300, 301))
+INF_AT = (400, 600)
 CORDIC_RATE_K = 1 << 20              # pivots for the CORDIC unit's rate
 # operations a pivot: two modes of 30 stages (a compare, two shifts, two
 # sign multiplies, three adds) and ~20 float steps, counted at the fp32 rate
@@ -686,6 +696,18 @@ def batched_flush(dev) -> dict:
 
 # -- phase 5: the standalone registry ops -----------------------------------
 
+def kernel_ab():
+    """``scripts/kernel_ab.py`` of this checkout, for its host split of the
+    small calls and its SASS chain."""
+    import importlib.util
+    path = pathlib.Path(__file__).resolve().parent / "scripts" / \
+        "kernel_ab.py"
+    spec = importlib.util.spec_from_file_location("kernel_ab", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """Spacing of the bfloat16 numbers at |x| (8 significant bits)."""
     _, e = torch.frexp(x.abs().clamp_min(2.0 ** -126))
@@ -695,8 +717,8 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
 def ops_phase(dev, rows: dict) -> dict:
     from repro_torch.backends import registry
     from repro_torch.core.jacobi import round_robin_rounds
-    from repro_torch.kernels import (cordic, dle, launch_counts, ops, ref,
-                                     reset_launch_counts)
+    from repro_torch.kernels import (build, cordic, dle, launch_counts, ops,
+                                     ref, reset_launch_counts)
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import mamba_scan as ms
 
@@ -720,6 +742,14 @@ def ops_phase(dev, rows: dict) -> dict:
     for i, j in TIE:
         tie[i, j] = tie[j, i] = big
     diag = torch.diag(torch.arange(1.0, N + 1.0, device=dev))
+    nan = gram.clone()
+    top = int(torch.argmax((gram - torch.diag(torch.diag(gram))).abs()))
+    for i, j in ((top // N, top % N), (top % N, top // N), *NAN_AT):
+        nan[i, j] = float("nan")
+    inf = nan.clone()
+    inf[INF_AT], inf[INF_AT[::-1]] = float("inf"), -float("inf")
+    dle_cases = (("gram", gram), ("tie", tie), ("diag", diag), ("nan", nan),
+                 ("inf", inf))
     # CORDIC: one round's pivots at n = 784, and 2^20 pivots for a rate
     pairs = torch.as_tensor(round_robin_rounds(N)[N // 3], device=dev).long()
     p, q = pairs[:, 0], pairs[:, 1]
@@ -756,7 +786,7 @@ def ops_phase(dev, rows: dict) -> dict:
     registry.reset_resolution_counts()
     t0 = time.perf_counter()
     piv = {name: ops.dle_find_pivot(c, tile=OPS_TILE)
-           for name, c in (("gram", gram), ("tie", tie), ("diag", diag))}
+           for name, c in dle_cases}
     rot = {"round": ops.cordic_rotate(*round_piv),
            "rate": ops.cordic_rotate(*rate_piv)}
     att, att_moved = {}, {}
@@ -825,32 +855,51 @@ def ops_phase(dev, rows: dict) -> dict:
                        bound_ms=bound[0], bound_by=bound[1], device_ms=t_dev)
         rows[name].update({prefix + k: v for k, v in numbers.items()})
 
-    # dle_find_pivot: identical (value, flat index) to the plain scan
-    for name, c in (("gram", gram), ("tie", tie), ("diag", diag)):
+    # dle_find_pivot: the plain scan's (value, flat index) bit for bit,
+    # NaN tiles skipped, and the pivot gathered from C
+    def bits(*ts):
+        return [int(t.view(torch.int32)) if t.dtype == torch.float32
+                else int(t) for t in ts]
+
+    for name, c in dle_cases:
         pv = piv[name]
         val, idx = ref.dle_scan(c, OPS_TILE)
+        scanned = dle.dle_scan(c, OPS_TILE)
         n = c.shape[0]
         flat = int(pv.p) * n + int(pv.q)
         log(f"dle_find_pivot[{name} {n}x{n} tile {OPS_TILE}]: kernel "
-            f"({float(pv.apq.abs()):.9g}, {flat}), plain "
-            f"({float(val):.9g}, {int(idx)})")
-        check(flat == int(idx) and float(pv.apq.abs()) == float(val),
+            f"({float(scanned[0]):.9g}, {int(scanned[1])}) at ({int(pv.p)}, "
+            f"{int(pv.q)}), plain ({float(val):.9g}, {int(idx)})")
+        check(bits(*scanned) == bits(val, idx) and flat == int(idx)
+              and float(pv.apq.abs()) == float(val),
               f"dle_find_pivot[{name}]: kernel and plain version differ")
-        check(float(pv.app) == float(c[pv.p, pv.p])
-              and float(pv.aqq) == float(c[pv.q, pv.q]),
-              f"dle_find_pivot[{name}]: diagonal gather wrong")
+        check(bits(pv.apq, pv.app, pv.aqq) == bits(
+            c[pv.p, pv.q], c[pv.p, pv.p], c[pv.q, pv.q]),
+              f"dle_find_pivot[{name}]: the gathered pivot is not C's")
     check((int(piv["tie"].p), int(piv["tie"].q)) == TIE[1],
           "dle_find_pivot[tie]: not the earlier tile's maximum")
     check(int(piv["diag"].p) == 0 and int(piv["diag"].q) == 1,
           "dle_find_pivot[diag]: not the TPU kernel's (0, 1)")
-    t_k = time_ms(lambda: dle.dle_scan(gram, OPS_TILE), 200)
+    check(bits(*dle.dle_scan(nan, OPS_TILE)) != bits(*dle.dle_scan(
+        gram, OPS_TILE)), "dle_find_pivot[nan]: the NaN tile was not skipped")
+    t_k = time_ms(lambda: dle.dle_scan(gram, OPS_TILE), 1000)
     t_p = time_ms(lambda: ref.dle_scan(gram, OPS_TILE), 50)
-    b = bound_ms(N * N * 4 + 8, 2 * N * N, PEAK_FP32)
-    log(f"dle_find_pivot[{N}x{N}]: kernel_ms {t_k:.4f} plain_ms {t_p:.4f} "
-        f"library_ms null (no one PyTorch call masks the diagonal and "
-        f"ranks ties in tile order) bound_ms {b[0]:.5f} ({b[1]})")
+    t_op = time_ms(lambda: ops.dle_find_pivot(gram, OPS_TILE), 1000)
+    t_op_dev = device_ms(lambda: ops.dle_find_pivot(gram, OPS_TILE), 10)
+    b = bound_ms(N * N * 4 + 40, 2 * N * N, PEAK_FP32)
+    log(f"dle_find_pivot[{N}x{N}]: kernel_ms {t_k:.4f} (dle_scan) op_ms "
+        f"{t_op:.4f} (ops.dle_find_pivot; "
+        f"{'not measured' if t_op_dev is None else f'{t_op_dev:.4f}'} on "
+        f"the device) plain_ms {t_p:.4f} library_ms null (no one PyTorch "
+        f"call masks the diagonal and ranks ties in tile order) bound_ms "
+        f"{b[0]:.5f} ({b[1]})")
     row("dle_find_pivot", 0.0, t_k, t_p, None, b,
         lambda: dle.dle_scan(gram, OPS_TILE))
+    rows["dle_find_pivot"].update(op_ms=t_op, op_device_ms=t_op_dev)
+    # the host's share of the two small calls, step by step
+    split = kernel_ab().lean_split(gram, round_piv)
+    log(f"host split, microseconds a step: {json.dumps(split)}")
+    rows["dle_find_pivot"]["host_split_us"] = split
 
     # cordic_rotate: bitwise the plain Q2.29 arithmetic
     for name, args in (("round", round_piv), ("rate", rate_piv)):
@@ -874,6 +923,21 @@ def ops_phase(dev, rows: dict) -> dict:
         if name == "round":
             row("cordic_rotate", 0.0, t_k, t_p, None, b,
                 lambda: cordic.cordic_rotation_params(*args))
+            t_op = time_ms(lambda: ops.cordic_rotate(*args), 1000)
+            # the latency floor: the longest chain of dependent
+            # instructions in the kernel's SASS at the card's top SM clock
+            chain = kernel_ab().sass_chain(
+                str(build.build_dir() / build.LIB_NAME), "cordic_kernel")
+            floor = chain["chain_cycles"] / sm_clock_hz() * 1e3
+            log(f"cordic_rotate[k={k}]: op_ms {t_op:.4f} "
+                f"(ops.cordic_rotate); SASS chain "
+                f"{chain['chain_instructions']} dependent instructions, "
+                f"{chain['chain_cycles']} cycles: latency_floor_ms "
+                f"{floor:.6f} at {sm_clock_hz() / 1e6:.0f} MHz")
+            rows["cordic_rotate"].update(
+                op_ms=t_op, latency_floor_ms=floor,
+                sass_chain_cycles=chain["chain_cycles"],
+                sass_chain_instructions=chain["chain_instructions"])
 
     # flash_attention: fp32 within 2e-5 of the plain version; bf16 within
     # one bf16 ulp (plus that 2e-5) of the plain version's fp32 result --

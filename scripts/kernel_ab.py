@@ -56,6 +56,26 @@ then one JSON line a tree.  CASES is one of:
     32 x 128 x 128 buckets.  Milliseconds a sweep, and whether the result
     is bitwise the plain version's round-by-round loop.  Then
     ``fit_transform`` as for ``gemm``.
+
+``small``
+    The two small wrapper calls at the ops phase's shapes: the DLE scan of
+    a seeded symmetric 784 x 784 matrix at tile 128 (``dle.dle_scan`` and
+    the op a caller waits on, ``ops.dle_find_pivot``) and the CORDIC unit
+    on one round's k = 392 pivots (``cordic.cordic_rotation_params``, the
+    op ``ops.cordic_rotate``, and at k = 2^20).  For each: milliseconds
+    between back-to-back calls (CUDA events, ``SMALL_REPS`` calls), the
+    device time a call and the kernels a call that ``torch.profiler``
+    traces, the launch count a call, the host's enqueue time a call
+    (``time.perf_counter_ns`` over ``HOST_REPS`` calls), and whether the
+    result is bitwise its plain version's.  Then the host split of one
+    call: each step of the tree's wrapper timed alone over ``HOST_REPS``
+    repetitions (the checks, each allocation, the device context, the
+    stream query, ``build.library()``, the ctypes call), and the grid the
+    profiler traced for the DLE kernel.  Then the CORDIC kernel's
+    critical path read from its SASS (``cuobjdump -sass`` of the tree's
+    library; ``sass_chain``), in instructions and in cycles at
+    ``SASS_LATENCY``, and the SM clock ``nvidia-smi`` reads while the card
+    is busy.
 """
 from __future__ import annotations
 
@@ -71,6 +91,18 @@ M, N, K = 70000, 784, 32
 BATCH, BM, BN = 32, 2048, 256
 GRAM_BLOCKS_PER_SM = (2, 4, 8, 8, 4, 2)
 SCAN_L, SCAN_D, SCAN_N = 4096, 8192, 16  # falcon-mamba-7b, one sequence
+DLE_TILE = 128                 # chip_smoke.py's OPS_TILE
+CORDIC_K, CORDIC_RATE_K = N // 2, 1 << 20  # one round's pivots at n = 784
+SMALL_REPS, HOST_REPS, TRACE_REPS = 2000, 10000, 100
+# cycles from one instruction's dispatch to a dependent one's, by SASS opcode
+# (the first dot-separated word): assumed, not measured -- the fixed-latency
+# integer and float pipes at 4 (Volta-to-Hopper microbenchmarks report 4-6),
+# the conversion and transcendental unit at 16; loads and stores at 0, so
+# the chain counts the arithmetic between the loads and the stores
+SASS_LATENCY = {"F2I": 16, "I2F": 16, "I2FP": 16, "F2IP": 16, "MUFU": 16,
+                "LDG": 0, "LDC": 0, "ULDC": 0, "STG": 0, "S2R": 0,
+                "S2UR": 0}
+SASS_DEFAULT_LATENCY = 4
 
 
 def time_ms(fn, reps: int) -> float:
@@ -296,8 +328,297 @@ def scan(tree: str) -> dict:
     return out
 
 
+def traced(fn, reps: int) -> dict:
+    """Kernels ``torch.profiler`` traced while ``reps`` calls of ``fn`` ran:
+    device milliseconds a call, kernels a call, their names and the grid
+    of each kernel (from the chrome trace)."""
+    import os
+    import tempfile
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    scratch = pathlib.Path(__file__).resolve().parents[1] / "build"
+    scratch.mkdir(exist_ok=True)
+    fd, path = tempfile.mkstemp(suffix=".json", dir=scratch)
+    os.close(fd)
+    prof.export_chrome_trace(path)
+    trace = json.loads(pathlib.Path(path).read_text())
+    os.unlink(path)
+    grids = {e["name"][:60]: e.get("args", {}).get("grid")
+             for e in trace.get("traceEvents", [])
+             if e.get("cat") == "kernel"}
+    return {"device_ms": sum(e.device_time_total for e in kernels) / 1e3
+            / reps, "kernels_a_call": len(kernels) / reps,
+            "names": sorted({e.name[:60] for e in kernels}), "grids": grids}
+
+
+def host_us(fn, reps: int = HOST_REPS) -> float:
+    """Host microseconds a call of ``fn`` (no synchronize inside)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter_ns()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter_ns()
+    torch.cuda.synchronize()
+    return (t1 - t0) / reps / 1e3
+
+
+def sass_chain(lib_path: str, kernel: str) -> dict:
+    """The longest chain of dependent instructions in ``kernel``'s SASS
+    (straight-line code: the CORDIC kernel's stages are unrolled), each
+    register and predicate ready ``SASS_LATENCY`` cycles after the
+    instruction that writes it is dispatched; the first operand of an
+    instruction that writes is its destination."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    body, here = [], False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            here = kernel in line
+            continue
+        if here:
+            body.append(line)
+    ready, longest, count, n_instr = {}, 0, {}, 0
+    for line in body:
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)"
+                      r"\s*([^;]*);", line)
+        if not m:
+            continue
+        pred, op, args = m.group(1), m.group(2), m.group(3)
+        base = op.split(".")[0]
+        if base in ("NOP", "EXIT", "BRA", "RET"):
+            continue
+        n_instr += 1
+        regs = [re.findall(r"\b(U?R\d+|U?P\d)\b", a)
+                for a in args.split(",")]
+        writes = base not in ("STG", "ST", "STS", "RED", "BAR", "MEMBAR")
+        dst = regs[0] if writes and regs else []
+        srcs = [r for a in (regs[1:] if writes else regs) for r in a]
+        if pred:
+            srcs.append(pred.strip().lstrip("@!"))
+        start = max((ready.get(r, (0, 0))[0] for r in srcs), default=0)
+        depth = max((ready.get(r, (0, 0))[1] for r in srcs), default=0)
+        lat = SASS_LATENCY.get(base, SASS_DEFAULT_LATENCY)
+        for r in dst:
+            ready[r] = (start + lat, depth + (1 if lat else 0))
+        longest = max(longest, start + lat)
+        count[base] = count.get(base, 0) + 1
+    depth = max((d for _, d in ready.values()), default=0)
+    return {"instructions": n_instr, "chain_cycles": longest,
+            "chain_instructions": depth, "opcodes": count}
+
+
+def busy_sm_clock_mhz() -> float:
+    """The SM clock ``nvidia-smi`` reads while the card runs a queue of
+    fp32 products (about a second of work)."""
+    import torch
+    a = torch.randn(8192, 8192, device="cuda")
+    torch.mm(a, a)
+    torch.cuda.synchronize()
+    for _ in range(20):
+        torch.mm(a, a)
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True,
+                         timeout=60).stdout.strip().splitlines()[0]
+    torch.cuda.synchronize()
+    return [float(v) for v in out.split(",")]
+
+
+def parent_split(c, piv) -> dict:
+    """Each step of the DLE and CORDIC wrappers that keep per-call
+    scratch (two launches a DLE scan), timed alone: the checks as they
+    are written there, each allocation, ``build.library()``, the device
+    context, the stream query and the ctypes call."""
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.launch import require, require_cuda, stream
+    dev = c.device
+    n, tile = c.shape[0], DLE_TILE
+    grid_n = -(-n // tile)
+
+    def dle_checks():
+        what = "dle_scan"
+        require_cuda(what, c)
+        require(c.ndim == 2 and c.shape[0] == c.shape[1], what,
+                f"expected (n, n), got {tuple(c.shape)}")
+        require(c.dtype == torch.float32, what, f"c must be float32, got "
+                f"{c.dtype}")
+        require(c.is_contiguous(), what, "c must be contiguous")
+        require(0 < n and n * n < 2 ** 31, what, f"n = {n} is out of range")
+        require(0 < tile and tile * tile < 2 ** 31, what,
+                f"tile = {tile} is out of range")
+        require(grid_n <= 65535, what, f"{grid_n} tiles a side exceed the "
+                f"grid")
+
+    apq, app, aqq = piv
+    k = apq.shape[0]
+
+    def cordic_checks():
+        what = "cordic_rotation_params"
+        all(t.device.type == "cpu" for t in piv)
+        require_cuda(what, apq, app, aqq)
+        require(apq.ndim == 1 and app.shape == apq.shape
+                and aqq.shape == apq.shape, what,
+                f"expected three (k,) tensors, got {tuple(apq.shape)}, "
+                f"{tuple(app.shape)}, {tuple(aqq.shape)}")
+        require(all(t.dtype == torch.float32 for t in piv), what,
+                "apq, app and aqq must be float32")
+        require(all(t.is_contiguous() for t in piv), what,
+                "apq, app and aqq must be contiguous")
+        require(k < 2 ** 31, what, f"k = {k} exceeds the launch grid")
+
+    tv = torch.empty(grid_n * grid_n, dtype=torch.float32, device=dev)
+    ti = torch.empty(grid_n * grid_n, dtype=torch.int32, device=dev)
+    val = torch.empty((), dtype=torch.float32, device=dev)
+    idx = torch.empty((), dtype=torch.int32, device=dev)
+    out3 = [torch.empty_like(apq) for _ in range(3)]
+    lib = build.library()
+    s = stream(dev)
+
+    def context():
+        with torch.cuda.device(dev):
+            pass
+
+    steps = {
+        "dle_checks": dle_checks,
+        "dle_empty_scratch_f32": lambda: torch.empty(
+            grid_n * grid_n, dtype=torch.float32, device=dev),
+        "dle_empty_scratch_i32": lambda: torch.empty(
+            grid_n * grid_n, dtype=torch.int32, device=dev),
+        "dle_empty_0d_f32": lambda: torch.empty((), dtype=torch.float32,
+                                                device=dev),
+        "dle_empty_0d_i32": lambda: torch.empty((), dtype=torch.int32,
+                                                device=dev),
+        "build_library": build.library,
+        "device_context": context,
+        "stream_query": lambda: stream(dev),
+        "data_ptr_x5": lambda: (c.data_ptr(), tv.data_ptr(), ti.data_ptr(),
+                                val.data_ptr(), idx.data_ptr()),
+        "dle_ctypes_call": lambda: lib.repro_dle_scan(
+            c.data_ptr(), tv.data_ptr(), ti.data_ptr(), val.data_ptr(),
+            idx.data_ptr(), n, tile, s),
+        "cordic_checks": cordic_checks,
+        "cordic_empty_like_x3": lambda: [torch.empty_like(apq)
+                                         for _ in range(3)],
+        "cordic_ctypes_call": lambda: lib.repro_cordic(
+            apq.data_ptr(), app.data_ptr(), aqq.data_ptr(),
+            out3[0].data_ptr(), out3[1].data_ptr(), out3[2].data_ptr(), k,
+            s),
+    }
+    return {name: host_us(fn) for name, fn in steps.items()}
+
+
+def lean_split(c, piv) -> dict:
+    """The steps of the wrappers with one output allocation and scratch
+    kept per stream (one DLE launch a call), timed alone."""
+    import torch
+    from repro_torch.kernels import build, dle
+    from repro_torch.kernels.launch import raw_stream
+    dev = c.get_device()
+    n = c.shape[0]
+    apq, app, aqq = piv
+    k = apq.shape[0]
+    out = torch.empty(5, dtype=torch.int64, device=c.device)
+    out3 = torch.empty((3, k), dtype=torch.float32, device=c.device)
+    scratch = dle._scratch(dev, raw_stream(dev), n, DLE_TILE)
+    lib = build.library()
+    s = raw_stream(dev)
+    f = out.view(torch.float32)
+    steps = {
+        "dle_empty_out": lambda: torch.empty(5, dtype=torch.int64,
+                                             device=c.device),
+        "dle_scratch_lookup": lambda: dle._scratch(dev, s, n, DLE_TILE),
+        "current_device": torch.cuda.current_device,
+        "raw_stream": lambda: raw_stream(dev),
+        "build_library": build.library,
+        "dle_ctypes_call": lambda: lib.repro_dle_pivot(
+            c.data_ptr(), out.data_ptr(), scratch.data_ptr(), n, DLE_TILE,
+            4, s),
+        "dle_pivot_views": lambda: (out[0], out[1], f[4], f[5], f[6]),
+        "cordic_empty_out": lambda: torch.empty((3, k), dtype=torch.float32,
+                                                device=c.device),
+        "cordic_ctypes_call": lambda: lib.repro_cordic(
+            apq.data_ptr(), app.data_ptr(), aqq.data_ptr(),
+            out3.data_ptr(), k, s),
+        "cordic_views": lambda: out3.unbind(),
+    }
+    return {name: host_us(fn) for name, fn in steps.items()}
+
+
+def small(tree: str) -> dict:
+    import torch
+    from repro_torch.core.jacobi import round_robin_rounds
+    from repro_torch.kernels import build, cordic, dle, launch_counts, ops
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    g = torch.randn(N, N, generator=gen, device=dev)
+    gram = (g @ g.mT / N).contiguous()
+    pairs = torch.as_tensor(round_robin_rounds(N)[N // 3], device=dev).long()
+    p, q = pairs[:, 0], pairs[:, 1]
+    piv = (gram[p, q].contiguous(), gram[p, p].contiguous(),
+           gram[q, q].contiguous())
+    scale = 10.0 ** torch.randint(-3, 4, (3, CORDIC_RATE_K), generator=gen,
+                                  device=dev)
+    rate = tuple(torch.randn(3, CORDIC_RATE_K, generator=gen, device=dev)
+                 * scale)
+    want_scan = ref.dle_scan(gram, DLE_TILE)
+    cases = {
+        "dle_scan": (lambda: dle.dle_scan(gram, DLE_TILE),
+                     lambda got: (float(got[0]), int(got[1])) == (
+                         float(want_scan[0]), int(want_scan[1]))),
+        "dle_find_pivot": (
+            lambda: ops.dle_find_pivot(gram, DLE_TILE),
+            lambda got: int(got.p) * N + int(got.q) == int(want_scan[1])
+            and float(got.apq.abs()) == float(want_scan[0])),
+        "cordic": (lambda: cordic.cordic_rotation_params(*piv),
+                   lambda got: all(torch.equal(a, b) for a, b in zip(
+                       got, ref.cordic_rotation_params_q29(*piv)))),
+        "cordic_rotate": (lambda: ops.cordic_rotate(*piv),
+                          lambda got: all(torch.equal(a, b) for a, b in zip(
+                              got, ref.cordic_rotation_params_q29(*piv)))),
+        "cordic_rate": (lambda: cordic.cordic_rotation_params(*rate),
+                        lambda got: all(torch.equal(a, b) for a, b in zip(
+                            got, ref.cordic_rotation_params_q29(*rate)))),
+    }
+    out = {"tree": tree}
+    for name, (fn, ok) in cases.items():
+        before = launch_counts()
+        got = fn()
+        moved = {k: c - before[k] for k, c in launch_counts().items()
+                 if c != before[k]}
+        row = {"launches": moved, "bitwise": bool(ok(got)),
+               "ms": time_ms(fn, SMALL_REPS if name != "cordic_rate"
+                             else 200)}
+        row.update(traced(fn, TRACE_REPS))
+        if name != "cordic_rate":  # there the device time bounds the host
+            row["host_us"] = host_us(fn)
+        out[name] = row
+    split = lean_split if "repro_dle_pivot" in build.SIGNATURES \
+        else parent_split
+    out["host_split_us"] = split(gram, piv)
+    lib = build.build_dir() / build.LIB_NAME
+    out["cordic_sass"] = sass_chain(str(lib), "cordic_kernel")
+    out["sm_clock_mhz_busy"], out["power_w_busy"] = busy_sm_clock_mhz()
+    return out
+
+
 CASES = {"attention": attention, "gemm": gemm, "jacobi": jacobi,
-         "scan": scan}
+         "scan": scan, "small": small}
 
 
 def use_tree(tree: str) -> None:

@@ -18,7 +18,11 @@
 //
 // Bound: 24 bytes a pivot (three fp32 in, three out) against about 500
 // integer and float operations; at k = 2^20 bytes and operations take
-// microseconds either way, and at one round's k = 392 the launch does.
+// microseconds either way.  At one round's k = 392 the floor is latency:
+// a pivot's longest chain of dependent instructions (262 in the SASS,
+// about 1100 cycles, 0.56 us at 1.98 GHz) after the load of its inputs,
+// inside a launch that alone takes about 1 us on the device.  The three
+// outputs are the rows of one (3, k) buffer: the wrapper allocates once.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -31,8 +35,7 @@ constexpr int THREADS = 256;
 
 __global__ void __launch_bounds__(THREADS)
 cordic_kernel(const float* __restrict__ apq, const float* __restrict__ app,
-              const float* __restrict__ aqq, float* __restrict__ theta_out,
-              float* __restrict__ c_out, float* __restrict__ s_out, int k) {
+              const float* __restrict__ aqq, float* __restrict__ out, int k) {
   const int j = blockIdx.x * THREADS + threadIdx.x;
   if (j >= k) return;
   const float y = __fmul_rn(2.f, apq[j]);
@@ -51,18 +54,20 @@ cordic_kernel(const float* __restrict__ apq, const float* __restrict__ app,
     yr = yr + d * xs;
     zr = zr - d * kAtanFixed[i];
   }
-  theta_out[j] = theta;
-  c_out[j] = from_fixed(xr);
-  s_out[j] = from_fixed(yr);
+  const size_t row = static_cast<size_t>(k);
+  out[j] = theta;
+  out[row + j] = from_fixed(xr);
+  out[2 * row + j] = from_fixed(yr);
 }
 
 }  // namespace
 
+// out: (3, k) fp32, rows theta, cos, sin
 extern "C" int repro_cordic(const float* apq, const float* app,
-                            const float* aqq, float* theta, float* c,
-                            float* s, int k, void* stream) {
+                            const float* aqq, float* out, int k,
+                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cordic_kernel<<<(k + THREADS - 1) / THREADS, THREADS, 0, st>>>(
-      apq, app, aqq, theta, c, s, k);
+      apq, app, aqq, out, k);
   return repro::launch_status();
 }

@@ -44,8 +44,8 @@ SIGNATURES = {
     "repro_jacobi_sweep_limits": [_I, _I, _P, _P, _P],
     "repro_mm": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I, _L,
                  _L, _L, _I, _I, _P],
-    "repro_dle_scan": [_P, _P, _P, _P, _P, _I, _I, _P],
-    "repro_cordic": [_P, _P, _P, _P, _P, _P, _I, _P],
+    "repro_dle_pivot": [_P, _P, _P, _I, _I, _I, _P],
+    "repro_cordic": [_P, _P, _P, _P, _I, _P],
     "repro_flash_attention_mma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                                   _I, _I, _P],
     "repro_flash_attention_tf32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
@@ -130,6 +130,8 @@ def build() -> pathlib.Path:
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built at first use)."""
     global _LIB
+    if _LIB is not None:  # loaded: no lock on the launch path
+        return _LIB
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))

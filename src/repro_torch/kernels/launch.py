@@ -66,3 +66,24 @@ def copy_width(d: int, elem_bytes: int, widths, tensors) -> int:
 def stream(dev: torch.device) -> int:
     """The handle of PyTorch's current stream on ``dev``."""
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+# the current stream's handle without building a Stream object (a CUDA
+# build of PyTorch has it; else through current_stream)
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def raw_stream(index: int) -> int:
+    """The handle of PyTorch's current stream on CUDA device ``index``."""
+    if _RAW_STREAM is None:
+        return torch.cuda.current_stream(index).cuda_stream
+    return _RAW_STREAM(index)
+
+
+def call_on(index: int, fn, *args):
+    """``fn(*args)`` with CUDA device ``index`` current: the device context
+    is entered only when another device is current."""
+    if torch.cuda.current_device() == index:
+        return fn(*args)
+    with torch.cuda.device(index):
+        return fn(*args)

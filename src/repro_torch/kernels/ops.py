@@ -139,10 +139,8 @@ def jacobi_sweep(C, V, pairs, *, angle: str = "rutishauser",
 @registry.register("dle_find_pivot", "cuda")
 def _dle_cuda(c, *, tile: int = 128):
     require_cuda("dle_find_pivot", c)
-    n = c.shape[-1]
-    _, idx = _dle.dle_scan(c, tile=tile)
-    idx = idx.long()
-    return _core_dle._pivot_at(c, idx // n, idx % n)  # gathered on device
+    # one launch: the kernel's last block gathers the pivot
+    return _core_dle.Pivot(*_dle.dle_pivot(c, tile=tile))
 
 
 @registry.register("dle_find_pivot", "torch")
@@ -154,16 +152,19 @@ def _dle_torch(c, *, tile: int = 0):
 def dle_find_pivot(c, tile: int = 128, *, backend: Optional[str] = None):
     """Pivot for the Jacobi step: (p, q, c_pq, c_pp, c_qq) of the max
     |off-diagonal| element of C (n, n), found in one scan of ``tile`` x
-    ``tile`` tiles.  The kernel breaks ties in tile order and the ``torch``
-    backend (``core.dle.find_pivot``) in flat row-major order, as the
-    reference's Pallas and ``ref`` backends do."""
+    ``tile`` tiles (one kernel launch on the ``cuda`` backend).  The kernel
+    breaks ties in tile order and skips a tile holding a NaN, and the
+    ``torch`` backend (``core.dle.find_pivot``) takes the first maximum in
+    flat row-major order, a NaN first, as the reference's Pallas and
+    ``ref`` backends do."""
     return registry.resolve("dle_find_pivot", backend, like=c)(c, tile=tile)
 
 
 # -- cordic_rotate ----------------------------------------------------------
 
 def _as_pivots(*ts):
-    return tuple(torch.atleast_1d(t).to(torch.float32) for t in ts)
+    return tuple(t if t.dim() == 1 and t.dtype == torch.float32
+                 else torch.atleast_1d(t).to(torch.float32) for t in ts)
 
 
 @registry.register("cordic_rotate", "cuda")
@@ -171,7 +172,8 @@ def _cordic_cuda(apq, app, aqq, *, block: int = 256):
     del block  # one thread per pivot
     require_cuda("cordic_rotate", apq, app, aqq)
     return _cordic.cordic_rotation_params(
-        *(t.contiguous() for t in _as_pivots(apq, app, aqq)))
+        *(t if t.is_contiguous() else t.contiguous()
+          for t in _as_pivots(apq, app, aqq)))
 
 
 @registry.register("cordic_rotate", "torch")

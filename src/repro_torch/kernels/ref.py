@@ -94,8 +94,10 @@ def dle_scan(c: torch.Tensor, tile: int = 128):
     matrix, as the Pallas DLE kernel finds them: the diagonal and the
     padding count as -1; the tiles of ``tile`` x ``tile`` are taken in
     row-major order and a later tile wins only with a strictly larger
-    value; within a tile the first maximum in row-major order wins.  With
-    no valid entry (n = 1) it returns (-1, 0)."""
+    value; within a tile the first maximum in row-major order wins.  A
+    tile holding a NaN in a valid entry has a NaN max, which is never
+    larger, so the tile is skipped whole.  With no candidate (n = 1, or
+    every tile NaN) it returns (-1, 0)."""
     n = c.shape[-1]
     if c.ndim != 2 or c.shape[0] != n:
         raise ValueError(f"dle_scan: expected (n, n), got {tuple(c.shape)}")
@@ -110,6 +112,7 @@ def dle_scan(c: torch.Tensor, tile: int = 128):
     tiles = mag.reshape(g, tile, g, tile).permute(0, 2, 1, 3).reshape(
         g * g, tile * tile)
     tile_max, tile_arg = tiles.max(dim=1)   # first maximum in the tile
+    tile_max = tile_max.masked_fill(tile_max.isnan(), -1.0)  # NaN tiles
     best = torch.argmax(tile_max)           # first tile with the maximum
     loc = tile_arg[best]
     p = (best // g) * tile + loc // tile
@@ -119,6 +122,16 @@ def dle_scan(c: torch.Tensor, tile: int = 128):
                                                              -1.0))
     idx = torch.where(found, p * n + q, torch.zeros_like(p))
     return val, idx.to(torch.int32)
+
+
+def dle_pivot(c: torch.Tensor, tile: int = 128):
+    """(p, q as int64, C[p, q], C[p, p], C[q, q]) at ``dle_scan``'s flat
+    index: the pivot the DLE kernel gathers, (0, 0, C[0, 0], C[0, 0],
+    C[0, 0]) with no candidate."""
+    n = c.shape[-1]
+    idx = dle_scan(c, tile)[1].long()
+    p, q = idx // n, idx % n
+    return p, q, c[p, q], c[p, p], c[q, q]
 
 
 def cordic_rotation_params_q29(apq: torch.Tensor, app: torch.Tensor,

@@ -89,3 +89,33 @@ def sym(n: int, seed: int = 0, scale: float = 1.0) -> np.ndarray:
 def data(m: int, n: int, seed: int = 0) -> np.ndarray:
     return np.random.default_rng(seed).standard_normal((m, n)).astype(
         np.float32)
+
+
+# the DLE scan's test grid: ragged n, tiles that do and do not divide it
+# or 4 (the kernel's 16-byte loads), and the matrices of ``dle_matrix``
+DLE_N = [1, 2, 3, 5, 33, 129, 784]
+DLE_TILES = [1, 3, 4, 32, 128]
+DLE_KINDS = ["random", "ties", "nan", "nan_inf"]
+
+
+def dle_matrix(n: int, kind: str, seed: int = 0) -> np.ndarray:
+    """A square fp32 matrix for the DLE scan: ``random`` symmetric;
+    ``ties`` symmetric with 13 distinct values (equal maxima inside a
+    16-byte vector, inside a tile and across tiles); ``nan`` random with
+    NaNs off and on the diagonal; ``nan_inf`` that with +-inf as well."""
+    rng = np.random.default_rng(seed)
+    if kind == "ties":
+        a = rng.integers(-6, 7, (n, n)).astype(np.float32)
+        c = np.where(np.triu(np.ones((n, n), bool)), a, a.T)
+    else:
+        c = sym(n, seed=seed)
+    if kind in ("nan", "nan_inf"):
+        k = 2 + n // 64  # a share of the tiles, not all of them
+        c[rng.integers(0, n, k), rng.integers(0, n, k)] = np.nan
+        d = rng.integers(0, n)
+        c[d, d] = np.nan
+    if kind == "nan_inf":
+        k = 1 + n // 128
+        c[rng.integers(0, n, k), rng.integers(0, n, k)] = np.inf
+        c[rng.integers(0, n, k), rng.integers(0, n, k)] = -np.inf
+    return c.astype(np.float32)

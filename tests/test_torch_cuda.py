@@ -31,10 +31,11 @@ from repro_torch.core import pca as tpca
 from repro_torch.core.jacobi import cyclic_pairs, round_robin_rounds
 from repro_torch.kernels import (build, cordic, dle, flash_attention, fused,
                                  launch, launch_counts, mamba_scan, mm_engine,
-                                 ref)
+                                 ops, ref)
 
-from _torch_parity import (assert_contract, bf16_ulp,  # noqa: F401
-                           cuda_device, data, sym)
+from _torch_parity import (DLE_KINDS, DLE_N, DLE_TILES,  # noqa: F401
+                           assert_contract, bf16_ulp, cuda_device, data,
+                           dle_matrix, sym)
 
 pytestmark = pytest.mark.cuda
 
@@ -307,6 +308,118 @@ def test_dle_kernel_matches_its_plain_version(cuda_device):
         assert (float(got[0]), int(got[1])) == (float(want[0]),
                                                 int(want[1])), (c.shape,
                                                                 tile)
+
+
+def _bits(t: torch.Tensor) -> list:
+    """The values of 0-d tensors as exact, NaN-comparable bit patterns."""
+    return [int(x.view(torch.int32)) if x.dtype == torch.float32
+            else int(x) for x in t]
+
+
+def _dle_at(c: torch.Tensor, shift: int) -> torch.Tensor:
+    """A contiguous copy of ``c`` whose base is ``shift`` floats past a
+    16-byte boundary (shift 1: one element a load)."""
+    n = c.shape[0]
+    flat = torch.empty(n * n + 4, dtype=c.dtype, device=c.device)
+    out = flat[shift:shift + n * n].view(n, n)
+    out.copy_(c)
+    return out
+
+
+@pytest.mark.parametrize("tile", DLE_TILES)
+@pytest.mark.parametrize("n", DLE_N)
+def test_dle_kernel_bitwise_with_ties_nan_and_inf(cuda_device, n, tile):
+    """(value, flat index) bitwise the plain version's, NaN tiles skipped,
+    at aligned and unaligned bases; the gathered pivot is C's entries."""
+    for kind in DLE_KINDS:
+        host = torch.from_numpy(dle_matrix(n, kind, seed=n + tile))
+        want = ref.dle_scan(host, tile)
+        for shift in (0, 1):
+            c = _dle_at(host.to(cuda_device), shift)
+            before = dle.DLE_SCAN.launches
+            got = dle.dle_scan(c, tile)
+            piv = dle.dle_pivot(c, tile)
+            assert dle.DLE_SCAN.launches == before + 2
+            assert _bits(got) == _bits(want), (kind, shift)
+            p, q = int(piv[0]), int(piv[1])
+            assert p * n + q == int(want[1]) and piv[0].dtype == torch.int64
+            assert _bits(piv[2:]) == _bits(
+                (host[p, q], host[p, p], host[q, q])), (kind, shift)
+
+
+def test_dle_find_pivot_is_one_launch_on_a_grid_that_fills_the_card(
+        cuda_device, tmp_path):
+    """Each op call adds one to the kernel's count, and the profiler traces
+    no kernel but the DLE kernel, on the grid ``launch_grid`` gives (a
+    trace may miss an event, so its count is held to at most one a
+    call)."""
+    import json
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    n, tile, calls = 784, 128, 10
+    c = torch.from_numpy(sym(n, seed=3)).to(cuda_device)
+    ops.dle_find_pivot(c, tile)  # the stream's scratch, zeroed once
+    torch.cuda.synchronize()
+    before = dle.DLE_SCAN.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pivots = [ops.dle_find_pivot(c, tile) for _ in range(calls)]
+        torch.cuda.synchronize()
+    assert dle.DLE_SCAN.launches == before + calls
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert 0 < len(kernels) <= calls and all(
+        "dle_kernel" in k for k in kernels), kernels
+    prof.export_chrome_trace(str(tmp_path / "trace.json"))
+    grids = [e["args"]["grid"] for e in json.loads(
+        (tmp_path / "trace.json").read_text())["traceEvents"]
+        if e.get("cat") == "kernel"]
+    gx, gy = dle.launch_grid(n, tile)
+    assert grids and all(g == [gx, gy, 1] for g in grids), grids
+    assert gx * gy >= 132
+    want = int(ref.dle_scan(c, tile)[1])
+    assert all(int(p.p) * n + int(p.q) == want for p in pivots)
+
+
+def test_dle_scratch_cleans_itself_across_calls_and_streams(cuda_device):
+    """Back-to-back calls on different matrices (no synchronize between
+    them), a larger tile grid after a smaller one, and calls on a second
+    stream, each with its own scratch: every result right."""
+    mats = [torch.from_numpy(dle_matrix(n, kind, seed=i)).to(cuda_device)
+            for i, (n, kind) in enumerate(
+                [(64, "random"), (300, "ties"), (129, "nan"),
+                 (784, "nan_inf"), (64, "ties"), (1030, "nan")])]
+    tiles = [32, 4, 128, 1, 16, 128]  # n = 1030: the diagonal from C
+    side = torch.cuda.Stream(cuda_device)
+    got, got_side = [], []
+    for c, tile in zip(mats, tiles):
+        got.append(dle.dle_scan(c, tile))
+        side.wait_stream(torch.cuda.current_stream(cuda_device))
+        with torch.cuda.stream(side):
+            got_side.append(dle.dle_scan(c, tile))
+    torch.cuda.synchronize()
+    for c, tile, g, gs in zip(mats, tiles, got, got_side):
+        want = _bits(ref.dle_scan(c.cpu(), tile))
+        assert _bits(g) == want and _bits(gs) == want, (c.shape, tile)
+        piv = dle.dle_pivot(c, tile)
+        assert _bits(piv) == _bits(ref.dle_pivot(c.cpu(), tile)), c.shape
+    streams = {key[1] for key in dle._SCRATCH if key[0] == cuda_device.index}
+    assert side.cuda_stream in streams and len(streams) >= 2
+    for buf in dle._SCRATCH.values():  # zero again after the last block
+        assert int(buf.count_nonzero()) == 0
+
+
+def test_cordic_outputs_are_three_rows_that_do_not_overlap(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    for k in (0, 1, 392, 1000):
+        apq, app, aqq = torch.randn(3, k, generator=g, device=cuda_device)
+        apq, app, aqq = (t.contiguous() for t in (apq, app, aqq))
+        got = cordic.cordic_rotation_params(apq, app, aqq)
+        spans = sorted((t.data_ptr(), t.data_ptr() + 4 * k) for t in got)
+        assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+        assert all(t.shape == (k,) and t.is_contiguous() for t in got)
+        want = ref.cordic_rotation_params_q29(apq, app, aqq)
+        for gg, w in zip(got, want):
+            assert_contract(gg, w, "bitwise")
 
 
 def test_cordic_kernel_bitwise(cuda_device):
