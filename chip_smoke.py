@@ -47,15 +47,29 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    head dim, the 3xTF32 kernel for fp32 prefill, split-KV for decode);
    each result is held against the plain version, and kernel, plain
    version, bound and (for attention) ``scaled_dot_product_attention``
-   are timed.
+   are timed;
+6. serve: phase 4's 96 requests through the serving engine,
+   ``PCAServer(PCAConfig(fused=True, backend="cuda", sweeps=50, T=64,
+   S=32), policy=BucketPolicy(T=64, mode="pow2"))`` on its default
+   executor (the card), once with ``max_inflight=1`` and once with
+   ``max_inflight=3``, each server taking the burst twice (a cold pass
+   that builds its solvers, a warm one that must hit the cache on every
+   flush) and ``drain()``-ing each pass; every ``executor.submit`` runs
+   under ``torch.cuda.set_sync_debug_mode("error")`` (a host sync in the
+   dispatch stage fails the phase); every served result within the fp32
+   budgets of float64 numpy, the four passes bitwise equal field by field,
+   and the four kernels of the path launched.  Each run's warm pass prints
+   requests/s, p50/p99 latency and the mean overlap and wait per flush
+   (``stats``); a third pass of the pipelined server runs under
+   ``torch.profiler`` for the device's idle share.
 
 Each path is checked against the kernels it runs: phase 3 against the
-three PCA/SVD kernels, phase 4 against those and the shared-memory sweep,
-phase 5 against the seven kernels of its five ops.
+three PCA/SVD kernels, phases 4 and 6 against those and the shared-memory
+sweep, phase 5 against the seven kernels of its five ops.
 The last three lines are the kernels' JSON record (each kernel's launches
-from the phase that drives it), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.  Without a CUDA device the script exits
-with code 2 and prints no result.
+from the phase that drives it, and ``launches_serve`` from phase 6), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
+Without a CUDA device the script exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
@@ -104,8 +118,9 @@ MS_B, MS_L, MS_D, MS_N = 1, 4096, 2 * 4096, 16  # falcon-mamba-7b d_inner, N
 # the kernels each path runs
 PATH_KERNELS = ("covariance", "jacobi_sweep", "mm_engine_matmul")
 # the batched flush runs those and the shared-memory sweep (buckets of 64
-# and 128)
+# and 128), and so does the serve phase
 FLUSH_KERNELS = PATH_KERNELS + ("jacobi_sweep_smem",)
+SERVE_DEPTHS = (1, 3)             # max_inflight of the serve phase's runs
 OPS = ("dle_find_pivot", "cordic_rotate", "flash_attention", "mamba_scan",
        "mm_engine_matmul")
 OPS_KERNELS = ("dle_find_pivot", "cordic_rotate", "flash_attention_mma",
@@ -582,16 +597,15 @@ def main_path(dev) -> dict:
             "profile": profile_fit(X, config, dev)}
 
 
-def profile_fit(X, config, dev) -> dict:
-    """Where the fit's time goes: the same fit once more under
-    torch.profiler (its launches are not the main path's), the device's
-    busy time summed over the traced kernels and copies, and the largest
-    of them."""
-    import repro_torch
+def profiled(what: str, fn) -> dict:
+    """Where ``fn``'s time goes: ``fn()`` under torch.profiler (its
+    launches are not the phase's), the device's busy time summed over the
+    traced kernels and copies, and the largest of them."""
     from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        repro_torch.fit_transform(X, K, config, device=dev)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     spans = sorted(((e.key, e.count, e.device_time_total / 1e6)
@@ -600,14 +614,35 @@ def profile_fit(X, config, dev) -> dict:
     busy = sum(t for _, _, t in spans)
     top = [{"name": name[:80], "calls": calls, "s": t}
            for name, calls, t in spans[:6]]
-    log(f"main path, profiled rerun: wall {wall:.3f} s, device busy "
+    log(f"{what}, profiled rerun: wall {wall:.3f} s, device busy "
         f"{busy:.3f} s, idle share {1 - busy / wall:.3f}; by device time: "
         f"{json.dumps(top)}")
     return {"wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall,
             "top": top}
 
 
+def profile_fit(X, config, dev) -> dict:
+    """The fit once more under torch.profiler (``profiled``)."""
+    import repro_torch
+    return profiled("main path", lambda: repro_torch.fit_transform(
+        X, K, config, device=dev))
+
+
 # -- phase 4: a batched flush ----------------------------------------------
+
+def reference_values(op: str, a: np.ndarray) -> np.ndarray:
+    """Float64 numpy's answer to one request: eigenvalues (eigh, pca) or
+    singular values (svd), descending."""
+    a = a.astype(np.float64)
+    if op == "eigh":
+        return np.linalg.eigvalsh(a)[::-1]
+    if op == "svd":
+        return np.linalg.svd(a, compute_uv=False)
+    std = a.std(axis=0)
+    std[std < 1e-8] = 1.0
+    xs = (a - a.mean(axis=0)) / std
+    return np.linalg.eigvalsh(xs.T @ xs)[::-1]
+
 
 def batched_flush(dev) -> dict:
     from repro_torch.core.pca import PCAConfig
@@ -652,10 +687,10 @@ def batched_flush(dev) -> dict:
             torch.cuda.synchronize()
             solve_s += time.perf_counter() - t_solve
             for j, i in enumerate(ids):
-                a = mats[i].astype(np.float64)
+                a = mats[i]
+                want = reference_values(op, a)
+                n = a.shape[1]
                 if op == "eigh":
-                    n = a.shape[0]
-                    want = np.linalg.eigvalsh(a)[::-1]
                     got = res.eigenvalues[j, :n].cpu().numpy()
                     V = res.eigenvectors[j].cpu()
                     eye = torch.eye(shape[0])
@@ -664,15 +699,8 @@ def batched_flush(dev) -> dict:
                                and (res.eigenvalues[j, n:] == 0).all()),
                           f"eigh bucket {shape}: padding did not stay exact")
                 elif op == "svd":
-                    n = a.shape[1]
-                    want = np.linalg.svd(a, compute_uv=False)
                     got = res.S[j, :n].cpu().numpy()
                 else:
-                    n = a.shape[1]
-                    std = a.std(axis=0)
-                    std[std < 1e-8] = 1.0
-                    xs = (a - a.mean(axis=0)) / std
-                    want = np.linalg.eigvalsh(xs.T @ xs)[::-1]
                     got = res.eigenvalues[j, :n].cpu().numpy()
                 err = rel_frobenius(got, want)
                 worst[op] = max(worst[op], err)
@@ -691,7 +719,7 @@ def batched_flush(dev) -> dict:
         check(counts[name] > 0, f"kernel {name} never launched in the "
               f"batched flush")
     return {"wall_s": wall, "solve_s": solve_s, "launches": counts,
-            "worst": worst}
+            "worst": worst, "requests": requests}
 
 
 # -- phase 5: the standalone registry ops -----------------------------------
@@ -1050,6 +1078,123 @@ def ops_phase(dev, rows: dict) -> dict:
     return {"wall_s": wall, "launches": counts}
 
 
+# -- phase 6: the serving engine ---------------------------------------------
+
+def serve_phase(dev, requests: dict) -> dict:
+    import dataclasses
+    from repro_torch.core.pca import PCAConfig
+    from repro_torch.core.precision import ERROR_BUDGETS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import BucketPolicy, PCAServer
+
+    config = PCAConfig(fused=True, backend=BACKEND, sweeps=SWEEPS, T=FLUSH_T,
+                       S=FLUSH_REQUESTS)
+    burst = [(op, a) for op, mats in requests.items() for a in mats]
+    guarded = [0]
+
+    def no_sync(submit):
+        """``submit`` under the sync debug mode "error": a host sync in the
+        dispatch stage raises."""
+        def guarded_submit(*args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                flush = submit(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            guarded[0] += 1
+            return flush
+        return guarded_submit
+
+    def one_pass(srv):
+        """The burst through ``srv``, then drain: (served results in
+        order, wall seconds, telemetry of this pass alone)."""
+        srv.stats.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tickets = [srv.submit(a, op=op) for op, a in burst]
+        srv.drain()
+        wall = time.perf_counter() - t0
+        return [t.result() for t in tickets], wall, srv.stats
+
+    servers, passes, runs = {}, [], {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for depth in SERVE_DEPTHS:
+        srv = servers[depth] = PCAServer(
+            config, policy=BucketPolicy(T=FLUSH_T, mode="pow2"),
+            max_inflight=depth)
+        check(srv.executor.device.type == "cuda",
+              f"PCAServer() runs on {srv.executor.device}, not the card")
+        srv.executor.submit = no_sync(srv.executor.submit)
+        run = runs[depth] = {}
+        for name in ("cold", "warm"):
+            served, wall, stats = one_pass(srv)
+            passes.append(served)
+            summary = stats.summary()
+            flushes = list(stats.flush_records)
+            run[name] = {
+                "wall_s": wall, "flushes": summary["flushes"],
+                "cache_hits": stats.cache_hits,
+                "requests_per_s": summary["requests_per_s"],
+                "latency_p50_ms": summary["latency_p50_ms"],
+                "latency_p99_ms": summary["latency_p99_ms"],
+                "mean_overlap_ms": 1e3 * float(np.mean(
+                    [f.overlap_s for f in flushes])),
+                "mean_wait_ms": 1e3 * float(np.mean(
+                    [f.wait_s for f in flushes])),
+                "mean_dispatch_ms": 1e3 * float(np.mean(
+                    [f.dispatch_s for f in flushes])),
+                "max_inflight_depth": summary["max_inflight_depth"]}
+            log(f"serve[max_inflight={depth} {name}]: {len(burst)} requests "
+                f"in {summary['flushes']} flushes ({stats.cache_hits} cache "
+                f"hits), wall {wall:.3f} s, "
+                f"{summary['requests_per_s']:.1f} requests/s, latency p50 "
+                f"{summary['latency_p50_ms']:.1f} ms p99 "
+                f"{summary['latency_p99_ms']:.1f} ms, per flush: overlap "
+                f"{run[name]['mean_overlap_ms']:.2f} ms, wait "
+                f"{run[name]['mean_wait_ms']:.2f} ms, dispatch "
+                f"{run[name]['mean_dispatch_ms']:.2f} ms; max in flight "
+                f"{summary['max_inflight_depth']}")
+        check(run["cold"]["cache_hits"] == 0,
+              f"serve[max_inflight={depth}]: the cold pass hit the cache")
+        check(run["warm"]["cache_hits"] == run["warm"]["flushes"] > 0,
+              f"serve[max_inflight={depth}]: the warm pass missed the cache "
+              f"({run['warm']['cache_hits']} of {run['warm']['flushes']})")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"serve: launches {json.dumps(counts)}; {guarded[0]} executor.submit "
+        f"calls under set_sync_debug_mode('error'), none synced the host")
+    for name in FLUSH_KERNELS:
+        check(counts[name] > 0, f"kernel {name} never launched in the serve "
+              f"phase")
+
+    budget = ERROR_BUDGETS["fp32"]
+    worst = {}
+    for (op, a), res in zip(burst, passes[0]):
+        got = res.S if op == "svd" else res.eigenvalues
+        err = rel_frobenius(got, reference_values(op, a))
+        worst[op] = max(worst.get(op, 0.0), err)
+        check(np.isfinite(got).all() and got.shape == (a.shape[1],)
+              and err <= budget["svd" if op == "svd" else "eigh"],
+              f"serve {op} {a.shape}: rel-Frobenius {err:.3e} over budget")
+    log(f"serve: worst rel-Frobenius vs float64 numpy {json.dumps(worst)}")
+    for k, served in enumerate(passes[1:], 1):
+        for (op, _), g, w in zip(burst, served, passes[0]):
+            for f in dataclasses.fields(w):
+                check(np.array_equal(getattr(g, f.name), getattr(w, f.name)),
+                      f"serve pass {k} {op}.{f.name} differs bitwise from "
+                      f"pass 0")
+    log(f"serve: the {len(passes)} passes (max_inflight "
+        f"{' and '.join(map(str, SERVE_DEPTHS))}, cold and warm) bitwise "
+        f"equal field by field")
+    # where the pipelined run's time goes (not counted in the launches)
+    srv = servers[SERVE_DEPTHS[-1]]
+    profile = profiled(f"serve[max_inflight={SERVE_DEPTHS[-1]}]",
+                       lambda: one_pass(srv))
+    return {"launches": counts, "runs": runs, "worst": worst,
+            "profile": profile, "submits_guarded": guarded[0]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1116,6 +1261,7 @@ def main() -> int:
         fit_idle_share_profiled=main_run["profile"]["idle_share"])
     flush = batched_flush(dev)
     ops_run = ops_phase(dev, rows)
+    serve = serve_phase(dev, flush["requests"])
 
     record = []
     for k in KERNELS:
@@ -1129,6 +1275,7 @@ def main() -> int:
         else:
             row["launches"] = ops_run["launches"][k.name]
             row["path"] = "ops phase"
+        row["launches_serve"] = serve["launches"][k.name]
         record.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))

@@ -57,6 +57,17 @@ then one JSON line a tree.  CASES is one of:
     is bitwise the plain version's round-by-round loop.  Then
     ``fit_transform`` as for ``gemm``.
 
+``serve``
+    ``chip_smoke.py``'s serve phase (this checkout's script, the tree's
+    ``repro_torch``): its phase 4 makes the 96 seeded requests, then
+    ``PCAServer`` serves them at ``max_inflight`` 1 and 3, a cold and a
+    warm pass each, under the phase's checks (no host sync in
+    ``executor.submit``, results in budget, passes bitwise equal), and a
+    profiled pipelined pass.  Each pass's wall seconds, requests/s, p50
+    and p99 latency, and the mean dispatch, overlap and wait a flush; the
+    profiled pass's device idle share.  The phases' own log goes to
+    stderr.
+
 ``small``
     The two small wrapper calls at the ops phase's shapes: the DLE scan of
     a seeded symmetric 784 x 784 matrix at tile 128 (``dle.dle_scan`` and
@@ -249,6 +260,22 @@ def fit_wall_s(dev) -> float:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     return wall
+
+
+def serve(tree: str) -> dict:
+    import torch
+    import repro_torch  # noqa: F401  the tree's, before chip_smoke puts
+    # this checkout's src on the path
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    chip_smoke.log = lambda msg: print(msg, file=sys.stderr, flush=True)
+    dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flush = chip_smoke.batched_flush(dev)
+    out = chip_smoke.serve_phase(dev, flush["requests"])
+    return {"tree": tree, "runs": out["runs"],
+            "idle_share_pipelined": out["profile"]["idle_share"],
+            "profiled_wall_s": out["profile"]["wall_s"]}
 
 
 def jacobi(tree: str) -> dict:
@@ -618,7 +645,7 @@ def small(tree: str) -> dict:
 
 
 CASES = {"attention": attention, "gemm": gemm, "jacobi": jacobi,
-         "scan": scan, "small": small}
+         "scan": scan, "serve": serve, "small": small}
 
 
 def use_tree(tree: str) -> None:

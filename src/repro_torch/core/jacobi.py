@@ -21,7 +21,9 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
+from .._device import DeviceLike, as_input
 from . import dle as dle_mod
+from . import precision as prec
 from .cordic import ANGLE_MODES
 
 DEFAULT_SWEEPS = 50  # paper Sec. VII-D: fixed 50-sweep factor of safety
@@ -71,6 +73,20 @@ def cyclic_pairs(n: int) -> np.ndarray:
     """(n(n-1)/2, 1, 2) row-cyclic pivot order."""
     pairs = [(p, q) for p in range(n - 1) for q in range(p + 1, n)]
     return np.asarray(pairs, dtype=np.int32).reshape(-1, 1, 2)
+
+
+@functools.lru_cache(maxsize=64)
+def pair_table(pivot: str, n: int, device: torch.device) -> torch.Tensor:
+    """The (R, k, 2) int32 pivot pairs of one sweep of the ``"parallel"``
+    or ``"cyclic"`` schedule at even-padded size n, on ``device``: one copy
+    a (pivot, n, device), so a solve copies nothing to the card.  The copy
+    to a card goes through pinned memory without blocking the host (a
+    pageable copy would wait for every launch queued before it)."""
+    table = torch.from_numpy(round_robin_rounds(n) if pivot == "parallel"
+                             else cyclic_pairs(n))
+    if device.type != "cuda":
+        return table.to(device)
+    return table.pin_memory().to(device, non_blocking=True)
 
 
 def _batch_index(idx, C, k):
@@ -230,10 +246,8 @@ def _solve(C, sweeps, pivot, rotation, angle, matmul_fn, tol,
     V = torch.eye(n, dtype=C.dtype, device=C.device).expand(C.shape)
     V = V.contiguous()
 
-    if pivot == "parallel":
-        rounds = torch.as_tensor(round_robin_rounds(n), device=C.device)
-    elif pivot == "cyclic":
-        rounds = torch.as_tensor(cyclic_pairs(n), device=C.device)
+    if pivot in ("parallel", "cyclic"):
+        rounds = pair_table(pivot, n, C.device)
     else:
         rounds = None
         rot_per_sweep = (n_in * (n_in - 1)) // 2  # one "sweep" worth
@@ -286,8 +300,10 @@ def jacobi_eigh(
     sort: bool = True,
     fused: bool = False,
     fused_backend: Optional[str] = None,
+    precision: str = "fp32",
+    device: DeviceLike = None,
 ) -> EighResult:
-    """Symmetric eigendecomposition of one (n, n) tensor via Jacobi
+    """Symmetric eigendecomposition of one (n, n) matrix via Jacobi
     rotations.
 
     Args as the reference: ``sweeps`` fixed budget; ``pivot`` "parallel" |
@@ -297,9 +313,12 @@ def jacobi_eigh(
     off-norm; ``track_history``; ``fused`` runs each sweep through one call
     of the ``jacobi_sweep`` op (parallel/cyclic with rowcol; "paper" and "matmul"
     stay unfused); ``fused_backend`` names its backend (None follows the
-    tensor: the CUDA kernel for a CUDA tensor).
+    tensor: the CUDA kernel for a CUDA tensor).  Numpy input goes to
+    ``device`` (default ``cuda``); floating input is taken as float32
+    unless ``precision="fp64"`` (``_device.as_input``).
     """
     _check_modes(pivot, rotation)
+    C = as_input(C, device, prec.validate(precision))
     if C.ndim != 2:
         raise ValueError(f"expected an (n, n) matrix, got shape {C.shape}")
     if C.shape[0] == 1:  # trivial 1x1 problem
@@ -318,12 +337,15 @@ def jacobi_eigh(
 
 def jacobi_svd(A, matmul_fn: Optional[Callable] = None,
                fused: bool = False, fused_backend: Optional[str] = None,
-               precision: str = "fp32", **kwargs):
-    """SVD of one (m, n) tensor A via the eigendecomposition of A^T A;
+               precision: str = "fp32", device: DeviceLike = None,
+               **kwargs):
+    """SVD of one (m, n) matrix A via the eigendecomposition of A^T A;
     returns (U, S, Vt), thin.  The Gram product and U = A V share the
     injected ``matmul_fn`` with the rotations; ``fused`` routes the Gram
     through the ``covariance`` op (``precision`` = its operand dtype) and
-    the sweeps through ``jacobi_sweep``."""
+    the sweeps through ``jacobi_sweep``.  Input is taken as in
+    ``jacobi_eigh``."""
+    A = as_input(A, device, prec.validate(precision))
     mm = matmul_fn or torch.matmul
     if fused:
         from repro_torch.kernels import ops as kops
@@ -331,7 +353,8 @@ def jacobi_svd(A, matmul_fn: Optional[Callable] = None,
     else:
         gram = mm(A.mT, A)
     res = jacobi_eigh(gram, matmul_fn=matmul_fn, fused=fused,
-                      fused_backend=fused_backend, **kwargs)
+                      fused_backend=fused_backend, precision=precision,
+                      **kwargs)
     s = torch.sqrt(res.eigenvalues.clamp_min(0.0))
     V = res.eigenvectors
     safe = s.clamp_min(1e-30)

@@ -16,7 +16,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from .._device import DeviceLike, as_tensor
+from .._device import DeviceLike, as_input
 from .covariance import blocked_covariance, standardize
 from .jacobi import DEFAULT_SWEEPS, EighResult, jacobi_eigh
 
@@ -85,8 +85,10 @@ def select_k(cvcr, variance_target: float = 0.95) -> torch.Tensor:
 def fit(X, config: PCAConfig = PCAConfig(),
         device: DeviceLike = None) -> PCAResult:
     """Fit PCA on one (m, d) data matrix.  Numpy input goes to ``device``
-    (default ``cuda``); a tensor keeps its own device."""
-    X = as_tensor(X, device)
+    (default ``cuda``); a tensor keeps its own device.  Floating input is
+    taken as float32 (bfloat16 kept), or as float64 under
+    ``precision="fp64"`` (``_device.as_input``)."""
+    X = as_input(X, device, config.precision)
     if config.standardize:
         Xs, mean, scale = standardize(X)
     else:
@@ -107,6 +109,7 @@ def fit(X, config: PCAConfig = PCAConfig(),
         matmul_fn=mm,
         fused=config.fused,
         fused_backend=config.backend,
+        precision=config.precision,
     )
     evcr, cvcr = evcr_cvcr(res.eigenvalues)
     return PCAResult(res.eigenvectors, res.eigenvalues, mean, scale, evcr,
@@ -116,13 +119,13 @@ def fit(X, config: PCAConfig = PCAConfig(),
 def transform(X, result: PCAResult, k: int, config: PCAConfig = PCAConfig(),
               device: DeviceLike = None):
     """Project onto the top-k subspace: O = X_std V_k (paper eq. 5)."""
-    Xs = (as_tensor(X, device) - result.mean) / result.scale
+    Xs = (as_input(X, device, config.precision) - result.mean) / result.scale
     mm = config.matmul_fn() or torch.matmul
     return mm(Xs, result.components[:, :k])
 
 
 def fit_transform(X, k: int, config: PCAConfig = PCAConfig(),
                   device: DeviceLike = None):
-    X = as_tensor(X, device)
+    X = as_input(X, device, config.precision)
     res = fit(X, config)
     return transform(X, res, k, config), res

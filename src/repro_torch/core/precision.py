@@ -6,7 +6,11 @@
                     covariance/Gram products; rotations, angles and the
                     U = A V back-projection stay fp32.
   ``fp64``          the reference lane: native ``torch.float64`` (on the CPU;
-                    the CUDA kernels take fp32/bf16 operands only).
+                    the CUDA kernels take fp32/bf16 operands only).  The
+                    reference reaches it through a ``JAX_ENABLE_X64=1``
+                    subprocess (``supports_x64``, ``run_fp64_oracle``);
+                    the port needs neither: its entry points take floating
+                    input as float64 under this policy.
 
 ``ERROR_BUDGETS`` is the relative-Frobenius-error ceiling of each
 (policy, op) against a float64 reference; the numbers are the reference's
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 from typing import Dict
 
+import numpy as np
 import torch
 
 PRECISIONS = ("fp32", "bf16_fp32acc", "fp64")
@@ -50,3 +55,11 @@ def acc_dtype(precision: str) -> torch.dtype:
     validate(precision)
     return torch.float64 if precision == "fp64" else torch.float32
 
+
+
+def rel_frobenius(a, b) -> float:
+    """||a - b||_F / ||b||_F (b is the reference), in float64."""
+    a = np.asarray(a, np.float64)
+    b = np.asarray(b, np.float64)
+    denom = max(float(np.linalg.norm(b)), 1e-30)
+    return float(np.linalg.norm(a - b)) / denom

@@ -15,7 +15,9 @@ basis vectors; ``_masked_sort`` then recovers each embedded problem's
 descending eigenpairs with a reorder.
 
 Every entry point takes ``device=``: numpy input goes there (default
-``cuda``); a tensor keeps its own device.
+``cuda``); a tensor keeps its own device.  Floating input is taken as
+float32 (bfloat16 kept), or as float64 under ``precision="fp64"``
+(``_device.as_input``).
 """
 from __future__ import annotations
 
@@ -24,7 +26,7 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from .._device import DeviceLike, as_tensor
+from .._device import DeviceLike, as_input
 from ..core.jacobi import DEFAULT_SWEEPS, _check_modes, _solve
 from ..core.pca import PCAConfig, evcr_cvcr
 
@@ -98,6 +100,7 @@ def jacobi_eigh_batched(
     sort: bool = True,
     fused: bool = False,
     fused_backend: Optional[str] = None,
+    precision: str = "fp32",
     device: DeviceLike = None,
 ) -> BatchedEighResult:
     """Batched symmetric eigendecomposition over a shape bucket.
@@ -107,7 +110,7 @@ def jacobi_eigh_batched(
     arguments are those of ``core.jacobi.jacobi_eigh``; with ``tol`` each
     problem stops at its own sweep.
     """
-    C = as_tensor(C, device)
+    C = as_input(C, device, precision)
     _check_batch(C, "n, n")
     _check_modes(pivot, rotation)
     n_active = _as_n_active(n_active, C.shape[0], C.shape[-1], C.device)
@@ -144,7 +147,7 @@ def jacobi_svd_batched(
     zero U column: the Gram path cannot resolve them, and U = A V / s would
     amplify rounding noise there.
     """
-    A = as_tensor(A, device)
+    A = as_input(A, device, precision)
     _check_batch(A, "m, n")
     B, mb, nb = A.shape
     n_rows = _as_n_active(n_rows, B, mb, A.device)
@@ -157,7 +160,7 @@ def jacobi_svd_batched(
         gram = mm(A.mT, A)
     res = jacobi_eigh_batched(gram, n_active=n_cols, matmul_fn=matmul_fn,
                               fused=fused, fused_backend=fused_backend,
-                              **eigh_kwargs)
+                              precision=precision, **eigh_kwargs)
     s = torch.sqrt(res.eigenvalues.clamp_min(0.0))
     safe = s.clamp_min(1e-30)
     if rcond is None:
@@ -204,7 +207,7 @@ def pca_fit_batched(
     X: (B, mb, db) zero-padded data matrices sharing one bucket, with true
     shapes in (n_rows, n_cols).  EVCR/CVCR cover the live spectrum only
     (padded eigenvalues are exactly zero)."""
-    X = as_tensor(X, device)
+    X = as_input(X, device, config.precision)
     _check_batch(X, "m, d")
     B, mb, db = X.shape
     n_rows = _as_n_active(n_rows, B, mb, X.device)
@@ -227,7 +230,8 @@ def pca_fit_batched(
         C, n_active=n_cols, sweeps=config.sweeps, pivot=config.pivot,
         rotation=config.rotation, angle=config.angle,
         matmul_fn=config.matmul_fn(), tol=config.tol,
-        fused=config.fused, fused_backend=config.backend)
+        fused=config.fused, fused_backend=config.backend,
+        precision=config.precision)
     evcr, cvcr = evcr_cvcr(res.eigenvalues)
     return BatchedPCAResult(res.eigenvectors, res.eigenvalues, mean, scale,
                             evcr, cvcr, res.off_norm, n_rows, n_cols)
@@ -242,12 +246,11 @@ def build_solver_fn(op: str, config: PCAConfig,
               rotation=config.rotation, angle=config.angle, tol=config.tol,
               matmul_fn=config.matmul_fn(),
               fused=config.fused, fused_backend=config.backend,
-              device=device)
+              precision=config.precision, device=device)
     if op == "eigh":
         return lambda C, nr, nc: jacobi_eigh_batched(C, nr, **kw)
     if op == "svd":
-        return lambda A, nr, nc: jacobi_svd_batched(
-            A, nr, nc, precision=config.precision, **kw)
+        return lambda A, nr, nc: jacobi_svd_batched(A, nr, nc, **kw)
     if op == "pca":
         return lambda X, nr, nc: pca_fit_batched(X, nr, nc, config=config,
                                                  device=device)
@@ -257,9 +260,11 @@ def build_solver_fn(op: str, config: PCAConfig,
 def pca_transform_batched(X, result: BatchedPCAResult, k: int,
                           matmul_fn: Optional[Callable] = None,
                           device: DeviceLike = None):
-    """Batched top-k projection O = X_std V_k (paper eq. 5)."""
+    """Batched top-k projection O = X_std V_k (paper eq. 5).  X is taken
+    as float64 when the fit was (the fp64 lane), else as float32."""
     mm = matmul_fn or torch.matmul
-    X = as_tensor(X, device)
+    X = as_input(X, device, "fp64" if result.mean.dtype == torch.float64
+                 else "fp32")
     scale = torch.where(result.scale == 0.0, torch.ones_like(result.scale),
                         result.scale)
     rmask = (torch.arange(X.shape[1], device=X.device)[None, :]

@@ -721,3 +721,162 @@ def test_mamba_scan_store_stays_inside_y(cuda_device, dtype, D):
     assert float(buf[0]) == sentinel
     assert bool((buf[1 + n:] == sentinel).all())
     assert torch.equal(y, want)
+
+
+# -- configurations the smoke test's main path does not take -----------------
+
+def _pca_eigs64(X):
+    X = X.astype(np.float64)
+    Xs = (X - X.mean(axis=0)) / X.std(axis=0)
+    return np.linalg.eigvalsh(Xs.T @ Xs)[::-1]
+
+
+def test_paper_faithful_configuration_on_the_card(cuda_device):
+    """pivot='paper' (DLE max-pivot) + CORDIC angles + matmul rotations
+    through the CUDA MM-Engine, as ``tests/test_pca.py`` runs the
+    reference: every matmul (the Gram's panels, each rotation, the
+    projection) on ``mm_engine_matmul``, no sweep kernel."""
+    rng = np.random.default_rng(3)
+    X = (rng.standard_normal((120, 10))
+         * np.geomspace(3, 0.3, 10)).astype(np.float32)
+    cfg = tpca.PCAConfig(T=16, sweeps=40, pivot="paper", rotation="matmul",
+                         angle="cordic", backend="cuda")
+    before = launch_counts()
+    Y, res = tpca.fit_transform(X, 4, cfg, device=cuda_device)
+    moved = _launched(before)
+    assert moved.get("mm_engine_matmul", 0) > 40 * 45, moved
+    assert "jacobi_sweep" not in moved and "jacobi_sweep_smem" not in moved
+    want = _pca_eigs64(X)
+    np.testing.assert_allclose(res.eigenvalues.cpu().numpy(), want,
+                               rtol=1e-3, atol=1e-2)
+    assert_contract(res.eigenvalues, want, "rel_frobenius", 1e-4)
+    assert Y.device.type == "cuda" and bool(torch.isfinite(Y).all())
+
+
+def test_bf16_fused_gram_on_the_card(cuda_device):
+    """precision='bf16_fp32acc' through the fused Gram: bf16 operands, fp32
+    sums; the eigenvalues within the bf16 budget of float64 numpy."""
+    rng = np.random.default_rng(4)
+    X = (rng.standard_normal((700, 48))
+         * np.geomspace(3, 0.3, 48)).astype(np.float32)
+    cfg = tpca.PCAConfig(fused=True, backend="cuda", sweeps=15,
+                         precision="bf16_fp32acc")
+    before = launch_counts()
+    _, res = tpca.fit_transform(X, 4, cfg, device=cuda_device)
+    moved = _launched(before)
+    assert moved.get("covariance") == 1 and moved["jacobi_sweep_smem"] == 15
+    assert res.eigenvalues.dtype == torch.float32
+    assert_contract(res.eigenvalues, _pca_eigs64(X), "rel_frobenius", 2e-2)
+
+
+@pytest.mark.parametrize("path", ["fit", "fit_fused", "eigh_batched",
+                                  "svd_batched"])
+def test_float64_input_on_the_card(cuda_device, path):
+    """Numpy float64 input is taken as float32 before any kernel sees it
+    (the MM-Engine and the sweep kernels take fp32 or bf16 only)."""
+    from repro_torch.serving import solver as tsolver
+    rng = np.random.default_rng(5)
+    if path.startswith("fit"):
+        X = rng.standard_normal((300, 20)) * np.geomspace(3, 0.3, 20)
+        cfg = tpca.PCAConfig(fused=path == "fit_fused", backend="cuda",
+                             sweeps=12)
+        before = launch_counts()
+        Y, res = tpca.fit_transform(X, 4, cfg, device=cuda_device)
+        moved = _launched(before)
+        assert moved.get("mm_engine_matmul", 0) > 0, moved
+        assert Y.dtype == res.eigenvalues.dtype == torch.float32
+        assert_contract(res.eigenvalues, _pca_eigs64(X), "rel_frobenius",
+                        1e-4)
+        return
+    op = path.split("_")[0]
+    if op == "eigh":
+        g = rng.standard_normal((3, 16, 16))
+        batch = (g + g.transpose(0, 2, 1)) / 2
+    else:
+        batch = rng.standard_normal((3, 24, 16))
+    fn = tsolver.build_solver_fn(
+        op, tpca.PCAConfig(fused=True, backend="cuda", sweeps=12),
+        device=cuda_device)
+    before = launch_counts()
+    out = fn(batch, None, None)
+    assert _launched(before)["jacobi_sweep_smem"] == 12
+    vals = out.eigenvalues if op == "eigh" else out.S
+    assert vals.dtype == torch.float32
+    for i in range(3):
+        want = (np.linalg.eigvalsh(batch[i])[::-1] if op == "eigh"
+                else np.linalg.svd(batch[i], compute_uv=False))
+        assert_contract(vals[i], want, "rel_frobenius", 1e-4)
+
+
+# -- the serving engine on the card -------------------------------------------
+
+def _served_burst(op):
+    rng = np.random.default_rng({"eigh": 1, "svd": 2, "pca": 3}[op])
+    dims = [5, 7, 12, 6, 14, 8, 3, 10, 6, 11, 16, 9]
+    if op == "eigh":
+        return [sym(n, seed=i) for i, n in enumerate(dims)]
+    return [rng.standard_normal((n + 4, n)).astype(np.float32)
+            for n in dims]
+
+
+@pytest.mark.parametrize("op", ["eigh", "svd", "pca"])
+def test_server_on_the_card_sync_matches_async_bitwise(cuda_device, op):
+    """``PCAServer()`` runs on the card by default; a pipelined run serves
+    every field bitwise as the synchronous one, through the path's
+    kernels, and within the fp32 budget of the CPU server."""
+    import dataclasses
+    from repro_torch.serving import BucketPolicy, LocalExecutor, PCAServer
+    mats = _served_burst(op)
+    cfg = tpca.PCAConfig(T=8, S=4, sweeps=12, fused=True, backend="cuda")
+    runs = []
+    for depth in (1, 3):
+        srv = PCAServer(cfg, policy=BucketPolicy(T=8), max_delay_s=1e9,
+                        max_inflight=depth)
+        assert srv.executor.device.type == "cuda"
+        before = launch_counts()
+        runs.append(srv.solve_many(mats, op=op))
+        moved = _launched(before)
+        assert moved.get("jacobi_sweep_smem", 0) > 0, moved
+        if op != "eigh":
+            assert moved.get("covariance", 0) > 0, moved
+        if op == "svd":
+            assert moved.get("mm_engine_matmul", 0) > 0, moved
+    cpu = PCAServer(tpca.PCAConfig(T=8, S=4, sweeps=12, fused=True),
+                    policy=BucketPolicy(T=8), max_delay_s=1e9,
+                    executor=LocalExecutor(device="cpu")).solve_many(mats,
+                                                                     op=op)
+    field = "S" if op == "svd" else "eigenvalues"
+    for sync, pipelined, host in zip(*runs, cpu):
+        for f in dataclasses.fields(sync):
+            np.testing.assert_array_equal(getattr(pipelined, f.name),
+                                          getattr(sync, f.name))
+        assert_contract(getattr(sync, field), getattr(host, field),
+                        "rel_frobenius", 1e-4)
+
+
+@pytest.mark.parametrize("op", ["eigh", "svd", "pca"])
+def test_executor_submit_makes_no_host_sync(cuda_device, op):
+    """The dispatch stage never blocks the host: the batch and its true
+    sizes go through pinned memory, the pair table is on the card, so
+    ``submit`` runs under ``set_sync_debug_mode("error")``; the flush's
+    event then says when it is done, and ``result`` is one host tree."""
+    from repro_torch.serving import LocalExecutor
+    from repro_torch.serving.batching import stack_requests
+    mats = _served_burst(op)[:4]
+    shape = (16, 16) if op == "eigh" else (24, 16)
+    batch, n_active = stack_requests(mats, shape)
+    ex = LocalExecutor()
+    fn = ex.compile(op, tpca.PCAConfig(T=8, sweeps=12, fused=True,
+                                       backend="cuda"), shape, 4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        flush = ex.submit(fn, batch, n_active)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert flush.block_until_ready().ready()
+    host = flush.result()
+    assert all(isinstance(v, np.ndarray) for v in host)
+    want = ex.run(fn, batch, n_active)
+    for g, w in zip(host, want):
+        np.testing.assert_array_equal(g, w)
