@@ -61,14 +61,36 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    and the four kernels of the path launched.  Each run's warm pass prints
    requests/s, p50/p99 latency and the mean overlap and wait per flush
    (``stats``); a third pass of the pipelined server runs under
-   ``torch.profiler`` for the device's idle share.
+   ``torch.profiler`` for the device's idle share;
+7. control: the control plane and the CLI through the entry points a
+   user calls, with ``ServerSpec(SchedulingSpec(mode="pow2", T=64,
+   max_batch=32, max_inflight=3), ExecutionSpec(backend="cuda",
+   fused=True, sweeps=50))`` written by ``ServerSpec.save``:
+   ``serve_pca.main(["--spec", ...])`` closed loop for eigh and pca (96
+   requests over dims 96..256; the saved span trace validated with every
+   request under a flush, the Prometheus text holding the latency
+   histogram and ``kernel_backend_resolutions_total`` with
+   ``backend="cuda"``, the ``--jax-profile`` directory's
+   ``torch.profiler`` trace naming both sweep kernels, the path's kernels
+   launched; requests/s, p50/p99 and the calibrated ``CostModel``
+   printed), then open loop with the controller (256 Poisson arrivals
+   from two tenants at 1.5x the closed loop's eigh requests/s, WFQ and
+   shedding; every request accounted for, goodput, shed fraction, each
+   tenant's p99, the controller's ticks and swaps) and the same arrivals
+   without it, then the spec's
+   server under a ``VirtualClock`` on the card twice on a seeded
+   eigh/svd two-tenant stream (equal digests and outcome maps, every
+   served result within the fp32 budget of float64 numpy, all four
+   kernels of the path launched) and an ``apply_plan`` swap mid-stream
+   bitwise a cold server on the plan.
 
 Each path is checked against the kernels it runs: phase 3 against the
-three PCA/SVD kernels, phases 4 and 6 against those and the shared-memory
-sweep, phase 5 against the seven kernels of its five ops.
+three PCA/SVD kernels, phases 4, 6 and 7 against those and the
+shared-memory sweep, phase 5 against the seven kernels of its five ops.
 The last three lines are the kernels' JSON record (each kernel's launches
-from the phase that drives it, and ``launches_serve`` from phase 6), the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+from the phase that drives it, ``launches_serve`` from phase 6 and
+``launches_control`` from phase 7), the card's name and power limit, and
+``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits with code 2 and prints no result.
 """
 from __future__ import annotations
@@ -76,6 +98,7 @@ from __future__ import annotations
 import json
 import pathlib
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -121,6 +144,17 @@ PATH_KERNELS = ("covariance", "jacobi_sweep", "mm_engine_matmul")
 # and 128), and so does the serve phase
 FLUSH_KERNELS = PATH_KERNELS + ("jacobi_sweep_smem",)
 SERVE_DEPTHS = (1, 3)             # max_inflight of the serve phase's runs
+# control phase: the CLI's closed-loop dims (phase 4's eigh range, pow2
+# buckets 128 and 256) and requests, the open loop's arrivals, the SLOs
+# of the closed and the open specs, the virtual-clock stream (eigh whale,
+# svd mouse: rates and counts) and the requests of the hot swap's check
+CONTROL_DIMS = (96, 128, 160, 192, 224, 256)
+CONTROL_REQUESTS = 96
+OPEN_REQUESTS = 256
+CONTROL_SLO_MS = (2000.0, 250.0)
+VIRTUAL_RATES = (200.0, 50.0)
+VIRTUAL_REQUESTS = (48, 16)
+CONTROL_SWAP_N = 48
 OPS = ("dle_find_pivot", "cordic_rotate", "flash_attention", "mamba_scan",
        "mm_engine_matmul")
 OPS_KERNELS = ("dle_find_pivot", "cordic_rotate", "flash_attention_mma",
@@ -1195,6 +1229,287 @@ def serve_phase(dev, requests: dict) -> dict:
             "profile": profile, "submits_guarded": guarded[0]}
 
 
+# -- phase 7: the control plane and the serving CLI ---------------------------
+
+def run_cli(argv) -> dict:
+    """``repro_torch.launch.serve_pca.main(argv)`` on the card: its JSON
+    document (it prints one) and the wall seconds of the call."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve_pca
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = serve_pca.main([str(a) for a in argv], device="cuda")
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"serve_pca {' '.join(map(str, argv))} exited {rc}")
+    doc = json.loads(out.getvalue())
+    doc["_wall_s"] = wall
+    return doc
+
+
+def check_trace(path: pathlib.Path, what: str) -> int:
+    """The saved span trace passes ``validate_trace`` and every request
+    span has a flush span as its parent; returns the request spans."""
+    from repro_torch.obs import validate_trace
+    trace = json.loads(path.read_text())
+    errs = validate_trace(trace)
+    check(not errs, f"{what}: trace fails validation: {errs[:3]}")
+    spans = {e["id"]: e for e in trace["traceEvents"]
+             if e.get("ph") == "X" and isinstance(e.get("id"), int)}
+    requests = [e for e in spans.values()
+                if e["name"].startswith("request:")]
+    check(len(requests) > 0, f"{what}: no request spans")
+    for e in requests:
+        parent = spans.get(e["args"].get("parent"), {})
+        check(str(parent.get("name", "")).startswith("flush:"),
+              f"{what}: request span {e['id']} not under a flush span")
+    return len(requests)
+
+
+def profiled_kernels(logdir: pathlib.Path) -> set:
+    """The CUDA kernel names of the ``torch.profiler`` Chrome trace that
+    ``--jax-profile`` wrote into ``logdir``."""
+    traces = sorted(logdir.glob("*.pt.trace.json"))
+    check(len(traces) == 1, f"{logdir}: {len(traces)} profiler traces")
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    return {str(e.get("name")) for e in events if e.get("cat") == "kernel"}
+
+
+def control_phase(dev) -> dict:
+    """Phase 7: the control plane and the CLI on the card, through the
+    entry points a user calls, at the widths of phases 4 and 6.
+
+    1. Closed loop: ``serve_pca.main(["--spec", ...])`` for eigh and pca,
+       96 requests over dims 96..256 (phase 4's eigh range; pow2 buckets
+       128 and 256, so both sweep kernels), the spec's obs outputs armed.
+    2. Open loop with the controller: 256 Poisson arrivals over the same
+       range (``--dims 96,256``: the stream draws each dimension uniformly
+       between the two) from two tenants through WFQ and shedding, at
+       1.5x the requests/s item 1's eigh run sustained; then the same
+       arrivals without the controller.  Before each timed run the CLI
+       solves one request a distinct shape times the CLI's ``--max-batch``
+       (4: the spec owns the server's batch of 32, not that flag): the
+       seeded stream has 134 shapes, so 536 requests in 18 flushes of 32,
+       a few seconds on the card.  That is why the range is kept whole
+       and the request count is the reference's 256.
+    3. Correctness and determinism: the spec's server under a
+       ``VirtualClock`` on the card, a seeded two-tenant stream (eigh and
+       svd) through ``TrafficFrontend(pace=False)`` twice -- equal
+       digests and outcome maps, every served result within the fp32
+       budget of float64 numpy -- and an ``apply_plan`` swap mid-stream
+       bitwise a cold server on the plan.
+    """
+    import dataclasses
+    import tempfile
+    from repro_torch.core.precision import ERROR_BUDGETS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import (ControllerSpec, CostModel,
+                                     ExecutionSpec, ObsSpec, SchedulingSpec,
+                                     ServerSpec, ServingPlan, TenantSpec,
+                                     TrafficFrontend, TrafficProfile,
+                                     VirtualClock, build_server, generate,
+                                     materialize, merge, server_for_plan)
+
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_control_"))
+    scheduling = SchedulingSpec(mode="pow2", T=FLUSH_T,
+                                max_batch=FLUSH_REQUESTS, max_inflight=3)
+    execution = ExecutionSpec(backend=BACKEND, fused=True, sweeps=SWEEPS)
+    budget = ERROR_BUDGETS["fp32"]
+    out = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t_phase = time.perf_counter()
+
+    # 1. the CLI, closed loop
+    closed = {}
+    for op in ("eigh", "pca"):
+        files = tmp / op
+        spec = ServerSpec(scheduling=scheduling, execution=execution,
+                          obs=ObsSpec(slo_ms=CONTROL_SLO_MS[0],
+                                      trace_out=str(files / "trace.json"),
+                                      metrics_out=str(files / "metrics.prom"),
+                                      jax_profile=str(files / "profile")))
+        files.mkdir(parents=True)
+        spec_path = files / "server.json"
+        spec.save(spec_path)
+        before = launch_counts()
+        doc = run_cli(["--spec", spec_path, "--op", op, "--requests",
+                       CONTROL_REQUESTS, "--dims",
+                       ",".join(map(str, CONTROL_DIMS)), "--profile-out",
+                       files / "profile.json"])
+        moved = {k: v - before[k] for k, v in launch_counts().items()}
+        s = doc["summary"]
+        check(s["requests"] == CONTROL_REQUESTS and s["cache_hit_rate"] == 1.0,
+              f"closed loop {op}: {s['requests']} requests, cache hit rate "
+              f"{s['cache_hit_rate']}")
+        n_req = check_trace(files / "trace.json", f"closed loop {op}")
+        check(n_req == CONTROL_REQUESTS, f"closed loop {op}: {n_req} request "
+              f"spans")
+        prom = (files / "metrics.prom").read_text()
+        check("serve_request_latency_seconds_bucket" in prom,
+              f"closed loop {op}: no latency histogram in the metrics")
+        cuda_rows = [line for line in prom.splitlines()
+                     if line.startswith("kernel_backend_resolutions_total")
+                     and 'backend="cuda"' in line]
+        check(len(cuda_rows) > 0, f"closed loop {op}: no "
+              "kernel_backend_resolutions_total with backend=\"cuda\"")
+        kernels = profiled_kernels(files / "profile")
+        for name in ("sweep_grid_kernel", "sweep_smem_kernel"):
+            check(any(name in k for k in kernels), f"closed loop {op}: the "
+                  f"profiler trace names no {name}")
+        need = ("jacobi_sweep", "jacobi_sweep_smem") + (
+            ("covariance",) if op == "pca" else ())
+        for name in need:
+            check(moved[name] > 0, f"closed loop {op}: {name} never launched")
+        model = CostModel.calibrated(
+            TrafficProfile.load(files / "profile.json"))
+        closed[op] = {
+            "wall_s": doc["_wall_s"], "requests_per_s": s["requests_per_s"],
+            "latency_p50_ms": s["latency_p50_ms"],
+            "latency_p99_ms": s["latency_p99_ms"], "flushes": s["flushes"],
+            "launches": {k: v for k, v in moved.items() if v},
+            "resolutions": cuda_rows,
+            "calibrated_model": dataclasses.asdict(model)}
+        log(f"control[closed {op}]: {CONTROL_REQUESTS} requests in "
+            f"{s['flushes']} flushes, {s['requests_per_s']:.1f} requests/s, "
+            f"p50 {s['latency_p50_ms']:.1f} ms p99 "
+            f"{s['latency_p99_ms']:.1f} ms (CLI call {doc['_wall_s']:.2f} s); "
+            f"launches {json.dumps(closed[op]['launches'])}; "
+            f"{len(cuda_rows)} cuda resolution series; calibrated "
+            f"CostModel {json.dumps(closed[op]['calibrated_model'])}")
+    out["closed"] = closed
+
+    # 2. the CLI, open loop with the controller, then the same arrivals
+    # without it (what the controller's swaps did to goodput)
+    rate = 1.5 * closed["eigh"]["requests_per_s"]
+    for name, enabled in (("open", True), ("open_no_controller", False)):
+        files = tmp / name
+        files.mkdir()
+        spec = ServerSpec(scheduling=scheduling, execution=execution,
+                          obs=ObsSpec(slo_ms=CONTROL_SLO_MS[1],
+                                      trace_out=str(files / "trace.json"),
+                                      metrics_out=str(files / "metrics.prom")),
+                          controller=ControllerSpec(enabled=enabled))
+        spec.save(files / "server.json")
+        doc = run_cli(["--spec", files / "server.json", "--arrivals",
+                       "poisson", "--rate", f"{rate:.6f}", "--requests",
+                       OPEN_REQUESTS, "--op", "eigh", "--dims",
+                       f"{CONTROL_DIMS[0]},{CONTROL_DIMS[-1]}", "--tenants",
+                       "whale:0.9,mouse:0.1", "--scheduler", "wfq",
+                       "--admission", "shed"])
+        fe, ctrl = doc["frontend"], doc["controller"]
+        check(fe["served"] + fe["degraded"] + fe["shed"] + fe["throttled"]
+              == fe["requests"] == OPEN_REQUESTS and fe["served"] > 0,
+              f"{name}: outcomes do not add up: {json.dumps(fe)[:400]}")
+        check((ctrl is not None) == enabled, f"{name}: controller {ctrl}")
+        check_trace(files / "trace.json", name)
+        out[name] = {
+            "rate_rps": rate, "wall_s": doc["_wall_s"],
+            "duration_s": fe["duration_s"], "goodput_rps": fe["goodput_rps"],
+            "served_rps": fe["served_rps"], "served": fe["served"],
+            "shed": fe["shed"], "throttled": fe["throttled"],
+            "shed_frac": fe["shed_frac"],
+            "p99_ms": {t: r["latency_p99_ms"]
+                       for t, r in fe["per_tenant"].items()},
+            "plan": doc["plan"],
+            "controller": ctrl and {"ticks": ctrl["ticks"],
+                                    "swaps": ctrl["swaps"],
+                                    "swap_log": ctrl["swap_log"]}}
+        log(f"control[{name}]: {OPEN_REQUESTS} arrivals at {rate:.1f}/s "
+            f"(1.5x closed eigh) over {fe['duration_s']:.3f} s, goodput "
+            f"{fe['goodput_rps']:.1f}/s, served {fe['served']} "
+            f"({fe['served_rps']:.1f}/s), shed {fe['shed']} "
+            f"({fe['shed_frac']:.3f}), p99 by tenant "
+            f"{json.dumps(out[name]['p99_ms'])} ms, final plan "
+            f"{json.dumps(doc['plan'])}, controller "
+            f"{json.dumps(out[name]['controller'])}; CLI call "
+            f"{doc['_wall_s']:.2f} s")
+
+    # 3. correctness and determinism under a virtual clock
+    spec = ServerSpec(scheduling=scheduling, execution=execution,
+                      obs=ObsSpec(slo_ms=CONTROL_SLO_MS[1]))
+    tenants = (TenantSpec("whale"), TenantSpec("mouse", weight=2.0))
+    stream = merge(
+        generate("poisson", rate=VIRTUAL_RATES[0], n=VIRTUAL_REQUESTS[0],
+                 tenants=tenants[:1], seed=SEED + 3, trace="uniform",
+                 op="eigh", lo=FLUSH_EIGH_N[0], hi=FLUSH_EIGH_N[1]),
+        generate("poisson", rate=VIRTUAL_RATES[1], n=VIRTUAL_REQUESTS[1],
+                 tenants=tenants[1:], seed=SEED + 4, trace="uniform",
+                 op="svd", lo=FLUSH_SVD_N[0], hi=FLUSH_SVD_N[1]))
+    before = launch_counts()
+    reports, served = [], []
+    for _ in range(2):
+        srv = build_server(spec, clock=VirtualClock(), device=dev)
+        check(srv.executor.device.type == "cuda",
+              f"build_server(device=cuda) runs on {srv.executor.device}")
+        fe = TrafficFrontend(srv, tenants, slo_ms=CONTROL_SLO_MS[1],
+                             admission="shed", model=CostModel(), seed=SEED)
+        submitted, submit = [], srv.submit
+
+        def recording_submit(mat, op="eigh", sweeps=None, _s=submit,
+                             _log=submitted):
+            ticket = _s(mat, op=op, sweeps=sweeps)
+            _log.append((op, mat, ticket))
+            return ticket
+
+        srv.submit = recording_submit
+        reports.append(fe.run(stream, pace=False))
+        served.append(submitted)
+    moved = {k: v - before[k] for k, v in launch_counts().items()}
+    a, b = reports
+    check(a.digest == b.digest and a.outcomes == b.outcomes,
+          "virtual-clock runs on the card differ")
+    check(a.served > 0 and a.served + a.shed + a.throttled + a.degraded
+          == a.requests, f"virtual run: {a.to_json()}")
+    worst = {}
+    for op, mat, ticket in served[0]:
+        res = ticket.result()
+        got = res.S if op == "svd" else res.eigenvalues
+        err = rel_frobenius(got, reference_values(op, mat))
+        worst[op] = max(worst.get(op, 0.0), err)
+        check(np.isfinite(got).all() and err <= budget[
+            "svd" if op == "svd" else "eigh"],
+              f"virtual run {op} {mat.shape}: rel-Frobenius {err:.3e}")
+    for name in FLUSH_KERNELS:
+        check(moved[name] > 0, f"virtual runs: {name} never launched")
+    # an apply_plan swap mid-stream against a cold server on the plan
+    mats = [materialize(x, seed=SEED) for x in stream[:CONTROL_SWAP_N]
+            if x.op == "eigh"]
+    plan = ServingPlan(mode="pow2", T=FLUSH_T, max_batch=FLUSH_REQUESTS // 2,
+                       max_inflight=2)
+    hot = build_server(spec, device=dev)
+    early = [hot.submit(m) for m in mats[:FLUSH_REQUESTS // 2 - 1]]
+    hot.apply_plan(plan)
+    check(hot.executor.device.type == "cuda",
+          f"apply_plan moved the server to {hot.executor.device}")
+    rest = hot.solve_many(mats[len(early):])
+    cold = server_for_plan(plan, spec.config(), device=dev).solve_many(mats)
+    for g, w in zip([t.result() for t in early] + rest, cold):
+        for f in dataclasses.fields(w):
+            check(np.array_equal(getattr(g, f.name), getattr(w, f.name)),
+                  f"hot-swapped eigh.{f.name} differs bitwise from the cold "
+                  f"server on the plan")
+    out["virtual"] = {"requests": a.requests, "served": a.served,
+                      "shed": a.shed, "digest": a.digest, "worst": worst,
+                      "swap_requests": len(mats),
+                      "launches": {k: v for k, v in moved.items() if v}}
+    log(f"control[virtual]: {a.requests} requests, {a.served} served, "
+        f"{a.shed} shed, digest {a.digest[:16]} twice; worst rel-Frobenius "
+        f"vs float64 numpy {json.dumps(worst)}; hot swap of {len(mats)} "
+        f"eigh requests bitwise the cold server; launches "
+        f"{json.dumps(out['virtual']['launches'])}")
+
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts()
+    out["wall_s"] = time.perf_counter() - t_phase
+    log(f"control: launches {json.dumps(out['launches'])}; phase "
+        f"{out['wall_s']:.1f} s")
+    shutil.rmtree(tmp)  # the specs, traces and profiles, checked above
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1262,6 +1577,7 @@ def main() -> int:
     flush = batched_flush(dev)
     ops_run = ops_phase(dev, rows)
     serve = serve_phase(dev, flush["requests"])
+    control = control_phase(dev)
 
     record = []
     for k in KERNELS:
@@ -1276,6 +1592,7 @@ def main() -> int:
             row["launches"] = ops_run["launches"][k.name]
             row["path"] = "ops phase"
         row["launches_serve"] = serve["launches"][k.name]
+        row["launches_control"] = control["launches"][k.name]
         record.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))

@@ -68,6 +68,22 @@ then one JSON line a tree.  CASES is one of:
     profiled pass's device idle share.  The phases' own log goes to
     stderr.
 
+``control``
+    ``chip_smoke.py``'s phase-7 open loop (this checkout's script and
+    constants, the tree's ``repro_torch``): ``serve_pca.main`` with a spec
+    on phase 7's plan, 256 Poisson eigh arrivals over dims 96..256 from
+    two tenants (0.9/0.1) through WFQ and shedding under a 250 ms SLO, at
+    a fixed ``CONTROL_AB_RATE`` arrivals/s so that every tree and run
+    sees the same offered load.  ``CONTROL_AB_REPEATS`` rounds, each of
+    three runs in turn: the controller on, off, and on with its swaps
+    held off (``hysteresis`` 0.99, so it ticks and searches but never
+    swaps).  For each run the frontend's served/s, goodput, shed
+    fraction and each tenant's p99, the controller's ticks and swaps, and
+    the feeder's ingest lag: for each arrival, when its ingest returned
+    less its paced time (the first arrival's plus the stream's offset),
+    on the server's clock -- what a feeder that waits for the server
+    adds to every latency.  Then each variant's mean, min and max.
+
 ``small``
     The two small wrapper calls at the ops phase's shapes: the DLE scan of
     a seeded symmetric 784 x 784 matrix at tile 128 (``dle.dle_scan`` and
@@ -276,6 +292,90 @@ def serve(tree: str) -> dict:
     return {"tree": tree, "runs": out["runs"],
             "idle_share_pipelined": out["profile"]["idle_share"],
             "profiled_wall_s": out["profile"]["wall_s"]}
+
+
+CONTROL_AB_RATE = 420.0    # arrivals/s: phase 7's 1.5x closed eigh rate
+CONTROL_AB_REPEATS = 3
+CONTROL_AB_VARIANTS = {"on": {"enabled": True}, "off": {"enabled": False},
+                       "on_no_swap": {"enabled": True, "hysteresis": 0.99}}
+
+
+def control(tree: str) -> dict:
+    import numpy as np
+    import torch
+    import repro_torch  # noqa: F401  the tree's, before chip_smoke puts
+    # this checkout's src on the path
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    from repro_torch.serving import (ControllerSpec, ExecutionSpec, ObsSpec,
+                                     SchedulingSpec, ServerSpec, frontend)
+    chip_smoke.log = lambda msg: print(msg, file=sys.stderr, flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ingested = []
+    ingest = frontend.TrafficFrontend._ingest
+
+    def timed_ingest(self, a, now, residual_s):
+        entry = ingest(self, a, now, residual_s)
+        ingested.append((a.t, now, self.server.clock()))
+        return entry
+
+    frontend.TrafficFrontend._ingest = timed_ingest
+    tmp = pathlib.Path(__file__).resolve().parents[1] / "build" / "ab_control"
+    tmp.mkdir(parents=True, exist_ok=True)
+    runs = []
+    for rep in range(CONTROL_AB_REPEATS):
+        for variant, ctrl in CONTROL_AB_VARIANTS.items():
+            spec = ServerSpec(
+                scheduling=SchedulingSpec(
+                    mode="pow2", T=chip_smoke.FLUSH_T,
+                    max_batch=chip_smoke.FLUSH_REQUESTS, max_inflight=3),
+                execution=ExecutionSpec(backend=chip_smoke.BACKEND,
+                                        fused=True,
+                                        sweeps=chip_smoke.SWEEPS),
+                obs=ObsSpec(slo_ms=chip_smoke.CONTROL_SLO_MS[1]),
+                controller=ControllerSpec(**ctrl))
+            path = tmp / f"{variant}.json"
+            spec.save(path)
+            dims = chip_smoke.CONTROL_DIMS
+            ingested.clear()
+            doc = chip_smoke.run_cli([
+                "--spec", path, "--arrivals", "poisson", "--rate",
+                f"{CONTROL_AB_RATE:.6f}", "--requests",
+                chip_smoke.OPEN_REQUESTS, "--op", "eigh", "--dims",
+                f"{dims[0]},{dims[-1]}", "--tenants", "whale:0.9,mouse:0.1",
+                "--scheduler", "wfq", "--admission", "shed"])
+            t_first, now_first, _ = ingested[0]
+            lags = np.array([done - (now_first + t - t_first)
+                             for t, _, done in ingested]) * 1e3
+            fe, c = doc["frontend"], doc["controller"]
+            runs.append({
+                "variant": variant, "round": rep,
+                "served_rps": fe["served_rps"],
+                "goodput_rps": fe["goodput_rps"],
+                "shed_frac": fe["shed_frac"], "served": fe["served"],
+                "duration_s": fe["duration_s"],
+                "p99_ms": {t: r["latency_p99_ms"]
+                           for t, r in fe["per_tenant"].items()},
+                "ticks": c and c["ticks"], "swaps": c and c["swaps"],
+                "swap_plans": c and [s["plan"] for s in c["swap_log"]],
+                "ingest_lag_ms": {"p50": float(np.percentile(lags, 50)),
+                                  "p99": float(np.percentile(lags, 99)),
+                                  "max": float(lags.max())}})
+            print(json.dumps(runs[-1]), file=sys.stderr, flush=True)
+    summary = {}
+    for variant in CONTROL_AB_VARIANTS:
+        rows = [r for r in runs if r["variant"] == variant]
+        summary[variant] = {
+            key: {"mean": float(np.mean(vals)), "min": float(min(vals)),
+                  "max": float(max(vals))}
+            for key, vals in (
+                ("served_rps", [r["served_rps"] for r in rows]),
+                ("goodput_rps", [r["goodput_rps"] for r in rows]),
+                ("shed_frac", [r["shed_frac"] for r in rows]),
+                ("ingest_lag_max_ms",
+                 [r["ingest_lag_ms"]["max"] for r in rows]))}
+    return {"tree": tree, "rate_rps": CONTROL_AB_RATE, "summary": summary,
+            "runs": runs}
 
 
 def jacobi(tree: str) -> dict:
@@ -644,8 +744,8 @@ def small(tree: str) -> dict:
     return out
 
 
-CASES = {"attention": attention, "gemm": gemm, "jacobi": jacobi,
-         "scan": scan, "serve": serve, "small": small}
+CASES = {"attention": attention, "control": control, "gemm": gemm,
+         "jacobi": jacobi, "scan": scan, "serve": serve, "small": small}
 
 
 def use_tree(tree: str) -> None:

@@ -1,4 +1,4 @@
-"""repro_torch.serving -- batched PCA/SVD serving (port of
+"""repro_torch.serving -- batched multi-tenant PCA/SVD serving (port of
 ``repro.serving``).
 
 Heterogeneous requests are padded into T-multiple shape buckets
@@ -13,31 +13,71 @@ event as its completion signal, and retirement gathers each flush to the
 host in one copy -- ``PCAServer(max_inflight=N)`` overlaps host-side
 batching with the card's sweeps (N=1 is the synchronous engine).
 
-Not ported yet: the persistent executable tier (``DiskCache``), the
-multi-device ``MeshExecutor``, and the control plane (``autotune``,
-``frontend``, ``controller``, ``spec``; ``PCAServer.from_spec`` raises).
+The control plane is the reference's: the (policy, T, pow2 cap, S,
+inflight, executor) tuple is a ``ServingPlan`` that ``autotune`` searches
+from a captured ``TrafficProfile`` and ``PCAServer.apply_plan`` hot-swaps
+onto a live server (on the server's own device); one frozen
+``spec.ServerSpec`` builds the whole stack (``PCAServer.from_spec`` /
+``build_server``, with ``device=``); ``controller.ServingController``
+re-profiles a sliding telemetry window and hot-swaps behind hysteresis and
+dwell guards; ``frontend.TrafficFrontend`` drives a server with open-loop
+multi-tenant arrivals through WFQ and admission control.
+
+Not exported, because not ported yet: ``DiskCache``, ``aot_supported`` and
+``content_hash`` (the persistent executable tier serializes XLA
+executables; ``PCAServer(cache_dir=...)`` raises), and ``MeshExecutor`` and
+``host_mesh`` (a mesh over more than one device; ``mesh_executor`` raises
+for one, ROADMAP queue 1 item 4).
 """
+from .autotune import (AutotuneResult, CostModel, ServingPlan,
+                       TrafficProfile, TRACE_KINDS, autotune, bandit_search,
+                       plan_grid, replay, server_for_plan, solve_work,
+                       subsample, synthetic_trace, trace_dims)
 from .batching import (BucketPolicy, POLICIES, pad_to_bucket, padding_waste,
                        stack_requests)
 from .cache import (ExecutableCache, LRUCache, SolverKey,
                     environment_fingerprint)
+from .controller import ServingController
 from .engine import (BackendRouter, OPS, PCAServer, ServedEigh, ServedPCA,
                      ServedSVD, Ticket, threshold_router)
+from .frontend import (ADMISSION_MODES, ARRIVALS, AdmissionController,
+                       AdmissionDecision, Arrival, FairQueue,
+                       FrontendReport, SCHEDULERS, TenantSpec, TokenBucket,
+                       TrafficFrontend, VirtualClock, arrival_times,
+                       generate, materialize, merge, parse_tenants,
+                       profile_of)
 from .inflight import InFlightFlush, InFlightQueue
 from .sharded import LocalExecutor, mesh_executor
+from .spec import (CacheSpec, ControllerSpec, ExecutionSpec, ObsSpec,
+                   SchedulingSpec, ServerSpec, SpecConflictError,
+                   build_server, resolve_spec, validate_args)
 from .solver import (BatchedEighResult, BatchedPCAResult, BatchedSVDResult,
-                     build_solver_fn, jacobi_eigh_batched, jacobi_svd_batched,
-                     pca_fit_batched, pca_transform_batched)
+                     build_solver_fn, jacobi_eigh_batched,
+                     jacobi_svd_batched, pca_fit_batched,
+                     pca_transform_batched)
 from .stats import FlushRecord, RequestRecord, ServingStats, percentile
 
 __all__ = [
-    "BackendRouter", "BatchedEighResult", "BatchedPCAResult",
-    "BatchedSVDResult", "BucketPolicy", "ExecutableCache", "FlushRecord",
-    "InFlightFlush", "InFlightQueue", "LRUCache", "LocalExecutor", "OPS",
-    "PCAServer", "POLICIES", "RequestRecord", "ServedEigh", "ServedPCA",
-    "ServedSVD", "ServingStats", "SolverKey", "Ticket", "build_solver_fn",
-    "environment_fingerprint", "jacobi_eigh_batched", "jacobi_svd_batched",
+    "ADMISSION_MODES", "ARRIVALS", "AdmissionController",
+    "AdmissionDecision", "Arrival", "FairQueue", "FrontendReport",
+    "SCHEDULERS", "TenantSpec", "TokenBucket", "TrafficFrontend",
+    "VirtualClock", "arrival_times", "generate", "materialize", "merge",
+    "parse_tenants", "profile_of",
+    "AutotuneResult", "BackendRouter", "BatchedEighResult",
+    "BatchedPCAResult", "BatchedSVDResult", "BucketPolicy", "CacheSpec",
+    "ControllerSpec", "CostModel", "ExecutableCache",
+    "ExecutionSpec", "FlushRecord", "InFlightFlush", "InFlightQueue",
+    "LRUCache", "LocalExecutor", "OPS", "ObsSpec",
+    "PCAServer", "POLICIES", "RequestRecord", "SchedulingSpec",
+    "ServedEigh", "ServedPCA", "ServedSVD", "ServerSpec",
+    "ServingController", "ServingPlan", "ServingStats", "SolverKey",
+    "SpecConflictError", "Ticket", "TrafficProfile", "TRACE_KINDS",
+    "autotune", "bandit_search", "build_server",
+    "build_solver_fn", "environment_fingerprint",
+    "jacobi_eigh_batched", "jacobi_svd_batched",
     "mesh_executor", "pad_to_bucket", "padding_waste", "pca_fit_batched",
-    "pca_transform_batched", "percentile", "stack_requests",
-    "threshold_router",
+    "pca_transform_batched", "percentile", "plan_grid", "replay",
+    "resolve_spec", "server_for_plan", "solve_work", "stack_requests",
+    "subsample", "synthetic_trace", "threshold_router", "trace_dims",
+    "validate_args",
 ]

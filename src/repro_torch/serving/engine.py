@@ -35,16 +35,17 @@ engine only asks the executor to round the batch, build the solver, and
 launch it -- queueing/bucketing/deadlines never see devices.
 
 Not ported yet: the persistent executable tier (``cache_dir`` raises:
-PyTorch has no serialized form of the eager solvers), ``from_spec``
-(``serving/spec.py``, ROADMAP queue 1 item 3) and multi-device executors.
-The ``obs`` bundle is duck-typed (``tracer``, ``metrics``, ``slo``,
-``clock``), as the reference's ``repro.obs.Observability`` provides.
+PyTorch has no serialized form of the eager solvers) and multi-device
+executors.  ``from_spec`` builds through ``serving.spec.build_server``;
+the ``obs`` bundle is the port's ``repro_torch.obs.Observability``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
+import threading
 import time
 import warnings
 from typing import Callable, Dict, List, Optional, Tuple
@@ -84,6 +85,22 @@ def spec_construction():
         yield
     finally:
         _spec_depth -= 1
+
+
+def _serialized(method):
+    """Run ``method`` under the server's lock.  The paced open-loop
+    frontend drives one server from two threads (its worker submits and
+    polls while the feeder ticks the controller, which may apply a plan);
+    the lock keeps a plan swap from interleaving with a submit, which
+    could otherwise drop the submitted request between the old queues and
+    the new.  Reentrant: a poll that ticks the controller applies its plan
+    under the lock it already holds."""
+    @functools.wraps(method)
+    def locked(self, *args, **kwargs):
+        with self._lock:
+            return method(self, *args, **kwargs)
+    return locked
+
 
 # a backend router maps (op, bucket_shape) -> kernel backend name for that
 # bucket's solver (None = plain torch.matmul datapath); see
@@ -279,15 +296,15 @@ class PCAServer:
         overlapping host-side stacking/padding/unpacking with device
         execution; dispatching beyond the cap back-pressures by retiring
         the oldest flush first.
-      obs: optional ``repro.obs.Observability`` bundle.  When given, every
-        pipeline stage emits spans (request submit->fulfil, flush
+      obs: optional ``repro_torch.obs.Observability`` bundle.  When given,
+        every pipeline stage emits spans (request submit->fulfil, flush
         dispatch/inflight/wait/retire with compile children on cache
         misses, plan swaps) into its tracer and per-(op, bucket, backend,
         executor) counters/histograms into its metric registry, and each
         fulfilled request is SLO-accounted.  ``None`` (the default) is the
-        uninstrumented fast path: one attribute check per stage, measured
-        within 3% of bare throughput.  Give the bundle the same ``clock``
-        as the server so spans line up with telemetry.
+        uninstrumented fast path: one attribute check per stage.  Give the
+        bundle the same ``clock`` as the server so spans line up with
+        telemetry.
       cache_dir: the reference's persistent executable tier; not ported
         (it serializes XLA executables, which the eager solvers have no
         counterpart of), so anything but ``None`` raises
@@ -327,8 +344,7 @@ class PCAServer:
             warnings.warn(
                 f"PCAServer(...) with {explicit} construction kwargs is "
                 "deprecated: build a serving.spec.ServerSpec and call "
-                "PCAServer.from_spec(spec) (or spec.build_server(spec)) "
-                "once serving.spec is ported (ROADMAP queue 1 item 3)",
+                "PCAServer.from_spec(spec) (or spec.build_server(spec))",
                 DeprecationWarning, stacklevel=2)
         policy = None if policy is _UNSET else policy
         max_batch = None if max_batch is _UNSET else max_batch
@@ -367,6 +383,7 @@ class PCAServer:
         self._inflight = InFlightQueue()
         self._cache = ExecutableCache(max_entries=max_cached_executables)
         self._rid = itertools.count()
+        self._lock = threading.RLock()  # see _serialized
         self._seq = itertools.count()
         self._exec_label = self.executor.describe()
         # optional serving.controller.ServingController; poll() ticks it
@@ -380,14 +397,16 @@ class PCAServer:
 
     @classmethod
     def from_spec(cls, spec, clock: Optional[Callable[[], float]] = None,
-                  frontend=None) -> "PCAServer":
-        """Build a server from a declarative ``serving.spec.ServerSpec``.
-        ``serving/spec.py`` is not ported yet (ROADMAP queue 1 item 3), so
-        this raises."""
-        del spec, clock, frontend
-        raise NotImplementedError(
-            "PCAServer.from_spec: serving.spec is not ported yet (ROADMAP "
-            "queue 1 item 3); construct PCAServer(...) directly")
+                  frontend=None, device=None) -> "PCAServer":
+        """Build a server (plus obs bundle and controller, when the spec
+        asks for them) from a declarative ``serving.spec.ServerSpec`` --
+        the blessed construction path the 13-kwarg ``__init__`` shims.
+        ``clock`` injects a shared clock (tests pass a ``VirtualClock``);
+        ``frontend`` wires the controller's admission feedback; ``device``
+        places the executor (default ``cuda``, raising without a card)."""
+        from .spec import build_server
+        return build_server(spec, clock=clock, frontend=frontend,
+                            device=device)
 
     def _wire_obs(self) -> None:
         """Create the engine's metric families once (per-call recording is
@@ -439,6 +458,7 @@ class PCAServer:
             self.executor.obs = self.obs
 
     # -- request path -------------------------------------------------------
+    @_serialized
     def submit(self, matrix, op: str = "eigh",
                max_delay_s: Optional[float] = None,
                sweeps: Optional[int] = None) -> Ticket:
@@ -481,6 +501,7 @@ class PCAServer:
         if len(queue) >= self.max_batch:
             self._dispatch_key(key)
 
+    @_serialized
     def poll(self, now: Optional[float] = None) -> int:
         """Retire every completed in-flight flush, then dispatch every
         queue whose oldest deadline has passed; returns the number of
@@ -505,6 +526,7 @@ class PCAServer:
             done += self._dispatch_key(key)
         return done
 
+    @_serialized
     def drain(self) -> int:
         """Dispatch everything regardless of deadlines, then retire every
         in-flight flush; returns the number of requests retired."""
@@ -543,12 +565,14 @@ class PCAServer:
             "executor": self.executor.describe(),
         }
 
+    @_serialized
     def apply_plan(self, plan, warm_profile=None) -> Dict:
         """Atomically switch this server onto a new serving plan.
 
         ``plan`` is any object with the ``serving.autotune.ServingPlan``
-        surface: ``policy()``, ``build_executor()``, ``max_batch``,
-        ``max_inflight``.  The swap happens *between* flushes:
+        surface: ``policy()``, ``build_executor(device=)`` (called with the
+        current executor's device), ``max_batch``, ``max_inflight``.  The
+        swap happens *between* flushes:
 
           1. every in-flight flush is retired first (its tickets are
              fulfilled under the old plan -- they already rode old-plan
@@ -590,7 +614,9 @@ class PCAServer:
         # -- intact
         t_swap = self.clock()
         new_policy = plan.policy()
-        new_executor = plan.build_executor()
+        # the new executor runs where the current one does: a swap never
+        # moves a server between devices
+        new_executor = plan.build_executor(device=self.executor.device)
         old_plan = self.describe_plan()
         # pre-warm the incoming plan's solvers while the old plan is still
         # serving: every shape we know about (queued requests, plus the
@@ -905,6 +931,7 @@ class PCAServer:
                                     self.policy, self.executor,
                                     self.config, self.max_batch)
 
+    @_serialized
     def warmup(self, profile) -> Dict:
         """Pre-build every solver ``profile`` implies.
 

@@ -19,7 +19,8 @@ runs every flush on one device (default ``cuda``):
     on the ``InFlightFlush`` until it retires.
 
 The reference's ``MeshExecutor`` (one flush sharded across a device mesh)
-is not ported yet: ``mesh_executor`` takes the local specs only.
+is not ported yet: ``mesh_executor`` gives a ``LocalExecutor`` wherever
+its spec resolves to one device, and raises where it resolves to more.
 """
 from __future__ import annotations
 
@@ -131,14 +132,29 @@ class LocalExecutor:
         return f"local({self.device})"
 
 
-def mesh_executor(spec) -> LocalExecutor:
-    """Executor from a CLI-style mesh spec, for the local specs:
+def mesh_executor(spec, device: DeviceLike = None) -> LocalExecutor:
+    """Executor from a CLI-style mesh spec, on ``device`` (default
+    ``cuda``).
+
     ``None``/``"none"``/``"local"`` and an int(-string) N <= 1 give a
-    ``LocalExecutor``.  A mesh (``"auto"``, N > 1) is not ported yet
-    (ROADMAP queue 1 item 4) and raises."""
-    if (spec is None or spec in ("none", "local")
-            or (spec != "auto" and int(spec) <= 1)):
-        return LocalExecutor()
+    ``LocalExecutor``.  ``"auto"`` (every visible device) and N (the first
+    min(N, visible) devices) clamp to the devices visible to ``device``'s
+    type, as the reference's ``host_mesh`` does: the CUDA devices, or one
+    on the CPU.  Where that leaves one device the result is a
+    ``LocalExecutor`` on it; a mesh over more than one is not ported yet
+    (the multi-device ``MeshExecutor``, ROADMAP queue 1 item 4) and
+    raises."""
+    if spec is None or spec in ("none", "local"):
+        return LocalExecutor(device)
+    n = None if spec == "auto" else int(spec)
+    if n is not None and n <= 1:
+        return LocalExecutor(device)
+    dev = resolve_device(device)
+    visible = torch.cuda.device_count() if dev.type == "cuda" else 1
+    n = visible if n is None else min(n, visible)
+    if n <= 1:
+        return LocalExecutor(dev)
     raise NotImplementedError(
-        f"mesh spec {spec!r}: the multi-device MeshExecutor is not ported "
-        "yet (ROADMAP queue 1 item 4); use None, 'none', 'local' or N <= 1")
+        f"mesh spec {spec!r} resolves to {n} devices: the multi-device "
+        "MeshExecutor is not ported yet (ROADMAP queue 1 item 4); use "
+        "None, 'none', 'local', N <= 1, or a host with one device")

@@ -1,0 +1,1582 @@
+"""The port's control plane (``repro_torch.serving.{autotune, controller,
+frontend, spec}``) against the reference's.
+
+Three groups:
+
+  * the reference's own tests (``tests/test_{autotune,controller,frontend,
+    spec}.py``) as one body each, run once per package -- the port's
+    servers on the CPU (``device="cpu"`` at every entry point that builds
+    an executor);
+  * decision parity: under a ``VirtualClock`` and a pinned ``CostModel``
+    both packages score plans alike, pick the same plans (``autotune``,
+    ``bandit_search``), give every request id the same outcome, pop the
+    WFQ queue in the same order and swap plans at the same virtual times;
+    served results within the fp32 ``ERROR_BUDGETS`` of the reference's;
+    a ``ServerSpec`` JSON of either package loads in the other;
+  * the port's own seams: the spec names the port's backends (a reference
+    spec naming ``"pallas"`` fails with a named error), ``mesh_executor``
+    clamps to the visible devices, and every entry point that builds an
+    executor takes ``device=``, defaults to the card and raises without
+    one -- a CPU server stays on the CPU through every plan swap.
+"""
+import dataclasses
+import json
+import types
+import warnings
+
+import numpy as np
+import pytest
+import torch
+
+from _control_pkgs import NAMES, PKGS
+from _torch_parity import rel_frobenius
+from repro_torch.core.precision import ERROR_BUDGETS
+
+# kwarg-built servers trip the deprecation shim by design (the port's
+# executor is one kwarg more); the shim has its own test below
+pytestmark = pytest.mark.filterwarnings(
+    "ignore:PCAServer\\(\\.\\.\\.\\) with:DeprecationWarning")
+
+
+@pytest.fixture(params=NAMES)
+def P(request):
+    return PKGS[request.param]
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    """A host without a card, whatever this one has: the default device
+    (``cuda``) raises, so anything that falls back to it fails."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def _sym(n, seed=0):
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    return (a + a.T) / 2
+
+
+def _fields_equal(g, w):
+    for f in dataclasses.fields(g):
+        np.testing.assert_array_equal(np.asarray(getattr(g, f.name)),
+                                      np.asarray(getattr(w, f.name)))
+
+
+# ===========================================================================
+# autotune (tests/test_autotune.py)
+# ===========================================================================
+
+def _cfg(P, **kw):
+    kw = {"T": 8, "S": 4, "sweeps": 10, **kw}
+    return P.PCAConfig(**kw)
+
+
+def test_trace_dims_deterministic_and_bounded(P):
+    s = P.serving
+    for kind in s.TRACE_KINDS:
+        a = s.trace_dims(kind, 64, lo=6, hi=48, seed=3)
+        assert a == s.trace_dims(kind, 64, lo=6, hi=48, seed=3), kind
+        assert all(6 <= d <= 48 for d in a), kind
+    assert s.trace_dims("uniform", 64, seed=3) != s.trace_dims(
+        "uniform", 64, seed=4)
+    with pytest.raises(ValueError, match="unknown trace kind"):
+        s.trace_dims("spiky", 8)
+
+
+def test_trace_kinds_have_distinct_shapes(P):
+    s = P.serving
+    uniform = s.trace_dims("uniform", 256, lo=6, hi=48, seed=0)
+    bimodal = s.trace_dims("bimodal", 256, lo=6, hi=48, seed=0)
+    heavy = s.trace_dims("heavy", 256, lo=6, hi=48, seed=0)
+    assert len([d for d in bimodal if 18 <= d <= 36]) < len(bimodal) * 0.2
+    assert any(d <= 12 for d in bimodal) and any(d >= 40 for d in bimodal)
+    assert float(np.median(heavy)) <= 12 and max(heavy) >= 30
+    assert float(np.std(uniform)) > float(np.std(heavy))
+
+
+def test_synthetic_trace_matrices(P):
+    st = P.serving.synthetic_trace
+    eigh = st("uniform", 8, op="eigh", lo=6, hi=12, seed=0)
+    assert all(m.shape[0] == m.shape[1] for m in eigh)
+    assert all(np.allclose(m, m.T) for m in eigh)
+    svd = st("uniform", 8, op="svd", lo=6, hi=12, seed=0)
+    assert all(m.shape[0] == 4 * m.shape[1] for m in svd)
+    for a, b in zip(eigh, st("uniform", 8, op="eigh", lo=6, hi=12, seed=0)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_bucket_policy_pow2_cap(P):
+    pol = P.serving.BucketPolicy(T=16, mode="pow2", pow2_cap=64)
+    assert pol.bucket_dim(16) == 16
+    assert pol.bucket_dim(33) == 64
+    assert pol.bucket_dim(65) == 80
+    assert pol.bucket_dim(70) == 80
+    dims = [pol.bucket_dim(n) for n in range(1, 200)]
+    assert dims == sorted(dims)
+    assert all(d >= n for n, d in enumerate(dims, start=1))
+
+
+def test_bucket_policy_pow2_cap_validation(P):
+    bp = P.serving.BucketPolicy
+    with pytest.raises(ValueError, match="only applies to the pow2"):
+        bp(T=16, mode="tile", pow2_cap=64)
+    with pytest.raises(ValueError, match="multiple of T"):
+        bp(T=16, mode="pow2", pow2_cap=40)
+    with pytest.raises(ValueError, match="multiple of T"):
+        bp(T=16, mode="pow2", pow2_cap=8)
+
+
+def test_plan_grid_skips_invalid_caps(P):
+    grid = P.serving.plan_grid(modes=("tile", "pow2"), tiles=(8, 16),
+                               pow2_caps=(None, 32, 40), batches=(4,),
+                               inflights=(1,))
+    assert all(p.pow2_cap is None for p in grid if p.mode == "tile")
+    assert {p.pow2_cap for p in grid
+            if p.mode == "pow2" and p.T == 16} == {None, 32}
+    assert {p.pow2_cap for p in grid
+            if p.mode == "pow2" and p.T == 8} == {None, 32, 40}
+    for p in grid:
+        p.policy()
+
+
+def test_profile_round_trip_through_json(P, tmp_path):
+    TP = P.serving.TrafficProfile
+    srv = P.server(_cfg(P), policy=P.serving.BucketPolicy(T=8),
+                   max_delay_s=10.0)
+    mats = [_sym(n, seed=n) for n in (5, 9, 12, 7)]
+    srv.solve_many(mats)
+    srv.solve_many(mats)
+    profile = TP.from_stats(srv.stats, captured=srv.describe_plan())
+    assert profile.requests == 8 and profile.flushes >= 2
+    assert profile.work_dispatched > 0
+    assert profile.mean_dispatch_miss_s > 0 and profile.mean_dispatch_hit_s > 0
+    if P.name == "ref":  # a miss compiles; the port's eager solvers do not
+        assert profile.mean_dispatch_miss_s > profile.mean_dispatch_hit_s
+    assert profile.captured_plan["T"] == 8
+    assert TP.from_json(profile.to_json()) == profile
+    profile.save(tmp_path / "profile.json")
+    assert TP.load(tmp_path / "profile.json") == profile
+    json.loads(profile.to_json())
+
+
+def test_profile_of_idle_server_is_well_defined(P):
+    stats = P.stats.ServingStats()
+    profile = P.serving.TrafficProfile.from_stats(stats)
+    assert profile.requests == 0 and profile.shape_counts == ()
+    assert profile.arrival_rate == 0.0 and profile.overlap_frac == 0.0
+    assert P.serving.TrafficProfile.from_json(profile.to_json()) == profile
+    summary = stats.summary()
+    for key, val in summary.items():
+        assert np.isfinite(val), (key, val)
+    for key in ("latency_p50_ms", "latency_p99_ms", "queue_p50_ms",
+                "requests_per_s"):
+        assert summary[key] == 0.0
+
+
+def test_request_sequence_is_deterministic_shuffle(P):
+    profile = P.serving.TrafficProfile.from_shapes(
+        [("eigh", (8, 8), 3), ("svd", (16, 4), 2)])
+    seq = P.autotune_mod.request_sequence(profile, seed=1)
+    assert seq == P.autotune_mod.request_sequence(profile, seed=1)
+    assert sorted(seq) == [("eigh", (8, 8))] * 3 + [("svd", (16, 4))] * 2
+
+
+def test_cost_model_padding_waste_monotone(P):
+    s = P.serving
+    plan = s.ServingPlan(mode="tile", T=16, max_batch=4)
+    snug = s.TrafficProfile.from_shapes([("eigh", (16, 16), 32)])
+    wasteful = s.TrafficProfile.from_shapes([("eigh", (17, 17), 32)])
+    c_snug = s.CostModel().plan_cost(plan, snug)
+    c_waste = s.CostModel().plan_cost(plan, wasteful)
+    assert c_waste["est_padding_waste"] > c_snug["est_padding_waste"]
+    assert c_waste["total_s"] > c_snug["total_s"]
+
+
+def test_cost_model_prefers_batching_and_credits_pipelining(P):
+    s = P.serving
+    profile = s.TrafficProfile.from_shapes([("eigh", (16, 16), 64)])
+    model = s.CostModel()
+    one = model.plan_cost(s.ServingPlan(T=16, max_batch=1), profile)
+    eight = model.plan_cost(s.ServingPlan(T=16, max_batch=8), profile)
+    assert eight["total_s"] < one["total_s"]
+    sync = model.plan_cost(s.ServingPlan(T=16, max_batch=4), profile)
+    deep = model.plan_cost(s.ServingPlan(T=16, max_batch=4, max_inflight=4),
+                           profile)
+    assert sync["hidden_s"] == 0.0 < deep["hidden_s"]
+    assert deep["total_s"] < sync["total_s"]
+
+
+def test_cost_model_occupancy_calibrates_from_measured_overlap(P):
+    s = P.serving
+    ideal = s.TrafficProfile.from_shapes(
+        [("eigh", (16, 16), 16)], captured={"max_inflight": 4},
+        overlap_frac=0.75)
+    poor = dataclasses.replace(ideal, overlap_frac=0.375)
+    plan = s.ServingPlan(T=16, max_batch=4, max_inflight=4)
+    assert s.CostModel().occupancy(plan, ideal) == pytest.approx(0.75)
+    assert s.CostModel().occupancy(plan, poor) == pytest.approx(0.375)
+    assert s.CostModel().occupancy(s.ServingPlan(T=16), ideal) == 0.0
+
+
+def test_cost_model_charges_bucket_fragmentation(P):
+    s = P.serving
+    profile = s.TrafficProfile.from_shapes(
+        [("eigh", (d, d), 4) for d in (6, 14, 22, 30, 38, 46)])
+    fine = s.CostModel().plan_cost(s.ServingPlan(mode="tile", T=8), profile)
+    coarse = s.CostModel().plan_cost(s.ServingPlan(mode="pow2", T=16),
+                                     profile)
+    assert fine["n_buckets"] > coarse["n_buckets"]
+    assert fine["compile_s"] > coarse["compile_s"]
+
+
+def test_cost_model_calibrates_from_profile(P):
+    s = P.serving
+    srv = P.server(_cfg(P), policy=s.BucketPolicy(T=8), max_delay_s=10.0)
+    mats = [_sym(9, seed=i) for i in range(8)]
+    srv.solve_many(mats)
+    srv.solve_many(mats)
+    profile = s.TrafficProfile.from_stats(srv.stats,
+                                          captured=srv.describe_plan())
+    model = s.CostModel.calibrated(profile)
+    # compile cost comes from the measured hit/miss dispatch split, where a
+    # miss costs more (it compiles in the reference; the port's eager
+    # solvers have no compile step, so there it may not)
+    hit, miss = profile.mean_dispatch_hit_s, profile.mean_dispatch_miss_s
+    if P.name == "ref":
+        assert miss > hit > 0
+    assert model.compile_s_per_executable == pytest.approx(
+        miss - hit if miss > hit > 0
+        else s.CostModel().compile_s_per_executable)
+    assert model.device_work_per_s == pytest.approx(
+        profile.work_dispatched / profile.device_s)
+
+
+def test_solve_work_scales(P):
+    sw = P.serving.solve_work
+    assert sw("eigh", (32, 32)) == 32.0 ** 3
+    assert sw("svd", (64, 16)) == 64 * 16 ** 2 + 16 ** 3
+    assert sw("pca", (64, 16)) > sw("eigh", (16, 16))
+
+
+def test_apply_plan_midstream_preserves_inflight_and_queued_tickets(P):
+    s = P.serving
+    t = [0.0]
+    srv = P.server(_cfg(P), policy=s.BucketPolicy(T=8), max_delay_s=0.5,
+                   clock=lambda: t[0], max_inflight=2, max_batch=4)
+    flying = [srv.submit(_sym(6, seed=i)) for i in range(4)]
+    assert all(tk.inflight and not tk.done for tk in flying)
+    queued = [srv.submit(_sym(11, seed=10 + i)) for i in range(2)]
+    assert all(tk.bucket == (16, 16) for tk in queued)
+    switch = srv.apply_plan(s.ServingPlan(mode="pow2", T=4, pow2_cap=16,
+                                          max_batch=2, max_inflight=1))
+    assert all(tk.done for tk in flying)
+    assert switch["requeued"] == 2
+    assert all(tk.done and tk.bucket == (16, 16) for tk in queued)
+    assert srv.pending() == 0 and srv.inflight() == 0
+    for i, tk in enumerate(flying):
+        np.testing.assert_allclose(tk.result().eigenvalues,
+                                   np.linalg.eigh(_sym(6, seed=i))[0][::-1],
+                                   rtol=1e-3, atol=1e-3)
+    for i, tk in enumerate(queued):
+        np.testing.assert_allclose(
+            tk.result().eigenvalues,
+            np.linalg.eigh(_sym(11, seed=10 + i))[0][::-1],
+            rtol=1e-3, atol=1e-3)
+    rec = srv.stats.plan_switches[0]
+    assert len(srv.stats.plan_switches) == 1
+    assert rec["from"]["T"] == 8 and rec["to"]["T"] == 4
+    assert rec["to"]["max_batch"] == 2 and rec["requeued"] == 2
+    assert srv.stats.summary()["plan_switches"] == 1
+
+
+def test_apply_plan_requeue_keeps_deadlines_and_submit_order(P):
+    s = P.serving
+    t = [0.0]
+    srv = P.server(_cfg(P), policy=s.BucketPolicy(T=8), max_delay_s=0.5,
+                   clock=lambda: t[0], max_batch=8)
+    early = srv.submit(_sym(6, seed=0))
+    t[0] = 0.2
+    late = srv.submit(_sym(12, seed=1))
+    srv.apply_plan(s.ServingPlan(mode="tile", T=16, max_batch=8))
+    assert early.bucket == late.bucket == (16, 16)
+    assert srv.pending() == 2
+    t[0] = 0.45
+    assert srv.poll() == 0
+    t[0] = 0.51
+    assert srv.poll() == 2
+    assert early.done and late.done and early.record.batch_size == 2
+
+
+def test_apply_plan_validates_plan(P):
+    s = P.serving
+    srv = P.server(_cfg(P), policy=s.BucketPolicy(T=8))
+    with pytest.raises(ValueError, match="max_inflight"):
+        srv.apply_plan(s.ServingPlan(max_inflight=0))
+    with pytest.raises(ValueError, match="max_batch"):
+        srv.apply_plan(s.ServingPlan(max_batch=0))
+
+
+def test_apply_plan_failure_leaves_server_and_tickets_intact(P):
+    s = P.serving
+    srv = P.server(_cfg(P), policy=s.BucketPolicy(T=8), max_delay_s=10.0,
+                   max_batch=4)
+    ticket = srv.submit(_sym(6))
+    before = srv.describe_plan()
+    with pytest.raises(ValueError, match="multiple of T"):
+        srv.apply_plan(s.ServingPlan(mode="pow2", T=16, pow2_cap=40))
+    with pytest.raises(ValueError):
+        srv.apply_plan(s.ServingPlan(mesh="bogus"))
+    assert srv.describe_plan() == before
+    assert srv.pending() == 1 and not ticket.done
+    srv.drain()
+    np.testing.assert_allclose(ticket.result().eigenvalues,
+                               np.linalg.eigh(_sym(6))[0][::-1],
+                               rtol=1e-3, atol=1e-3)
+
+
+def test_apply_plan_realigns_config_with_cold_server(P):
+    s = P.serving
+    cfg = P.PCAConfig(T=16, S=4, sweeps=8, backend=P.plain_backend,
+                      rotation="matmul")
+    mats = [_sym(n, seed=n) for n in (5, 9, 12, 7)]
+    plan = s.ServingPlan(mode="tile", T=8, max_batch=2, max_inflight=1)
+    cold = P.server_for_plan(plan, cfg)
+    hot = P.server(cfg, policy=s.BucketPolicy(T=16), max_delay_s=10.0)
+    hot.submit(mats[0])
+    hot.apply_plan(plan)
+    assert hot.config.T == 8 and hot.config.S == 2
+    for g, w in zip(cold.solve_many(mats), hot.solve_many(mats)):
+        _fields_equal(g, w)
+
+
+def test_apply_plan_same_buckets_reuse_executables(P):
+    s = P.serving
+    srv = P.server(_cfg(P), policy=s.BucketPolicy(T=8), max_delay_s=10.0)
+    srv.solve_many([_sym(7, seed=i) for i in range(4)])
+    misses = srv.stats.cache_misses
+    srv.apply_plan(s.ServingPlan(mode="tile", T=8, max_batch=4,
+                                 max_inflight=2))
+    srv.solve_many([_sym(7, seed=10 + i) for i in range(4)])
+    assert srv.stats.cache_misses == misses
+
+
+def test_autotune_analytic_and_measured_agree_on_simple_trace(P):
+    s = P.serving
+    cfg = _cfg(P)
+    mats = [_sym(9, seed=i) for i in range(16)]
+    srv = P.server(cfg, policy=s.BucketPolicy(T=8), max_delay_s=10.0)
+    for _ in range(2):
+        srv.solve_many(mats)
+    profile = s.TrafficProfile.from_stats(srv.stats,
+                                          captured=srv.describe_plan())
+    grid = [s.ServingPlan(mode="tile", T=8, max_batch=1),
+            s.ServingPlan(mode="tile", T=8, max_batch=8)]
+    analytic = P.autotune(profile, grid=grid, config=cfg)
+    assert analytic.mode == "analytic" and analytic.best.max_batch == 8
+    measured = P.autotune(profile, grid=grid, config=cfg, measure_top_k=2,
+                          passes=2)
+    assert measured.mode == "measured" and len(measured.measured) == 2
+    assert measured.best == analytic.best
+    json.dumps(measured.to_json())
+
+
+def test_server_for_plan_matches_plan(P):
+    plan = P.serving.ServingPlan(mode="pow2", T=8, pow2_cap=32,
+                                 max_batch=2, max_inflight=3)
+    described = P.server_for_plan(plan, _cfg(P)).describe_plan()
+    assert described["mode"] == "pow2" and described["T"] == 8
+    assert described["pow2_cap"] == 32
+    assert described["max_batch"] == 2 and described["max_inflight"] == 3
+    assert P.server_for_plan(plan, _cfg(P)).config.sweeps == 10
+
+
+# ===========================================================================
+# controller (tests/test_controller.py)
+# ===========================================================================
+
+def _pinned(P):
+    return P.serving.CostModel(device_work_per_s=1e6,
+                               compile_s_per_executable=0.0)
+
+
+def _ctrl_server(P, t, **kw):
+    kw.setdefault("policy", P.serving.BucketPolicy(T=16))
+    kw.setdefault("max_delay_s", 0.01)
+    return P.server(P.PCAConfig(T=16, S=4, sweeps=6), clock=lambda: t[0],
+                    **kw)
+
+
+def test_controller_validates_args(P):
+    SC = P.serving.ServingController
+    srv = _ctrl_server(P, [0.0])
+    with pytest.raises(ValueError, match="window_s"):
+        SC(srv, window_s=0.0)
+    with pytest.raises(ValueError, match="window_s"):
+        SC(srv, reprofile_every_s=0.0)
+    with pytest.raises(ValueError, match="hysteresis"):
+        SC(srv, hysteresis=1.0)
+
+
+def test_maybe_tick_respects_cadence(P):
+    ctrl = P.serving.ServingController(_ctrl_server(P, [0.0]), window_s=1.0,
+                                       reprofile_every_s=1.0)
+    ctrl.maybe_tick(0.0)
+    assert ctrl.ticks == 1
+    ctrl.maybe_tick(0.5)
+    assert ctrl.ticks == 1
+    ctrl.maybe_tick(1.0)
+    assert ctrl.ticks == 2
+    ctrl.maybe_tick()
+    assert ctrl.ticks == 2
+
+
+def test_empty_window_skips_search(P):
+    ctrl = P.serving.ServingController(
+        _ctrl_server(P, [0.0]), window_s=1.0, reprofile_every_s=0.25,
+        min_window_requests=4)
+    assert ctrl.maybe_tick(0.1) is None
+    assert ctrl.ticks == 1 and ctrl.last_result is None and not ctrl.swaps
+
+
+def test_controller_from_spec_maps_fields(P):
+    cspec = P.serving.ControllerSpec(
+        enabled=True, window_s=3.0, reprofile_every_s=0.5, hysteresis=0.07,
+        min_dwell_s=1.5, budget_frac=0.5, measure=False)
+    ctrl = P.serving.ServingController.from_spec(_ctrl_server(P, [0.0]),
+                                                 cspec)
+    assert (ctrl.window_s, ctrl.reprofile_every_s, ctrl.hysteresis,
+            ctrl.min_dwell_s, ctrl.budget_frac, ctrl.measure) == \
+        (3.0, 0.5, 0.07, 1.5, 0.5, False)
+
+
+def test_current_plan_mirrors_server_facts(P):
+    s = P.serving
+    srv = _ctrl_server(P, [0.0], max_batch=8, max_inflight=2)
+    assert s.ServingController(srv).current_plan() == s.ServingPlan(
+        mode="tile", T=16, max_batch=8, max_inflight=2, mesh="none")
+    srv.apply_plan(s.ServingPlan(mode="pow2", T=8, pow2_cap=32, max_batch=2))
+    cur = s.ServingController(srv).current_plan()
+    assert cur.mode == "pow2" and cur.T == 8 and cur.pow2_cap == 32
+
+
+def test_window_profile_uses_stats_and_decays_quiet_ops(P):
+    t = [0.0]
+    srv = _ctrl_server(P, t, max_batch=4, max_delay_s=10.0)
+    ctrl = P.serving.ServingController(srv, window_s=1.0, decay=0.5)
+    srv.solve_many([_sym(9, seed=i) for i in range(4)])
+    p1 = ctrl.window_profile(0.5)
+    assert p1.requests == 4 and ("eigh", (9, 9), 4) in p1.shape_counts
+    assert p1.duration_s == 1.0 and p1.arrival_rate == pytest.approx(4.0)
+    assert ("eigh", (9, 9), 2) in ctrl.window_profile(2.0).shape_counts
+    assert ("eigh", (9, 9), 1) in ctrl.window_profile(4.0).shape_counts
+
+
+def test_window_profile_windows_fresh_traffic(P):
+    t = [0.0]
+    srv = _ctrl_server(P, t, max_delay_s=10.0)
+    ctrl = P.serving.ServingController(srv, window_s=1.0)
+    srv.solve_many([_sym(9, seed=i) for i in range(4)])
+    t[0] = 5.0
+    srv.solve_many([_sym(28, seed=i) for i in range(2)])
+    prof = ctrl.window_profile(5.5)
+    assert ("eigh", (28, 28), 2) in prof.shape_counts
+    assert not any(shape == (9, 9) for _, shape, _ in prof.shape_counts)
+    assert prof.requests == 2
+
+
+def _fed_controller(P, t, **kw):
+    s = P.serving
+    srv = _ctrl_server(P, t, max_batch=4, max_delay_s=10.0)
+    fe = s.TrafficFrontend(srv, (s.TenantSpec("t0"),), slo_ms=100.0,
+                           admission="shed", model=s.CostModel())
+    kw.setdefault("window_s", 1.0)
+    kw.setdefault("reprofile_every_s", 0.25)
+    kw.setdefault("hysteresis", 0.05)
+    kw.setdefault("min_dwell_s", 0.5)
+    kw.setdefault("model", _pinned(P))
+    ctrl = s.ServingController(srv, frontend=fe, **kw)
+    srv.solve_many([_sym(8, seed=i) for i in range(8)])
+    return srv, fe, ctrl
+
+
+def test_tick_swaps_and_feeds_admission_model(P):
+    srv, fe, ctrl = _fed_controller(P, [0.0])
+    before = fe.admission.model
+    swap = ctrl.maybe_tick(0.1)
+    assert swap is not None
+    assert swap["t"] == 0.1 and swap["predicted_gain"] > 0.05
+    assert swap["plan"] == ctrl.last_result.best.describe()
+    assert ctrl.current_plan() == ctrl.last_result.best
+    assert len(srv.stats.plan_switches) == 1
+    assert ctrl.plan_log == [(0.1, ctrl.last_result.best)]
+    assert fe.model is ctrl.model and fe.admission.model is ctrl.model
+    assert fe.admission.model is not before
+    assert fe.admission.policy is srv.policy
+    assert fe.admission.batch == srv.max_batch
+
+
+def test_hysteresis_blocks_marginal_swaps(P):
+    _, _, ctrl = _fed_controller(P, [0.0], hysteresis=0.95)
+    assert ctrl.maybe_tick(0.1) is None
+    assert ctrl.ticks == 1 and not ctrl.swaps
+    assert ctrl.last_result is not None
+
+
+def test_dwell_blocks_immediate_reswap(P):
+    srv, _, ctrl = _fed_controller(P, [0.0], min_dwell_s=0.5)
+    assert ctrl.maybe_tick(0.1) is not None
+    srv.apply_plan(P.serving.ServingPlan())
+    assert ctrl.maybe_tick(0.4) is None and len(ctrl.swaps) == 1
+    assert ctrl.maybe_tick(0.7) is not None and len(ctrl.swaps) == 2
+
+
+def test_same_plan_is_a_noop_tick(P):
+    _, _, ctrl = _fed_controller(P, [0.0])
+    assert ctrl.maybe_tick(0.1) is not None
+    assert ctrl.maybe_tick(1.0) is None
+    assert len(ctrl.swaps) == 1 and ctrl.summary()["swaps"] == 1
+    assert ctrl.summary()["swap_log"][0]["plan"] == \
+        ctrl.last_result.best.describe()
+
+
+def test_bandit_top1_matches_exhaustive_grid_on_bimodal_trace(P):
+    s = P.serving
+    mats = s.synthetic_trace("bimodal", 24, op="eigh", lo=8, hi=44, seed=0)
+    srv = P.server(P.PCAConfig(T=16, S=4, sweeps=6),
+                   policy=s.BucketPolicy(T=16), max_delay_s=10.0)
+    for _ in range(2):
+        srv.solve_many(mats)
+    profile = s.TrafficProfile.from_stats(srv.stats,
+                                          captured=srv.describe_plan())
+    grid = s.plan_grid()
+    model = s.CostModel.calibrated(profile)
+    result = P.bandit_search(profile, grid=grid, model=model,
+                             budget_frac=0.25, measure=False)
+    assert result.best == min(grid, key=lambda p: model.plan_cost(
+        p, profile)["total_s"])
+    assert result.mode == "bandit-analytic" and result.measured_evals == 0
+    assert result.grid_size == len(grid)
+
+
+def _regime_stream(P, n_small=60, n_big=60):
+    s = P.serving
+    tenant = (s.TenantSpec("t0"),)
+    small = s.generate("poisson", rate=200.0, n=n_small, tenants=tenant,
+                       seed=5, trace="uniform", lo=8, hi=12)
+    shift_t = max(a.t for a in small) + 1e-3
+    big = [dataclasses.replace(a, t=a.t + shift_t) for a in
+           s.generate("poisson", rate=40.0, n=n_big, tenants=tenant, seed=9,
+                      trace="uniform", lo=28, hi=44)]
+    return s.merge(small, big), shift_t
+
+
+def _controlled_run(P, stream, hysteresis=0.05, min_dwell_s=0.25,
+                    window_s=0.5, reprofile_every_s=0.25, tenants=None,
+                    **fe_kw):
+    s = P.serving
+    spec = s.ServerSpec(
+        scheduling=s.SchedulingSpec(T=16, max_batch=4, max_delay_s=0.02),
+        execution=s.ExecutionSpec(sweeps=6),
+        controller=s.ControllerSpec(enabled=True, window_s=window_s,
+                                    reprofile_every_s=reprofile_every_s,
+                                    hysteresis=hysteresis,
+                                    min_dwell_s=min_dwell_s))
+    srv = P.build_server(spec, clock=s.VirtualClock())
+    srv.controller.model = _pinned(P)
+    fe_kw.setdefault("slo_ms", 500.0)
+    fe_kw.setdefault("admission", "none")
+    fe = s.TrafficFrontend(srv, tenants or (s.TenantSpec("t0"),),
+                           model=s.CostModel(), seed=1, **fe_kw)
+    srv.controller.frontend = fe
+    return srv, fe, fe.run(stream, pace=False)
+
+
+def test_controlled_run_is_deterministic_and_swaps_after_shift(P):
+    stream, shift_t = _regime_stream(P)
+    srv_a, fe_a, rep_a = _controlled_run(P, stream)
+    srv_b, _, rep_b = _controlled_run(P, stream)
+    assert rep_a.digest == rep_b.digest
+    assert ([(s["t"], s["plan"]) for s in srv_a.controller.swaps]
+            == [(s["t"], s["plan"]) for s in srv_b.controller.swaps])
+    ctrl = srv_a.controller
+    assert ctrl.ticks > 0 and len(ctrl.swaps) >= 1
+    post = [s["t"] for s in ctrl.swaps if s["t"] >= shift_t]
+    assert post, "no swap after the regime shift"
+    assert post[0] - shift_t <= 2 * ctrl.window_s + ctrl.min_dwell_s
+    assert fe_a.admission.model is ctrl.model
+
+
+def test_guards_prevent_thrash_on_oscillating_trace(P):
+    s = P.serving
+    tenant = (s.TenantSpec("t0"),)
+    chunks, t0 = [], 0.0
+    for i in range(4):
+        lo, hi = (8, 12) if i % 2 == 0 else (28, 44)
+        burst = s.generate("poisson", rate=60.0, n=30, tenants=tenant,
+                           seed=10 + i, trace="uniform", lo=lo, hi=hi)
+        chunks.append([dataclasses.replace(a, t=a.t + t0) for a in burst])
+        t0 = max(a.t for a in chunks[-1]) + 1e-3
+    stream = s.merge(*chunks)
+    eager, _, _ = _controlled_run(P, stream, hysteresis=0.0, min_dwell_s=0.0)
+    guarded, _, _ = _controlled_run(P, stream, hysteresis=0.10,
+                                    min_dwell_s=2.0)
+    assert len(eager.controller.swaps) > len(guarded.controller.swaps)
+    assert len(guarded.controller.swaps) <= max(a.t for a in stream) / 2 + 1
+
+
+def test_controller_emits_telemetry(P):
+    s = P.serving
+    t = [0.0]
+    obs = P.obs.Observability.enabled(slo_ms=100.0, clock=lambda: t[0])
+    srv = P.server(P.PCAConfig(T=16, S=4, sweeps=6),
+                   policy=s.BucketPolicy(T=16), max_delay_s=10.0,
+                   clock=lambda: t[0], obs=obs)
+    ctrl = s.ServingController(srv, window_s=1.0, reprofile_every_s=0.25,
+                               hysteresis=0.05, min_dwell_s=0.5,
+                               model=_pinned(P))
+    ctrl.maybe_tick(0.05)
+    srv.solve_many([_sym(8, seed=i) for i in range(8)])
+    assert ctrl.maybe_tick(0.4) is not None
+    ctrl.maybe_tick(0.7)
+    text = obs.metrics.to_prometheus()
+    assert "controller_ticks_total 3" in text
+    assert "controller_swaps_total 1" in text
+    assert 'controller_skips_total{reason="empty-window"} 1' in text
+    assert 'controller_skips_total{reason="same-plan"} 1' in text
+    assert "controller_predicted_gain" in text
+    assert "controller_tick" in [ev["name"] for ev in
+                                 obs.tracer.export()["traceEvents"]]
+
+
+def test_controller_without_obs_is_silent_but_functional(P):
+    srv, _, ctrl = _fed_controller(P, [0.0])
+    assert srv.obs is None
+    assert ctrl.maybe_tick(0.1) is not None
+    assert ctrl.summary()["swaps"] == 1
+
+
+# ===========================================================================
+# frontend (tests/test_frontend.py)
+# ===========================================================================
+
+def _fe_server(P, clock=None, sweeps=6, **kw):
+    kw.setdefault("policy", P.serving.BucketPolicy(T=8))
+    kw.setdefault("max_delay_s", 0.01)
+    if clock is not None:
+        kw["clock"] = clock
+    return P.server(P.PCAConfig(T=8, S=4, sweeps=sweeps), **kw)
+
+
+@pytest.mark.parametrize("kind", ["poisson", "diurnal", "bursty"])
+def test_arrival_times_deterministic_and_monotone(P, kind):
+    at = P.serving.arrival_times
+    a = at(kind, rate=50.0, n=300, seed=4)
+    assert a == at(kind, rate=50.0, n=300, seed=4)
+    assert a != at(kind, rate=50.0, n=300, seed=5)
+    assert len(a) == 300 and all(t2 >= t1 for t1, t2 in zip(a, a[1:]))
+
+
+@pytest.mark.parametrize("kind", ["poisson", "diurnal", "bursty"])
+def test_arrival_times_hit_the_mean_rate(P, kind):
+    times = P.serving.arrival_times(kind, rate=80.0, n=4000, seed=1,
+                                    period_s=5.0, on_s=0.1, off_s=0.3)
+    assert 4000 / times[-1] == pytest.approx(80.0, rel=0.15)
+
+
+def test_bursty_is_burstier_than_poisson(P):
+    def cv2(kind):
+        gaps = np.diff(np.asarray(P.serving.arrival_times(
+            kind, rate=50.0, n=3000, seed=2)))
+        return float(np.var(gaps) / np.mean(gaps) ** 2)
+    assert cv2("bursty") > 1.5 * cv2("poisson")
+
+
+def test_arrival_times_rejects_bad_args(P):
+    at = P.serving.arrival_times
+    with pytest.raises(ValueError, match="unknown arrival kind"):
+        at("uniform", rate=10.0, n=5)
+    with pytest.raises(ValueError, match="rate"):
+        at("poisson", rate=0.0, n=5)
+    assert at("poisson", rate=10.0, n=0) == []
+
+
+def test_generate_tenants_shapes_and_merge(P):
+    s = P.serving
+    stream = s.generate("poisson", rate=100.0, n=800,
+                        tenants=(s.TenantSpec("whale", share=0.75),
+                                 s.TenantSpec("mouse", share=0.25)),
+                        seed=3, trace="uniform", lo=4, hi=8)
+    frac = sum(a.tenant == "whale" for a in stream) / len(stream)
+    assert frac == pytest.approx(0.75, abs=0.05)
+    assert all(4 <= a.shape[0] <= 8 and a.shape[0] == a.shape[1]
+               for a in stream)
+    svd = s.generate("poisson", rate=100.0, n=10, op="svd", seed=3,
+                     trace="uniform", lo=4, hi=8)
+    assert all(a.shape == (4 * a.shape[1], a.shape[1]) for a in svd)
+    merged = s.merge(stream[:5], svd[:5])
+    assert [a.rid for a in merged] == list(range(10))
+    assert all(x.t <= y.t for x, y in zip(merged, merged[1:]))
+
+
+def test_materialize_is_order_independent(P):
+    s = P.serving
+    a = s.generate("poisson", rate=10.0, n=4, seed=0, lo=4, hi=8)
+    m2 = s.materialize(a[2], seed=9)
+    s.materialize(a[0], seed=9)
+    np.testing.assert_array_equal(s.materialize(a[2], seed=9), m2)
+
+
+def test_profile_of_measures_the_stream(P):
+    s = P.serving
+    stream = s.generate("poisson", rate=50.0, n=400, seed=1, trace="uniform",
+                        lo=4, hi=8)
+    prof = s.profile_of(stream)
+    span = stream[-1].t - stream[0].t
+    assert prof.requests == 400
+    assert prof.arrival_rate == pytest.approx(400 / span)
+    assert prof.duration_s == pytest.approx(span)
+
+
+def test_parse_tenants(P):
+    pt = P.serving.parse_tenants
+    assert [(t.name, t.share) for t in pt("whale:0.9,mouse:0.1")] == \
+        [("whale", 0.9), ("mouse", 0.1)]
+    rt, batch = pt("rt:0.2:2:p, batch:0.8:1")
+    assert rt.priority and rt.weight == 2.0 and not batch.priority
+    with pytest.raises(ValueError):
+        pt(",")
+
+
+def test_token_bucket_enforces_rate_and_caps_at_burst(P):
+    TB = P.serving.TokenBucket
+    b = TB(rate=2.0, burst=2.0)
+    assert b.try_take(0.0) and b.try_take(0.0)
+    assert not b.try_take(0.0) and not b.try_take(0.4)
+    assert b.try_take(0.5) and not b.try_take(0.5)
+    b = TB(rate=10.0, burst=3.0)
+    b.try_take(0.0)
+    for _ in range(3):
+        assert b.try_take(100.0)
+    assert not b.try_take(100.0)
+    assert all(TB(rate=0.0).try_take(0.0) for _ in range(100))
+
+
+def test_wfq_serves_in_weight_proportion(P):
+    q = P.serving.FairQueue({"a": 3.0, "b": 1.0}, mode="wfq")
+    for i in range(12):
+        q.push("a", ("a", i), work=1.0)
+        q.push("b", ("b", i), work=1.0)
+    got = [q.pop()[0] for _ in range(8)]
+    assert got.count("a") == 6 and got.count("b") == 2
+
+
+def test_wfq_idle_tenant_rejoins_at_current_vtime(P):
+    q = P.serving.FairQueue({"a": 1.0, "b": 1.0}, mode="wfq")
+    for i in range(6):
+        q.push("a", f"a{i}", work=1.0)
+    for _ in range(4):
+        q.pop()
+    q.push("b", "b0", work=1.0)
+    q.push("b", "b1", work=1.0)
+    assert [q.pop()[0] for _ in range(4)] == ["b", "a", "b", "a"]
+
+
+def test_priority_lane_and_fifo_mode(P):
+    FQ = P.serving.FairQueue
+    q = FQ({"a": 1.0, "rt": 1.0}, mode="wfq")
+    for i in range(5):
+        q.push("a", i, work=1.0)
+    q.push("rt", "now", work=1.0, priority=True)
+    assert q.pop() == ("rt", 1.0, "now")
+    assert q.priority_work() == 0.0 and q.pop()[0] == "a"
+    q = FQ({"a": 100.0, "b": 1.0}, mode="fifo")
+    q.push("b", 0, work=5.0)
+    q.push("a", 1, work=0.1)
+    assert [q.pop()[2] for _ in range(2)] == [0, 1]
+
+
+def test_fair_queue_work_accounting(P):
+    q = P.serving.FairQueue({"a": 1.0, "b": 1.0}, mode="wfq")
+    q.push("a", 0, work=2.0)
+    q.push("b", 1, work=3.0)
+    assert q.queued_work() == pytest.approx(5.0)
+    assert q.queued_work("a") == pytest.approx(2.0)
+    assert q.depth("b") == 1 and len(q) == 2
+    assert q.weight_share("a") == pytest.approx(0.5)
+    q.pop()
+    assert len(q) == 1
+    with pytest.raises(IndexError):
+        P.serving.FairQueue(mode="fifo").pop()
+
+
+def _admission(P, mode, slo_ms=50.0, **kw):
+    s = P.serving
+    return s.AdmissionController(s.CostModel(device_work_per_s=1e6),
+                                 s.BucketPolicy(T=8), slo_ms / 1e3,
+                                 mode=mode, **kw)
+
+
+def test_admission_shed_none_and_degrade(P):
+    adm = _admission(P, "shed")
+    assert 0 < adm.service_s("eigh", (8, 8)) < 0.05
+    assert adm.decide("eigh", (8, 8), backlog_s=0.0).outcome == "admit"
+    d = adm.decide("eigh", (8, 8), backlog_s=10.0)
+    assert d.outcome == "shed" and d.backlog_s == 10.0
+    assert _admission(P, "none").decide(
+        "eigh", (8, 8), backlog_s=1e9).outcome == "admit"
+    adm = _admission(P, "degrade", degrade_frac=0.5)
+    full = adm.service_s("eigh", (8, 8))
+    deg = adm.service_s("eigh", (8, 8), sweeps_frac=0.5)
+    assert deg < full
+    d = adm.decide("eigh", (8, 8), backlog_s=0.05 - (full + deg) / 2)
+    assert d.outcome == "degrade" and d.predicted_s == pytest.approx(deg)
+    assert adm.decide("eigh", (8, 8), backlog_s=10.0).outcome == "shed"
+    with pytest.raises(ValueError, match="admission mode"):
+        _admission(P, "maybe")
+
+
+def _virtual_run(P, stream, tenants, scheduler="wfq", admission="shed",
+                 slo_ms=40.0, model=None, **fe_kw):
+    s = P.serving
+    srv = _fe_server(P, clock=s.VirtualClock())
+    fe = s.TrafficFrontend(srv, tenants, slo_ms=slo_ms, scheduler=scheduler,
+                           admission=admission,
+                           model=model or s.CostModel(device_work_per_s=1e5),
+                           seed=1, **fe_kw)
+    return fe.run(stream, pace=False)
+
+
+def test_virtual_run_is_bit_deterministic(P):
+    s = P.serving
+    stream = s.generate("poisson", rate=400.0, n=60, seed=2,
+                        trace="uniform", lo=4, hi=8)
+    a = _virtual_run(P, stream, (s.TenantSpec("t0"),))
+    b = _virtual_run(P, stream, (s.TenantSpec("t0"),))
+    assert a.digest == b.digest and a.outcomes == b.outcomes
+    assert a.shed > 0
+    assert a.served + a.degraded + a.shed + a.throttled == a.requests == 60
+
+
+def test_virtual_run_requires_virtual_clock(P):
+    s = P.serving
+    fe = s.TrafficFrontend(_fe_server(P), (s.TenantSpec("t0"),),
+                           slo_ms=40.0)
+    stream = s.generate("poisson", rate=10.0, n=3, seed=0, lo=4, hi=8)
+    with pytest.raises(TypeError, match="VirtualClock"):
+        fe.run(stream, pace=False)
+    with pytest.raises(ValueError, match="empty"):
+        s.TrafficFrontend(_fe_server(P, clock=s.VirtualClock()),
+                          (s.TenantSpec("t0"),)).run([], pace=False)
+
+
+def test_degraded_request_matches_relaxed_config_server(P):
+    s = P.serving
+    a = s.generate("poisson", rate=10.0, n=1, seed=0, trace="uniform",
+                   lo=6, hi=6)[0]
+    mat = s.materialize(a, seed=1)
+    live = _fe_server(P, sweeps=6)
+    t1 = live.submit(mat, sweeps=3)
+    live.drain()
+    assert t1.record.sweeps == 3
+    relaxed = _fe_server(P, sweeps=3)
+    t2 = relaxed.submit(mat)
+    relaxed.drain()
+    np.testing.assert_array_equal(t1.result().eigenvalues,
+                                  t2.result().eigenvalues)
+    np.testing.assert_array_equal(t1.result().eigenvectors,
+                                  t2.result().eigenvectors)
+
+
+def test_frontend_degrade_mode_produces_degraded_outcomes(P):
+    s = P.serving
+    stream = s.generate("poisson", rate=20.0, n=12, seed=2, trace="uniform",
+                        lo=4, hi=8)
+    model = s.CostModel(device_work_per_s=1e6)
+    fe_slo = 1e3 * 1.2 * model.request_service_s("eigh", (8, 8), batch=4,
+                                                 sweeps_frac=0.5)
+    rep = _virtual_run(P, stream, (s.TenantSpec("t0"),), admission="degrade",
+                       slo_ms=fe_slo, model=model, degrade_frac=0.5)
+    assert rep.degraded > 0
+    assert rep.degraded + rep.served + rep.shed == rep.requests
+    assert set(rep.outcomes.values()) <= {"served", "degraded", "shed"}
+
+
+def test_frontend_throttles_over_quota_tenant(P):
+    s = P.serving
+    spec = s.TenantSpec("t0", rate_limit=5.0, burst=2.0)
+    stream = s.generate("poisson", rate=500.0, n=40, seed=1, trace="uniform",
+                        lo=4, hi=8, tenants=(spec,))
+    rep = _virtual_run(P, stream, (spec,), admission="none", slo_ms=None)
+    assert rep.throttled > 0 and rep.throttled + rep.served == rep.requests
+
+
+def test_backlog_is_tenant_local_under_wfq_and_priority_aware(P):
+    s = P.serving
+    srv = _fe_server(P, clock=s.VirtualClock())
+    model = s.CostModel(device_work_per_s=1e6)
+    for scheduler, want in (("wfq", 0.0), ("fifo", 50.0)):
+        fe = s.TrafficFrontend(srv, (s.TenantSpec("whale"),
+                                     s.TenantSpec("mouse")),
+                               slo_ms=40.0, scheduler=scheduler, model=model)
+        fe.queue.push("whale", None, work=50.0)
+        assert fe._backlog_s("mouse", residual_s=0.0) == pytest.approx(want)
+    fe = s.TrafficFrontend(srv, (s.TenantSpec("batch"),
+                                 s.TenantSpec("rt", priority=True)),
+                           slo_ms=40.0, model=s.CostModel())
+    fe.queue.push("batch", None, work=50.0)
+    assert fe._backlog_s("rt", residual_s=0.1) == pytest.approx(0.1)
+    fe.queue.push("rt", None, work=2.0, priority=True)
+    assert fe._backlog_s("rt", residual_s=0.1) == pytest.approx(2.1)
+
+
+def test_tenant_accounting_families_and_summary(P):
+    t = [0.0]
+    acct = P.obs.TenantAccounting(P.obs.MetricRegistry(clock=lambda: t[0]),
+                                  clock=lambda: t[0])
+    acct.outcome("whale", "served")
+    acct.outcome("whale", "shed")
+    acct.outcome("mouse", "served")
+    acct.served("whale", 0.010, slo_ok=True)
+    acct.served("mouse", 0.200, slo_ok=False)
+    with pytest.raises(ValueError, match="unknown outcome"):
+        acct.outcome("whale", "vanished")
+    text = acct.registry.to_prometheus()
+    assert 'frontend_requests_total{tenant="whale",outcome="shed"} 1' in text
+    assert 'frontend_tenant_slo_total{tenant="mouse",status="miss"} 1' \
+        in text
+    doc = acct.summary(span_s=2.0)
+    assert doc["whale"]["slo_ok"] == 1
+    assert doc["whale"]["goodput_rps"] == pytest.approx(0.5)
+    assert doc["mouse"]["latency_p99_ms"] == pytest.approx(200.0)
+    assert acct.tenants() == ["mouse", "whale"]
+
+
+def test_frontend_mirrors_outcomes_into_accounting(P):
+    s = P.serving
+    acct = P.obs.TenantAccounting()
+    stream = s.generate("poisson", rate=400.0, n=50, seed=2, trace="uniform",
+                        lo=4, hi=8)
+    rep = _virtual_run(P, stream, (s.TenantSpec("t0"),), accounting=acct)
+    doc = acct.summary()
+    assert doc["t0"]["served"] == rep.served and doc["t0"]["shed"] == rep.shed
+    text = acct.registry.to_prometheus()
+    assert 'frontend_tenant_goodput_rps{tenant="t0"}' in text
+    assert 'frontend_tenant_latency_seconds' in text
+
+
+# ===========================================================================
+# spec (tests/test_spec.py)
+# ===========================================================================
+
+# the serve_pca parser defaults for the flags validate_args inspects
+DEFAULTS = {"tile": 16, "bucket_policy": "tile", "max_batch": 4,
+            "timeout_ms": 10.0, "inflight": 1, "mesh": "none",
+            "sweeps": 12, "cache_dir": None, "warmup": None,
+            "slo_ms": None, "trace_out": None, "metrics_out": None,
+            "jax_profile": None, "controller": "off",
+            "profile_window": 5.0, "reprofile_every": 1.0,
+            "hysteresis": 0.15, "min_dwell": 2.0, "spec": None,
+            "autotune": "off", "arrivals": None, "profile_in": None,
+            "degrade_frac": 0.5, "admission": "shed",
+            "measure_top_k": 3}
+
+
+def _ns(**kw):
+    ns = types.SimpleNamespace(**DEFAULTS)
+    for k, v in kw.items():
+        setattr(ns, k, v)
+    return ns
+
+
+def test_spec_is_frozen_and_validates(P):
+    s = P.serving
+    spec = s.ServerSpec()
+    with pytest.raises(dataclasses.FrozenInstanceError):
+        spec.scheduling = s.SchedulingSpec(T=8)
+    with pytest.raises(ValueError, match="unknown bucket mode"):
+        s.ServerSpec(scheduling=s.SchedulingSpec(mode="fib")).validate()
+    with pytest.raises(ValueError, match="must be >= 1"):
+        s.ServerSpec(scheduling=s.SchedulingSpec(T=0)).validate()
+    with pytest.raises(ValueError, match="hysteresis"):
+        s.ServerSpec(controller=s.ControllerSpec(
+            enabled=True, hysteresis=1.5)).validate()
+    s.ServerSpec(controller=s.ControllerSpec(hysteresis=1.5)).validate()
+
+
+def test_spec_derives_config(P):
+    s = P.serving
+    spec = s.ServerSpec(scheduling=s.SchedulingSpec(T=8, max_batch=2),
+                        execution=s.ExecutionSpec(sweeps=7,
+                                                  precision="fp32"))
+    cfg = spec.config()
+    assert isinstance(cfg, P.PCAConfig)
+    assert cfg.T == 8 and cfg.S == 2 and cfg.sweeps == 7
+    pol = spec.scheduling.policy()
+    assert isinstance(pol, s.BucketPolicy) and pol.T == 8
+
+
+def test_spec_json_round_trip(P, tmp_path):
+    s = P.serving
+    spec = s.ServerSpec(
+        scheduling=s.SchedulingSpec(mode="pow2", T=8, pow2_cap=32,
+                                    max_batch=2, max_delay_s=0.5,
+                                    max_inflight=3),
+        execution=s.ExecutionSpec(mesh="auto", sweeps=9),
+        cache=s.CacheSpec(cache_dir=str(tmp_path / "cache")),
+        obs=s.ObsSpec(slo_ms=250.0, trace_out="trace.json"),
+        controller=s.ControllerSpec(enabled=True, window_s=2.0,
+                                    hysteresis=0.05,
+                                    meshes=("none", "auto")))
+    assert s.ServerSpec.from_json(spec.to_json()) == spec
+    assert json.loads(spec.to_json())["server_spec"] == 1
+    spec.save(tmp_path / "server.json")
+    assert s.ServerSpec.load(tmp_path / "server.json") == spec
+    partial = s.ServerSpec.from_json('{"scheduling": {"T": 8}}')
+    assert partial.scheduling.T == 8
+    assert partial.execution == s.ExecutionSpec()
+
+
+def test_spec_from_args_and_cli_round_trip(P):
+    s = P.serving
+    ns = _ns(tile=8, bucket_policy="pow2", max_batch=2, timeout_ms=20.0,
+             inflight=2, sweeps=9, controller="on", profile_window=2.0,
+             reprofile_every=0.5, hysteresis=0.1, min_dwell=1.0,
+             slo_ms=100.0)
+    spec = s.ServerSpec.from_args(ns)
+    assert spec.scheduling == s.SchedulingSpec(
+        mode="pow2", T=8, max_batch=2, max_delay_s=0.02, max_inflight=2)
+    assert spec.execution.sweeps == 9
+    assert spec.obs.slo_ms == 100.0 and spec.obs.armed
+    assert spec.controller == s.ControllerSpec(
+        enabled=True, window_s=2.0, reprofile_every_s=0.5, hysteresis=0.1,
+        min_dwell_s=1.0)
+    assert s.ServerSpec.from_json(spec.to_json()) == spec
+    assert s.ServerSpec.from_args(types.SimpleNamespace()) == s.ServerSpec()
+
+
+def test_spec_from_args_grows_mesh_axis(P):
+    s = P.serving
+    assert s.ServerSpec.from_args(_ns()).controller.meshes == ("none",)
+    spec = s.ServerSpec.from_args(_ns(mesh="auto"))
+    assert spec.execution.mesh == "auto"
+    assert spec.controller.meshes == ("none", "auto")
+
+
+def test_spec_file_conflicts_with_explicit_flags(P, tmp_path):
+    s = P.serving
+    path = tmp_path / "server.json"
+    s.ServerSpec().save(path)
+    with pytest.raises(s.SpecConflictError, match="--tile.*scheduling.T"):
+        s.validate_args(_ns(spec=str(path), tile=8), DEFAULTS)
+    s.validate_args(_ns(spec=str(path)), DEFAULTS)
+    assert s.resolve_spec(_ns(spec=str(path)), DEFAULTS) == s.ServerSpec()
+
+
+def test_controller_flag_conflicts(P):
+    s = P.serving
+    with pytest.raises(s.SpecConflictError, match="--autotune"):
+        s.validate_args(_ns(controller="on", autotune="analytic"), DEFAULTS)
+    with pytest.raises(s.SpecConflictError, match="--hysteresis"):
+        s.validate_args(_ns(hysteresis=0.05), DEFAULTS)
+    with pytest.raises(s.SpecConflictError, match="--min-dwell"):
+        s.validate_args(_ns(min_dwell=1.0), DEFAULTS)
+    s.validate_args(_ns(controller="on", hysteresis=0.05, min_dwell=1.0),
+                    DEFAULTS)
+
+
+def test_open_loop_and_mode_scoped_conflicts(P):
+    s = P.serving
+    conflicts = [(_ns(arrivals="poisson", warmup="p.json"),
+                  "--warmup.*--arrivals"),
+                 (_ns(arrivals="poisson", autotune="analytic"),
+                  "--autotune.*--arrivals"),
+                 (_ns(degrade_frac=0.25), "--degrade-frac"),
+                 (_ns(measure_top_k=5), "--measure-top-k")]
+    for ns, match in conflicts:
+        with pytest.raises(s.SpecConflictError, match=match):
+            s.validate_args(ns, DEFAULTS)
+    s.validate_args(_ns(degrade_frac=0.25, admission="degrade"), DEFAULTS)
+    s.validate_args(_ns(measure_top_k=5, autotune="measured"), DEFAULTS)
+
+
+def test_kwarg_soup_warns_and_points_at_the_spec(P):
+    s = P.serving
+    cfg = P.PCAConfig(T=8, S=2, sweeps=6)
+    # the port's servers name their device through the executor: one
+    # kwarg the reference's CPU servers do without
+    ex = {} if P.name == "ref" else {"executor": s.LocalExecutor("cpu")}
+    with pytest.warns(DeprecationWarning, match="PCAServer.from_spec"):
+        s.PCAServer(cfg, policy=s.BucketPolicy(T=8), max_batch=2,
+                    max_delay_s=10.0, **ex)
+    tweak = {"max_batch": 2} if P.name == "ref" else ex
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        s.PCAServer(cfg, max_delay_s=10.0, **tweak)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        P.build_server(s.ServerSpec(
+            scheduling=s.SchedulingSpec(T=8, max_batch=2, max_delay_s=10.0)))
+
+
+def test_spec_built_server_matches_kwarg_built_bitwise(P):
+    s = P.serving
+    spec = s.ServerSpec(
+        scheduling=s.SchedulingSpec(mode="tile", T=8, max_batch=2,
+                                    max_delay_s=10.0),
+        execution=s.ExecutionSpec(sweeps=8))
+    a = P.build_server(spec)
+    assert a.spec == spec
+    b = P.server(P.PCAConfig(T=8, S=2, sweeps=8), policy=s.BucketPolicy(T=8),
+                 max_batch=2, max_delay_s=10.0)
+    burst = [_sym(n, seed=n) for n in (5, 9, 12, 7)]
+    for ra, rb in zip(a.solve_many(burst), b.solve_many(burst)):
+        np.testing.assert_array_equal(ra.eigenvalues, rb.eigenvalues)
+        np.testing.assert_array_equal(ra.eigenvectors, rb.eigenvectors)
+    assert a.describe_plan() == b.describe_plan()
+
+
+def test_from_spec_classmethod_is_build_server(P):
+    s = P.serving
+    spec = s.ServerSpec(scheduling=s.SchedulingSpec(T=8, max_delay_s=10.0))
+    srv = P.from_spec(spec)
+    assert srv.spec == spec and srv.policy.T == 8
+    assert srv.max_delay_s == 10.0
+
+
+def test_build_server_arms_obs_and_controller_only_when_asked(P):
+    s = P.serving
+    plain = P.build_server(s.ServerSpec())
+    assert plain.obs is None and plain.controller is None
+    armed = P.build_server(s.ServerSpec(obs=s.ObsSpec(slo_ms=100.0)))
+    assert isinstance(armed.obs, P.obs.Observability)
+    assert armed.obs.slo is not None
+    steered = P.build_server(s.ServerSpec(
+        controller=s.ControllerSpec(enabled=True, window_s=1.0)))
+    assert steered.controller.server is steered
+    assert steered.controller.window_s == 1.0
+
+
+def test_build_server_injects_shared_clock(P):
+    s = P.serving
+    t = [7.0]
+    srv = P.build_server(s.ServerSpec(obs=s.ObsSpec(slo_ms=100.0)),
+                         clock=lambda: t[0])
+    assert srv.clock() == 7.0 and srv.obs.clock() == 7.0
+
+
+# ===========================================================================
+# decision parity across the packages
+# ===========================================================================
+
+def _both(fn):
+    """``fn(P)`` for the reference and the port."""
+    return fn(PKGS["ref"]), fn(PKGS["port"])
+
+
+def _telemetry_profile(P):
+    """A profile with measured-looking aggregates, the same in both."""
+    return P.serving.TrafficProfile.from_shapes(
+        [("eigh", (d, d), n) for d, n in ((6, 40), (14, 9), (29, 17),
+                                           (46, 3))]
+        + [("svd", (4 * d, d), n) for d, n in ((9, 12), (31, 5))],
+        duration_s=2.5, arrival_rate=34.4, flushes=30,
+        mean_flush_batch=2.87, mean_dispatch_hit_s=2.1e-3,
+        mean_dispatch_miss_s=0.31, host_s=0.2, device_s=0.9,
+        work_dispatched=4.2e6, overlap_frac=0.42,
+        captured={"max_inflight": 2, "T": 16})
+
+
+def test_cost_model_defaults_are_the_reference():
+    ref, port = _both(lambda P: dataclasses.asdict(P.serving.CostModel()))
+    assert port == ref == {"device_work_per_s": 2.0e9,
+                           "host_s_per_flush": 1.0e-3,
+                           "host_s_per_request": 3.0e-5,
+                           "compile_s_per_executable": 0.25}
+
+
+def test_cost_model_scores_and_ranks_plans_alike():
+    """The same profile (and its JSON, loaded across the packages) scores
+    every plan of a wide grid to the same numbers under the default and
+    the calibrated model, so both rank the plans in the same order."""
+    def scores(P, profile=None):
+        s = P.serving
+        profile = profile or _telemetry_profile(P)
+        grid = s.plan_grid(pow2_caps=(None, 32, 64), batches=(1, 4, 8, 32),
+                           inflights=(1, 2, 4), meshes=("none", "auto"),
+                           backends=("keep", None))
+        out = []
+        for model in (s.CostModel(), s.CostModel.calibrated(profile)):
+            ranked = sorted(((p, model.plan_cost(p, profile)) for p in grid),
+                            key=lambda pc: pc[1]["total_s"])
+            out.append([(p.to_json(), c) for p, c in ranked])
+        return out
+    ref, port = _both(scores)
+    assert port == ref
+    text = _telemetry_profile(PKGS["ref"]).to_json()
+    crossed = PKGS["port"].serving.TrafficProfile.from_json(text)
+    assert crossed.to_json() == text
+    assert scores(PKGS["port"], crossed) == ref
+
+
+def test_autotune_and_bandit_pick_the_reference_plans():
+    def picks(P):
+        s = P.serving
+        profile = _telemetry_profile(P)
+        grid = s.plan_grid(meshes=("none", "auto"), backends=("keep", None))
+        model = s.CostModel.calibrated(profile)
+        tuned = P.autotune(profile, grid=grid, model=model)
+        bandit = P.bandit_search(profile, grid=grid, model=model,
+                                 budget_frac=0.25, measure=False)
+        default = P.bandit_search(profile, measure=False)
+        return (tuned.to_json(), bandit.to_json(), default.to_json(),
+                [p.describe() for p, _ in bandit.scored])
+    ref, port = _both(picks)
+    assert port == ref
+
+
+def _instrumented_run(P, stream, tenants, *, controller, **fe_kw):
+    """One seeded open-loop run under a VirtualClock with a pinned model:
+    (report, WFQ pop order, served results by rid, controller swaps)."""
+    s = P.serving
+    spec = s.ServerSpec(
+        scheduling=s.SchedulingSpec(T=16, max_batch=4, max_delay_s=0.02),
+        execution=s.ExecutionSpec(sweeps=8),
+        controller=s.ControllerSpec(enabled=controller, window_s=0.5,
+                                    reprofile_every_s=0.25, hysteresis=0.05,
+                                    min_dwell_s=0.25))
+    srv = P.build_server(spec, clock=s.VirtualClock())
+    if controller:
+        srv.controller.model = _pinned(P)
+    fe = s.TrafficFrontend(srv, tenants, model=_pinned(P), seed=1, **fe_kw)
+    if controller:
+        srv.controller.frontend = fe
+    order, tickets = [], []
+    pop, submit = fe.queue.pop, srv.submit
+
+    def recording_pop():
+        tenant, work, entry = pop()
+        order.append((tenant, entry[0].rid))
+        return tenant, work, entry
+
+    def recording_submit(*args, **kw):
+        tickets.append(submit(*args, **kw))
+        return tickets[-1]
+
+    fe.queue.pop, srv.submit = recording_pop, recording_submit
+    rep = fe.run(stream, pace=False)
+    results = {rid: t.result() for (_, rid), t in zip(order, tickets)}
+    swaps = ([(s_["t"], s_["plan"], s_["requeued"])
+              for s_ in srv.controller.swaps] if controller else [])
+    return rep, order, results, swaps
+
+
+def _two_tenant_stream(P):
+    s = P.serving
+    whale = s.TenantSpec("whale", weight=1.0)
+    mouse = s.TenantSpec("mouse", weight=3.0, slo_ms=120.0,
+                         rate_limit=40.0, burst=3.0)
+    stream = s.merge(
+        s.generate("poisson", rate=160.0, n=70, tenants=(whale,), seed=3,
+                   trace="uniform", lo=20, hi=36),
+        s.generate("poisson", rate=60.0, n=30, tenants=(mouse,), seed=11,
+                   trace="uniform", lo=6, hi=12))
+    return stream, (whale, mouse)
+
+
+@pytest.mark.parametrize("admission", ["shed", "degrade"])
+def test_open_loop_run_takes_the_reference_decisions(admission):
+    """One seeded two-tenant stream (weights, a quota, a per-tenant SLO)
+    through both packages: the same outcome for every request id, the same
+    WFQ pop order, the same per-tenant accounting; each served result
+    within the fp32 budget of the reference's."""
+    runs = {}
+    for name in NAMES:
+        P = PKGS[name]
+        stream, tenants = _two_tenant_stream(P)
+        runs[name] = (stream, _instrumented_run(
+            P, stream, tenants, controller=False, slo_ms=60.0,
+            scheduler="wfq", admission=admission, degrade_frac=0.5))
+    (rstream, (rrep, rorder, rres, _)) = runs["ref"]
+    (tstream, (trep, torder, tres, _)) = runs["port"]
+    assert [dataclasses.astuple(a) for a in tstream] == \
+        [dataclasses.astuple(a) for a in rstream]
+    assert trep.outcomes == rrep.outcomes
+    assert set(rrep.outcomes.values()) >= {"served", "shed", "throttled"}
+    assert torder == rorder and len(rorder) > 20
+    for key in ("requests", "served", "degraded", "shed", "throttled",
+                "duration_s", "goodput_rps"):
+        assert getattr(trep, key) == getattr(rrep, key), key
+    assert trep.per_tenant == rrep.per_tenant
+    assert tres.keys() == rres.keys()
+    for rid in rres:
+        assert rel_frobenius(tres[rid].eigenvalues,
+                             rres[rid].eigenvalues) <= \
+            ERROR_BUDGETS["fp32"]["eigh"], rid
+
+
+def test_controlled_run_swaps_like_the_reference():
+    """A regime shift under the controller (pinned model): both packages
+    tick the same number of times and swap to the same plans at the same
+    virtual times, with the same WFQ order and outcomes."""
+    runs = {}
+    for name in NAMES:
+        P = PKGS[name]
+        stream, _ = _regime_stream(P, n_small=40, n_big=40)
+        runs[name] = _instrumented_run(
+            P, stream, (P.serving.TenantSpec("t0"),), controller=True,
+            slo_ms=500.0, admission="shed")
+    rrep, rorder, rres, rswaps = runs["ref"]
+    trep, torder, tres, tswaps = runs["port"]
+    assert tswaps == rswaps and len(rswaps) >= 1
+    assert trep.outcomes == rrep.outcomes and torder == rorder
+    for rid in rres:
+        assert rel_frobenius(tres[rid].eigenvalues,
+                             rres[rid].eigenvalues) <= \
+            ERROR_BUDGETS["fp32"]["eigh"], rid
+
+
+def _spec_variants(P):
+    s = P.serving
+    return [
+        s.ServerSpec(),
+        s.ServerSpec(
+            scheduling=s.SchedulingSpec(mode="pow2", T=64, pow2_cap=128,
+                                        max_batch=32, max_delay_s=0.05,
+                                        pad_batches=False, max_inflight=3),
+            execution=s.ExecutionSpec(mesh="auto", router_min_dim=64,
+                                      sweeps=50, precision="bf16_fp32acc",
+                                      fused=True),
+            cache=s.CacheSpec(max_cached_executables=16,
+                              warmup_profile="profile.json"),
+            obs=s.ObsSpec(slo_ms=80.0, trace_out="t.json",
+                          metrics_out="m.prom", jax_profile="prof"),
+            controller=s.ControllerSpec(enabled=True, window_s=2.0,
+                                        reprofile_every_s=0.5,
+                                        hysteresis=0.1, min_dwell_s=1.0,
+                                        budget_frac=0.5, measure=True,
+                                        meshes=("none", "2"),
+                                        backends=("keep", None))),
+    ]
+
+
+@pytest.mark.parametrize("writer,reader", [("ref", "port"), ("port", "ref")])
+def test_spec_json_loads_in_the_other_package(writer, reader, tmp_path):
+    for i, spec in enumerate(_spec_variants(PKGS[writer])):
+        path = tmp_path / f"server{i}.json"
+        spec.save(path)
+        loaded = PKGS[reader].serving.ServerSpec.load(path)
+        assert dataclasses.asdict(loaded) == dataclasses.asdict(spec)
+        assert loaded.to_json() == spec.to_json()
+
+
+@pytest.mark.parametrize("backend", ["pallas", "interpret", "ref"])
+def test_spec_naming_a_reference_backend_fails_in_the_port(backend):
+    rs, ts = PKGS["ref"].serving, PKGS["port"].serving
+    text = rs.ServerSpec(execution=rs.ExecutionSpec(backend=backend)
+                         ).to_json()
+    with pytest.raises(ValueError, match="not a backend of repro_torch") \
+            as err:
+        ts.ServerSpec.from_json(text)
+    assert "'cuda'" in str(err.value) and "'torch'" in str(err.value)
+    axis = rs.ServerSpec(controller=rs.ControllerSpec(
+        enabled=True, backends=("keep", backend))).to_json()
+    with pytest.raises(ValueError, match="controller.backends"):
+        ts.ServerSpec.from_json(axis)
+
+
+def test_spec_takes_the_port_backends():
+    ts = PKGS["port"].serving
+    for backend in (None, "cuda", "torch"):
+        spec = ts.ServerSpec(execution=ts.ExecutionSpec(backend=backend),
+                             controller=ts.ControllerSpec(
+                                 backends=("keep", backend)))
+        assert ts.ServerSpec.from_json(spec.to_json()) == spec
+        assert spec.config().backend == backend
+
+
+# ===========================================================================
+# the port's devices
+# ===========================================================================
+
+def test_mesh_executor_clamps_to_the_visible_devices(monkeypatch):
+    from repro_torch.serving import LocalExecutor, mesh_executor
+
+    for spec in ("auto", "2", 8):
+        ex = mesh_executor(spec, device="cpu")
+        assert type(ex) is LocalExecutor and ex.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    for spec in ("auto", "4", 8, None, "1"):
+        ex = mesh_executor(spec)
+        assert type(ex) is LocalExecutor and ex.device.type == "cuda"
+        assert ex.n_shards == 1
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    for spec in ("auto", "2", 8):
+        with pytest.raises(NotImplementedError, match="resolves to 2"):
+            mesh_executor(spec)
+    assert type(mesh_executor("1")) is LocalExecutor
+
+
+def test_plan_n_shards_counts_the_visible_cards(monkeypatch):
+    ServingPlan = PKGS["port"].serving.ServingPlan
+    assert ServingPlan(mesh="auto").n_shards() == 1  # no card: the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    assert ServingPlan(mesh="auto").n_shards() == 4
+    assert ServingPlan(mesh="2").n_shards() == 2
+    assert ServingPlan(mesh="none").n_shards() == 1
+
+
+def test_plan_grid_leaves_out_meshes_over_more_than_one_device(
+        monkeypatch):
+    """A mesh plan the port cannot serve (more than one device) never
+    enters the grid that ``autotune`` and the controller search; on one
+    device every mesh stays, as in the reference."""
+    s = PKGS["port"].serving
+    meshes = ("none", "auto", "1", "2")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert {p.mesh for p in s.plan_grid(meshes=meshes)} == set(meshes)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    grid = s.plan_grid(meshes=meshes)
+    assert {p.mesh for p in grid} == {"none", "1"}
+    assert len(grid) == len(s.plan_grid(meshes=("none", "1")))
+    ctrl = s.ServingController(
+        PKGS["port"].server(), meshes=("none", "auto"))
+    assert {p.mesh for p in ctrl.grid} == {"none"}
+
+
+def test_entry_points_default_to_the_card(no_card):
+    """Every entry point that builds an executor runs on ``cuda`` unless
+    told otherwise: without a card each raises, and with
+    ``device="cpu"`` each runs there."""
+    s = PKGS["port"].serving
+    spec = s.ServerSpec(scheduling=s.SchedulingSpec(T=8, max_delay_s=10.0))
+    plan = s.ServingPlan(T=8, max_batch=2)
+    profile = s.TrafficProfile.from_shapes([("eigh", (6, 6), 2)])
+    calls = [
+        lambda **d: s.build_server(spec, **d),
+        lambda **d: s.PCAServer.from_spec(spec, **d),
+        lambda **d: s.server_for_plan(plan, **d),
+        lambda **d: plan.build_executor(**d),
+        lambda **d: s.mesh_executor("auto", **d),
+        lambda **d: s.replay(profile, plan, passes=1, **d),
+        lambda **d: s.autotune(profile, grid=[plan], measure_top_k=1,
+                               passes=1, **d),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+        call(device="cpu")
+    srv = s.build_server(spec, device="cpu")
+    assert srv.executor.device.type == "cpu"
+    assert s.server_for_plan(plan, device="cpu").executor.device.type == \
+        "cpu"
+
+
+def test_entry_points_build_on_the_card_when_one_is_there(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    s = PKGS["port"].serving
+    spec = s.ServerSpec(execution=s.ExecutionSpec(mesh="auto"))
+    for srv in (s.build_server(spec),  # built, not run: no CUDA call
+                s.server_for_plan(s.ServingPlan(mesh="auto"))):
+        assert srv.executor.device.type == "cuda"
+        assert srv.describe_plan()["executor"] == "local(cuda)"
+
+
+def test_apply_plan_keeps_a_cpu_server_on_the_cpu(no_card):
+    s = PKGS["port"].serving
+    srv = s.build_server(s.ServerSpec(
+        scheduling=s.SchedulingSpec(T=8, max_delay_s=10.0)), device="cpu")
+    ticket = srv.submit(_sym(6))
+    for plan in (s.ServingPlan(T=16, max_batch=2),
+                 s.ServingPlan(mode="pow2", T=8, mesh="auto")):
+        srv.apply_plan(plan)
+        assert srv.executor.device.type == "cpu"
+    srv.drain()
+    np.testing.assert_allclose(ticket.result().eigenvalues,
+                               np.linalg.eigh(_sym(6))[0][::-1],
+                               rtol=1e-3, atol=1e-3)
+
+
+@pytest.mark.parametrize("measure", [False, True])
+def test_controller_swaps_keep_a_cpu_server_on_the_cpu(no_card, measure):
+    """A controller swap (and, measured, its replays) stays on the live
+    server's device."""
+    P = PKGS["port"]
+    s = P.serving
+    kw = {}
+    if measure:
+        kw = {"grid": [s.ServingPlan(T=8, max_batch=b) for b in (2, 4, 8)],
+              "measure": True, "budget_frac": 1.0}
+    srv, _, ctrl = _fed_controller(P, [0.0], **kw)
+    swap = ctrl.maybe_tick(0.1)
+    assert swap is not None and srv.executor.device.type == "cpu"
+    if measure:
+        assert ctrl.last_result.mode == "bandit"
+        assert ctrl.last_result.measured_evals >= 2
+
+
+def test_from_spec_builds_obs_and_controller_of_the_port(no_card):
+    s = PKGS["port"].serving
+    from repro_torch.obs import Observability
+    from repro_torch.serving.controller import ServingController
+
+    srv = s.PCAServer.from_spec(s.ServerSpec(
+        obs=s.ObsSpec(slo_ms=50.0),
+        controller=s.ControllerSpec(enabled=True)), device="cpu")
+    assert type(srv.obs) is Observability
+    assert type(srv.controller) is ServingController
+    assert srv.executor.obs is srv.obs
+    srv.solve_many([_sym(6, seed=i) for i in range(3)])
+    assert srv.obs.summary()["slo"]["requests"] == 3
+    with pytest.raises(NotImplementedError, match="DiskCache"):
+        s.PCAServer.from_spec(s.ServerSpec(cache=s.CacheSpec(
+            cache_dir="somewhere")), device="cpu")
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_paced_arrivals_keep_their_times_with_a_controller(name):
+    """A controller ticked from the paced run's feeder thread never makes
+    the feeder wait for the server: with the worker inside slow flushes
+    (its submit blocking the whole time) each arrival is still ingested
+    within a small slack of its paced time."""
+    import time
+
+    P = PKGS[name]
+    s = P.serving
+    flush_s, slack_s = 0.1, 0.05
+
+    class SlowExecutor(s.LocalExecutor):
+        def submit(self, fn, batch, n_active):
+            time.sleep(flush_s)
+            return super().submit(fn, batch, n_active)
+
+    srv = P.server(P.PCAConfig(T=8, S=2, sweeps=2),
+                   policy=s.BucketPolicy(T=8), max_batch=2, max_inflight=1,
+                   max_delay_s=10.0,
+                   executor=SlowExecutor(**P.dev))
+    srv.solve_many([_sym(8, seed=i) for i in range(2)])  # compile first
+    plan = s.ServingPlan(T=8, max_batch=2, max_inflight=1)
+    srv.controller = s.ServingController(
+        srv, window_s=1.0, reprofile_every_s=1e-3, hysteresis=0.99,
+        grid=[plan], model=_pinned(P), min_window_requests=1)
+    tenants = (s.TenantSpec("t0"),)
+    stream = s.generate("poisson", rate=50.0, n=20, tenants=tenants,
+                        seed=3, trace="uniform", lo=6, hi=8)
+    fe = s.TrafficFrontend(srv, tenants, admission="none", seed=1)
+    ingested, ingest = [], fe._ingest
+
+    def timed_ingest(a, now, residual_s):
+        entry = ingest(a, now, residual_s)
+        ingested.append((a.t, now, srv.clock()))
+        return entry
+
+    fe._ingest = timed_ingest
+    rep = fe.run(stream, pace=True)
+    assert rep.served == rep.requests == len(stream)
+    assert srv.controller.ticks > 5 and not srv.controller.swaps
+    t_first, now_first, _ = ingested[0]
+    lags = [done - (now_first + t - t_first) for t, _, done in ingested]
+    assert max(lags) < slack_s, [round(x, 3) for x in lags]

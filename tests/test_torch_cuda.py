@@ -880,3 +880,70 @@ def test_executor_submit_makes_no_host_sync(cuda_device, op):
     want = ex.run(fn, batch, n_active)
     for g, w in zip(host, want):
         np.testing.assert_array_equal(g, w)
+
+
+def _control_spec(**obs):
+    from repro_torch.serving import (ExecutionSpec, ObsSpec, SchedulingSpec,
+                                     ServerSpec)
+    return ServerSpec(
+        scheduling=SchedulingSpec(mode="pow2", T=16, max_batch=4,
+                                  max_delay_s=0.02, max_inflight=3),
+        execution=ExecutionSpec(backend="cuda", fused=True, sweeps=12),
+        obs=ObsSpec(**obs))
+
+
+def test_paced_frontend_on_the_card_matches_the_virtual_run(cuda_device,
+                                                           tmp_path):
+    """A spec-built server on the card (kernels, obs armed) serves a small
+    paced open-loop stream: the worker thread dispatches flushes, the main
+    thread's ``drain`` retires the rest, and every result is bitwise the
+    one a virtual-clock run of the same stream serves."""
+    from repro_torch.obs import validate_trace
+    from repro_torch.serving import (TenantSpec, TrafficFrontend,
+                                     VirtualClock, build_server, generate,
+                                     merge)
+    tenants = (TenantSpec("whale"), TenantSpec("mouse", weight=2.0))
+    stream = merge(
+        generate("poisson", rate=300.0, n=24, tenants=tenants[:1], seed=3,
+                 trace="uniform", lo=20, hi=40),
+        generate("poisson", rate=100.0, n=8, tenants=tenants[1:], seed=4,
+                 op="eigh", trace="uniform", lo=6, hi=14))
+    spec = _control_spec(slo_ms=5000.0,
+                         trace_out=str(tmp_path / "trace.json"))
+    reports = {}
+    for pace in (False, True):
+        clock = VirtualClock() if not pace else None
+        srv = build_server(spec, clock=clock, device=cuda_device)
+        assert srv.executor.device.type == "cuda"
+        before = launch_counts()
+        fe = TrafficFrontend(srv, tenants, slo_ms=5000.0, admission="none",
+                             seed=1)
+        reports[pace] = fe.run(stream, pace=pace)
+        assert srv.inflight() == 0 and srv.pending() == 0
+        moved = _launched(before)
+        assert moved.get("jacobi_sweep_smem", 0) > 0, moved  # n <= 64
+        assert validate_trace(srv.obs.trace_doc()) == []
+    virtual, paced = reports[False], reports[True]
+    assert paced.served == virtual.served == len(stream)
+    assert paced.outcomes == virtual.outcomes
+    assert paced.digest == virtual.digest  # every result's bytes
+
+
+def test_device_profile_records_the_kernels_on_the_card(cuda_device,
+                                                        tmp_path):
+    """``device_profile`` around a fused fit on the card writes a Chrome
+    trace whose CUDA kernel events name the hand-written kernels."""
+    import json
+    from repro_torch.obs import device_profile
+    x = torch.from_numpy(data(512, 48, seed=2)).to(cuda_device)
+    cfg = tpca.PCAConfig(fused=True, backend="cuda", sweeps=8)
+    tpca.fit(x, cfg)  # build the kernels outside the profile
+    with device_profile(str(tmp_path)):
+        tpca.fit(x, cfg)
+        torch.cuda.synchronize()
+    traces = list(tmp_path.glob("*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    kernels = {e.get("name") for e in events if e.get("cat") == "kernel"}
+    assert any("sweep" in str(k) for k in kernels), sorted(map(str, kernels))
+    assert any("gram_kernel" in str(k) for k in kernels), kernels

@@ -38,9 +38,10 @@ from repro_torch import backends as tbackends
 from repro_torch.core import memory_model as tmm
 from repro_torch.core.pca import PCAConfig
 from repro_torch.core.precision import ERROR_BUDGETS
-from repro_torch.serving import (BucketPolicy, InFlightFlush, InFlightQueue,
-                                 LRUCache, LocalExecutor, PCAServer,
-                                 ServedEigh, ServedPCA, ServedSVD, SolverKey,
+from repro_torch.serving import (BucketPolicy, CacheSpec, ExecutionSpec,
+                                 InFlightFlush, InFlightQueue, LRUCache,
+                                 LocalExecutor, PCAServer, ServedEigh,
+                                 ServedPCA, ServedSVD, ServerSpec, SolverKey,
                                  environment_fingerprint, mesh_executor,
                                  threshold_router)
 from repro_torch.serving import sharded as sharded_mod
@@ -448,8 +449,9 @@ class _Plan:
     def policy(self):
         return BucketPolicy(T=self.T, mode=self.mode)
 
-    def build_executor(self):
-        return LocalExecutor(device="cpu")
+    def build_executor(self, device=None):
+        # apply_plan passes the server's device: the CPU here
+        return LocalExecutor(device=device)
 
 
 def test_apply_plan_prewarms_incoming_executables():
@@ -575,11 +577,19 @@ def test_default_server_runs_on_cuda_and_raises_without_a_card(monkeypatch):
     assert srv.describe_plan()["executor"] == "local(cuda)"
 
 
-def test_features_not_ported_raise():
+def test_features_not_ported_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="DiskCache"):
         _server(cache_dir="somewhere")
-    with pytest.raises(NotImplementedError, match="serving.spec"):
-        PCAServer.from_spec(object())
+    # from_spec is ported; the persistent tier and a mesh over more than
+    # one device are not, through it either
+    with pytest.raises(NotImplementedError, match="DiskCache"):
+        PCAServer.from_spec(ServerSpec(cache=CacheSpec(
+            cache_dir="somewhere")), device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    with pytest.raises(NotImplementedError, match="MeshExecutor"):
+        PCAServer.from_spec(ServerSpec(execution=ExecutionSpec(
+            mesh="auto")))
 
 
 def test_deprecation_shim_counts_explicit_kwargs():
@@ -597,7 +607,11 @@ def test_mesh_executor_local_specs(spec, monkeypatch):
 
 
 @pytest.mark.parametrize("spec", ["auto", "2", 8])
-def test_mesh_executor_other_specs_raise(spec):
+def test_mesh_executor_other_specs_raise(spec, monkeypatch):
+    # a mesh spec raises where it resolves to more than one device (on one
+    # device it gives a LocalExecutor, tests/test_torch_control.py)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         mesh_executor(spec)
 
