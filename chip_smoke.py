@@ -84,17 +84,51 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    kernels of the path launched) and an ``apply_plan`` swap mid-stream
    bitwise a cold server on the plan.
 
+8. lm: the port's LM serving path and its PCA consumers at olmo-1b's
+   full width (16 layers, d 2048, 16 heads x 128, d_ff 8192, vocab
+   50304, bf16, random weights from the seed):
+   ``repro_torch.launch.serve.main(["--arch", "olmo-1b", "--batch", "4",
+   "--prompt-len", "4096", "--gen-len", "32"])`` on the card (its JSON
+   line printed; the prefill launches ``flash_attention_mma`` once a
+   layer and each of the 32 decode calls ``flash_attention_splitkv``
+   once a layer, nothing else); on the same weights and prompt the
+   prefill and 8 teacher-forced decode steps (the served tokens fed
+   back) through the kernels and with attention on the flash op's
+   ``torch`` backend: every layer's bf16 flash call held at the op, on
+   the operands the model gave it (the prefill's 64 x 4096 queries over
+   the 4128-slot cache with its zero tail, each decode step's one query
+   over keys 0..pos), to the ops phase's bf16 contract (each value within
+   one bf16 ulp + 2e-5 of the plain version's fp32 result), and the
+   logits held to sqrt(2) x bf16's own noise (the plain bf16 run against
+   the plain fp32 run of the same weights); then the same in fp32
+   (prefill on ``flash_attention_tf32x3``, logits within n_layers x
+   2e-5);
+   the three PCA consumers on ``covariance`` and ``jacobi_sweep_smem``
+   (launches counted): ``kv_compression.attention_error`` at ranks 32,
+   64, 128 and ``suggest_rank`` on layer 0's K and V cache,
+   ``tree_spectra`` and one ``compress_tree`` step on a seeded gradient
+   tree of olmo-1b's MLP shapes, each held to its plain version, and
+   every Gram and sweep call of that run replayed on the op's ``torch``
+   backend (each Gram within the fp32 covariance budget 1e-5, each
+   sweep bitwise); and one prefill and 8 decode steps
+   under ``torch.profiler`` (the decode's busy share, device time a step
+   against the wall, the two flash kernels' device time a call in the
+   model).
+
 Each path is checked against the kernels it runs: phase 3 against the
 three PCA/SVD kernels, phases 4, 6 and 7 against those and the
-shared-memory sweep, phase 5 against the seven kernels of its five ops.
-The last three lines are the kernels' JSON record (each kernel's launches
-from the phase that drives it, ``launches_serve`` from phase 6 and
-``launches_control`` from phase 7), the card's name and power limit, and
-``{"ok": true, "device": {...}}``.
+shared-memory sweep, phase 5 against the seven kernels of its five ops,
+phase 8 against the two flash kernels of bf16 serving and the Gram and
+shared-memory sweep of the consumers.  The last three lines are the
+kernels' JSON record (each kernel's launches from the phase that drives
+it, ``launches_serve`` from phase 6, ``launches_control`` from phase 7
+and ``launches_lm`` from phase 8's serve and consumers), the card's name
+and power limit, and ``{"ok": true, "device": {...}}``.
 Without a CUDA device the script exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import pathlib
 import re
@@ -170,6 +204,47 @@ FA_ROUTE = {"prefill_bf16": "flash_attention_mma",
             "decode_fp32": "flash_attention_splitkv"}
 FA_ROW = {"prefill_bf16": "", "prefill_fp32": "", "prefill_d20_bf16": "d20_",
           "decode_bf16": ""}
+# phase 8: the LM serving path at the full width of olmo-1b, the serve CLI's
+# default --arch (16 layers, d 2048, 16 heads x 128, d_ff 8192, vocab
+# 50304, bf16; random weights from the seed) serving 4 prompts of 4096
+# tokens and generating 32
+LM_ARCH = "olmo-1b"
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 4096, 32
+LM_FORCED = 8                  # teacher-forced decode steps held to plain
+LM_PROFILE_STEPS = 8
+LM_KV_RANKS = (32, 64, 128)    # KV compression ranks of layer 0's cache
+LM_GRAD_SHAPES = ((2048, 8192), (8192, 2048))  # olmo-1b's MLP wi and wo
+# phase 8's bounds, relative Frobenius.  Kernels against plain attention
+# on one model: in bf16, step by step, sqrt(2) x the bf16 noise of the
+# logits, the plain bf16 run's distance from the plain fp32 run of the
+# same weights (measured in the run): bf16 rounding turns any difference
+# between two runs, however small, into differences of whole bf16 steps
+# within a few layers, so the two bf16 runs end up as two draws of that
+# noise, sqrt(2) x its size apart when independent; in fp32 the flash
+# kernels' 2e-5 a call, times n_layers.  That bf16 bound is all of bf16's
+# noise, and attention over 4100 keys of random weights moves the logits
+# little, so it is no test of a flash kernel: each bf16 flash call is also
+# held at the op (FA_BF16_SLACK).  Every Gram the consumers' run launched
+# is held to the fp32 covariance budget, 1e-5 (as KERNEL_TOL: two fp32
+# sums of up to 16384 terms in other orders); the spectra's eigenvalues move no more than their Gram (Weyl)
+# plus the solve's rounding: 2e-5; one compress_tree step divides by the
+# square roots of P^T P's eigenvalues: 1e-4; the attention error of a
+# truncated basis, relative: 1e-3 (the basis turns by the Gram's error
+# over the eigengap), plus the full-rank error (the compressed cache is
+# stored in bf16 and the two paths round other coefficients); the
+# full-rank error itself within one bf16 ulp (2^-8) of the stored
+# coefficients
+LM_FP32_TOL = 2e-5
+LM_GRAM_TOL = 1e-5
+LM_SPECTRA_TOL = 2e-5
+LM_COMPRESS_TOL = 1e-4
+LM_KV_ERR_TOL = 1e-3
+LM_KV_STORE_TOL = 2.0 ** -8
+# a bf16 flash call against the plain version's fp32 result on the same
+# operands: within one bf16 ulp of the larger of the two, plus this (the
+# ops phase's contract: two fp32 results 1e-7 apart round to bf16 values
+# one ulp apart)
+FA_BF16_SLACK = 2e-5
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
 # dense on the tensor cores, HBM3; the SFU's exponentials a clock an SM
 # (CUDA C++ Programming Guide, arithmetic instructions, compute 9.0)
@@ -1018,7 +1093,8 @@ def ops_phase(dev, rows: dict) -> dict:
         g = out.float()
         err = float((g - want.float()).abs().max())
         if bf16:
-            slack = bf16_ulp(torch.maximum(g.abs(), want32.abs())) + 2e-5
+            slack = bf16_ulp(torch.maximum(g.abs(), want32.abs())) \
+                + FA_BF16_SLACK
             over = int(((g - want32).abs() > slack).sum())
             apart = int((out != want).sum())
             note = (f" ({apart} of {out.numel()} values differ from the "
@@ -1234,7 +1310,6 @@ def serve_phase(dev, requests: dict) -> dict:
 def run_cli(argv) -> dict:
     """``repro_torch.launch.serve_pca.main(argv)`` on the card: its JSON
     document (it prints one) and the wall seconds of the call."""
-    import contextlib
     import io
     from repro_torch.launch import serve_pca
     out = io.StringIO()
@@ -1510,6 +1585,437 @@ def control_phase(dev) -> dict:
     return out
 
 
+# -- phase 8: the LM serving path and the PCA consumers ------------------------
+
+def lm_config():
+    """The phase's model: olmo-1b at full width, ``tp`` 1 (as the serve
+    CLI sets it on one card)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(LM_ARCH), tp=1)
+
+
+def lm_prompt(cfg) -> np.ndarray:
+    """The serve CLI's prompt: ``np.random.default_rng(seed)``."""
+    rng = np.random.default_rng(SEED)
+    return rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+
+
+def lm_prefill_kernel(cfg) -> str:
+    """The flash kernel of a prefill in the config's dtype."""
+    return ("flash_attention_mma" if cfg.dtype == "bfloat16"
+            else "flash_attention_tf32x3")
+
+
+def lm_fp32_copy(model, cfg32, dev):
+    """The bf16 model's weights, cast exactly, in an fp32 model."""
+    from repro_torch.models.transformer import Transformer
+    m32 = Transformer(cfg32, dev)
+    m32.load_state_dict({k: t.float() for k, t in model.state_dict().items()})
+    return m32.eval()
+
+
+@contextlib.contextmanager
+def op_calls(name: str, call):
+    """Inside the block every ``kernels.ops.<name>`` call, from whatever
+    module, is ``call(op, *args, **kwargs)``, ``op`` the op itself."""
+    from repro_torch.kernels import ops
+    op = getattr(ops, name)
+    setattr(ops, name, lambda *args, **kw: call(op, *args, **kw))
+    try:
+        yield
+    finally:
+        setattr(ops, name, op)
+
+
+def flash_held_at_op(held: list):
+    """``op_calls`` for ``flash_attention`` that holds each bf16 call at
+    the op, right after it (a decode step writes the cache in place): the
+    kernel's output against the plain version's fp32 result on the same
+    operands, at the ops phase's bf16 contract.  Appends a record a call."""
+    from repro_torch.backends import registry
+
+    def call(op, q, k, v, **kw):
+        out = op(q, k, v, **kw)
+        if out.dtype == torch.bfloat16:
+            t0 = time.perf_counter()
+            with registry.use_backend("torch"):
+                want32 = op(q.float(), k.float(), v.float(), **kw)
+            g = out.float()
+            slack = bf16_ulp(torch.maximum(g.abs(), want32.abs())) \
+                + FA_BF16_SLACK
+            held.append({"q": list(q.shape), "kv": list(k.shape),
+                         "q_offset": kw.get("q_offset", 0),
+                         "over": int(((g - want32).abs() > slack).sum()),
+                         "max_abs_err": float((g - want32).abs().max()),
+                         "hold_s": time.perf_counter() - t0})
+        return out
+    return op_calls("flash_attention", call)
+
+
+def lm_against_plain(model, cfg, dev, prompt, forced):
+    """The prefill and ``len(forced)`` teacher-forced decode steps of
+    ``model`` once through the kernels and once with attention on the
+    flash op's ``torch`` backend, on the card, each step's launches checked
+    (one kernel a layer) and, in bf16, each layer's flash call held at the
+    op (``flash_held_at_op``).  Returns the kernels' and the plain
+    version's logits over the true vocabulary, a list each (the
+    prefill's, then a step's), and the kernels' decode state."""
+    from repro_torch.backends import registry
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as tfm
+    tokens = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
+    cache_len = LM_PROMPT + LM_GEN
+    v = cfg.vocab_size
+    bf16 = cfg.dtype == "bfloat16"
+
+    def launched(what, held):
+        torch.cuda.synchronize()
+        counts = {k: n for k, n in launch_counts().items() if n}
+        check(counts == {what: cfg.n_layers},
+              f"lm[{cfg.dtype}]: launches {counts}, not {cfg.n_layers} "
+              f"{what} (one a layer)")
+        if not bf16:
+            return
+        over = [h for h in held if h["over"]]
+        log(f"lm[bf16]: {what} held at the op in {len(held)} layers, "
+            f"max_abs_err {max(h['max_abs_err'] for h in held):.3e}, "
+            f"operands q {held[0]['q']} kv {held[0]['kv']} q_offset "
+            f"{held[0]['q_offset']} (the holds "
+            f"{sum(h['hold_s'] for h in held):.3f} s)")
+        check(len(held) == cfg.n_layers and not over,
+              f"lm[bf16]: {what} off the plain version beyond one bf16 "
+              f"ulp + {FA_BF16_SLACK:g} at the op: {over[:2]}")
+
+    held = []
+    reset_launch_counts()
+    with flash_held_at_op(held):
+        logits, state = tfm.prefill(model, {"tokens": tokens}, cfg,
+                                    cache_len=cache_len)
+    launched(lm_prefill_kernel(cfg), held)
+    with registry.use_backend("torch"):
+        want, plain = tfm.prefill(model, {"tokens": tokens}, cfg,
+                                  cache_len=cache_len)
+    got, ref = [logits[:, :v].float()], [want[:, :v].float()]
+    for tok in forced:
+        tok = torch.as_tensor(tok, dtype=torch.int64, device=dev)
+        held = []
+        reset_launch_counts()
+        with flash_held_at_op(held):
+            logits, state = tfm.decode_step(model, state, tok, cfg)
+        launched("flash_attention_splitkv", held)
+        with registry.use_backend("torch"):
+            want, plain = tfm.decode_step(model, plain, tok, cfg)
+        got.append(logits[:, :v].float())
+        ref.append(want[:, :v].float())
+    return got, ref, state
+
+
+def lm_profile(model, state, cfg, dev, prompt) -> dict:
+    """One prefill and ``LM_PROFILE_STEPS`` decode steps under
+    torch.profiler: the decode's wall time a step against its device time
+    (the busy share), and the device time a call of the split-KV and the
+    prefill kernels inside the model."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as tfm
+
+    def kernel_ms(prof, names):
+        hits = [e for e in prof.key_averages()
+                if any(n in e.key for n in names) and e.device_time_total > 0]
+        calls = max((e.count for e in hits), default=0)
+        total = sum(e.device_time_total for e in hits) / 1e3
+        return (total / calls if calls else None), calls
+
+    tokens = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
+    tok = torch.zeros(LM_BATCH, dtype=torch.int64, device=dev)
+    pos0 = state.pos
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(LM_PROFILE_STEPS):
+            _, state = tfm.decode_step(model, state, tok, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.device_time_total for e in prof.key_averages()) / 1e6
+    split_ms, split_calls = kernel_ms(prof, ("decode_partial_kernel",
+                                             "decode_merge_kernel"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tfm.prefill(model, {"tokens": tokens}, cfg,
+                    cache_len=LM_PROMPT + LM_GEN)
+        torch.cuda.synchronize()
+        prefill_wall = time.perf_counter() - t0
+    prefill_busy = sum(e.device_time_total for e in prof.key_averages()) / 1e6
+    mma_ms, mma_calls = kernel_ms(prof, ("flash_mma_kernel",))
+    # the least time of one layer's call at the model's shapes (bf16): the
+    # decode reads the visible K and V once (their mean count over the
+    # profiled steps), the prefill does the causal products
+    bh, d = LM_BATCH * cfg.n_heads, cfg.head_dim
+    keys = pos0 + (LM_PROFILE_STEPS + 1) / 2
+    split_bound = bound_ms(2 * bh * d * (2 + 2 * keys), 4 * bh * d * keys,
+                           PEAK_BF16)
+    mma_bound = bound_ms(2 * bh * d * 4 * LM_PROMPT,
+                         4 * bh * d * LM_PROMPT * (LM_PROMPT + 1) / 2,
+                         PEAK_BF16)
+    out = {"decode_step_wall_ms": 1e3 * wall / LM_PROFILE_STEPS,
+           "decode_step_device_ms": 1e3 * busy / LM_PROFILE_STEPS,
+           "decode_busy_share": busy / wall,
+           "splitkv_device_ms": split_ms, "splitkv_calls": split_calls,
+           "prefill_wall_s": prefill_wall, "prefill_busy_share":
+           prefill_busy / prefill_wall,
+           "mma_device_ms": mma_ms, "mma_calls": mma_calls,
+           "splitkv_bound": split_bound, "mma_bound": mma_bound}
+    log(f"lm profile: decode {LM_PROFILE_STEPS} steps, a step "
+        f"{out['decode_step_wall_ms']:.3f} ms wall, "
+        f"{out['decode_step_device_ms']:.3f} ms on the device (busy share "
+        f"{out['decode_busy_share']:.3f}); split-KV "
+        f"{split_ms if split_ms is None else round(split_ms, 5)} ms a "
+        f"layer call ({split_calls} calls, two kernels a call; bound "
+        f"{split_bound[0]:.4f}, {split_bound[1]}); prefill "
+        f"{prefill_wall:.4f} s wall, busy share "
+        f"{out['prefill_busy_share']:.3f}, flash_attention_mma "
+        f"{mma_ms if mma_ms is None else round(mma_ms, 5)} ms a layer "
+        f"({mma_calls} calls; bound {mma_bound[0]:.4f}, {mma_bound[1]})")
+    return out
+
+
+def sweeps_apart_from_plain(calls) -> int:
+    """Replays kept ``jacobi_sweep`` calls, ``(args, kwargs, (C, V) out)``,
+    on the op's ``torch`` backend: the calls that share their pivot rounds
+    stacked into one batch (the plain sweep updates each matrix of a batch
+    alone, element by element, so a matrix's result does not depend on its
+    batch).  Returns how many calls differ bitwise from their result."""
+    from repro_torch.kernels import ops
+    groups = {}
+    for (C, V, pairs), kw, out in calls:
+        key = (C.shape[-1], pairs.data_ptr(), tuple(pairs.shape),
+               tuple(sorted(kw.items())))
+        groups.setdefault(key, []).append((C, V, pairs, kw, out))
+    apart = 0
+    for group in groups.values():
+        n, pairs, kw = group[0][0].shape[-1], group[0][2], group[0][3]
+        mats = [[t.reshape(-1, n, n) for t in (C, V, *out)]
+                for C, V, _, _, out in group]
+        Cp, Vp = ops.jacobi_sweep(torch.cat([m[0] for m in mats]),
+                                  torch.cat([m[1] for m in mats]), pairs,
+                                  **dict(kw, backend="torch"))
+        sizes = [m[0].shape[0] for m in mats]
+        for m, c, v in zip(mats, Cp.split(sizes), Vp.split(sizes)):
+            apart += not (torch.equal(m[2], c) and torch.equal(m[3], v))
+    return apart
+
+
+def lm_consumers(cache, dev) -> dict:
+    """The three PCA consumers through their entry points, their kernel
+    launches counted (the path), then held to their plain versions:
+    ``kv_compression.attention_error`` at ``LM_KV_RANKS`` and
+    ``suggest_rank`` on layer 0's K and V (the port's head-major cache seen
+    as the reference's (B, S, KV, hd)); ``tree_spectra`` and one
+    ``compress_tree`` step on a seeded gradient tree of olmo-1b's MLP
+    shapes.  Every Gram and sweep call of the counted run is kept and
+    replayed on the op's ``torch`` backend: each Gram within
+    ``LM_GRAM_TOL``, each sweep bitwise."""
+    import dataclasses
+    from repro_torch.backends import registry
+    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.models import kv_compression as kvc
+    from repro_torch.optim import compression as comp
+    from repro_torch.optim import spectral
+
+    k = cache.k[:, :, :LM_PROMPT].transpose(1, 2)   # (B, S, KV, hd) views
+    v = cache.v[:, :, :LM_PROMPT].transpose(1, 2)
+    b, s, kvh, hd = k.shape
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    q = torch.randn(b, kvh, 1, hd, generator=gen, device=dev)
+    scale = hd ** -0.5
+    grads = {}
+    for name, (m, n) in zip(("mlp.wi", "mlp.wo"), LM_GRAD_SHAPES):
+        a = torch.randn(m, 16, generator=gen, device=dev)
+        c = torch.randn(16, n, generator=gen, device=dev)
+        grads[name] = a @ c + 0.1 * torch.randn(m, n, generator=gen,
+                                                device=dev)
+    kcfg = kvc.KVCompressionConfig()
+    scfg, ccfg = spectral.SpectralConfig(), comp.CompressionConfig()
+
+    def run():
+        errs = {r: kvc.attention_error(q, k, v, dataclasses.replace(
+            kcfg, rank=r), scale)[0] for r in LM_KV_RANKS}
+        rank = kvc.suggest_rank(k, sweeps=kcfg.sweeps)
+        spectra = spectral.tree_spectra(
+            grads, scfg, torch.Generator(device=dev).manual_seed(SEED))
+        state = comp.init_state(grads, ccfg,
+                                torch.Generator(device=dev).manual_seed(SEED))
+        out, _, _ = comp.compress_tree(grads, state, ccfg)
+        return errs, rank, spectra, out
+
+    calls = {"covariance": [], "jacobi_sweep": []}
+
+    def kept(name):
+        def call(op, *args, **kw):  # the result copied: callers may reuse it
+            out = op(*args, **kw)
+            calls[name].append((args, kw, tuple(t.clone() for t in out)
+                                if isinstance(out, tuple) else out.clone()))
+            return out
+        return op_calls(name, call)
+
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with kept("covariance"), kept("jacobi_sweep"):
+        errs, rank, spectra, out = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    n_kv = len(LM_KV_RANKS)
+    # Grams: 2 an attention_error, 1 suggest_rank, 1 a spectrum, 1 a
+    # compressed parameter; sweeps: 2 x sweeps an attention_error, sweeps
+    # for suggest_rank, scfg.sweeps a spectrum, ccfg.jacobi_sweeps a
+    # compressed parameter (the r x r cyclic solve)
+    want = {"covariance": 2 * n_kv + 1 + 2 * len(grads),
+            "jacobi_sweep_smem": (2 * n_kv + 1) * kcfg.sweeps
+            + len(grads) * (scfg.sweeps + ccfg.jacobi_sweeps)}
+    got = {name: n for name, n in counts.items() if n}
+    log(f"lm consumers: {wall:.3f} s, launches {json.dumps(got)}")
+    check(got == want, f"lm consumers launched {got}, not {want}")
+    check(len(calls["covariance"]) == want["covariance"]
+          and len(calls["jacobi_sweep"]) == want["jacobi_sweep_smem"],
+          f"lm consumers: {len(calls['covariance'])} Gram and "
+          f"{len(calls['jacobi_sweep'])} sweep calls kept for {want}")
+
+    with registry.use_backend("torch"):
+        p_errs, p_rank, p_spectra, p_out = run()
+        # each kernel call of the counted run on the plain version
+        t0 = time.perf_counter()
+        gram_err = max(errors(out_k, ops.covariance(
+            *args, **dict(kw, backend="torch")))[2]
+            for args, kw, out_k in calls["covariance"])
+    sweeps_apart = sweeps_apart_from_plain(calls["jacobi_sweep"])
+    replay = time.perf_counter() - t0
+    shapes = sorted({tuple(args[0].shape) for args, _, _ in
+                     calls["jacobi_sweep"]})
+    check(gram_err <= LM_GRAM_TOL, f"lm: a Gram of the consumers' run off "
+          f"the plain Gram ({gram_err:.3e} > {LM_GRAM_TOL:g})")
+    check(sweeps_apart == 0, f"lm: {sweeps_apart} of the consumers' "
+          f"{len(calls['jacobi_sweep'])} sweeps differ bitwise from the "
+          f"plain sweep (shapes {shapes})")
+    kv_err = {r: float(e) for r, e in errs.items()}
+    kv_plain = {r: float(e) for r, e in p_errs.items()}
+    # the compressed cache is stored in the cache's dtype (bf16), so every
+    # error holds the rounding of the stored coefficients, which is all of
+    # the full-rank error; the two paths round different coefficients
+    store = kv_plain[max(LM_KV_RANKS)]
+    for r in LM_KV_RANKS:
+        check(np.isfinite(kv_err[r]) and abs(kv_err[r] - kv_plain[r])
+              <= LM_KV_ERR_TOL * kv_plain[r] + store,
+              f"lm: attention_error at rank {r} {kv_err[r]:.6e} against "
+              f"the plain {kv_plain[r]:.6e}")
+    check(rank == p_rank, f"lm: suggest_rank {rank} against plain {p_rank}")
+    check(kv_err[hd] <= LM_KV_STORE_TOL, f"lm: full-rank compression error "
+          f"{kv_err[hd]:.3e} is over the bf16 storage bound "
+          f"{LM_KV_STORE_TOL:.3e}")
+    spec_err = max(errors(spectra[n][f], p_spectra[n][f])[2]
+                   for n in spectra for f in ("eigenvalues", "cvcr"))
+    comp_err = max(errors(out[n], p_out[n])[2] for n in out)
+    check(spec_err <= LM_SPECTRA_TOL and comp_err <= LM_COMPRESS_TOL,
+          f"lm: spectra {spec_err:.3e} (bound {LM_SPECTRA_TOL:g}) or "
+          f"compression {comp_err:.3e} (bound {LM_COMPRESS_TOL:g}) off the "
+          f"plain versions")
+    eff = {n: float(sp["effective_rank"]) for n, sp in spectra.items()}
+    log(f"lm consumers: layer-0 KV attention error by rank "
+        f"{json.dumps(kv_err)} (plain {json.dumps(kv_plain)}), "
+        f"suggest_rank(0.99) {rank}; the run's {len(calls['covariance'])} "
+        f"Grams vs plain at most {gram_err:.3e}, its "
+        f"{len(calls['jacobi_sweep'])} sweeps (shapes {shapes}) bitwise "
+        f"(replayed in {replay:.2f} s); "
+        f"spectra vs plain {spec_err:.3e}, "
+        f"effective ranks {json.dumps(eff)}; compress_tree vs plain "
+        f"{comp_err:.3e}")
+    return {"launches": counts, "wall_s": wall, "kv_error": kv_err,
+            "suggest_rank": rank, "gram_err": gram_err,
+            "spectra_err": spec_err, "compress_err": comp_err}
+
+
+def lm_phase(dev) -> dict:
+    """Phase 8: the port's LM serving path and the three PCA consumers on
+    the card (the module docstring's item 8)."""
+    import dataclasses
+    import io
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+
+    t_phase = time.perf_counter()
+    cfg = lm_config()
+    argv = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPT), "--gen-len", str(LM_GEN), "--seed", str(SEED)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        gen = serve.main(argv, device=dev)
+    torch.cuda.synchronize()
+    serve_counts = launch_counts()
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"lm serve: {json.dumps(line)}; peak device memory {peak_gb:.2f} "
+        f"GB")
+    want = {lm_prefill_kernel(cfg): cfg.n_layers,
+            "flash_attention_splitkv": cfg.n_layers * LM_GEN}
+    got = {k: n for k, n in serve_counts.items() if n}
+    check(got == want, f"lm serve launched {got}, not {want} (one prefill "
+          f"kernel a layer, one split-KV kernel a layer a decode step)")
+    check(gen.shape == (LM_BATCH, LM_GEN) and gen.dtype == np.int32
+          and 0 <= gen.min() and gen.max() < cfg.vocab_size,
+          f"lm serve: generated {gen.shape} {gen.dtype} out of range")
+
+    prompt = lm_prompt(cfg)
+    forced = gen[:, :LM_FORCED].T  # the served tokens, fed back
+    model = tfm.init_model(cfg, seed=SEED, device=dev)  # serve's weights
+    got16, plain16, state = lm_against_plain(model, cfg, dev, prompt, forced)
+    check(np.array_equal(got16[0].argmax(-1).cpu().numpy(), gen[:, 0]),
+          "lm: the kernels' prefill does not give the served first token")
+    consumers = lm_consumers(state.caches[0], dev)
+    profile = lm_profile(model, state, cfg, dev, prompt)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = lm_fp32_copy(model, cfg32, dev)
+    del model, state
+    torch.cuda.empty_cache()
+    got32, plain32, _ = lm_against_plain(model32, cfg32, dev, prompt, forced)
+    del model32
+    torch.cuda.empty_cache()
+    # bf16: step by step within sqrt(2) x bf16's own noise (the plain bf16
+    # run against the plain fp32 run of the same weights); fp32: n_layers x
+    # the flash kernels' 2e-5
+    err16 = [errors(g, p)[2] for g, p in zip(got16, plain16)]
+    floor16 = [2 ** 0.5 * errors(p, w)[2] for p, w in zip(plain16, plain32)]
+    err32 = [errors(g, p)[2] for g, p in zip(got32, plain32)]
+    tol32 = LM_FP32_TOL * cfg.n_layers
+
+    def fmt(errs):
+        return json.dumps([float(f"{e:.3e}") for e in errs])
+
+    log(f"lm: logits rel-Frobenius (prefill, then {len(forced)} "
+        f"teacher-forced decode steps): bf16 kernels vs plain {fmt(err16)}, "
+        f"bound (sqrt(2) x plain bf16 vs plain fp32, same weights) "
+        f"{fmt(floor16)}; "
+        f"fp32 kernels vs plain {fmt(err32)} (bound {tol32:.2e})")
+    check(all(e <= f for e, f in zip(err16, floor16)),
+          "lm: the bf16 kernels move the logits beyond bf16's noise")
+    check(max(err32) <= tol32, f"lm: the fp32 kernels off the plain "
+          f"version ({max(err32):.3e} > {tol32:.2e})")
+    wall = time.perf_counter() - t_phase
+    log(f"lm: phase {wall:.1f} s")
+    launches = {k: serve_counts[k] + consumers["launches"][k]
+                for k in serve_counts}
+    return {"serve": line, "serve_launches": serve_counts,
+            "peak_gb": peak_gb,
+            "launches": launches, "bf16_err": err16, "bf16_bound": floor16,
+            "fp32_err": err32,
+            "consumers": consumers, "profile": profile, "wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -1578,6 +2084,16 @@ def main() -> int:
     ops_run = ops_phase(dev, rows)
     serve = serve_phase(dev, flush["requests"])
     control = control_phase(dev)
+    lm = lm_phase(dev)
+    prof = lm["profile"]
+    rows["flash_attention_mma"].update(
+        lm_device_ms=prof["mma_device_ms"], lm_bound_ms=prof["mma_bound"][0],
+        lm_shape=f"{LM_BATCH * lm_config().n_heads}x{LM_PROMPT}x"
+                 f"{lm_config().head_dim} causal bf16")
+    rows["flash_attention_splitkv"].update(
+        lm_device_ms=prof["splitkv_device_ms"],
+        lm_bound_ms=prof["splitkv_bound"][0],
+        lm_decode_busy_share=prof["decode_busy_share"])
 
     record = []
     for k in KERNELS:
@@ -1593,6 +2109,7 @@ def main() -> int:
             row["path"] = "ops phase"
         row["launches_serve"] = serve["launches"][k.name]
         row["launches_control"] = control["launches"][k.name]
+        row["launches_lm"] = lm["launches"][k.name]
         record.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))

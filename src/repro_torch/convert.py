@@ -7,8 +7,17 @@ The system has no weights: its carried-over state is a fitted PCA
 ``Pivot``), whose fields are arrays numpy can read, and returns the port's
 result of the same name with every field a tensor on ``device``.  It
 matches the type by name, so this module imports nothing of the reference.
+
+The LM stack has no weights either: both packages draw random ones, so
+parity carries the reference's across.  ``lm_params_to_port`` takes the
+reference's ``tfm.param_values(tfm.init_model(...))`` tree as numpy
+arrays and returns the port's ``Transformer`` holding the same numbers;
+``decode_state_to_reference`` maps a decode state's head-major caches to
+the reference's group-stacked (B, S, KV, hd) ones.
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import numpy as np
 import torch
@@ -39,3 +48,68 @@ def to_port(result, device: DeviceLike = None):
     return cls(*(None if v is None
                  else torch.as_tensor(np.array(v), device=dev)
                  for v in result))
+
+
+# -- the LM stack -------------------------------------------------------------
+
+def _tensor(a, device: torch.device) -> torch.Tensor:
+    """A numpy array (bfloat16 from ``ml_dtypes`` included) as a tensor."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a, copy=True).view(np.uint16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.as_tensor(np.array(a), device=device)
+
+
+def _layer_index(cfg, group: int, j: int) -> int:
+    from .models.transformer import period
+    return group * period(cfg) + j
+
+
+def lm_state_dict(params, cfg) -> Dict[str, np.ndarray]:
+    """The reference's parameter tree (nested dicts of numpy arrays, the
+    blocks stacked over groups under ``blocks/l{j}``) as the port's
+    ``state_dict`` keys: ``embed.*``, ``layers.{i}.{norm1,mixer,norm2,
+    ffn}.*`` and ``norm_f.*``, layer i = group x period + j."""
+    from .models.transformer import period
+    out = {f"embed.{k}": v for k, v in params["embed"].items()}
+    out.update({f"norm_f.{k}": v for k, v in params["norm_f"].items()})
+    per = period(cfg)
+    for j in range(per):
+        for part, leaves in params["blocks"][f"l{j}"].items():
+            for name, stacked in leaves.items():
+                for g in range(cfg.n_layers // per):
+                    i = _layer_index(cfg, g, j)
+                    out[f"layers.{i}.{part}.{name}"] = np.asarray(stacked)[g]
+    return out
+
+
+def lm_params_to_port(params, cfg, device: DeviceLike = None):
+    """The port's ``Transformer`` for ``cfg`` holding the reference's
+    parameter values ``params`` (``tfm.param_values`` of the reference's
+    ``init_model``, leaves readable by numpy), on ``device`` (default
+    ``cuda``).  Every tensor of the model must be given, with its shape."""
+    from .models.transformer import Transformer
+    dev = resolve_device(device)
+    model = Transformer(cfg, dev)
+    state = {k: _tensor(v, dev) for k, v in lm_state_dict(params,
+                                                          cfg).items()}
+    model.load_state_dict(state, strict=True)
+    return model.eval()
+
+
+def decode_state_to_reference(state, cfg) -> dict:
+    """A port ``DecodeState`` as the reference's fields in numpy: {"caches":
+    {"l{j}": (k, v)} with k, v (n_groups, B, S, KV, hd), "pos": int}."""
+    from .models.transformer import period
+    per = period(cfg)
+    caches = {}
+    for j in range(per):
+        ks, vs = [], []
+        for g in range(cfg.n_layers // per):
+            c = state.caches[_layer_index(cfg, g, j)]
+            ks.append(c.k.transpose(1, 2).float().cpu().numpy())
+            vs.append(c.v.transpose(1, 2).float().cpu().numpy())
+        caches[f"l{j}"] = (np.stack(ks), np.stack(vs))
+    return {"caches": caches, "pos": int(state.pos)}
+

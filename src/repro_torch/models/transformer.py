@@ -1,0 +1,225 @@
+"""The transformer stack of the dense family (port of
+``repro.models.transformer``): ``init_model``, ``forward`` (modes
+``prefill`` and ``train``, forward only), ``prefill``, ``decode_step``,
+``DecodeState`` and ``make_decode_state``.
+
+The reference stacks each period of layers into groups and scans over
+them; here the layers are an ``nn.ModuleList`` run in order, and the
+decode state holds one head-major ``KVCache`` a layer (``attention``'s
+module docstring).  ``scan_layers`` and ``remat`` stay config fields with
+no effect on the result.  A config of another family raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
+
+Prefill returns the last position's logits and, to keep memory at the
+size of one row, unembeds only that position: (B, d) @ (d, vocab) gives
+the same values as the reference's full (B, S, vocab) logits sliced at
+-1 (at olmo-1b's B 4 x S 4096 x 50304 those would be 1.65 GB in bf16).
+``forward`` keeps the reference's full logits.
+
+Everything runs under ``torch.no_grad()``; ``decode_step`` writes the new
+token's K and V into the state's caches in place (JAX's
+``donate_argnums`` in the reference's serve loop), so a state is consumed
+by the step that takes it.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, List, NamedTuple, Optional
+
+import torch
+from torch import nn
+
+from .._device import DeviceLike, resolve_device
+from . import attention as attn_mod
+from .config import ModelConfig
+from .layers import Embedding, MLP, Norm
+
+# the ROADMAP item that ports each family this slice leaves out
+_DEFERRED = {
+    "moe": "moe (models/moe.py): ROADMAP queue 1, item 1",
+    "ssm": "ssm (models/mamba.py): ROADMAP queue 1, item 1",
+    "hybrid": "hybrid (models/mamba.py + moe.py): ROADMAP queue 1, item 2",
+    "encdec": "encdec (the encoder and cross attention): ROADMAP queue 1, "
+              "item 2",
+    "vlm": "vlm (the patch prefix): ROADMAP queue 1, item 2",
+}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what this slice does not port: any family but dense (or
+    MoE layers in a dense config), ring attention, and learned positions
+    (whisper's, with its encoder)."""
+    if cfg.family != "dense" or cfg.n_experts:
+        family = cfg.family if cfg.family != "dense" else "moe"
+        raise NotImplementedError(
+            f"{cfg.name}: family {family!r} is not ported yet; "
+            f"{_DEFERRED.get(family, 'ROADMAP queue 1')}")
+    if cfg.pos_embed != "rope":
+        raise NotImplementedError(
+            f"{cfg.name}: pos_embed {cfg.pos_embed!r} comes with the "
+            f"encoder-decoder slice (ROADMAP queue 1, item 2)")
+    attn_mod._unsupported(cfg)
+
+
+def period(cfg: ModelConfig) -> int:
+    p = cfg.attn_every if cfg.family == "hybrid" else 1
+    if cfg.n_experts:
+        p = math.lcm(p, cfg.moe_every)
+    if cfg.n_layers % p:
+        raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
+                         f"multiple of the period {p}")
+    return p
+
+
+class Block(nn.Module):
+    """norm1 -> attention -> residual; norm2 -> MLP -> residual."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        self.norm1 = Norm(cfg, device)
+        self.mixer = attn_mod.Attention(cfg, device)
+        if cfg.d_ff:
+            self.norm2 = Norm(cfg, device)
+            self.ffn = MLP(cfg, device)
+
+    def forward(self, x, cfg: ModelConfig, positions, mode: str,
+                cache=None, pos: Optional[int] = None,
+                cache_len: Optional[int] = None):
+        h = self.norm1(x)
+        if mode == "decode":
+            y, new_c = attn_mod.decode_attention(self.mixer, h, cache, pos,
+                                                 cfg)
+        else:
+            y, new_c = attn_mod.self_attention(
+                self.mixer, h, cfg, positions,
+                return_cache=(mode == "prefill"), cache_len=cache_len)
+        x = x + y
+        if cfg.d_ff:
+            x = x + self.ffn(self.norm2(x))
+        return x, new_c
+
+
+class Transformer(nn.Module):
+    """``embed`` (tok, head, pos), ``layers`` (one ``Block`` a layer) and
+    ``norm_f``: the reference's parameter tree with the group stack laid
+    out as layers (``convert.lm_params_to_port``).  Built with
+    uninitialised weights; ``init_model`` draws them."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        cfg.validate()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.embed = Embedding(cfg, device)
+        self.layers = nn.ModuleList(Block(cfg, device)
+                                    for _ in range(cfg.n_layers))
+        self.norm_f = Norm(cfg, device)
+
+
+def init_model(cfg: ModelConfig, seed: int = 0,
+               device: DeviceLike = None) -> Transformer:
+    """A model with random weights drawn from a ``torch.Generator`` seeded
+    with ``seed`` on ``device`` (default ``cuda``; raises without a card
+    unless ``device="cpu"``).  The reference draws from ``jax.random``, so
+    the two packages' weights differ for one seed."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    model = Transformer(cfg, dev)
+    with torch.no_grad():
+        model.embed.reset_parameters(gen)
+        for layer in model.layers:
+            layer.mixer.reset_parameters(gen)
+            if cfg.d_ff:
+                layer.ffn.reset_parameters(gen)
+    return model.eval()
+
+
+def _embed_input(params: Transformer, batch, cfg: ModelConfig):
+    """Token embedding; returns (x, positions, n_prefix)."""
+    tokens = batch["tokens"]
+    x = params.embed.embed(tokens)
+    b, s = x.shape[:2]
+    positions = torch.arange(s, device=x.device).expand(b, s)
+    return x, positions, 0
+
+
+def _run_stack(params: Transformer, x, cfg: ModelConfig, positions,
+               mode: str, caches=None, pos: Optional[int] = None,
+               cache_len: Optional[int] = None):
+    new_caches = []
+    for i, layer in enumerate(params.layers):
+        x, c = layer(x, cfg, positions, mode,
+                     cache=caches[i] if caches is not None else None,
+                     pos=pos, cache_len=cache_len)
+        new_caches.append(c)
+    return x, (new_caches if mode != "train" else None)
+
+
+@torch.no_grad()
+def forward(params: Transformer, batch, cfg: ModelConfig,
+            mode: str = "train"):
+    """Full-sequence forward. Returns (logits, aux, caches, enc_kvs,
+    n_prefix) as the reference does; ``caches`` is a list of head-major
+    ``KVCache`` in ``prefill`` mode, else None."""
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"forward mode {mode!r}; expected train or prefill")
+    x, positions, n_prefix = _embed_input(params, batch, cfg)
+    x, caches = _run_stack(params, x, cfg, positions, mode)
+    x = params.norm_f(x)
+    logits = params.embed.unembed(x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return logits, aux, caches, None, n_prefix
+
+
+class DecodeState(NamedTuple):
+    caches: List[attn_mod.KVCache]  # one head-major cache a layer
+    enc_kvs: Any                    # cross-attn KV (encdec): None here
+    pos: int                        # next position to write (host int)
+
+
+@torch.no_grad()
+def prefill(params: Transformer, batch, cfg: ModelConfig,
+            cache_len: Optional[int] = None):
+    """Run the prompt, build the decode state.  Returns (last_logits
+    (B, padded_vocab), state).
+
+    ``cache_len``: total KV capacity (>= prompt length); extra slots are
+    zero-filled and never attended before a decode step writes them.
+    """
+    x, positions, n_prefix = _embed_input(params, batch, cfg)
+    x, caches = _run_stack(params, x, cfg, positions, "prefill",
+                           cache_len=cache_len)
+    x = params.norm_f(x[:, -1])
+    logits = params.embed.unembed(x)
+    prompt_len = batch["tokens"].shape[1] + n_prefix
+    return logits, DecodeState(caches=caches, enc_kvs=None, pos=prompt_len)
+
+
+@torch.no_grad()
+def decode_step(params: Transformer, state: DecodeState, token,
+                cfg: ModelConfig):
+    """token: (B,) integer -> (logits (B, padded_vocab), new state).  The
+    state's caches are updated in place and carried into the new one."""
+    x = params.embed.embed(token[:, None])
+    x, caches = _run_stack(params, x, cfg, None, "decode",
+                           caches=state.caches, pos=state.pos)
+    x = params.norm_f(x)
+    logits = params.embed.unembed(x)[:, 0, :]
+    return logits, DecodeState(caches=caches, enc_kvs=state.enc_kvs,
+                               pos=state.pos + 1)
+
+
+def make_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
+                      dtype=None, device: DeviceLike = None) -> DecodeState:
+    """Zero-initialised decode state with KV capacity ``cache_len`` (and,
+    as in the reference, ``pos = cache_len``)."""
+    check_supported(cfg)
+    dtype = dtype or cfg.torch_dtype()
+    dev = resolve_device(device)
+    caches = [attn_mod.init_cache(cfg, batch, cache_len, dtype, dev)
+              for _ in range(cfg.n_layers)]
+    return DecodeState(caches=caches, enc_kvs=None, pos=cache_len)
+
+
+__all__ = ["DecodeState", "Transformer", "check_supported", "decode_step",
+           "forward", "init_model", "make_decode_state", "period", "prefill"]

@@ -36,12 +36,6 @@ from .inflight import InFlightFlush, copy_to_host
 from .solver import build_solver_fn
 
 
-def pad_to_multiple(n: int, multiple: int) -> int:
-    """n rounded up to a multiple of ``multiple`` (a copy of the
-    reference's ``parallel.sharding.pad_to_multiple``)."""
-    return -(-n // multiple) * multiple
-
-
 def _stage(a: np.ndarray, dtype: torch.dtype, device: torch.device):
     """(device tensor, host tensor it was copied from) for numpy ``a``: on
     a card, a pinned host copy and a non-blocking copy from it."""

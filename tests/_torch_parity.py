@@ -119,3 +119,28 @@ def dle_matrix(n: int, kind: str, seed: int = 0) -> np.ndarray:
         c[rng.integers(0, n, k), rng.integers(0, n, k)] = np.inf
         c[rng.integers(0, n, k), rng.integers(0, n, k)] = -np.inf
     return c.astype(np.float32)
+
+
+# -- the LM stack ---------------------------------------------------------------
+
+def lm_params_to_reference(model, n_layers: int) -> dict:
+    """The port's dense ``Transformer`` as the reference's parameter tree
+    (the inverse of ``convert.lm_params_to_port`` for a dense model, whose
+    period is one layer): nested dicts of numpy arrays, the blocks stacked
+    over layers under ``blocks/l0``."""
+    tree = {"embed": {}, "norm_f": {}, "blocks": {"l0": {}}}
+    per_layer = {}
+    for key, t in model.state_dict().items():
+        a = to_numpy(t)
+        parts = key.split(".")
+        if parts[0] in ("embed", "norm_f"):
+            tree[parts[0]][parts[1]] = a
+        else:  # layers.{i}.{part}.{name}
+            per_layer.setdefault((parts[2], parts[3]), {})[int(parts[1])] = a
+    blocks = tree["blocks"]["l0"]
+    for (part, name), by_layer in per_layer.items():
+        blocks.setdefault(part, {})[name] = np.stack(
+            [by_layer[i] for i in range(n_layers)])
+    for part in ("norm1", "norm2"):  # parameterless norms are empty dicts
+        blocks.setdefault(part, {})
+    return tree

@@ -21,8 +21,18 @@ within one bf16 ulp plus 2e-5 of the plain version's fp32 result (two fp32
 sums 1e-7 apart round to bf16 values many ulps apart near zero); the
 selective scan within rtol = atol = 1e-4 in fp32 and, in bf16, within one
 bf16 ulp plus 1e-4 of the plain version's fp32 result, bitwise the same
-whatever its operands' alignment.
+whatever its operands' alignment.  The dense LM (reduced olmo-1b and
+granite-8b with GQA): one flash kernel launch a layer a prefill or decode
+step; fp32 logits within n_layers x 2e-5 of plain attention's, bf16
+logits within sqrt(2) x bf16's own noise of plain attention's (the plain
+bf16 run against the plain fp32 run of the same weights), and each bf16
+flash call held at the op, on the operands the model gave it, to the
+standalone kernels' bf16 contract.  KV
+compression: the Gram kernel to 1e-6 of the plain Gram, the sweep kernel
+bitwise the plain sweep, one launch a sweep.
 """
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -35,7 +45,7 @@ from repro_torch.kernels import (build, cordic, dle, flash_attention, fused,
 
 from _torch_parity import (DLE_KINDS, DLE_N, DLE_TILES,  # noqa: F401
                            assert_contract, bf16_ulp, cuda_device, data,
-                           dle_matrix, sym)
+                           dle_matrix, rel_frobenius, sym)
 
 pytestmark = pytest.mark.cuda
 
@@ -947,3 +957,141 @@ def test_device_profile_records_the_kernels_on_the_card(cuda_device,
     kernels = {e.get("name") for e in events if e.get("cat") == "kernel"}
     assert any("sweep" in str(k) for k in kernels), sorted(map(str, kernels))
     assert any("gram_kernel" in str(k) for k in kernels), kernels
+
+
+# -- the dense LM serving path and the PCA consumers ----------------------------
+
+@contextlib.contextmanager
+def _flash_held_at_op(monkeypatch, held):
+    """Inside the block every ``ops.flash_attention`` call with
+    bf16 operands is held at the op, right after it (decode writes the
+    cache in place): the kernel's output within one bf16 ulp plus 2e-5 of
+    the plain version's fp32 result on the same operands.  Appends the
+    count of values beyond that to ``held``, one entry a call."""
+    from repro_torch.backends import registry
+    kernel = ops.flash_attention
+
+    def call(q, k, v, **kw):
+        out = kernel(q, k, v, **kw)
+        if out.dtype == torch.bfloat16:
+            with registry.use_backend("torch"):
+                want32 = kernel(q.float(), k.float(), v.float(), **kw)
+            g = out.float()
+            slack = bf16_ulp(torch.maximum(g.abs(), want32.abs())) + 2e-5
+            held.append(int(((g - want32).abs() > slack).sum()))
+        return out
+
+    with monkeypatch.context() as m:
+        m.setattr(ops, "flash_attention", call)
+        yield
+
+
+def _lm_steps(model, cfg, tokens, forced, monkeypatch):
+    """Prefill and teacher-forced decode logits (true vocabulary, fp32)
+    through the kernels, each step checked to launch one kernel a layer
+    and, in bf16, each layer's flash call held at the op
+    (``_flash_held_at_op``), and with attention on the flash op's
+    ``torch`` backend."""
+    from repro_torch.backends import registry
+    from repro_torch.models import transformer as tfm
+    v = cfg.vocab_size
+    bf16 = cfg.dtype == "bfloat16"
+    prefill_kernel = ("flash_attention_mma" if bf16
+                      else "flash_attention_tf32x3")
+
+    def through_kernels(fn, *args, **kw):
+        held = []
+        before = launch_counts()
+        with _flash_held_at_op(monkeypatch, held):
+            out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert held == ([0] * cfg.n_layers if bf16 else []), held
+        return out, _launched(before)
+
+    (logits, state), moved = through_kernels(
+        tfm.prefill, model, {"tokens": tokens}, cfg, cache_len=72)
+    assert moved == {prefill_kernel: cfg.n_layers}
+    with registry.use_backend("torch"):
+        want, plain = tfm.prefill(model, {"tokens": tokens}, cfg,
+                                  cache_len=72)
+    got, ref = [logits[:, :v].float()], [want[:, :v].float()]
+    for tok in forced:
+        (logits, state), moved = through_kernels(tfm.decode_step, model,
+                                                 state, tok, cfg)
+        assert moved == {"flash_attention_splitkv": cfg.n_layers}
+        with registry.use_backend("torch"):
+            want, plain = tfm.decode_step(model, plain, tok, cfg)
+        got.append(logits[:, :v].float())
+        ref.append(want[:, :v].float())
+    return got, ref
+
+
+@pytest.mark.parametrize("arch,overrides", [("olmo-1b", {}),
+                                            ("granite-8b",
+                                             {"n_kv_heads": 2})],
+                         ids=["olmo_mha", "granite_gqa"])
+def test_lm_prefill_and_decode_through_the_kernels(cuda_device, arch,
+                                                   overrides, monkeypatch):
+    """Reduced olmo-1b (MHA) and granite-8b (GQA, G = 2) in bf16 and in
+    fp32 on the same weights (the bf16 ones cast).  fp32: the logits of
+    the kernels within n_layers x 2e-5 (the fp32 flash kernels' contract
+    a call) of the plain attention's.  bf16: step by step, within sqrt(2)
+    x bf16's own noise, the plain bf16 run's distance from the plain fp32
+    run: bf16 rounding turns any difference between two runs into whole
+    bf16 steps within a few layers, so two bf16 runs end up as two draws
+    of that noise, sqrt(2) x its size apart when independent.  That bound
+    is all of bf16's noise, so each bf16 flash call is also held at the
+    op: the prefill's 64 queries over the 72-slot cache (its zero tail
+    past the prompt) and each decode step's query over keys 0..pos."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import transformer as tfm
+    cfg = reduced_config(arch, dtype="bfloat16", **overrides)
+    cfg32 = reduced_config(arch, **overrides)
+    model = tfm.init_model(cfg, seed=0, device=cuda_device)
+    model32 = tfm.Transformer(cfg32, cuda_device)
+    model32.load_state_dict({k: t.float()
+                             for k, t in model.state_dict().items()})
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                           device=cuda_device)
+    forced = torch.randint(0, cfg.vocab_size, (4, 2), generator=g,
+                           device=cuda_device)
+    got16, plain16 = _lm_steps(model, cfg, tokens, forced, monkeypatch)
+    got32, plain32 = _lm_steps(model32, cfg32, tokens, forced, monkeypatch)
+    for step in range(len(got16)):
+        assert_contract(got32[step], plain32[step], "rel_frobenius",
+                        2e-5 * cfg.n_layers)
+        floor = 2 ** 0.5 * rel_frobenius(plain16[step], plain32[step])
+        assert rel_frobenius(got16[step], plain16[step]) <= floor, step
+
+
+def test_kv_compression_sweep_kernel_is_bitwise_the_plain_sweep(cuda_device):
+    from repro_torch.backends import registry
+    from repro_torch.models import kv_compression as kvc
+    from repro_torch.serving.solver import jacobi_eigh_batched
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    basis = torch.randn(4, 128, 24, generator=g, device=cuda_device)
+    coef = torch.randn(2, 512, 4, 24, generator=g, device=cuda_device)
+    k = torch.einsum("bskr,kdr->bskd", coef, basis) + 0.05 * torch.randn(
+        2, 512, 4, 128, generator=g, device=cuda_device)
+    xf = k.permute(2, 0, 1, 3).reshape(4, 1024, 128)
+    before = launch_counts()
+    gram = ops.covariance(xf) / 1024
+    res = jacobi_eigh_batched(gram, sweeps=12, pivot="parallel", fused=True)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"covariance": 1, "jacobi_sweep_smem": 12}
+    with registry.use_backend("torch"):
+        plain_gram = ops.covariance(xf) / 1024
+        plain = jacobi_eigh_batched(gram, sweeps=12, pivot="parallel",
+                                    fused=True)
+    assert_contract(gram, plain_gram, "rel_frobenius", 1e-6)
+    assert_contract(res.eigenvalues, plain.eigenvalues, "bitwise")
+    assert_contract(res.eigenvectors, plain.eigenvectors, "bitwise")
+    # the whole consumer: two solves (K and V), each one launch a sweep
+    before = launch_counts()
+    err, ratio = kvc.attention_error(
+        torch.randn(2, 4, 1, 128, generator=g, device=cuda_device), k, k,
+        kvc.KVCompressionConfig(rank=32, sweeps=12), 128 ** -0.5)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"covariance": 2, "jacobi_sweep_smem": 24}
+    assert err.is_cuda and 0 <= float(err) < 0.5 and ratio == 0.25

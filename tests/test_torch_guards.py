@@ -31,7 +31,10 @@ def _run(code: str, **env) -> subprocess.CompletedProcess:
 
 def test_import_leaves_jax_and_reference_out():
     code = ("import sys, repro_torch, repro_torch.convert, "
-            "repro_torch.kernels.ops, repro_torch.serving.solver\n"
+            "repro_torch.kernels.ops, repro_torch.serving.solver, "
+            "repro_torch.configs, repro_torch.models.transformer, "
+            "repro_torch.models.kv_compression, repro_torch.optim.spectral, "
+            "repro_torch.optim.compression, repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)")

@@ -1,0 +1,114 @@
+"""The port's LM serving CLI (``repro_torch.launch.serve``) on the CPU.
+
+``serve.main([... "--reduced" ...], device="cpu")`` prints the reference
+CLI's JSON line (the keys the reference's ``main`` prints) and returns an
+int32 (batch, gen_len) array.  Its greedy tokens must equal a loop of the
+reference's ``tfm.prefill`` and ``tfm.decode_step`` on the same weights
+(the port's seeded model carried into the reference's tree) and the same
+prompt (``np.random.default_rng(seed)`` in both): the logits agree to
+fp32 rounding (``tests/test_torch_lm.py``), far below the gaps between
+the top two logits of these runs, so the argmax is the same token.
+"""
+import contextlib
+import inspect
+import io
+import json
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.launch import serve as jserve
+from repro.models import transformer as jtfm
+from repro.parallel.sharding import REPLICATED
+from repro_torch import configs as tconfigs
+from repro_torch.launch import serve
+from repro_torch.models import transformer as ttfm
+
+from _torch_parity import lm_params_to_reference
+
+KEYS = ("arch", "prefill_s", "decode_per_token_s", "decode_tokens_per_s",
+        "generated_shape", "sample_tokens")
+
+
+def _serve(argv):
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        gen = serve.main(argv, device="cpu")
+    return gen, json.loads(out.getvalue().strip().splitlines()[-1])
+
+
+def _reference_greedy(arch: str, batch: int, prompt: int, gen_len: int,
+                      seed: int) -> np.ndarray:
+    """The reference's serve loop (prefill, then gen_len decode steps, the
+    first of them the warm-up) at temperature 0 on the port's weights."""
+    cfg = jconfigs.reduced_config(arch)
+    model = ttfm.init_model(tconfigs.reduced_config(arch), seed=seed,
+                            device="cpu")
+    params = lm_params_to_reference(model, cfg.n_layers)
+    rng = np.random.default_rng(seed)
+    tokens = jnp.asarray(rng.integers(0, cfg.vocab_size, (batch, prompt)),
+                         jnp.int32)
+    logits, state = jtfm.prefill(params, {"tokens": tokens}, cfg, REPLICATED,
+                                 cache_len=prompt + gen_len)
+    out = []
+    for _ in range(gen_len):
+        tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+        out.append(np.asarray(tok))
+        logits, state = jtfm.decode_step(params, state, tok, cfg, REPLICATED)
+    return np.stack(out, axis=1)
+
+
+def test_reference_cli_prints_these_keys():
+    src = inspect.getsource(jserve.main)
+    for key in KEYS:
+        assert f'"{key}"' in src, key
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "granite-34b", "qwen1.5-32b"])
+def test_greedy_tokens_equal_the_reference_loop(arch):
+    batch, prompt, gen_len, seed = 2, 12, 6, 3
+    gen, line = _serve(["--arch", arch, "--reduced", "--batch", str(batch),
+                        "--prompt-len", str(prompt), "--gen-len",
+                        str(gen_len), "--seed", str(seed)])
+    assert tuple(line) == KEYS
+    assert line["arch"] == arch
+    assert gen.dtype == np.int32 and gen.shape == (batch, gen_len)
+    assert line["generated_shape"] == [batch, gen_len]
+    assert line["sample_tokens"] == gen[0, :8].tolist()
+    assert line["prefill_s"] > 0 and line["decode_tokens_per_s"] > 0
+    want = _reference_greedy(arch, batch, prompt, gen_len, seed)
+    np.testing.assert_array_equal(gen, want)
+
+
+def test_temperature_sampling_is_seeded():
+    argv = ["--reduced", "--batch", "3", "--prompt-len", "8", "--gen-len",
+            "5", "--temperature", "0.8", "--seed", "7"]
+    a, _ = _serve(argv)
+    b, _ = _serve(argv)
+    np.testing.assert_array_equal(a, b)
+    assert a.shape == (3, 5) and a.min() >= 0 and a.max() < 256
+    greedy, _ = _serve(argv[:-4] + ["--seed", "7"])
+    assert not np.array_equal(a, greedy)
+
+
+def test_sample_is_argmax_at_temperature_zero():
+    logits = torch.randn(4, 50, generator=torch.Generator().manual_seed(0))
+    np.testing.assert_array_equal(serve.sample(logits, None, 0.0).numpy(),
+                                  logits.argmax(-1).numpy())
+
+
+def test_model_parallel_and_other_families_raise():
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        serve.main(["--reduced", "--model-parallel", "2"], device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        serve.main(["--arch", "falcon-mamba-7b", "--reduced"], device="cpu")
+
+
+def test_cli_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("this host has a card: the default device works")
+    with pytest.raises(RuntimeError, match="cuda"):
+        serve.main(["--reduced", "--gen-len", "2", "--prompt-len", "4"])

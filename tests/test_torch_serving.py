@@ -44,6 +44,7 @@ from repro_torch.serving import (BucketPolicy, CacheSpec, ExecutionSpec,
                                  ServedPCA, ServedSVD, ServerSpec, SolverKey,
                                  environment_fingerprint, mesh_executor,
                                  threshold_router)
+from repro_torch.parallel import sharding as tsharding
 from repro_torch.serving import sharded as sharded_mod
 from repro_torch.serving import stats as tstats
 
@@ -618,7 +619,7 @@ def test_mesh_executor_other_specs_raise(spec, monkeypatch):
 
 @pytest.mark.parametrize("n,k", [(1, 1), (5, 4), (8, 4), (0, 3), (9, 8)])
 def test_pad_to_multiple_is_the_reference(n, k):
-    assert sharded_mod.pad_to_multiple(n, k) == jsharding.pad_to_multiple(n, k)
+    assert tsharding.pad_to_multiple(n, k) == jsharding.pad_to_multiple(n, k)
 
 
 def test_environment_fingerprint_names_torch_cuda_and_device():
