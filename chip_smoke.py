@@ -37,7 +37,8 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    floor read from its SASS), attention at olmo-1b's 16 heads x 128 over 4096 tokens (prefill
    in bf16 and fp32, and one decode step in each) and a small bf16
    prefill of head dim 20, the selective scan at falcon-mamba-7b's
-   d_inner 8192 and N 16 over 4096 steps (in fp32 and in bf16); and
+   d_inner 8192 and N 16 over 4096 steps (in fp32 and in bf16, each call
+   also returning its final state, held to the plain version's); and
    ``mm_engine_matmul`` on a
    strided view (every other feature of the main path's data, projected
    onto 32 directions).  Each op must resolve to ``cuda`` and launch its
@@ -114,16 +115,39 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    under ``torch.profiler`` (the decode's busy share, device time a step
    against the wall, the two flash kernels' device time a call in the
    model).
+9. ssm/hybrid: the ssm and hybrid families through the same serving
+   path, one model after the other (each freed before the next, its peak
+   device memory printed).  falcon-mamba-7b whole (64 mamba layers, d
+   4096, d_inner 8192, N 16, vocab 65024, bf16):
+   ``serve.main(["--arch", "falcon-mamba-7b", "--batch", "4",
+   "--prompt-len", "4096", "--gen-len", "32"])``, its JSON line printed,
+   ``mamba_scan`` launched once a layer by the prefill and never by a
+   decode step; the served prefill's scan calls of layers 0, 31 and 63
+   and every call of a 512-token prefill of the same weights held at the
+   op (y and the final state within rtol = atol = 1e-4 of the plain
+   version on the operands the model passed); one prefill and 8 decode
+   steps profiled (the decode's busy share, the scan's device time a
+   layer against its bound).  jamba-v0.1-52b cut to one period of its
+   layer pattern (8 of 32 layers: 7 mamba, 1 GQA attention, 4 MoE layers
+   of 16 experts top-2, 4 MLP layers, every width as published) through
+   ``serve.generate`` at the same batch and lengths: 7 scans and one
+   ``flash_attention_mma`` a prefill, one ``flash_attention_splitkv`` a
+   decode step; the MoE's share of dropped assignments at prefill and
+   at decode; on the same weights a prefill and 8 teacher-forced decode
+   steps with every scan and bf16 flash call held at the op; one prefill
+   and 8 decode steps profiled.
 
 Each path is checked against the kernels it runs: phase 3 against the
 three PCA/SVD kernels, phases 4, 6 and 7 against those and the
 shared-memory sweep, phase 5 against the seven kernels of its five ops,
 phase 8 against the two flash kernels of bf16 serving and the Gram and
-shared-memory sweep of the consumers.  The last three lines are the
+shared-memory sweep of the consumers, phase 9 against the scan and the
+two flash kernels of bf16 serving.  The last three lines are the
 kernels' JSON record (each kernel's launches from the phase that drives
 it, ``launches_serve`` from phase 6, ``launches_control`` from phase 7
-and ``launches_lm`` from phase 8's serve and consumers), the card's name
-and power limit, and ``{"ok": true, "device": {...}}``.
+and ``launches_lm`` from the serve runs and consumers of phases 8 and
+9), the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 Without a CUDA device the script exits with code 2 and prints no result.
 """
 from __future__ import annotations
@@ -240,6 +264,26 @@ LM_SPECTRA_TOL = 2e-5
 LM_COMPRESS_TOL = 1e-4
 LM_KV_ERR_TOL = 1e-3
 LM_KV_STORE_TOL = 2.0 ** -8
+# phase 9: the ssm and hybrid families at B 4 x 4096, 32 generated, as
+# phase 8.  falcon-mamba-7b whole (src/repro/configs/falcon_mamba_7b.py,
+# arXiv:2410.05355: 64 mamba layers, d 4096, d_inner 8192, N 16, d_conv
+# 4, vocab 65024, bf16, 7.27e9 parameters); jamba-v0.1-52b
+# (src/repro/configs/jamba_v0_1_52b.py, arXiv:2403.19887) cut in depth to
+# one period of its pattern, lcm(attn_every 8, moe_every 2) = 8 of its 32
+# layers (7 mamba and 1 GQA attention layer, 4 MoE layers of all 16
+# experts top-2 and 4 MLP layers, every width as published; 1.28e10
+# parameters, 26.6 GB in bf16): the whole model does not fit one card
+SSM_ARCH = "falcon-mamba-7b"
+HYBRID_ARCH = "jamba-v0.1-52b"
+HYBRID_LAYERS = 8
+# the served prefill's scan calls held at the op (a plain scan of 4 x
+# 4096 x 8192 is a loop of 4096 steps, about a second), and the length of
+# a second prefill of the same weights whose every scan call is held
+SSM_HELD_LAYERS = (0, 31, 63)
+SSM_SHORT_PROMPT = 512
+# a scan call against the plain version on the same operands, y and the
+# final state: the ops phase's fp32 contract
+SCAN_RTOL = SCAN_ATOL = 1e-4
 # a bf16 flash call against the plain version's fp32 result on the same
 # operands: within one bf16 ulp of the larger of the two, plus this (the
 # ops phase's contract: two fp32 results 1e-7 apart round to bf16 values
@@ -936,7 +980,7 @@ def ops_phase(dev, rows: dict) -> dict:
     ys, scan_moved = {}, {}
     for name, args in (("fp32", scan), ("bf16", scan16)):
         before = launch_counts()
-        ys[name] = ops.mamba_scan(*args)
+        ys[name] = ops.mamba_scan(*args, return_state=True)
         scan_moved[name] = {k: c - before[k]
                             for k, c in launch_counts().items()
                             if c != before[k]}
@@ -980,7 +1024,7 @@ def ops_phase(dev, rows: dict) -> dict:
           "disagrees with its plain version")
     outs = [t for pv in piv.values() for t in pv] + [
         t for r in rot.values() for t in r] + list(att.values()) + [
-        *ys.values(), proj]
+        t for y in ys.values() for t in y] + [proj]
     check(all(t.is_cuda for t in outs), "an op returned a CPU tensor")
 
     def row(name, err, t_k, t_p, t_l, bound, fn, prefix=""):
@@ -1140,7 +1184,9 @@ def ops_phase(dev, rows: dict) -> dict:
 
     # mamba_scan: fp32 within rtol = atol = 1e-4 (the reference's
     # tolerance); bf16 within one bf16 ulp + 1e-4 of the plain version's
-    # fp32 result on the same bf16 inputs.  The bound: u, dt and y once,
+    # fp32 result on the same bf16 inputs; the final state (fp32 in both)
+    # within rtol = atol = 1e-4, and y bitwise the default call's (no
+    # state).  The bound: u, dt and y once,
     # and N exponentials a (b, t, d) on the SFU (16 a clock an SM at the
     # card's top SM clock) beside the other arithmetic at the fp32 rate
     bld = MS_B * MS_L * MS_D
@@ -1148,10 +1194,15 @@ def ops_phase(dev, rows: dict) -> dict:
         dev).multi_processor_count * sm_clock_hz()
     t_sfu = bld * MS_N / sfu_rate * 1e3
     for name, args in (("fp32", scan), ("bf16", scan16)):
-        out = ys[name]
+        out, state = ys[name]
         prefix = "" if name == "fp32" else "bf16_"
         es = out.element_size()
-        want = ref.mamba_scan(*(t.float() for t in args))
+        want, want_state = ref.mamba_scan(*(t.float() for t in args),
+                                          return_state=True)
+        state_err = float((state - want_state).abs().max())
+        state_close = bool(((state - want_state).abs()
+                            <= 1e-4 + 1e-4 * want_state.abs()).all())
+        default_same = torch.equal(ms.mamba_scan(*args), out)
         err = float((out.float() - want).abs().max())
         if name == "fp32":
             close = bool(((out - want).abs() <= 1e-4 + 1e-4 * want.abs())
@@ -1178,13 +1229,19 @@ def ops_phase(dev, rows: dict) -> dict:
             f"call) bound_ms {b[0]:.4f}, bound by {what} (bytes "
             f"{t_bytes:.4f}, {bld * MS_N:.3g} exponentials on the SFU "
             f"{t_sfu:.4f} at {sfu_rate / 1e12:.3f} T/s, fp32 arithmetic "
-            f"{t_ops:.4f})")
+            f"{t_ops:.4f}); final state max_abs_err {state_err:.3e} "
+            f"(rtol = atol = 1e-4: {state_close}), y bitwise the default "
+            f"call's: {default_same}")
         check(torch.isfinite(out.float()).all().item() and close,
               f"mamba_scan[{name}]: kernel disagrees with its plain version")
+        check(state_close and default_same, f"mamba_scan[{name}]: the "
+              f"final state disagrees with the plain version's, or y with "
+              f"the default call's")
         row("mamba_scan", err, t_k, t_p, None, b,
             lambda: ms.mamba_scan(*args), prefix)
         rows["mamba_scan"].update({prefix + "bound_bytes_ms": t_bytes,
-                                   prefix + "bound_sfu_ms": t_sfu})
+                                   prefix + "bound_sfu_ms": t_sfu,
+                                   prefix + "state_max_abs_err": state_err})
     return {"wall_s": wall, "launches": counts}
 
 
@@ -1587,6 +1644,89 @@ def control_phase(dev) -> dict:
 
 # -- phase 8: the LM serving path and the PCA consumers ------------------------
 
+def model_profile(model, cfg, dev, prompt) -> dict:
+    """One prefill of ``prompt`` and ``LM_PROFILE_STEPS`` decode steps
+    under torch.profiler: the busy share of each, the decode's device
+    time a step, and the device time a call of the scan and flash
+    kernels inside the model.  Returns them with the prefill's argmax."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as tfm
+
+    def kernel_ms(prof, names):
+        hits = [e for e in prof.key_averages()
+                if any(n in e.key for n in names) and e.device_time_total > 0]
+        calls = max((e.count for e in hits), default=0)
+        total = sum(e.device_time_total for e in hits) / 1e3
+        return (total / calls if calls else None), calls
+
+    def top(prof, n=8):
+        """The device's time by kernel: the n largest (name, calls, s)."""
+        events = sorted((e for e in prof.key_averages()
+                         if e.device_time_total > 0),
+                        key=lambda e: -e.device_time_total)[:n]
+        return [{"name": e.key[:72], "calls": e.count,
+                 "s": e.device_time_total / 1e6} for e in events]
+
+    tokens = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        logits, state = tfm.prefill(model, {"tokens": tokens}, cfg,
+                                    cache_len=LM_PROMPT + LM_GEN)
+        torch.cuda.synchronize()
+        prefill_wall = time.perf_counter() - t0
+    prefill_busy = sum(e.device_time_total for e in prof.key_averages()) / 1e6
+    prefill_top = top(prof)
+    scan_ms, scan_calls = kernel_ms(prof, ("scan_kernel",))
+    mma_ms, mma_calls = kernel_ms(prof, ("flash_mma_kernel",))
+    first = logits.argmax(-1)
+    finite = bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
+    tok = first.clone()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(LM_PROFILE_STEPS):
+            _, state = tfm.decode_step(model, state, tok, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(e.device_time_total for e in prof.key_averages()) / 1e6
+    split_ms, split_calls = kernel_ms(prof, ("decode_partial_kernel",
+                                             "decode_merge_kernel"))
+    return {"prefill_top": prefill_top, "decode_top": top(prof),
+            "prefill_wall_s": prefill_wall,
+            "prefill_busy_share": prefill_busy / prefill_wall,
+            "decode_step_wall_ms": 1e3 * wall / LM_PROFILE_STEPS,
+            "decode_step_device_ms": 1e3 * busy / LM_PROFILE_STEPS,
+            "decode_busy_share": busy / wall,
+            "scan_device_ms": scan_ms, "scan_calls": scan_calls,
+            "mma_device_ms": mma_ms, "mma_calls": mma_calls,
+            "splitkv_device_ms": split_ms, "splitkv_calls": split_calls,
+            "first_tokens": first.cpu().numpy(), "finite": finite}
+
+
+def log_profile(what: str, prof: dict) -> None:
+    """``model_profile``'s numbers, each kernel the model ran with its
+    device time a call and, where the caller set one, its bound."""
+    parts = [f"{what} profile: prefill {prof['prefill_wall_s']:.4f} s wall, "
+             f"busy share {prof['prefill_busy_share']:.3f}; decode "
+             f"{LM_PROFILE_STEPS} steps, a step "
+             f"{prof['decode_step_wall_ms']:.3f} ms wall, "
+             f"{prof['decode_step_device_ms']:.3f} ms on the device (busy "
+             f"share {prof['decode_busy_share']:.3f})"]
+    for key, name in (("scan", "mamba_scan"), ("mma", "flash_attention_mma"),
+                      ("splitkv", "flash_attention_splitkv, two kernels")):
+        if prof[key + "_calls"]:
+            t, bound = prof[key + "_device_ms"], prof.get(key + "_bound")
+            parts.append(f"{name} {t:.5f} ms a layer call on the device "
+                         f"({prof[key + '_calls']} calls"
+                         + (f"; bound {bound[0]:.4f}, {bound[1]})"
+                            if bound else ")"))
+    log("; ".join(parts))
+    for part in ("prefill", "decode"):
+        log(f"{what} {part} by device time: "
+            f"{json.dumps(prof[part + '_top'])}")
+
+
 def lm_config():
     """The phase's model: olmo-1b at full width, ``tp`` 1 (as the serve
     CLI sets it on one card)."""
@@ -1709,75 +1849,6 @@ def lm_against_plain(model, cfg, dev, prompt, forced):
         got.append(logits[:, :v].float())
         ref.append(want[:, :v].float())
     return got, ref, state
-
-
-def lm_profile(model, state, cfg, dev, prompt) -> dict:
-    """One prefill and ``LM_PROFILE_STEPS`` decode steps under
-    torch.profiler: the decode's wall time a step against its device time
-    (the busy share), and the device time a call of the split-KV and the
-    prefill kernels inside the model."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import transformer as tfm
-
-    def kernel_ms(prof, names):
-        hits = [e for e in prof.key_averages()
-                if any(n in e.key for n in names) and e.device_time_total > 0]
-        calls = max((e.count for e in hits), default=0)
-        total = sum(e.device_time_total for e in hits) / 1e3
-        return (total / calls if calls else None), calls
-
-    tokens = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
-    tok = torch.zeros(LM_BATCH, dtype=torch.int64, device=dev)
-    pos0 = state.pos
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(LM_PROFILE_STEPS):
-            _, state = tfm.decode_step(model, state, tok, cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy = sum(e.device_time_total for e in prof.key_averages()) / 1e6
-    split_ms, split_calls = kernel_ms(prof, ("decode_partial_kernel",
-                                             "decode_merge_kernel"))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        tfm.prefill(model, {"tokens": tokens}, cfg,
-                    cache_len=LM_PROMPT + LM_GEN)
-        torch.cuda.synchronize()
-        prefill_wall = time.perf_counter() - t0
-    prefill_busy = sum(e.device_time_total for e in prof.key_averages()) / 1e6
-    mma_ms, mma_calls = kernel_ms(prof, ("flash_mma_kernel",))
-    # the least time of one layer's call at the model's shapes (bf16): the
-    # decode reads the visible K and V once (their mean count over the
-    # profiled steps), the prefill does the causal products
-    bh, d = LM_BATCH * cfg.n_heads, cfg.head_dim
-    keys = pos0 + (LM_PROFILE_STEPS + 1) / 2
-    split_bound = bound_ms(2 * bh * d * (2 + 2 * keys), 4 * bh * d * keys,
-                           PEAK_BF16)
-    mma_bound = bound_ms(2 * bh * d * 4 * LM_PROMPT,
-                         4 * bh * d * LM_PROMPT * (LM_PROMPT + 1) / 2,
-                         PEAK_BF16)
-    out = {"decode_step_wall_ms": 1e3 * wall / LM_PROFILE_STEPS,
-           "decode_step_device_ms": 1e3 * busy / LM_PROFILE_STEPS,
-           "decode_busy_share": busy / wall,
-           "splitkv_device_ms": split_ms, "splitkv_calls": split_calls,
-           "prefill_wall_s": prefill_wall, "prefill_busy_share":
-           prefill_busy / prefill_wall,
-           "mma_device_ms": mma_ms, "mma_calls": mma_calls,
-           "splitkv_bound": split_bound, "mma_bound": mma_bound}
-    log(f"lm profile: decode {LM_PROFILE_STEPS} steps, a step "
-        f"{out['decode_step_wall_ms']:.3f} ms wall, "
-        f"{out['decode_step_device_ms']:.3f} ms on the device (busy share "
-        f"{out['decode_busy_share']:.3f}); split-KV "
-        f"{split_ms if split_ms is None else round(split_ms, 5)} ms a "
-        f"layer call ({split_calls} calls, two kernels a call; bound "
-        f"{split_bound[0]:.4f}, {split_bound[1]}); prefill "
-        f"{prefill_wall:.4f} s wall, busy share "
-        f"{out['prefill_busy_share']:.3f}, flash_attention_mma "
-        f"{mma_ms if mma_ms is None else round(mma_ms, 5)} ms a layer "
-        f"({mma_calls} calls; bound {mma_bound[0]:.4f}, {mma_bound[1]})")
-    return out
 
 
 def sweeps_apart_from_plain(calls) -> int:
@@ -1977,10 +2048,25 @@ def lm_phase(dev) -> dict:
     check(np.array_equal(got16[0].argmax(-1).cpu().numpy(), gen[:, 0]),
           "lm: the kernels' prefill does not give the served first token")
     consumers = lm_consumers(state.caches[0], dev)
-    profile = lm_profile(model, state, cfg, dev, prompt)
+    del state
+    profile = model_profile(model, cfg, dev, prompt)
+    check(profile["finite"]
+          and np.array_equal(profile["first_tokens"], gen[:, 0]),
+          "lm: the profiled prefill does not give the served first token")
+    # the least time of one layer's call at the model's shapes (bf16): the
+    # decode reads the visible K and V once (their mean count over the
+    # profiled steps), the prefill does the causal products
+    bh, d = LM_BATCH * cfg.n_heads, cfg.head_dim
+    keys = LM_PROMPT + (LM_PROFILE_STEPS + 1) / 2
+    profile["splitkv_bound"] = bound_ms(2 * bh * d * (2 + 2 * keys),
+                                        4 * bh * d * keys, PEAK_BF16)
+    profile["mma_bound"] = bound_ms(
+        2 * bh * d * 4 * LM_PROMPT,
+        4 * bh * d * LM_PROMPT * (LM_PROMPT + 1) / 2, PEAK_BF16)
+    log_profile("lm", profile)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model32 = lm_fp32_copy(model, cfg32, dev)
-    del model, state
+    del model
     torch.cuda.empty_cache()
     got32, plain32, _ = lm_against_plain(model32, cfg32, dev, prompt, forced)
     del model32
@@ -2014,6 +2100,303 @@ def lm_phase(dev) -> dict:
             "launches": launches, "bf16_err": err16, "bf16_bound": floor16,
             "fp32_err": err32,
             "consumers": consumers, "profile": profile, "wall_s": wall}
+
+
+# -- phase 9: the ssm and hybrid families -------------------------------------
+
+def ssm_config():
+    """falcon-mamba-7b whole, ``tp`` 1 (as the serve CLI sets it)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(SSM_ARCH), tp=1)
+
+
+def hybrid_config():
+    """One period of jamba-v0.1-52b: 8 of its 32 layers, ``tp`` 1."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(HYBRID_ARCH),
+                               n_layers=HYBRID_LAYERS, tp=1)
+
+
+def hold_scan(op, i: int, args, kw, out) -> dict:
+    """One call of the ``mamba_scan`` op ``op`` replayed on its ``torch``
+    backend: y and the final state against the plain version's on the
+    same operands at rtol = atol = 1e-4.  Returns its record (``over``:
+    the values beyond)."""
+    y, state = out
+    t0 = time.perf_counter()
+    want_y, want_state = op(*args, **dict(kw, backend="torch"))
+    want_y = want_y.float()
+    over = sum(int(((g.float() - w).abs() > SCAN_ATOL + SCAN_RTOL * w.abs())
+                   .sum()) for g, w in ((y, want_y), (state, want_state)))
+    return {"call": i, "u": list(args[0].shape), "over": over,
+            "y_max_abs_err": float((y.float() - want_y).abs().max()),
+            "state_max_abs_err": float((state - want_state).abs().max()),
+            "hold_s": time.perf_counter() - t0}
+
+
+@contextlib.contextmanager
+def scans_held(held: list, keep=None, now: bool = True):
+    """``op_calls`` for ``mamba_scan``: the calls whose index in the block
+    is in ``keep`` (every call if None) are held at the op (``hold_scan``),
+    right after the call (``now``) or, keeping their operands, when the
+    block ends (outside a timed run).  Appends a record a call held."""
+    count, pending = [0], []
+
+    def call(op, *args, **kw):
+        out = op(*args, **kw)
+        if keep is None or count[0] in keep:
+            if now:
+                held.append(hold_scan(op, count[0], args, kw, out))
+            else:
+                pending.append((op, count[0], args, kw, out))
+        count[0] += 1
+        return out
+    with op_calls("mamba_scan", call):
+        yield
+    while pending:
+        held.append(hold_scan(*pending.pop(0)))
+
+
+def check_scans(held: list, what: str, calls: int) -> None:
+    log(f"{what}: {len(held)} mamba_scan calls held at the op (y and the "
+        f"final state, rtol = atol = {SCAN_RTOL:g}), operands u "
+        f"{held[0]['u'] if held else None}, max_abs_err y "
+        f"{max((h['y_max_abs_err'] for h in held), default=0):.3e}, state "
+        f"{max((h['state_max_abs_err'] for h in held), default=0):.3e} "
+        f"(the holds {sum(h['hold_s'] for h in held):.3f} s)")
+    over = [h for h in held if h["over"]]
+    check(len(held) == calls and not over, f"{what}: {len(held)} of {calls} "
+          f"mamba_scan calls held; off the plain version beyond rtol = "
+          f"atol = {SCAN_RTOL:g} at the op: {over[:2]}")
+
+
+@contextlib.contextmanager
+def moe_routes(routes: list):
+    """Inside the block every MoE routing appends (tokens, idx) to
+    ``routes`` (``models.moe._routing`` wrapped)."""
+    from repro_torch.models import moe
+    routing = moe._routing
+
+    def call(p, xf, cfg):
+        out = routing(p, xf, cfg)
+        routes.append((xf.shape[0], out[1]))
+        return out
+    moe._routing = call
+    try:
+        yield
+    finally:
+        moe._routing = routing
+
+
+def dropped_share(routes: list, cfg, tokens: int):
+    """(dropped assignments, assignments) over the routings of ``tokens``
+    tokens: an assignment past its expert's capacity is dropped (the
+    reference's rule)."""
+    from repro_torch.models import moe
+    dropped = total = 0
+    C = moe.capacity(tokens, cfg)
+    for t, idx in routes:
+        if t == tokens:
+            pos = moe.positions(idx.T.reshape(-1), cfg.n_experts)
+            dropped += int((pos >= C).sum())
+            total += pos.numel()
+    return dropped, total
+
+
+def scan_bound(cfg, batch: int, length: int):
+    """The least time of one layer's scan at the model's shapes (fp32
+    operands): u, dt, B, C read, y and the state written, against N
+    exponentials a (b, t, d) on the SFU and the rest at the fp32 rate."""
+    bld = batch * length * cfg.d_inner
+    n = cfg.ssm_state
+    n_bytes = 4 * (3 * bld + 2 * batch * length * n
+                   + cfg.d_inner * (n + 1) + batch * cfg.d_inner * n)
+    t_bytes = n_bytes / PEAK_BYTES * 1e3
+    sfu_rate = SFU_PER_CLOCK * torch.cuda.get_device_properties(
+        0).multi_processor_count * sm_clock_hz()
+    t_sfu = bld * n / sfu_rate * 1e3
+    t_ops = bld * (7 * n + 3) / PEAK_FP32 * 1e3
+    return max((t_bytes, "bytes"), (t_sfu, "operations"),
+               (t_ops, "operations"))
+
+
+def served(what: str, gen, cfg, counts: dict, want: dict) -> None:
+    got = {k: n for k, n in counts.items() if n}
+    want = {k: n for k, n in want.items() if n}
+    check(got == want, f"{what} serve launched {got}, not {want}")
+    check(gen.shape == (LM_BATCH, LM_GEN) and gen.dtype == np.int32
+          and 0 <= gen.min() and gen.max() < cfg.vocab_size,
+          f"{what} serve: generated {gen.shape} {gen.dtype} out of range")
+
+
+def ssm_serve(dev) -> dict:
+    """falcon-mamba-7b through ``serve.main`` (64 scans a prefill, none in
+    decode), the served prefill's layers ``SSM_HELD_LAYERS`` and every
+    layer of a ``SSM_SHORT_PROMPT``-token prefill held at the op, and a
+    profiled prefill and decode."""
+    import io
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+
+    cfg = ssm_config()
+    argv = ["--arch", SSM_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPT), "--gen-len", str(LM_GEN), "--seed", str(SEED)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = []
+    out = io.StringIO()
+    with scans_held(held, keep=set(SSM_HELD_LAYERS), now=False):
+        reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            gen = serve.main(argv, device=dev)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    log(f"ssm serve: {json.dumps(line)}; peak device memory {peak_gb:.2f} GB")
+    served("ssm", gen, cfg, counts, {"mamba_scan": cfg.n_layers})
+    check_scans(held, f"ssm serve ({LM_PROMPT}-token prefill, layers "
+                f"{list(SSM_HELD_LAYERS)})", len(SSM_HELD_LAYERS))
+
+    model = tfm.init_model(cfg, seed=SEED, device=dev)  # serve's weights
+    prompt = lm_prompt(cfg)
+    short = torch.as_tensor(prompt[:, :SSM_SHORT_PROMPT], dtype=torch.int64,
+                            device=dev)
+    held_short = []
+    reset_launch_counts()
+    with scans_held(held_short):
+        logits, _ = tfm.prefill(model, {"tokens": short}, cfg)
+    torch.cuda.synchronize()
+    short_counts = {k: n for k, n in launch_counts().items() if n}
+    check(short_counts == {"mamba_scan": cfg.n_layers}, f"ssm: a "
+          f"{SSM_SHORT_PROMPT}-token prefill launched {short_counts}")
+    check(bool(torch.isfinite(logits[:, :cfg.vocab_size]).all()),
+          "ssm: non-finite logits")
+    check_scans(held_short, f"ssm {SSM_SHORT_PROMPT}-token prefill, every "
+                f"layer", cfg.n_layers)
+    del logits
+    prof = model_profile(model, cfg, dev, prompt)
+    del model
+    torch.cuda.empty_cache()
+    prof["scan_bound"] = scan_bound(cfg, LM_BATCH, LM_PROMPT)
+    log_profile("ssm", prof)
+    check(prof["finite"] and np.array_equal(prof["first_tokens"], gen[:, 0]),
+          "ssm: the profiled prefill does not give the served first token")
+    check(prof["scan_calls"] in (0, cfg.n_layers), "ssm: the profiled "
+          "prefill traced another number of scan calls than layers")
+    return {"serve": line, "launches": counts, "peak_gb": peak_gb,
+            "held": held, "held_short": held_short, "profile": prof}
+
+
+def hybrid_serve(dev) -> dict:
+    """One period of jamba-v0.1-52b through ``serve.generate`` (7 scans
+    and 1 ``flash_attention_mma`` a prefill, 1 ``flash_attention_splitkv``
+    a decode step), the MoE's dropped share, then on the same weights a
+    prefill and ``LM_FORCED`` decode steps with every scan and bf16 flash
+    call held at the op, and a profiled prefill and decode."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+
+    cfg = hybrid_config()
+    kinds = cfg.layer_kinds()
+    n_mamba, n_attn = kinds.count("mamba"), kinds.count("attn")
+    n_moe = cfg.ffn_kinds().count("moe")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    routes = []
+    reset_launch_counts()
+    with moe_routes(routes):
+        gen, line = serve.generate(cfg, batch=LM_BATCH,
+                                   prompt_len=LM_PROMPT, gen_len=LM_GEN,
+                                   seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"hybrid serve ({HYBRID_LAYERS} of 32 layers): {json.dumps(line)}; "
+        f"peak device memory {peak_gb:.2f} GB")
+    served("hybrid", gen, cfg, counts,
+           {"mamba_scan": n_mamba, "flash_attention_mma": n_attn,
+            "flash_attention_splitkv": n_attn * LM_GEN})
+    drops = {"prefill": dropped_share(routes, cfg, LM_BATCH * LM_PROMPT),
+             "decode": dropped_share(routes, cfg, LM_BATCH)}
+    check(drops["prefill"][1] == n_moe * LM_BATCH * LM_PROMPT * cfg.top_k
+          and drops["decode"][1] == n_moe * LM_GEN * LM_BATCH * cfg.top_k,
+          f"hybrid: MoE routings {[(t, tuple(i.shape)) for t, i in routes][:3]}"
+          f" are not one a MoE layer a step")
+    del routes
+    from repro_torch.models.moe import capacity
+    log(f"hybrid MoE dropped assignments: prefill {drops['prefill'][0]} of "
+        f"{drops['prefill'][1]} (capacity "
+        f"{capacity(LM_BATCH * LM_PROMPT, cfg)} an expert), decode "
+        f"{drops['decode'][0]} of {drops['decode'][1]} (capacity "
+        f"{capacity(LM_BATCH, cfg)} an expert)")
+
+    model = tfm.init_model(cfg, seed=SEED, device=dev)  # serve's weights
+    prompt = lm_prompt(cfg)
+    tokens = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
+    flash, held = [], []
+    reset_launch_counts()
+    with flash_held_at_op(flash), scans_held(held):
+        logits, state = tfm.prefill(model, {"tokens": tokens}, cfg,
+                                    cache_len=LM_PROMPT + LM_GEN)
+    torch.cuda.synchronize()
+    moved = {k: n for k, n in launch_counts().items() if n}
+    check(moved == {"mamba_scan": n_mamba, "flash_attention_mma": n_attn},
+          f"hybrid prefill launched {moved}")
+    check(np.array_equal(logits.argmax(-1).cpu().numpy(), gen[:, 0]),
+          "hybrid: the prefill does not give the served first token")
+    check_scans(held, f"hybrid {LM_PROMPT}-token prefill, every mamba "
+                f"layer", n_mamba)
+    for tok in gen[:, :LM_FORCED].T:  # the served tokens, fed back
+        reset_launch_counts()
+        with flash_held_at_op(flash), scans_held(held):
+            logits, state = tfm.decode_step(
+                model, state, torch.as_tensor(tok, dtype=torch.int64,
+                                              device=dev), cfg)
+        torch.cuda.synchronize()
+        moved = {k: n for k, n in launch_counts().items() if n}
+        check(moved == {"flash_attention_splitkv": n_attn}
+              and len(held) == n_mamba,
+              f"hybrid decode step launched {moved}")
+    over = [h for h in flash if h["over"]]
+    log(f"hybrid: bf16 flash held at the op in {len(flash)} calls (prefill "
+        f"q {flash[0]['q']} kv {flash[0]['kv']}, then {LM_FORCED} decode "
+        f"steps), max_abs_err "
+        f"{max(h['max_abs_err'] for h in flash):.3e} (the holds "
+        f"{sum(h['hold_s'] for h in flash):.3f} s)")
+    check(len(flash) == n_attn * (1 + LM_FORCED) and not over,
+          f"hybrid: flash off the plain version beyond one bf16 ulp + "
+          f"{FA_BF16_SLACK:g} at the op: {over[:2]}")
+    del state, logits
+    prof = model_profile(model, cfg, dev, prompt)
+    del model
+    torch.cuda.empty_cache()
+    prof["scan_bound"] = scan_bound(cfg, LM_BATCH, LM_PROMPT)
+    log_profile("hybrid", prof)
+    check(prof["finite"] and np.array_equal(prof["first_tokens"], gen[:, 0]),
+          "hybrid: the profiled prefill does not give the served first "
+          "token")
+    return {"serve": line, "launches": counts, "peak_gb": peak_gb,
+            "drops": drops, "held": held, "flash_held": len(flash),
+            "profile": prof}
+
+
+def families_phase(dev) -> dict:
+    """Phase 9: falcon-mamba-7b whole and one period of jamba-v0.1-52b
+    through the port's serving path (the module docstring's item 9)."""
+    t_phase = time.perf_counter()
+    ssm = ssm_serve(dev)
+    hybrid = hybrid_serve(dev)
+    wall = time.perf_counter() - t_phase
+    log(f"ssm/hybrid: phase {wall:.1f} s")
+    launches = {k: ssm["launches"][k] + hybrid["launches"][k]
+                for k in ssm["launches"]}
+    return {"ssm": ssm, "hybrid": hybrid, "launches": launches,
+            "wall_s": wall}
 
 
 def main() -> int:
@@ -2085,6 +2468,7 @@ def main() -> int:
     serve = serve_phase(dev, flush["requests"])
     control = control_phase(dev)
     lm = lm_phase(dev)
+    families = families_phase(dev)
     prof = lm["profile"]
     rows["flash_attention_mma"].update(
         lm_device_ms=prof["mma_device_ms"], lm_bound_ms=prof["mma_bound"][0],
@@ -2094,6 +2478,15 @@ def main() -> int:
         lm_device_ms=prof["splitkv_device_ms"],
         lm_bound_ms=prof["splitkv_bound"][0],
         lm_decode_busy_share=prof["decode_busy_share"])
+    ssm_prof = families["ssm"]["profile"]
+    rows["mamba_scan"].update(
+        lm_device_ms=ssm_prof["scan_device_ms"],
+        lm_bound_ms=ssm_prof["scan_bound"][0],
+        lm_shape=f"{LM_BATCH}x{LM_PROMPT}x{ssm_config().d_inner} "
+                 f"N {ssm_config().ssm_state} fp32 (falcon-mamba-7b)",
+        lm_decode_busy_share=ssm_prof["decode_busy_share"],
+        hybrid_decode_busy_share=families["hybrid"]["profile"][
+            "decode_busy_share"])
 
     record = []
     for k in KERNELS:
@@ -2109,7 +2502,8 @@ def main() -> int:
             row["path"] = "ops phase"
         row["launches_serve"] = serve["launches"][k.name]
         row["launches_control"] = control["launches"][k.name]
-        row["launches_lm"] = lm["launches"][k.name]
+        row["launches_lm"] = (lm["launches"][k.name]
+                              + families["launches"][k.name])
         record.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))

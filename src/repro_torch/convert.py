@@ -11,9 +11,11 @@ matches the type by name, so this module imports nothing of the reference.
 The LM stack has no weights either: both packages draw random ones, so
 parity carries the reference's across.  ``lm_params_to_port`` takes the
 reference's ``tfm.param_values(tfm.init_model(...))`` tree as numpy
-arrays and returns the port's ``Transformer`` holding the same numbers;
-``decode_state_to_reference`` maps a decode state's head-major caches to
-the reference's group-stacked (B, S, KV, hd) ones.
+arrays and returns the port's ``Transformer`` holding the same numbers
+(attention, mamba, MLP and MoE leaves alike, by name);
+``decode_state_to_reference`` maps a decode state's caches to the
+reference's group-stacked ones: head-major KV caches to (B, S, KV, hd),
+Mamba caches as they are.
 """
 from __future__ import annotations
 
@@ -70,7 +72,8 @@ def lm_state_dict(params, cfg) -> Dict[str, np.ndarray]:
     """The reference's parameter tree (nested dicts of numpy arrays, the
     blocks stacked over groups under ``blocks/l{j}``) as the port's
     ``state_dict`` keys: ``embed.*``, ``layers.{i}.{norm1,mixer,norm2,
-    ffn}.*`` and ``norm_f.*``, layer i = group x period + j."""
+    ffn,mlp_res,mlp_shared}.*`` and ``norm_f.*``, layer i = group x
+    period + j (``transformer.period``: lcm(attn_every, moe_every))."""
     from .models.transformer import period
     out = {f"embed.{k}": v for k, v in params["embed"].items()}
     out.update({f"norm_f.{k}": v for k, v in params["norm_f"].items()})
@@ -99,17 +102,23 @@ def lm_params_to_port(params, cfg, device: DeviceLike = None):
 
 
 def decode_state_to_reference(state, cfg) -> dict:
-    """A port ``DecodeState`` as the reference's fields in numpy: {"caches":
-    {"l{j}": (k, v)} with k, v (n_groups, B, S, KV, hd), "pos": int}."""
+    """A port ``DecodeState`` as the reference's fields in numpy (fp32):
+    {"caches": {"l{j}": pair}, "pos": int}, the pair (k, v) with k, v
+    (n_groups, B, S, KV, hd) for an attention layer, (conv, state) with
+    conv (n_groups, B, d_conv - 1, d_inner) and state (n_groups, B,
+    d_inner, N) for a mamba layer."""
+    from .models.mamba import MambaCache
     from .models.transformer import period
     per = period(cfg)
     caches = {}
     for j in range(per):
-        ks, vs = [], []
+        firsts, seconds = [], []
         for g in range(cfg.n_layers // per):
             c = state.caches[_layer_index(cfg, g, j)]
-            ks.append(c.k.transpose(1, 2).float().cpu().numpy())
-            vs.append(c.v.transpose(1, 2).float().cpu().numpy())
-        caches[f"l{j}"] = (np.stack(ks), np.stack(vs))
+            pair = ((c.conv, c.state) if isinstance(c, MambaCache)
+                    else (c.k.transpose(1, 2), c.v.transpose(1, 2)))
+            firsts.append(pair[0].float().cpu().numpy())
+            seconds.append(pair[1].float().cpu().numpy())
+        caches[f"l{j}"] = (np.stack(firsts), np.stack(seconds))
     return {"caches": caches, "pos": int(state.pos)}
 

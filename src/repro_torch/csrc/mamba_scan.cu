@@ -4,7 +4,9 @@
 //
 // for u, dt (batch, L, D), A (D, N) fp32, B, C (batch, L, N), D_skip (D,)
 // fp32; u, dt, B and C share one dtype (fp32 or bf16), y takes it; the
-// state is fp32; N <= 16.
+// state is fp32; N <= 16.  With a state_out (batch, D, N) fp32, the final
+// state x_{L-1} is stored there as well (a model's prefill keeps it for
+// decode); state_out may be null.
 //
 // Replaces the TPU kernel repro/kernels/mamba_scan.py::mamba_scan (body
 // _scan_kernel): a (batch, chunk) grid whose chunk dimension runs in order
@@ -142,8 +144,8 @@ __global__ void __launch_bounds__(THREADS, 512 / THREADS)
 scan_kernel(const T* __restrict__ u, const T* __restrict__ dt,
             const float* __restrict__ A, const T* __restrict__ Bm,
             const T* __restrict__ Cm, const float* __restrict__ Dskip,
-            T* __restrict__ y, int L, int D, int N, int vec_ud, int vec_bc,
-            int vec_y) {
+            T* __restrict__ y, float* __restrict__ state_out, int L, int D,
+            int N, int vec_ud, int vec_bc, int vec_y) {
   __shared__ __align__(16) Smem<T> sm;
   const int b = blockIdx.y;
   const int d0 = blockIdx.x * CH;
@@ -254,12 +256,19 @@ scan_kernel(const T* __restrict__ u, const T* __restrict__ dt,
   }
   __syncthreads();
   if (chunks > 0) store(chunks - 1);
+  // the steps past L left the state as it was (dt = 0), so x is x_{L-1}
+  if (state_out != nullptr && live) {
+    float* so = state_out + (static_cast<size_t>(b) * D + d) * N;
+#pragma unroll
+    for (int j = 0; j < G; ++j)
+      if (g * G + j < N) so[g * G + j] = x[j];
+  }
 }
 
 template <typename T>
 int launch(const void* u, const void* dt, const float* A, const void* B,
-           const void* C, const float* Dskip, void* y, int batch, int L,
-           int D, int N, int vec_ud, int vec_bc, int vec_y,
+           const void* C, const float* Dskip, void* y, float* state_out,
+           int batch, int L, int D, int N, int vec_ud, int vec_bc, int vec_y,
            cudaStream_t s) {
   const dim3 grid((D + CH - 1) / CH, batch);
   constexpr int wide = 16 / sizeof(T);
@@ -269,7 +278,7 @@ int launch(const void* u, const void* dt, const float* A, const void* B,
   kernel<<<grid, THREADS, 0, s>>>(
       static_cast<const T*>(u), static_cast<const T*>(dt), A,
       static_cast<const T*>(B), static_cast<const T*>(C), Dskip,
-      static_cast<T*>(y), L, D, N, vec_ud, vec_bc, vec_y);
+      static_cast<T*>(y), state_out, L, D, N, vec_ud, vec_bc, vec_y);
   return repro::launch_status();
 }
 
@@ -293,12 +302,14 @@ int widest(const void* base, int width, int elem_bytes) {
 
 // vec_ud, vec_bc: elements a copy of u and dt, and of B and C
 // (kernels/mamba_scan.py::scan_copies); y's store takes the widest width
-// its base and D allow
+// its base and D allow.  state_out: null, or (batch, D, N) fp32 for the
+// final state
 extern "C" int repro_mamba_scan(const void* u, const void* dt, const float* A,
                                 const void* B, const void* C,
-                                const float* Dskip, void* y, int is_bf16,
-                                int batch, int L, int D, int N, int vec_ud,
-                                int vec_bc, void* stream) {
+                                const float* Dskip, void* y,
+                                float* state_out, int is_bf16, int batch,
+                                int L, int D, int N, int vec_ud, int vec_bc,
+                                void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int es = is_bf16 ? 2 : 4;
   if (N < 1 || N > NP || !copy_ok(u, vec_ud, D, es) ||
@@ -307,8 +318,8 @@ extern "C" int repro_mamba_scan(const void* u, const void* dt, const float* A,
     return static_cast<int>(cudaErrorInvalidValue);
   const int vec_y = widest(y, D, es);
   if (is_bf16)
-    return launch<__nv_bfloat16>(u, dt, A, B, C, Dskip, y, batch, L, D, N,
-                                 vec_ud, vec_bc, vec_y, s);
-  return launch<float>(u, dt, A, B, C, Dskip, y, batch, L, D, N, vec_ud,
-                       vec_bc, vec_y, s);
+    return launch<__nv_bfloat16>(u, dt, A, B, C, Dskip, y, state_out, batch,
+                                 L, D, N, vec_ud, vec_bc, vec_y, s);
+  return launch<float>(u, dt, A, B, C, Dskip, y, state_out, batch, L, D, N,
+                       vec_ud, vec_bc, vec_y, s);
 }

@@ -9,10 +9,12 @@ chunk is done.  A block of 32 channels streams the time axis in chunks of
 32 steps through a cp.async ring, each operand copied 16, 8 or 4 bytes (or
 one bf16 element) at a time as its width and base allow (``scan_copies``);
 y is stored from a shared tile the same way, as wide as D and y's base
-allow.  Nothing is padded.  Bound at falcon-mamba-7b's d_inner 8192, N 16,
-L 4096 in fp32: 5.4e8 exponentials on the SFU (0.128 ms at 16 a clock an
-SM on 132 SMs at 1.98 GHz) and 403 MB of u, dt and y (0.120 ms at 3.35
-TB/s); the kernel takes 0.25 ms there on an H100 SXM at 700 W.
+allow; with ``return_state`` each lane also stores its 4 final states
+(``models.mamba``'s prefill keeps them for decode).  Nothing is padded.
+Bound at falcon-mamba-7b's d_inner 8192, N 16, L 4096 in fp32: 5.4e8
+exponentials on the SFU (0.128 ms at 16 a clock an SM on 132 SMs at 1.98
+GHz) and 403 MB of u, dt and y (0.120 ms at 3.35 TB/s); the kernel takes
+0.25 ms there on an H100 SXM at 700 W.
 
 On a CPU tensor it returns the plain version (``kernels.ref.mamba_scan``);
 on a CUDA tensor it launches the kernel or raises.
@@ -47,14 +49,17 @@ def scan_copies(u: torch.Tensor, delta: torch.Tensor, B: torch.Tensor,
 
 
 def mamba_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
-               B: torch.Tensor, C: torch.Tensor,
-               D_skip: torch.Tensor) -> torch.Tensor:
+               B: torch.Tensor, C: torch.Tensor, D_skip: torch.Tensor,
+               return_state: bool = False):
     """y (batch, L, D) for u, delta (batch, L, D), A (D, N), B, C
     (batch, L, N) and D_skip (D,).  u, delta, B and C share one dtype,
-    float32 or bfloat16, which y takes; A and D_skip are used in fp32."""
+    float32 or bfloat16, which y takes; A and D_skip are used in fp32.
+    With ``return_state``, (y, state): the final state x_{L-1}, (batch,
+    D, N) in fp32, stored by the same launch."""
     tensors = (u, delta, A, B, C, D_skip)
     if all(t.device.type == "cpu" for t in tensors):
-        return _ref.mamba_scan(u, delta, A, B, C, D_skip)
+        return _ref.mamba_scan(u, delta, A, B, C, D_skip,
+                               return_state=return_state)
     what = "mamba_scan"
     dev = require_cuda(what, *tensors)
     require(u.ndim == 3 and delta.shape == u.shape, what,
@@ -82,8 +87,10 @@ def mamba_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     require(batch <= 65535 and L < 2 ** 31 and D < 2 ** 31, what,
             f"shape {tuple(u.shape)} exceeds the launch grid")
     y = torch.empty_like(u)
+    state = (torch.zeros(batch, D, N, dtype=torch.float32, device=dev)
+             if return_state else None)
     if y.numel() == 0:  # an empty grid is no launch
-        return y
+        return (y, state) if return_state else y
     # the reference kernel also takes A and D_skip in fp32; both are small
     A32 = A.to(torch.float32).contiguous()
     D32 = D_skip.to(torch.float32).contiguous()
@@ -92,7 +99,8 @@ def mamba_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
         build.check(lib.repro_mamba_scan(
             u.data_ptr(), delta.data_ptr(), A32.data_ptr(), B.data_ptr(),
             C.data_ptr(), D32.data_ptr(), y.data_ptr(),
+            None if state is None else state.data_ptr(),
             int(u.dtype == torch.bfloat16), batch, L, D, N,
             *scan_copies(u, delta, B, C), stream(dev)), what)
     MAMBA_SCAN.launches += 1
-    return y
+    return (y, state) if return_state else y

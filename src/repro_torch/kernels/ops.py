@@ -226,21 +226,26 @@ def flash_attention(q, k, v, causal: bool = True, scale=None,
 # -- mamba_scan -------------------------------------------------------------
 
 @registry.register("mamba_scan", "cuda")
-def _ms_cuda(u, delta, A, B, C, D_skip, *, chunk: int = 128):
+def _ms_cuda(u, delta, A, B, C, D_skip, *, chunk: int = 128,
+             return_state: bool = False):
     del chunk  # the kernel runs each channel over all of L
     require_cuda("mamba_scan", u, delta, A, B, C, D_skip)
-    return _ms.mamba_scan(u, delta, A, B, C, D_skip)
+    return _ms.mamba_scan(u, delta, A, B, C, D_skip,
+                          return_state=return_state)
 
 
 @registry.register("mamba_scan", "torch")
-def _ms_torch(u, delta, A, B, C, D_skip, *, chunk: int = 0):
+def _ms_torch(u, delta, A, B, C, D_skip, *, chunk: int = 0,
+              return_state: bool = False):
     del chunk
-    return _ref.mamba_scan(u, delta, A, B, C, D_skip)
+    return _ref.mamba_scan(u, delta, A, B, C, D_skip,
+                           return_state=return_state)
 
 
 def mamba_scan(u, delta, A, B, C, D_skip, chunk: int = 128, *,
-               backend: Optional[str] = None):
+               return_state: bool = False, backend: Optional[str] = None):
     """Selective scan y (batch, L, D) of u, delta (batch, L, D), A (D, N),
-    B, C (batch, L, N) and D_skip (D,), with an fp32 state."""
+    B, C (batch, L, N) and D_skip (D,), with an fp32 state; with
+    ``return_state``, (y, the final state (batch, D, N) fp32)."""
     return registry.resolve("mamba_scan", backend, like=u)(
-        u, delta, A, B, C, D_skip, chunk=chunk)
+        u, delta, A, B, C, D_skip, chunk=chunk, return_state=return_state)

@@ -179,11 +179,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p, v.to(f32)).to(q.dtype)
 
 
-def mamba_scan(u, delta, A, B, C, D_skip) -> torch.Tensor:
+def mamba_scan(u, delta, A, B, C, D_skip, return_state: bool = False):
     """Selective scan, one step of t at a time with an fp32 (batch, D, N)
     state: x_t = exp(dt_t A) x_{t-1} + (dt_t u_t) B_t and
     y_t = x_t . C_t + D_skip u_t, for u, delta (batch, L, D), A (D, N),
-    B, C (batch, L, N).  Out in u's dtype."""
+    B, C (batch, L, N).  Out in u's dtype; with ``return_state``, (y,
+    x_{L-1}), the state fp32."""
     f32 = torch.float32
     u32, dt32, B32, C32 = (t.to(f32) for t in (u, delta, B, C))
     A32 = A.to(f32)
@@ -197,4 +198,4 @@ def mamba_scan(u, delta, A, B, C, D_skip) -> torch.Tensor:
         x = decay * x + (dt_t * u_t)[:, :, None] * B32[:, t, None, :]
         ys.append((x * C32[:, t, None, :]).sum(dim=2) + D32[None, :] * u_t)
     y = torch.stack(ys, dim=1) if ys else torch.zeros_like(u32)
-    return y.to(u.dtype)
+    return (y.to(u.dtype), x) if return_state else y.to(u.dtype)

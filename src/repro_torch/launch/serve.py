@@ -15,9 +15,14 @@ The prompt is drawn from ``np.random.default_rng(seed)`` as in the
 reference, so both CLIs see the same prompt; the weights are drawn from a
 ``torch.Generator`` seeded with ``seed`` (the reference's come from
 ``jax.random``, so the two models differ).  Sampling is greedy at
-temperature 0; above it, a ``torch.Generator`` draws the tokens.  Only
-the dense family is ported; ``--model-parallel`` > 1 raises until the
-multi-device slice.
+temperature 0; above it, a ``torch.Generator`` draws the tokens.  The
+dense, moe, ssm and hybrid families are served (``--arch
+falcon-mamba-7b``, ``arctic-480b``, ``llama4-maverick-400b-a17b``,
+``jamba-v0.1-52b``, each with ``--reduced`` on the CPU); encdec and vlm
+raise, and so does ``--model-parallel`` > 1 until the multi-device
+slice.  ``generate`` is the CLI's body after the config: it serves any
+``ModelConfig`` (a depth-cut one too) and returns the tokens and the
+JSON line.
 """
 from __future__ import annotations
 
@@ -25,7 +30,7 @@ import argparse
 import dataclasses
 import json
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +55,57 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
+def generate(cfg, *, batch: int, prompt_len: int, gen_len: int,
+             temperature: float = 0.0, seed: int = 0,
+             device: DeviceLike = None) -> Tuple[np.ndarray, dict]:
+    """Serve ``cfg`` once: a seeded model and prompt, the prefill, then
+    ``gen_len`` decode steps (the first one the reference's warm-up,
+    outside the timed loop).  Returns the int32 (batch, gen_len) tokens
+    and the reference CLI's JSON line as a dict."""
+    tfm.check_supported(cfg)
+    dev = resolve_device(device)
+
+    rng = np.random.default_rng(seed)
+    model = tfm.init_model(cfg, seed=seed, device=dev)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
+                                          (batch, prompt_len)),
+                             dtype=torch.int64, device=dev)
+    cache_len = prompt_len + gen_len
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, state = tfm.prefill(model, {"tokens": tokens}, cfg,
+                                cache_len=cache_len)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+
+    tok = sample(logits, gen, temperature)
+    out = [tok]
+    # the reference's warm-up decode (its compile), outside the timed loop
+    logits, state = tfm.decode_step(model, state, tok, cfg)
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(1, gen_len):
+        tok = sample(logits, gen, temperature)
+        out.append(tok)
+        logits, state = tfm.decode_step(model, state, tok, cfg)
+    _sync(dev)
+    t_decode = time.perf_counter() - t0
+
+    gen_tokens = torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
+    per_tok = t_decode / max(1, gen_len - 1)
+    line = {
+        "arch": cfg.name,
+        "prefill_s": round(t_prefill, 4),
+        "decode_per_token_s": round(per_tok, 5),
+        "decode_tokens_per_s": round(batch / per_tok, 1),
+        "generated_shape": list(gen_tokens.shape),
+        "sample_tokens": gen_tokens[0, :8].tolist(),
+    }
+    return gen_tokens, line
+
+
 def main(argv=None, device: DeviceLike = None) -> np.ndarray:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo-1b")
@@ -69,47 +125,11 @@ def main(argv=None, device: DeviceLike = None) -> np.ndarray:
     cfg = (reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
     cfg = dataclasses.replace(cfg, tp=args.model_parallel)
-    tfm.check_supported(cfg)
-    dev = resolve_device(device)
-
-    rng = np.random.default_rng(args.seed)
-    model = tfm.init_model(cfg, seed=args.seed, device=dev)
-    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                          (args.batch, args.prompt_len)),
-                             dtype=torch.int64, device=dev)
-    cache_len = args.prompt_len + args.gen_len
-    gen = torch.Generator(device=dev).manual_seed(args.seed)
-
-    _sync(dev)
-    t0 = time.perf_counter()
-    logits, state = tfm.prefill(model, {"tokens": tokens}, cfg,
-                                cache_len=cache_len)
-    _sync(dev)
-    t_prefill = time.perf_counter() - t0
-
-    tok = sample(logits, gen, args.temperature)
-    out = [tok]
-    # the reference's warm-up decode (its compile), outside the timed loop
-    logits, state = tfm.decode_step(model, state, tok, cfg)
-    _sync(dev)
-    t0 = time.perf_counter()
-    for _ in range(1, args.gen_len):
-        tok = sample(logits, gen, args.temperature)
-        out.append(tok)
-        logits, state = tfm.decode_step(model, state, tok, cfg)
-    _sync(dev)
-    t_decode = time.perf_counter() - t0
-
-    gen_tokens = torch.stack(out, dim=1).to(torch.int32).cpu().numpy()
-    per_tok = t_decode / max(1, args.gen_len - 1)
-    print(json.dumps({
-        "arch": cfg.name,
-        "prefill_s": round(t_prefill, 4),
-        "decode_per_token_s": round(per_tok, 5),
-        "decode_tokens_per_s": round(args.batch / per_tok, 1),
-        "generated_shape": list(gen_tokens.shape),
-        "sample_tokens": gen_tokens[0, :8].tolist(),
-    }), flush=True)
+    gen_tokens, line = generate(
+        cfg, batch=args.batch, prompt_len=args.prompt_len,
+        gen_len=args.gen_len, temperature=args.temperature, seed=args.seed,
+        device=device)
+    print(json.dumps(line), flush=True)
     return gen_tokens
 
 

@@ -1,0 +1,172 @@
+"""Mamba-1 selective-SSM block, the mixer of falcon-mamba's and jamba's
+mamba layers (port of ``repro.models.mamba``).
+
+Prefill (``apply_mamba``) runs the causal depthwise conv, the SSM
+parameters and then ONE ``kernels.ops.mamba_scan(..., return_state=True)``
+call a layer, where the reference runs its chunked associative scan
+(``_chunked_scan``): on the card that is the ``mamba_scan`` kernel, on the
+CPU its plain version.  Both compute the same recurrence with an fp32
+state, so ``mamba_chunk`` (the reference's chunk length) changes no
+result here; the two sum in other orders, within fp32 rounding.  Decode
+(``decode_mamba``) is the reference's plain one-step recurrence in
+PyTorch: the reference calls no kernel there either.
+
+Dtypes follow the reference's default ``ssm_dtype="float32"``: the
+projections and the conv run in the model's dtype, ``x_proj``'s output is
+cast to fp32, ``dt`` is ``softplus(dt_r @ dt_w + dt_b)`` in fp32, the scan
+takes u = the conv output, dt, B and C in fp32, and the gate ``silu(z)``
+is applied in fp32 before the cast back.  ``ssm_dtype="bfloat16"`` (the
+reference then keeps a bf16 state; the kernel keeps fp32) and
+``ssm_impl="kernel_proxy"`` (the reference's dry-run stand-in for the
+kernel's memory traffic, not a numerics path) raise.
+"""
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional
+
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from ..kernels import ops
+from .config import ModelConfig
+from .layers import _normal, _param
+
+
+class MambaCache(NamedTuple):
+    conv: torch.Tensor   # (B, d_conv - 1, d_inner), the last raw inputs
+    state: torch.Tensor  # (B, d_inner, N) fp32
+
+
+def _unsupported(cfg: ModelConfig) -> None:
+    if cfg.ssm_impl != "scan":
+        raise NotImplementedError(
+            f"{cfg.name}: ssm_impl {cfg.ssm_impl!r} is the reference's "
+            f"dry-run stand-in for the scan kernel's memory traffic, not a "
+            f"numerics path; not ported (ROADMAP queue 1, deferred)")
+    if cfg.ssm_dtype != "float32":
+        raise NotImplementedError(
+            f"{cfg.name}: ssm_dtype {cfg.ssm_dtype!r} keeps the scan's "
+            f"state in that dtype in the reference, and the scan kernel "
+            f"keeps it in fp32; not ported (ROADMAP queue 1, deferred)")
+
+
+class Mamba(nn.Module):
+    """``in_proj`` (d, 2 di), ``conv_w`` (K, di), ``conv_b`` (di,),
+    ``x_proj`` (di, R + 2N), ``dt_w`` (R, di) in the model's dtype;
+    ``dt_b`` (di,), ``A_log`` (di, N), ``D`` (di,) in fp32; ``out_proj``
+    (di, d)."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        _unsupported(cfg)
+        dt = cfg.torch_dtype()
+        d, di, N, R, K = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                          cfg.dt_rank, cfg.d_conv)
+
+        def empty(shape, dtype=dt):
+            return _param(torch.empty(shape, dtype=dtype, device=device))
+
+        self.in_proj = empty((d, 2 * di))
+        self.conv_w = empty((K, di))
+        self.conv_b = empty((di,))
+        self.x_proj = empty((di, R + 2 * N))
+        self.dt_w = empty((R, di))
+        self.dt_b = empty((di,), torch.float32)
+        self.A_log = empty((di, N), torch.float32)
+        self.D = empty((di,), torch.float32)
+        self.out_proj = empty((di, d))
+
+    def reset_parameters(self, gen: Optional[torch.Generator]) -> None:
+        """The reference's ``init_mamba``: normal projections scaled by
+        1/sqrt(fan-in), conv bias 0, dt bias softplus^-1(0.01), S4D-real
+        A = -(1..N) a channel, D = 1."""
+        dev = self.in_proj.device
+        for w in (self.in_proj, self.conv_w, self.x_proj, self.dt_w,
+                  self.out_proj):
+            w.copy_(_normal(gen, w.shape, w.dtype,
+                            1.0 / math.sqrt(w.shape[0]), dev))
+        self.conv_b.zero_()
+        self.dt_b.copy_(torch.log(torch.expm1(torch.full_like(self.dt_b,
+                                                          0.01))))
+        n = self.A_log.shape[1]
+        self.A_log.copy_(torch.log(torch.arange(
+            1, n + 1, dtype=torch.float32, device=dev)).expand_as(self.A_log))
+        self.D.fill_(1.0)
+
+
+def _ssm_params(p: Mamba, xc: torch.Tensor, cfg: ModelConfig):
+    """xc (..., di), the conv output -> (dt, B, C) in fp32."""
+    R, N = cfg.dt_rank, cfg.ssm_state
+    proj = (xc @ p.x_proj).float()
+    dt_r, B_ssm, C_ssm = torch.split(proj, [R, N, N], dim=-1)
+    dt = F.softplus(dt_r @ p.dt_w.float() + p.dt_b)
+    return dt, B_ssm, C_ssm
+
+
+def apply_mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
+                chunk: Optional[int] = None, return_cache: bool = False):
+    """Train/prefill path.  x (B, S, d) -> (y, cache or None).  ``chunk``
+    (the reference's scan chunk) has no effect: the scan op runs each
+    channel over all of S.  The cache's conv part is the last d_conv - 1
+    raw inputs, zero-padded in front for a shorter prompt; its state is
+    the scan's final state."""
+    del chunk
+    _unsupported(cfg)
+    s = x.shape[1]
+    di, K = cfg.d_inner, cfg.d_conv
+    xin, z = torch.split(x @ p.in_proj, di, dim=-1)
+    # causal depthwise conv over S, summed tap by tap as the reference does
+    xpad = F.pad(xin, (0, 0, K - 1, 0))
+    xc = xpad[:, :s] * p.conv_w[0]
+    for i in range(1, K):
+        xc = xc + xpad[:, i:i + s] * p.conv_w[i]
+    xc = F.silu(xc + p.conv_b)
+
+    dt, B_ssm, C_ssm = _ssm_params(p, xc, cfg)
+    A = -torch.exp(p.A_log)
+    y, state = ops.mamba_scan(xc.float().contiguous(), dt.contiguous(), A,
+                              B_ssm.contiguous(), C_ssm.contiguous(), p.D,
+                              return_state=True)
+    y = (y * F.silu(z.float())).to(x.dtype)
+    out = y @ p.out_proj
+    if not return_cache:
+        return out, None
+    # xpad has S + K - 1 rows: from S on, the last K - 1 inputs (a copy,
+    # so that the cache does not hold all of xpad)
+    return out, MambaCache(conv=xpad[:, s:].clone(), state=state)
+
+
+def decode_mamba(p: Mamba, x: torch.Tensor, cache: MambaCache,
+                 cfg: ModelConfig):
+    """One-token decode, the reference's plain recurrence.  x (B, 1, d)
+    -> (y (B, 1, d), a new ``MambaCache``)."""
+    _unsupported(cfg)
+    xin, z = torch.split((x @ p.in_proj)[:, 0], cfg.d_inner, dim=-1)
+    window = torch.cat([cache.conv, xin[:, None, :]], dim=1)  # (B, K, di)
+    xc = torch.einsum("bkd,kd->bd", window, p.conv_w)
+    xc = F.silu(xc + p.conv_b)
+
+    dt, B_ssm, C_ssm = _ssm_params(p, xc, cfg)          # (B, di), (B, N)
+    A = -torch.exp(p.A_log)
+    xf = xc.float()
+    decay = torch.exp(dt[..., None] * A[None])                # (B, di, N)
+    state = decay * cache.state + (dt * xf)[..., None] * B_ssm[:, None, :]
+    y = torch.einsum("bdn,bn->bd", state, C_ssm) + p.D * xf
+    y = (y * F.silu(z.float())).to(x.dtype)
+    out = (y @ p.out_proj)[:, None, :]
+    return out, MambaCache(conv=window[:, 1:], state=state)
+
+
+def init_mamba_cache(cfg: ModelConfig, batch: int, dtype,
+                     device=None) -> MambaCache:
+    return MambaCache(
+        conv=torch.zeros(batch, cfg.d_conv - 1, cfg.d_inner, dtype=dtype,
+                         device=device),
+        state=torch.zeros(batch, cfg.d_inner, cfg.ssm_state,
+                          dtype=torch.float32, device=device))
+
+
+__all__ = ["Mamba", "MambaCache", "apply_mamba", "decode_mamba",
+           "init_mamba_cache"]

@@ -123,12 +123,15 @@ def dle_matrix(n: int, kind: str, seed: int = 0) -> np.ndarray:
 
 # -- the LM stack ---------------------------------------------------------------
 
-def lm_params_to_reference(model, n_layers: int) -> dict:
-    """The port's dense ``Transformer`` as the reference's parameter tree
-    (the inverse of ``convert.lm_params_to_port`` for a dense model, whose
-    period is one layer): nested dicts of numpy arrays, the blocks stacked
-    over layers under ``blocks/l0``."""
-    tree = {"embed": {}, "norm_f": {}, "blocks": {"l0": {}}}
+def lm_params_to_reference(model, cfg) -> dict:
+    """The port's ``Transformer`` for ``cfg`` as the reference's parameter
+    tree (the inverse of ``convert.lm_params_to_port``): nested dicts of
+    numpy arrays, layer i = group x period + j stacked over the groups
+    under ``blocks/l{j}``."""
+    from repro_torch.models.transformer import period
+    per = period(cfg)
+    tree = {"embed": {}, "norm_f": {},
+            "blocks": {f"l{j}": {} for j in range(per)}}
     per_layer = {}
     for key, t in model.state_dict().items():
         a = to_numpy(t)
@@ -136,11 +139,15 @@ def lm_params_to_reference(model, n_layers: int) -> dict:
         if parts[0] in ("embed", "norm_f"):
             tree[parts[0]][parts[1]] = a
         else:  # layers.{i}.{part}.{name}
-            per_layer.setdefault((parts[2], parts[3]), {})[int(parts[1])] = a
-    blocks = tree["blocks"]["l0"]
-    for (part, name), by_layer in per_layer.items():
-        blocks.setdefault(part, {})[name] = np.stack(
-            [by_layer[i] for i in range(n_layers)])
-    for part in ("norm1", "norm2"):  # parameterless norms are empty dicts
-        blocks.setdefault(part, {})
+            i = int(parts[1])
+            per_layer.setdefault((i % per, parts[2], parts[3]),
+                                 {})[i // per] = a
+    for (j, part, name), by_group in per_layer.items():
+        tree["blocks"][f"l{j}"].setdefault(part, {})[name] = np.stack(
+            [by_group[g] for g in range(len(by_group))])
+    # parameterless norms are empty dicts in the reference's tree
+    for block in tree["blocks"].values():
+        block.setdefault("norm1", {})
+        if cfg.d_ff:
+            block.setdefault("norm2", {})
     return tree

@@ -21,7 +21,11 @@ within one bf16 ulp plus 2e-5 of the plain version's fp32 result (two fp32
 sums 1e-7 apart round to bf16 values many ulps apart near zero); the
 selective scan within rtol = atol = 1e-4 in fp32 and, in bf16, within one
 bf16 ulp plus 1e-4 of the plain version's fp32 result, bitwise the same
-whatever its operands' alignment.  The dense LM (reduced olmo-1b and
+whatever its operands' alignment, its final state within rtol = atol =
+1e-4.  The ssm and hybrid LM (reduced falcon-mamba and the 2-layer jamba
+stand-in): one scan launch a mamba layer a prefill, none in decode, each
+scan call held at the op; logits as the dense LM's, fp32 within n_layers
+x 1e-4.  The dense LM (reduced olmo-1b and
 granite-8b with GQA): one flash kernel launch a layer a prefill or decode
 step; fp32 logits within n_layers x 2e-5 of plain attention's, bf16
 logits within sqrt(2) x bf16's own noise of plain attention's (the plain
@@ -636,6 +640,27 @@ def test_mamba_scan_kernel(cuda_device):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_kernel_final_state(cuda_device, dtype):
+    """``return_state``: the same launch stores the final state, (batch,
+    D, N) fp32, within rtol = atol = 1e-4 of the plain version's on the
+    same inputs (in fp32), and y stays bitwise the default call's."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+    for b, L, D, N in SCAN_SHAPES:
+        args = _scan_inputs(cuda_device, b, L, D, N, g, dtype=dtype)
+        before = launch_counts()
+        y, state = mamba_scan.mamba_scan(*args, return_state=True)
+        assert _launched(before) == {"mamba_scan": 1}
+        assert state.shape == (b, D, N) and state.dtype == torch.float32
+        _, want = ref.mamba_scan(*(t.float() for t in args),
+                                 return_state=True)
+        torch.testing.assert_close(state, want, rtol=1e-4, atol=1e-4)
+        assert torch.equal(y, mamba_scan.mamba_scan(*args))
+        # the op passes it through
+        y_op, state_op = ops.mamba_scan(*args, return_state=True)
+        assert torch.equal(y_op, y) and torch.equal(state_op, state)
+
+
 def _within_scan_bf16_contract(got, want32):
     g = got.float()
     slack = bf16_ulp(torch.maximum(g.abs(), want32.abs())) + 1e-4
@@ -723,7 +748,7 @@ def test_mamba_scan_store_stays_inside_y(cuda_device, dtype, D):
     u, dt, A, Bm, Cm, Dskip = args
     status = build.library().repro_mamba_scan(
         u.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-        Cm.data_ptr(), Dskip.data_ptr(), y.data_ptr(),
+        Cm.data_ptr(), Dskip.data_ptr(), y.data_ptr(), None,
         int(dtype == torch.bfloat16), b, L, D, N,
         *mamba_scan.scan_copies(u, dt, Bm, Cm), launch.stream(cuda_device))
     build.check(status, "mamba_scan")
@@ -1061,6 +1086,107 @@ def test_lm_prefill_and_decode_through_the_kernels(cuda_device, arch,
     for step in range(len(got16)):
         assert_contract(got32[step], plain32[step], "rel_frobenius",
                         2e-5 * cfg.n_layers)
+        floor = 2 ** 0.5 * rel_frobenius(plain16[step], plain32[step])
+        assert rel_frobenius(got16[step], plain16[step]) <= floor, step
+
+
+@contextlib.contextmanager
+def _scan_held_at_op(monkeypatch, held):
+    """Inside the block every ``ops.mamba_scan`` call is held at the op:
+    its y and final state within rtol = atol = 1e-4 of the plain
+    version's on the same operands.  Appends True or False a call."""
+    from repro_torch.backends import registry
+    kernel = ops.mamba_scan
+
+    def call(*args, **kw):
+        out = kernel(*args, **kw)
+        with registry.use_backend("torch"):
+            want = kernel(*args, **kw)
+        held.append(all(torch.allclose(g.float(), w.float(), rtol=1e-4,
+                                       atol=1e-4)
+                        for g, w in zip(out, want)))
+        return out
+
+    with monkeypatch.context() as m:
+        m.setattr(ops, "mamba_scan", call)
+        yield
+
+
+def _family_steps(model, cfg, tokens, forced, monkeypatch):
+    """``_lm_steps`` for a stack of mamba and attention layers: each step
+    launches ``mamba_scan`` once a mamba layer (prefill only) and one
+    flash kernel an attention layer, every scan call held at the op
+    (``_scan_held_at_op``) and, in bf16, every flash call too."""
+    from repro_torch.backends import registry
+    from repro_torch.models import transformer as tfm
+    v = cfg.vocab_size
+    bf16 = cfg.dtype == "bfloat16"
+    kinds = cfg.layer_kinds()
+    n_mamba, n_attn = kinds.count("mamba"), kinds.count("attn")
+
+    def through_kernels(fn, want, scans, *args, **kw):
+        flash, held = [], []
+        before = launch_counts()
+        with _flash_held_at_op(monkeypatch, flash), \
+                _scan_held_at_op(monkeypatch, held):
+            out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert _launched(before) == {k: n for k, n in want.items() if n}
+        assert held == [True] * scans
+        assert flash == ([0] * n_attn if bf16 else [])
+        return out
+
+    prefill_kernel = ("flash_attention_mma" if bf16
+                      else "flash_attention_tf32x3")
+    logits, state = through_kernels(
+        tfm.prefill, {"mamba_scan": n_mamba, prefill_kernel: n_attn},
+        n_mamba, model, {"tokens": tokens}, cfg, cache_len=72)
+    with registry.use_backend("torch"):
+        want, plain = tfm.prefill(model, {"tokens": tokens}, cfg,
+                                  cache_len=72)
+    got, ref_ = [logits[:, :v].float()], [want[:, :v].float()]
+    for tok in forced:
+        logits, state = through_kernels(
+            tfm.decode_step, {"flash_attention_splitkv": n_attn}, 0, model,
+            state, tok, cfg)
+        with registry.use_backend("torch"):
+            want, plain = tfm.decode_step(model, plain, tok, cfg)
+        got.append(logits[:, :v].float())
+        ref_.append(want[:, :v].float())
+    return got, ref_
+
+
+@pytest.mark.parametrize("arch,overrides", [
+    ("falcon-mamba-7b", {}),
+    ("jamba-v0.1-52b", {"n_layers": 2, "attn_every": 2, "moe_every": 2})],
+    ids=["falcon_mamba", "jamba_2layer"])
+def test_ssm_and_hybrid_through_the_kernels(cuda_device, arch, overrides,
+                                            monkeypatch):
+    """Reduced falcon-mamba (2 mamba layers) and the 2-layer jamba
+    stand-in (a mamba layer, an attention layer with MoE) in bf16 and in
+    fp32 on the same weights: each scan call held at the op (rtol = atol
+    = 1e-4, y and the final state) and each bf16 flash call too; fp32
+    logits within n_layers x 1e-4 (the larger contract a call) of the
+    plain versions', bf16 logits within sqrt(2) x bf16's own noise."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import transformer as tfm
+    cfg = reduced_config(arch, dtype="bfloat16", **overrides)
+    cfg32 = reduced_config(arch, **overrides)
+    model = tfm.init_model(cfg, seed=0, device=cuda_device)
+    model32 = tfm.Transformer(cfg32, cuda_device)
+    model32.load_state_dict({k: t.float()
+                             for k, t in model.state_dict().items()})
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                           device=cuda_device)
+    forced = torch.randint(0, cfg.vocab_size, (4, 2), generator=g,
+                           device=cuda_device)
+    got16, plain16 = _family_steps(model, cfg, tokens, forced, monkeypatch)
+    got32, plain32 = _family_steps(model32, cfg32, tokens, forced,
+                                   monkeypatch)
+    for step in range(len(got16)):
+        assert_contract(got32[step], plain32[step], "rel_frobenius",
+                        1e-4 * cfg.n_layers)
         floor = 2 ** 0.5 * rel_frobenius(plain16[step], plain32[step])
         assert rel_frobenius(got16[step], plain16[step]) <= floor, step
 

@@ -47,7 +47,7 @@ def _reference_greedy(arch: str, batch: int, prompt: int, gen_len: int,
     cfg = jconfigs.reduced_config(arch)
     model = ttfm.init_model(tconfigs.reduced_config(arch), seed=seed,
                             device="cpu")
-    params = lm_params_to_reference(model, cfg.n_layers)
+    params = lm_params_to_reference(model, cfg)
     rng = np.random.default_rng(seed)
     tokens = jnp.asarray(rng.integers(0, cfg.vocab_size, (batch, prompt)),
                          jnp.int32)
@@ -67,7 +67,10 @@ def test_reference_cli_prints_these_keys():
         assert f'"{key}"' in src, key
 
 
-@pytest.mark.parametrize("arch", ["olmo-1b", "granite-34b", "qwen1.5-32b"])
+@pytest.mark.parametrize("arch", ["olmo-1b", "granite-34b", "qwen1.5-32b",
+                                  "falcon-mamba-7b", "jamba-v0.1-52b",
+                                  "arctic-480b",
+                                  "llama4-maverick-400b-a17b"])
 def test_greedy_tokens_equal_the_reference_loop(arch):
     batch, prompt, gen_len, seed = 2, 12, 6, 3
     gen, line = _serve(["--arch", arch, "--reduced", "--batch", str(batch),
@@ -103,8 +106,24 @@ def test_sample_is_argmax_at_temperature_zero():
 def test_model_parallel_and_other_families_raise():
     with pytest.raises(NotImplementedError, match="multi-device"):
         serve.main(["--reduced", "--model-parallel", "2"], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        serve.main(["--arch", "falcon-mamba-7b", "--reduced"], device="cpu")
+    for arch in ("whisper-small", "llava-next-34b"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            serve.main(["--arch", arch, "--reduced"], device="cpu")
+
+
+def test_generate_serves_a_depth_cut_config():
+    """``generate`` takes a ``ModelConfig`` (one jamba period cut to its
+    2-layer stand-in here) and gives what ``main`` prints for it."""
+    import dataclasses
+    cfg = dataclasses.replace(tconfigs.reduced_config("jamba-v0.1-52b"),
+                              n_layers=2, attn_every=2, moe_every=2)
+    gen, line = serve.generate(cfg, batch=2, prompt_len=6, gen_len=3,
+                               seed=1, device="cpu")
+    assert tuple(line) == KEYS and line["arch"] == "jamba-v0.1-52b"
+    assert gen.shape == (2, 3) and line["sample_tokens"] == gen[0].tolist()
+    again, _ = serve.generate(cfg, batch=2, prompt_len=6, gen_len=3,
+                              seed=1, device="cpu")
+    np.testing.assert_array_equal(gen, again)
 
 
 def test_cli_defaults_to_the_card():
