@@ -136,17 +136,37 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    at decode; on the same weights a prefill and 8 teacher-forced decode
    steps with every scan and bf16 flash call held at the op; one prefill
    and 8 decode steps profiled.
+10. encdec/vlm: the encoder-decoder and vlm families through the same
+   serving path, one model after the other (each freed before the next,
+   its peak device memory printed), bf16.  whisper-small whole (12
+   encoder and 12 decoder layers, d 768, 12 heads x 64, d_ff 3072,
+   vocab 51865, 1500 frames) through ``serve.generate`` at B 32 x 64
+   tokens over seeded frames, 128 generated: 12 encoder (non-causal,
+   1500 x 1500), 12 self and 12 cross (non-causal, 64 x 1500)
+   ``flash_attention_mma`` calls a prefill, 12 self and 12 cross
+   split-KV calls a decode step, nothing else; on the same weights and
+   inputs a prefill and 8 teacher-forced steps through the kernels and on
+   plain attention, in bf16 with every flash call held at the op and in
+   fp32 (prefill on ``flash_attention_tf32x3``; logits within 24 x
+   2e-5); one prefill (the encoder profiled apart) and 8 decode steps
+   profiled.  llava-next-34b cut in depth to 40 of its 60 layers (every
+   width as published: d 7168, 56 query heads over 8 KV heads of 128,
+   d_ff 20480, vocab 64000) at B 8 x (576 seeded patches + 1024 tokens),
+   32 generated: one ``flash_attention_mma`` a layer a prefill, one
+   split-KV a layer a step; on the same weights a prefill with layers 0,
+   19 and 39's flash calls held at the op and 8 teacher-forced steps with
+   every flash call held; one prefill and 8 decode steps profiled.
 
 Each path is checked against the kernels it runs: phase 3 against the
 three PCA/SVD kernels, phases 4, 6 and 7 against those and the
 shared-memory sweep, phase 5 against the seven kernels of its five ops,
 phase 8 against the two flash kernels of bf16 serving and the Gram and
-shared-memory sweep of the consumers, phase 9 against the scan and the
-two flash kernels of bf16 serving.  The last three lines are the
+shared-memory sweep of the consumers, phases 9 and 10 against the scan
+and the two flash kernels of bf16 serving.  The last three lines are the
 kernels' JSON record (each kernel's launches from the phase that drives
 it, ``launches_serve`` from phase 6, ``launches_control`` from phase 7
-and ``launches_lm`` from the serve runs and consumers of phases 8 and
-9), the card's name and power limit, and ``{"ok": true, "device":
+and ``launches_lm`` from the serve runs and consumers of phases 8 to
+10), the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
 Without a CUDA device the script exits with code 2 and prints no result.
 """
@@ -281,6 +301,29 @@ HYBRID_LAYERS = 8
 # a second prefill of the same weights whose every scan call is held
 SSM_HELD_LAYERS = (0, 31, 63)
 SSM_SHORT_PROMPT = 512
+# phase 10: the encdec and vlm families, one model after the other, bf16,
+# random weights from the seed.  whisper-small whole
+# (src/repro/configs/whisper_small.py, arXiv:2212.04356: 12 encoder and 12
+# decoder layers, d 768, 12 heads x 64 (MHA), d_ff 3072, gelu, layernorm,
+# vocab 51865, learned positions, 1500 frames): an ASR server's batch of
+# 32 30-second windows (seeded N(0, 1) frames from the stub frontend), each
+# conditioned on 64 tokens of the previous window's text, 128 generated
+# (the prompt is over 16 rows, so the decoder's prefill runs
+# flash_attention_mma)
+ENCDEC_ARCH = "whisper-small"
+ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_GEN = 32, 64, 128
+# llava-next-34b (src/repro/configs/llava_next_34b.py) cut in depth only,
+# 60 -> 40 layers, every width as published (d 7168, 56 query heads over 8
+# KV heads of 128, d_ff 20480, vocab 64000, 576 patches): 23.2e9
+# parameters, 46.5 GB in bf16, where the whole model (34.3e9, 68.7 GB)
+# leaves no room for activations on one card; a chat turn over one image,
+# 576 seeded N(0, 1) patch embeddings (the stub vision tower's) and 1024
+# tokens, B 8, 32 generated; the flash calls of these layers of a prefill
+# held at the op
+VLM_ARCH = "llava-next-34b"
+VLM_LAYERS = 40
+VLM_BATCH, VLM_PROMPT, VLM_GEN = 8, 1024, 32
+VLM_HELD_LAYERS = (0, 19, 39)
 # a scan call against the plain version on the same operands, y and the
 # final state: the ops phase's fp32 contract
 SCAN_RTOL = SCAN_ATOL = 1e-4
@@ -1642,13 +1685,16 @@ def control_phase(dev) -> dict:
     return out
 
 
-# -- phase 8: the LM serving path and the PCA consumers ------------------------
+# -- phase 8: the LM serving path and the PCA consumers -----------------------
 
-def model_profile(model, cfg, dev, prompt) -> dict:
-    """One prefill of ``prompt`` and ``LM_PROFILE_STEPS`` decode steps
-    under torch.profiler: the busy share of each, the decode's device
-    time a step, and the device time a call of the scan and flash
-    kernels inside the model.  Returns them with the prefill's argmax."""
+def model_profile(model, cfg, dev, batch, cache_len: int) -> dict:
+    """One prefill of ``batch`` (its tensors on the card; frames or
+    patches beside the tokens) with capacity ``cache_len`` and
+    ``LM_PROFILE_STEPS`` decode steps under torch.profiler: the busy share
+    of each, the decode's device time a step, and the device time a call
+    of the scan and flash kernels inside the model; for encdec also the
+    encoder alone, profiled before the prefill.  Returns them with the
+    prefill's argmax."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer as tfm
 
@@ -1667,29 +1713,38 @@ def model_profile(model, cfg, dev, prompt) -> dict:
         return [{"name": e.key[:72], "calls": e.count,
                  "s": e.device_time_total / 1e6} for e in events]
 
-    tokens = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        logits, state = tfm.prefill(model, {"tokens": tokens}, cfg,
-                                    cache_len=LM_PROMPT + LM_GEN)
+    def profiled_call(fn):
         torch.cuda.synchronize()
-        prefill_wall = time.perf_counter() - t0
-    prefill_busy = sum(e.device_time_total for e in prof.key_averages()) / 1e6
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy = sum(e.device_time_total for e in prof.key_averages()) / 1e6
+        return out, prof, wall, busy
+
+    extra = {}
+    if cfg.family == "encdec":
+        _, prof, wall, busy = profiled_call(
+            lambda: tfm._encode(model, batch, cfg))
+        enc_ms, enc_calls = kernel_ms(prof, ("flash_mma_kernel",))
+        extra = {"encoder_wall_s": wall, "encoder_busy_share": busy / wall,
+                 "encoder_top": top(prof), "encoder_mma_device_ms": enc_ms,
+                 "encoder_mma_calls": enc_calls}
+    (logits, state), prof, prefill_wall, prefill_busy = profiled_call(
+        lambda: tfm.prefill(model, batch, cfg, cache_len=cache_len))
     prefill_top = top(prof)
     scan_ms, scan_calls = kernel_ms(prof, ("scan_kernel",))
     mma_ms, mma_calls = kernel_ms(prof, ("flash_mma_kernel",))
     first = logits.argmax(-1)
     finite = bool(torch.isfinite(logits[:, :cfg.vocab_size]).all())
     tok = first.clone()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def steps():
+        st = state
         for _ in range(LM_PROFILE_STEPS):
-            _, state = tfm.decode_step(model, state, tok, cfg)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy = sum(e.device_time_total for e in prof.key_averages()) / 1e6
+            _, st = tfm.decode_step(model, st, tok, cfg)
+    _, prof, wall, busy = profiled_call(steps)
     split_ms, split_calls = kernel_ms(prof, ("decode_partial_kernel",
                                              "decode_merge_kernel"))
     return {"prefill_top": prefill_top, "decode_top": top(prof),
@@ -1701,7 +1756,24 @@ def model_profile(model, cfg, dev, prompt) -> dict:
             "scan_device_ms": scan_ms, "scan_calls": scan_calls,
             "mma_device_ms": mma_ms, "mma_calls": mma_calls,
             "splitkv_device_ms": split_ms, "splitkv_calls": split_calls,
-            "first_tokens": first.cpu().numpy(), "finite": finite}
+            "first_tokens": first.cpu().numpy(), "finite": finite, **extra}
+
+
+def attention_bound(bh: int, sq: int, keys: float, d: int, causal: bool,
+                    rows: int = None):
+    """The least time of one bf16 flash call: q and out (``rows`` x d a
+    problem, default Sq) and the K, V it attends (``keys`` a problem) moved
+    once, against 4 x d products a visible score."""
+    rows = sq if rows is None else rows
+    scores = sq * (keys - (sq - 1) / 2) if causal else sq * keys
+    return bound_ms(2 * bh * d * (2 * rows + 2 * keys),
+                    4 * bh * d * scores, PEAK_BF16)
+
+
+def mean_bound(*bounds):
+    """The mean of (ms, bound_by) bounds over calls of several kinds."""
+    return (sum(b[0] for b in bounds) / len(bounds),
+            "/".join(b[1] for b in bounds))
 
 
 def log_profile(what: str, prof: dict) -> None:
@@ -1713,18 +1785,28 @@ def log_profile(what: str, prof: dict) -> None:
              f"{prof['decode_step_wall_ms']:.3f} ms wall, "
              f"{prof['decode_step_device_ms']:.3f} ms on the device (busy "
              f"share {prof['decode_busy_share']:.3f})"]
-    for key, name in (("scan", "mamba_scan"), ("mma", "flash_attention_mma"),
+    if "encoder_wall_s" in prof:
+        decoder_s = prof["prefill_wall_s"] - prof["encoder_wall_s"]
+        parts.append(f"the encoder alone {prof['encoder_wall_s']:.4f} s "
+                     f"wall, busy share {prof['encoder_busy_share']:.3f}, "
+                     f"the decoder's prefill {decoder_s:.4f} s by "
+                     f"difference")
+    for key, name in (("scan", "mamba_scan"),
+                      ("encoder_mma", "flash_attention_mma in the encoder"),
+                      ("decoder_mma", "flash_attention_mma in the decoder"),
+                      ("mma", "flash_attention_mma"),
                       ("splitkv", "flash_attention_splitkv, two kernels")):
-        if prof[key + "_calls"]:
+        if prof.get(key + "_calls"):
             t, bound = prof[key + "_device_ms"], prof.get(key + "_bound")
-            parts.append(f"{name} {t:.5f} ms a layer call on the device "
+            parts.append(f"{name} {t:.5f} ms a call on the device "
                          f"({prof[key + '_calls']} calls"
                          + (f"; bound {bound[0]:.4f}, {bound[1]})"
                             if bound else ")"))
     log("; ".join(parts))
-    for part in ("prefill", "decode"):
-        log(f"{what} {part} by device time: "
-            f"{json.dumps(prof[part + '_top'])}")
+    for part in ("encoder", "prefill", "decode"):
+        if part + "_top" in prof:
+            log(f"{what} {part} by device time: "
+                f"{json.dumps(prof[part + '_top'])}")
 
 
 def lm_config():
@@ -1735,10 +1817,12 @@ def lm_config():
     return dataclasses.replace(get_config(LM_ARCH), tp=1)
 
 
-def lm_prompt(cfg) -> np.ndarray:
-    """The serve CLI's prompt: ``np.random.default_rng(seed)``."""
+def lm_prompt(cfg, batch: int = None, length: int = None) -> np.ndarray:
+    """The serve CLI's prompt: ``np.random.default_rng(seed)``, (batch,
+    length), by default (``LM_BATCH``, ``LM_PROMPT``)."""
     rng = np.random.default_rng(SEED)
-    return rng.integers(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT))
+    return rng.integers(0, cfg.vocab_size, (batch or LM_BATCH,
+                                            length or LM_PROMPT))
 
 
 def lm_prefill_kernel(cfg) -> str:
@@ -1768,23 +1852,28 @@ def op_calls(name: str, call):
         setattr(ops, name, op)
 
 
-def flash_held_at_op(held: list):
-    """``op_calls`` for ``flash_attention`` that holds each bf16 call at
-    the op, right after it (a decode step writes the cache in place): the
+def flash_held_at_op(held: list, keep=None):
+    """``op_calls`` for ``flash_attention`` that holds each bf16 call whose
+    index in the block is in ``keep`` (every one if None) at the op,
+    right after it (a decode step writes the cache in place): the
     kernel's output against the plain version's fp32 result on the same
-    operands, at the ops phase's bf16 contract.  Appends a record a call."""
+    operands, at the ops phase's bf16 contract.  Appends a record a call
+    held."""
     from repro_torch.backends import registry
+    count = [0]
 
     def call(op, q, k, v, **kw):
         out = op(q, k, v, **kw)
-        if out.dtype == torch.bfloat16:
+        i, count[0] = count[0], count[0] + 1
+        if out.dtype == torch.bfloat16 and (keep is None or i in keep):
             t0 = time.perf_counter()
             with registry.use_backend("torch"):
                 want32 = op(q.float(), k.float(), v.float(), **kw)
             g = out.float()
             slack = bf16_ulp(torch.maximum(g.abs(), want32.abs())) \
                 + FA_BF16_SLACK
-            held.append({"q": list(q.shape), "kv": list(k.shape),
+            held.append({"call": i, "q": list(q.shape), "kv": list(k.shape),
+                         "causal": kw.get("causal", True),
                          "q_offset": kw.get("q_offset", 0),
                          "over": int(((g - want32).abs() > slack).sum()),
                          "max_abs_err": float((g - want32).abs().max()),
@@ -1793,49 +1882,59 @@ def flash_held_at_op(held: list):
     return op_calls("flash_attention", call)
 
 
-def lm_against_plain(model, cfg, dev, prompt, forced):
-    """The prefill and ``len(forced)`` teacher-forced decode steps of
-    ``model`` once through the kernels and once with attention on the
-    flash op's ``torch`` backend, on the card, each step's launches checked
-    (one kernel a layer) and, in bf16, each layer's flash call held at the
-    op (``flash_held_at_op``).  Returns the kernels' and the plain
-    version's logits over the true vocabulary, a list each (the
-    prefill's, then a step's), and the kernels' decode state."""
+def flash_calls(cfg):
+    """The flash calls of a prefill and of a decode step: one a
+    self-attention layer and, for encdec, one an encoder layer (prefill)
+    and one a decoder layer's cross attention (both)."""
+    n_attn = cfg.layer_kinds().count("attn")
+    if cfg.family == "encdec":
+        return cfg.encoder_layers + 2 * n_attn, 2 * n_attn
+    return n_attn, n_attn
+
+
+def lm_against_plain(model, cfg, dev, batch, forced, cache_len: int):
+    """The prefill of ``batch`` (tensors on the card) and ``len(forced)``
+    teacher-forced decode steps of ``model`` once through the kernels and
+    once with attention on the flash op's ``torch`` backend, on the card,
+    each step's launches checked (``flash_calls``: one kernel a call) and,
+    in bf16, each flash call held at the op (``flash_held_at_op``).
+    Returns the kernels' and the plain version's logits over the true
+    vocabulary, a list each (the prefill's, then a step's), and the
+    kernels' decode state."""
     from repro_torch.backends import registry
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import transformer as tfm
-    tokens = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
-    cache_len = LM_PROMPT + LM_GEN
     v = cfg.vocab_size
     bf16 = cfg.dtype == "bfloat16"
+    n_prefill, n_step = flash_calls(cfg)
 
-    def launched(what, held):
+    def launched(what, calls, held):
         torch.cuda.synchronize()
         counts = {k: n for k, n in launch_counts().items() if n}
-        check(counts == {what: cfg.n_layers},
-              f"lm[{cfg.dtype}]: launches {counts}, not {cfg.n_layers} "
-              f"{what} (one a layer)")
+        check(counts == {what: calls},
+              f"{cfg.name}[{cfg.dtype}]: launches {counts}, not {calls} "
+              f"{what} (one a flash call)")
         if not bf16:
             return
         over = [h for h in held if h["over"]]
-        log(f"lm[bf16]: {what} held at the op in {len(held)} layers, "
-            f"max_abs_err {max(h['max_abs_err'] for h in held):.3e}, "
-            f"operands q {held[0]['q']} kv {held[0]['kv']} q_offset "
-            f"{held[0]['q_offset']} (the holds "
-            f"{sum(h['hold_s'] for h in held):.3f} s)")
-        check(len(held) == cfg.n_layers and not over,
-              f"lm[bf16]: {what} off the plain version beyond one bf16 "
-              f"ulp + {FA_BF16_SLACK:g} at the op: {over[:2]}")
+        operands = sorted({(tuple(h["q"]), tuple(h["kv"]), h["causal"])
+                           for h in held})
+        log(f"{cfg.name}[bf16]: {what} held at the op in {len(held)} "
+            f"calls, max_abs_err "
+            f"{max(h['max_abs_err'] for h in held):.3e}, operands "
+            f"{operands} (the holds {sum(h['hold_s'] for h in held):.3f} "
+            f"s)")
+        check(len(held) == calls and not over,
+              f"{cfg.name}[bf16]: {what} off the plain version beyond one "
+              f"bf16 ulp + {FA_BF16_SLACK:g} at the op: {over[:2]}")
 
     held = []
     reset_launch_counts()
     with flash_held_at_op(held):
-        logits, state = tfm.prefill(model, {"tokens": tokens}, cfg,
-                                    cache_len=cache_len)
-    launched(lm_prefill_kernel(cfg), held)
+        logits, state = tfm.prefill(model, batch, cfg, cache_len=cache_len)
+    launched(lm_prefill_kernel(cfg), n_prefill, held)
     with registry.use_backend("torch"):
-        want, plain = tfm.prefill(model, {"tokens": tokens}, cfg,
-                                  cache_len=cache_len)
+        want, plain = tfm.prefill(model, batch, cfg, cache_len=cache_len)
     got, ref = [logits[:, :v].float()], [want[:, :v].float()]
     for tok in forced:
         tok = torch.as_tensor(tok, dtype=torch.int64, device=dev)
@@ -1843,12 +1942,38 @@ def lm_against_plain(model, cfg, dev, prompt, forced):
         reset_launch_counts()
         with flash_held_at_op(held):
             logits, state = tfm.decode_step(model, state, tok, cfg)
-        launched("flash_attention_splitkv", held)
+        launched("flash_attention_splitkv", n_step, held)
         with registry.use_backend("torch"):
             want, plain = tfm.decode_step(model, plain, tok, cfg)
         got.append(logits[:, :v].float())
         ref.append(want[:, :v].float())
     return got, ref, state
+
+
+def logits_against_plain(what, got16, plain16, got32, plain32,
+                         n_calls: int) -> tuple:
+    """The kernels' logits against the plain versions', step by step: bf16
+    within sqrt(2) x bf16's own noise (the plain bf16 run against the
+    plain fp32 run of the same weights), fp32 within ``n_calls`` x
+    ``LM_FP32_TOL``.  Returns (bf16 errors, their bounds, fp32 errors)."""
+    err16 = [errors(g, p)[2] for g, p in zip(got16, plain16)]
+    floor16 = [2 ** 0.5 * errors(p, w)[2] for p, w in zip(plain16, plain32)]
+    err32 = [errors(g, p)[2] for g, p in zip(got32, plain32)]
+    tol32 = LM_FP32_TOL * n_calls
+
+    def fmt(errs):
+        return json.dumps([float(f"{e:.3e}") for e in errs])
+
+    log(f"{what}: logits rel-Frobenius (prefill, then {len(got16) - 1} "
+        f"teacher-forced decode steps): bf16 kernels vs plain {fmt(err16)}, "
+        f"bound (sqrt(2) x plain bf16 vs plain fp32, same weights) "
+        f"{fmt(floor16)}; "
+        f"fp32 kernels vs plain {fmt(err32)} (bound {tol32:.2e})")
+    check(all(e <= f for e, f in zip(err16, floor16)),
+          f"{what}: the bf16 kernels move the logits beyond bf16's noise")
+    check(max(err32) <= tol32, f"{what}: the fp32 kernels off the plain "
+          f"version ({max(err32):.3e} > {tol32:.2e})")
+    return err16, floor16, err32
 
 
 def sweeps_apart_from_plain(calls) -> int:
@@ -2042,14 +2167,18 @@ def lm_phase(dev) -> dict:
           f"lm serve: generated {gen.shape} {gen.dtype} out of range")
 
     prompt = lm_prompt(cfg)
+    batch = {"tokens": torch.as_tensor(prompt, dtype=torch.int64,
+                                       device=dev)}
+    cache_len = LM_PROMPT + LM_GEN
     forced = gen[:, :LM_FORCED].T  # the served tokens, fed back
     model = tfm.init_model(cfg, seed=SEED, device=dev)  # serve's weights
-    got16, plain16, state = lm_against_plain(model, cfg, dev, prompt, forced)
+    got16, plain16, state = lm_against_plain(model, cfg, dev, batch, forced,
+                                             cache_len)
     check(np.array_equal(got16[0].argmax(-1).cpu().numpy(), gen[:, 0]),
           "lm: the kernels' prefill does not give the served first token")
     consumers = lm_consumers(state.caches[0], dev)
     del state
-    profile = model_profile(model, cfg, dev, prompt)
+    profile = model_profile(model, cfg, dev, batch, cache_len)
     check(profile["finite"]
           and np.array_equal(profile["first_tokens"], gen[:, 0]),
           "lm: the profiled prefill does not give the served first token")
@@ -2058,39 +2187,20 @@ def lm_phase(dev) -> dict:
     # profiled steps), the prefill does the causal products
     bh, d = LM_BATCH * cfg.n_heads, cfg.head_dim
     keys = LM_PROMPT + (LM_PROFILE_STEPS + 1) / 2
-    profile["splitkv_bound"] = bound_ms(2 * bh * d * (2 + 2 * keys),
-                                        4 * bh * d * keys, PEAK_BF16)
-    profile["mma_bound"] = bound_ms(
-        2 * bh * d * 4 * LM_PROMPT,
-        4 * bh * d * LM_PROMPT * (LM_PROMPT + 1) / 2, PEAK_BF16)
+    profile["splitkv_bound"] = attention_bound(bh, 1, keys, d, True)
+    profile["mma_bound"] = attention_bound(bh, LM_PROMPT, LM_PROMPT, d,
+                                           True)
     log_profile("lm", profile)
     cfg32 = dataclasses.replace(cfg, dtype="float32")
     model32 = lm_fp32_copy(model, cfg32, dev)
     del model
     torch.cuda.empty_cache()
-    got32, plain32, _ = lm_against_plain(model32, cfg32, dev, prompt, forced)
+    got32, plain32, _ = lm_against_plain(model32, cfg32, dev, batch, forced,
+                                         cache_len)
     del model32
     torch.cuda.empty_cache()
-    # bf16: step by step within sqrt(2) x bf16's own noise (the plain bf16
-    # run against the plain fp32 run of the same weights); fp32: n_layers x
-    # the flash kernels' 2e-5
-    err16 = [errors(g, p)[2] for g, p in zip(got16, plain16)]
-    floor16 = [2 ** 0.5 * errors(p, w)[2] for p, w in zip(plain16, plain32)]
-    err32 = [errors(g, p)[2] for g, p in zip(got32, plain32)]
-    tol32 = LM_FP32_TOL * cfg.n_layers
-
-    def fmt(errs):
-        return json.dumps([float(f"{e:.3e}") for e in errs])
-
-    log(f"lm: logits rel-Frobenius (prefill, then {len(forced)} "
-        f"teacher-forced decode steps): bf16 kernels vs plain {fmt(err16)}, "
-        f"bound (sqrt(2) x plain bf16 vs plain fp32, same weights) "
-        f"{fmt(floor16)}; "
-        f"fp32 kernels vs plain {fmt(err32)} (bound {tol32:.2e})")
-    check(all(e <= f for e, f in zip(err16, floor16)),
-          "lm: the bf16 kernels move the logits beyond bf16's noise")
-    check(max(err32) <= tol32, f"lm: the fp32 kernels off the plain "
-          f"version ({max(err32):.3e} > {tol32:.2e})")
+    err16, floor16, err32 = logits_against_plain(
+        "lm", got16, plain16, got32, plain32, cfg.n_layers)
     wall = time.perf_counter() - t_phase
     log(f"lm: phase {wall:.1f} s")
     launches = {k: serve_counts[k] + consumers["launches"][k]
@@ -2222,11 +2332,14 @@ def scan_bound(cfg, batch: int, length: int):
                (t_ops, "operations"))
 
 
-def served(what: str, gen, cfg, counts: dict, want: dict) -> None:
+def served(what: str, gen, cfg, counts: dict, want: dict,
+           shape=None) -> None:
+    """The serve run's launches are ``want``; its tokens of ``shape``
+    (default (``LM_BATCH``, ``LM_GEN``)) in the vocabulary."""
     got = {k: n for k, n in counts.items() if n}
     want = {k: n for k, n in want.items() if n}
     check(got == want, f"{what} serve launched {got}, not {want}")
-    check(gen.shape == (LM_BATCH, LM_GEN) and gen.dtype == np.int32
+    check(gen.shape == (shape or (LM_BATCH, LM_GEN)) and gen.dtype == np.int32
           and 0 <= gen.min() and gen.max() < cfg.vocab_size,
           f"{what} serve: generated {gen.shape} {gen.dtype} out of range")
 
@@ -2278,7 +2391,8 @@ def ssm_serve(dev) -> dict:
     check_scans(held_short, f"ssm {SSM_SHORT_PROMPT}-token prefill, every "
                 f"layer", cfg.n_layers)
     del logits
-    prof = model_profile(model, cfg, dev, prompt)
+    prof = model_profile(model, cfg, dev, {"tokens": torch.as_tensor(
+        prompt, dtype=torch.int64, device=dev)}, LM_PROMPT + LM_GEN)
     del model
     torch.cuda.empty_cache()
     prof["scan_bound"] = scan_bound(cfg, LM_BATCH, LM_PROMPT)
@@ -2372,7 +2486,8 @@ def hybrid_serve(dev) -> dict:
           f"hybrid: flash off the plain version beyond one bf16 ulp + "
           f"{FA_BF16_SLACK:g} at the op: {over[:2]}")
     del state, logits
-    prof = model_profile(model, cfg, dev, prompt)
+    prof = model_profile(model, cfg, dev, {"tokens": tokens},
+                         LM_PROMPT + LM_GEN)
     del model
     torch.cuda.empty_cache()
     prof["scan_bound"] = scan_bound(cfg, LM_BATCH, LM_PROMPT)
@@ -2396,6 +2511,212 @@ def families_phase(dev) -> dict:
     launches = {k: ssm["launches"][k] + hybrid["launches"][k]
                 for k in ssm["launches"]}
     return {"ssm": ssm, "hybrid": hybrid, "launches": launches,
+            "wall_s": wall}
+
+
+# -- phase 10: the encdec and vlm families ------------------------------------
+
+def encdec_config():
+    """whisper-small whole, ``tp`` 1 (as the serve CLI sets it)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(ENCDEC_ARCH), tp=1)
+
+
+def vlm_config():
+    """llava-next-34b cut to ``VLM_LAYERS`` of its 60 layers, ``tp`` 1."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS,
+                               tp=1)
+
+
+def stub_inputs(cfg, batch: int, dev) -> dict:
+    """The stub frontend's seeded N(0, 1) output in the model's dtype:
+    ``frames`` (batch, n_frames, d) for encdec, ``patches`` (batch,
+    n_patches, d) for vlm."""
+    key, n = (("frames", cfg.n_frames) if cfg.family == "encdec"
+              else ("patches", cfg.n_patches))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    return {key: torch.randn(batch, n, cfg.d_model, generator=gen,
+                             device=dev).to(cfg.torch_dtype())}
+
+
+def serve_family(what: str, cfg, dev, batch: int, prompt_len: int,
+                 gen_len: int, stub: dict):
+    """``serve.generate`` on the stub inputs, its launches checked
+    (``flash_calls``: the prefill's on ``flash_attention_mma``, a decode
+    step's on split-KV).  Returns (tokens, JSON line, launches, peak GB)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    gen, line = serve.generate(cfg, batch=batch, prompt_len=prompt_len,
+                               gen_len=gen_len, seed=SEED, device=dev,
+                               **stub)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{what} serve ({cfg.n_layers} layers): {json.dumps(line)}; peak "
+        f"device memory {peak_gb:.2f} GB")
+    n_prefill, n_step = flash_calls(cfg)
+    served(what, gen, cfg, counts,
+           {"flash_attention_mma": n_prefill,
+            "flash_attention_splitkv": n_step * gen_len},
+           shape=(batch, gen_len))
+    return gen, line, counts, peak_gb
+
+
+def encdec_serve(dev) -> dict:
+    """whisper-small through ``serve.generate`` on seeded frames (36
+    ``flash_attention_mma`` a prefill, 24 split-KV a step); on the same
+    weights and inputs the prefill and ``LM_FORCED`` teacher-forced steps
+    through the kernels and on plain attention, in bf16 (every flash call
+    held at the op) and in fp32 (logits within 24 x ``LM_FP32_TOL``); a
+    profiled prefill (the encoder apart) and decode."""
+    import dataclasses
+    from repro_torch.models import transformer as tfm
+    cfg = encdec_config()
+    stub = stub_inputs(cfg, ENCDEC_BATCH, dev)
+    gen, line, counts, peak_gb = serve_family(
+        "encdec", cfg, dev, ENCDEC_BATCH, ENCDEC_PROMPT, ENCDEC_GEN, stub)
+
+    model = tfm.init_model(cfg, seed=SEED, device=dev)  # serve's weights
+    batch = {"tokens": torch.as_tensor(
+        lm_prompt(cfg, ENCDEC_BATCH, ENCDEC_PROMPT), dtype=torch.int64,
+        device=dev), **stub}
+    cache_len = ENCDEC_PROMPT + ENCDEC_GEN
+    forced = gen[:, :LM_FORCED].T  # the served tokens, fed back
+    got16, plain16, state = lm_against_plain(model, cfg, dev, batch, forced,
+                                             cache_len)
+    check(np.array_equal(got16[0].argmax(-1).cpu().numpy(), gen[:, 0]),
+          "encdec: the kernels' prefill does not give the served first "
+          "token")
+    del state
+    prof = model_profile(model, cfg, dev, batch, cache_len)
+    check(prof["finite"] and np.array_equal(prof["first_tokens"], gen[:, 0]),
+          "encdec: the profiled prefill does not give the served first "
+          "token")
+    # the decoder's mma calls (self and cross) by difference from the
+    # encoder's, profiled alone
+    enc_calls = prof["encoder_mma_calls"]
+    dec_calls = prof["mma_calls"] - enc_calls
+    prof["decoder_mma_calls"] = dec_calls
+    prof["decoder_mma_device_ms"] = (
+        (prof["mma_device_ms"] * prof["mma_calls"]
+         - prof["encoder_mma_device_ms"] * enc_calls) / dec_calls
+        if dec_calls > 0 else None)
+    bh, d, f, p = ENCDEC_BATCH * cfg.n_heads, cfg.head_dim, cfg.n_frames, \
+        ENCDEC_PROMPT
+    keys = p + (LM_PROFILE_STEPS + 1) / 2
+    prof["encoder_mma_bound"] = attention_bound(bh, f, f, d, False)
+    prof["decoder_mma_bound"] = mean_bound(
+        attention_bound(bh, p, p, d, True), attention_bound(bh, p, f, d,
+                                                            False))
+    prof["mma_bound"] = None  # the two callers' bounds stand apart
+    prof["splitkv_bound"] = mean_bound(
+        attention_bound(bh, 1, keys, d, True), attention_bound(bh, 1, f, d,
+                                                               False))
+    log_profile("encdec", prof)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model32 = lm_fp32_copy(model, cfg32, dev)
+    del model
+    torch.cuda.empty_cache()
+    got32, plain32, _ = lm_against_plain(model32, cfg32, dev, batch, forced,
+                                         cache_len)
+    del model32
+    torch.cuda.empty_cache()
+    err16, floor16, err32 = logits_against_plain(
+        "encdec", got16, plain16, got32, plain32,
+        cfg.n_layers + cfg.encoder_layers)
+    return {"serve": line, "launches": counts, "peak_gb": peak_gb,
+            "bf16_err": err16, "bf16_bound": floor16, "fp32_err": err32,
+            "profile": prof}
+
+
+def vlm_serve(dev) -> dict:
+    """llava-next-34b cut to ``VLM_LAYERS`` layers through
+    ``serve.generate`` on seeded patches (one ``flash_attention_mma`` a
+    layer a prefill, one split-KV a layer a step); on the same weights a
+    prefill with the flash calls of ``VLM_HELD_LAYERS`` held at the op and
+    ``LM_FORCED`` teacher-forced steps with every flash call held; a
+    profiled prefill and decode."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as tfm
+    cfg = vlm_config()
+    n = cfg.n_layers
+    stub = stub_inputs(cfg, VLM_BATCH, dev)
+    gen, line, counts, peak_gb = serve_family(
+        "vlm", cfg, dev, VLM_BATCH, VLM_PROMPT, VLM_GEN, stub)
+
+    model = tfm.init_model(cfg, seed=SEED, device=dev)  # serve's weights
+    batch = {"tokens": torch.as_tensor(
+        lm_prompt(cfg, VLM_BATCH, VLM_PROMPT), dtype=torch.int64,
+        device=dev), **stub}
+    cache_len = VLM_PROMPT + VLM_GEN + cfg.n_patches
+    flash = []
+    reset_launch_counts()
+    with flash_held_at_op(flash, keep=set(VLM_HELD_LAYERS)):
+        logits, state = tfm.prefill(model, batch, cfg, cache_len=cache_len)
+    torch.cuda.synchronize()
+    moved = {k: c for k, c in launch_counts().items() if c}
+    check(moved == {"flash_attention_mma": n}, f"vlm prefill launched "
+          f"{moved}")
+    check(np.array_equal(logits.argmax(-1).cpu().numpy(), gen[:, 0]),
+          "vlm: the prefill does not give the served first token")
+    for tok in gen[:, :LM_FORCED].T:  # the served tokens, fed back
+        reset_launch_counts()
+        with flash_held_at_op(flash):
+            logits, state = tfm.decode_step(
+                model, state, torch.as_tensor(tok, dtype=torch.int64,
+                                              device=dev), cfg)
+        torch.cuda.synchronize()
+        moved = {k: c for k, c in launch_counts().items() if c}
+        check(moved == {"flash_attention_splitkv": n},
+              f"vlm decode step launched {moved}")
+    over = [h for h in flash if h["over"]]
+    log(f"vlm: bf16 flash held at the op in {len(flash)} calls (prefill "
+        f"layers {list(VLM_HELD_LAYERS)}, q {flash[0]['q']} kv "
+        f"{flash[0]['kv']}; then every layer of {LM_FORCED} decode steps, "
+        f"q {flash[-1]['q']} kv {flash[-1]['kv']}), max_abs_err "
+        f"{max(h['max_abs_err'] for h in flash):.3e} (the holds "
+        f"{sum(h['hold_s'] for h in flash):.3f} s)")
+    check([h["call"] for h in flash[:len(VLM_HELD_LAYERS)]]
+          == list(VLM_HELD_LAYERS)
+          and len(flash) == len(VLM_HELD_LAYERS) + n * LM_FORCED
+          and not over, f"vlm: flash off the plain version beyond one bf16 "
+          f"ulp + {FA_BF16_SLACK:g} at the op: {over[:2]}")
+    del state, logits
+    prof = model_profile(model, cfg, dev, batch, cache_len)
+    del model
+    torch.cuda.empty_cache()
+    check(prof["finite"] and np.array_equal(prof["first_tokens"], gen[:, 0]),
+          "vlm: the profiled prefill does not give the served first token")
+    # the prefill expands the 8 KV heads to the 56 query heads; a decode
+    # step folds each KV head's 7 query heads over its own keys
+    s = VLM_PROMPT + cfg.n_patches
+    bh, d = VLM_BATCH * cfg.n_heads, cfg.head_dim
+    prof["mma_bound"] = attention_bound(bh, s, s, d, True)
+    keys = s + (LM_PROFILE_STEPS + 1) / 2
+    prof["splitkv_bound"] = attention_bound(
+        VLM_BATCH * cfg.n_kv_heads, cfg.group_size, keys, d, False)
+    log_profile("vlm", prof)
+    return {"serve": line, "launches": counts, "peak_gb": peak_gb,
+            "flash_held": len(flash), "profile": prof}
+
+
+def encdec_vlm_phase(dev) -> dict:
+    """Phase 10: whisper-small whole and llava-next-34b cut in depth
+    through the port's serving path (the module docstring's item 10)."""
+    t_phase = time.perf_counter()
+    encdec = encdec_serve(dev)
+    vlm = vlm_serve(dev)
+    wall = time.perf_counter() - t_phase
+    log(f"encdec/vlm: phase {wall:.1f} s")
+    launches = {k: encdec["launches"][k] + vlm["launches"][k]
+                for k in encdec["launches"]}
+    return {"encdec": encdec, "vlm": vlm, "launches": launches,
             "wall_s": wall}
 
 
@@ -2469,6 +2790,7 @@ def main() -> int:
     control = control_phase(dev)
     lm = lm_phase(dev)
     families = families_phase(dev)
+    phase10 = encdec_vlm_phase(dev)
     prof = lm["profile"]
     rows["flash_attention_mma"].update(
         lm_device_ms=prof["mma_device_ms"], lm_bound_ms=prof["mma_bound"][0],
@@ -2478,6 +2800,20 @@ def main() -> int:
         lm_device_ms=prof["splitkv_device_ms"],
         lm_bound_ms=prof["splitkv_bound"][0],
         lm_decode_busy_share=prof["decode_busy_share"])
+    ed, vl = phase10["encdec"]["profile"], phase10["vlm"]["profile"]
+    rows["flash_attention_mma"].update(
+        encdec_encoder_device_ms=ed["encoder_mma_device_ms"],
+        encdec_encoder_bound_ms=ed["encoder_mma_bound"][0],
+        encdec_decoder_device_ms=ed["decoder_mma_device_ms"],
+        encdec_decoder_bound_ms=ed["decoder_mma_bound"][0],
+        vlm_device_ms=vl["mma_device_ms"], vlm_bound_ms=vl["mma_bound"][0])
+    rows["flash_attention_splitkv"].update(
+        encdec_device_ms=ed["splitkv_device_ms"],
+        encdec_bound_ms=ed["splitkv_bound"][0],
+        encdec_decode_busy_share=ed["decode_busy_share"],
+        vlm_device_ms=vl["splitkv_device_ms"],
+        vlm_bound_ms=vl["splitkv_bound"][0],
+        vlm_decode_busy_share=vl["decode_busy_share"])
     ssm_prof = families["ssm"]["profile"]
     rows["mamba_scan"].update(
         lm_device_ms=ssm_prof["scan_device_ms"],
@@ -2503,7 +2839,8 @@ def main() -> int:
         row["launches_serve"] = serve["launches"][k.name]
         row["launches_control"] = control["launches"][k.name]
         row["launches_lm"] = (lm["launches"][k.name]
-                              + families["launches"][k.name])
+                              + families["launches"][k.name]
+                              + phase10["launches"][k.name])
         record.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))

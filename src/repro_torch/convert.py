@@ -12,10 +12,11 @@ The LM stack has no weights either: both packages draw random ones, so
 parity carries the reference's across.  ``lm_params_to_port`` takes the
 reference's ``tfm.param_values(tfm.init_model(...))`` tree as numpy
 arrays and returns the port's ``Transformer`` holding the same numbers
-(attention, mamba, MLP and MoE leaves alike, by name);
-``decode_state_to_reference`` maps a decode state's caches to the
-reference's group-stacked ones: head-major KV caches to (B, S, KV, hd),
-Mamba caches as they are.
+(attention, cross attention, mamba, MLP and MoE leaves, the encoder's and
+the learned position table alike, by name); ``decode_state_to_reference``
+maps a decode state's caches to the reference's group-stacked ones:
+head-major KV caches (the cross K/V too) to (B, S, KV, hd), Mamba caches
+as they are.
 """
 from __future__ import annotations
 
@@ -63,27 +64,39 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=device)
 
 
-def _layer_index(cfg, group: int, j: int) -> int:
-    from .models.transformer import period
-    return group * period(cfg) + j
+def _stacked_layers(blocks, n_layers: int, per: int, prefix: str) -> dict:
+    """A group-stacked ``blocks`` tree as ``{prefix}.{i}.{part}.{name}``
+    keys, layer i = group x ``per`` + j for ``blocks/l{j}``."""
+    out = {}
+    for j in range(per):
+        for part, leaves in blocks[f"l{j}"].items():
+            for name, stacked in leaves.items():
+                for g in range(n_layers // per):
+                    out[f"{prefix}.{g * per + j}.{part}.{name}"] = \
+                        np.asarray(stacked)[g]
+    return out
 
 
 def lm_state_dict(params, cfg) -> Dict[str, np.ndarray]:
     """The reference's parameter tree (nested dicts of numpy arrays, the
     blocks stacked over groups under ``blocks/l{j}``) as the port's
-    ``state_dict`` keys: ``embed.*``, ``layers.{i}.{norm1,mixer,norm2,
-    ffn,mlp_res,mlp_shared}.*`` and ``norm_f.*``, layer i = group x
-    period + j (``transformer.period``: lcm(attn_every, moe_every))."""
+    ``state_dict`` keys: ``embed.*`` (``pos`` too), ``layers.{i}.{norm1,
+    mixer,norm_x,cross,norm2,ffn,mlp_res,mlp_shared}.*`` and ``norm_f.*``,
+    layer i = group x period + j (``transformer.period``: lcm(attn_every,
+    moe_every)); for encdec also ``encoder.layers.{i}.*`` (the
+    reference's ``encoder/blocks/l0``, stacked over ``encoder_layers``)
+    and ``encoder.norm_f.*``."""
     from .models.transformer import period
     out = {f"embed.{k}": v for k, v in params["embed"].items()}
     out.update({f"norm_f.{k}": v for k, v in params["norm_f"].items()})
-    per = period(cfg)
-    for j in range(per):
-        for part, leaves in params["blocks"][f"l{j}"].items():
-            for name, stacked in leaves.items():
-                for g in range(cfg.n_layers // per):
-                    i = _layer_index(cfg, g, j)
-                    out[f"layers.{i}.{part}.{name}"] = np.asarray(stacked)[g]
+    out.update(_stacked_layers(params["blocks"], cfg.n_layers, period(cfg),
+                               "layers"))
+    if "encoder" in params:
+        enc = params["encoder"]
+        out.update(_stacked_layers(enc["blocks"], cfg.encoder_layers, 1,
+                                   "encoder.layers"))
+        out.update({f"encoder.norm_f.{k}": v
+                    for k, v in enc["norm_f"].items()})
     return out
 
 
@@ -103,22 +116,29 @@ def lm_params_to_port(params, cfg, device: DeviceLike = None):
 
 def decode_state_to_reference(state, cfg) -> dict:
     """A port ``DecodeState`` as the reference's fields in numpy (fp32):
-    {"caches": {"l{j}": pair}, "pos": int}, the pair (k, v) with k, v
-    (n_groups, B, S, KV, hd) for an attention layer, (conv, state) with
-    conv (n_groups, B, d_conv - 1, d_inner) and state (n_groups, B,
-    d_inner, N) for a mamba layer."""
+    {"caches": {"l{j}": pair}, "enc_kvs": {"l{j}": (k, v)} or None, "pos":
+    int}, the pair (k, v) with k, v (n_groups, B, S, KV, hd) for an
+    attention layer, (conv, state) with conv (n_groups, B, d_conv - 1,
+    d_inner) and state (n_groups, B, d_inner, N) for a mamba layer; the
+    cross K/V (n_groups, B, F, KV, hd)."""
     from .models.mamba import MambaCache
     from .models.transformer import period
     per = period(cfg)
-    caches = {}
-    for j in range(per):
-        firsts, seconds = [], []
-        for g in range(cfg.n_layers // per):
-            c = state.caches[_layer_index(cfg, g, j)]
-            pair = ((c.conv, c.state) if isinstance(c, MambaCache)
-                    else (c.k.transpose(1, 2), c.v.transpose(1, 2)))
-            firsts.append(pair[0].float().cpu().numpy())
-            seconds.append(pair[1].float().cpu().numpy())
-        caches[f"l{j}"] = (np.stack(firsts), np.stack(seconds))
-    return {"caches": caches, "pos": int(state.pos)}
 
+    def stacked(layer_caches):
+        out = {}
+        for j in range(per):
+            firsts, seconds = [], []
+            for g in range(cfg.n_layers // per):
+                c = layer_caches[g * per + j]
+                pair = ((c.conv, c.state) if isinstance(c, MambaCache)
+                        else (c.k.transpose(1, 2), c.v.transpose(1, 2)))
+                firsts.append(pair[0].float().cpu().numpy())
+                seconds.append(pair[1].float().cpu().numpy())
+            out[f"l{j}"] = (np.stack(firsts), np.stack(seconds))
+        return out
+
+    return {"caches": stacked(state.caches),
+            "enc_kvs": (None if state.enc_kvs is None
+                        else stacked(state.enc_kvs)),
+            "pos": int(state.pos)}

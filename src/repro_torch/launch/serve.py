@@ -15,14 +15,17 @@ The prompt is drawn from ``np.random.default_rng(seed)`` as in the
 reference, so both CLIs see the same prompt; the weights are drawn from a
 ``torch.Generator`` seeded with ``seed`` (the reference's come from
 ``jax.random``, so the two models differ).  Sampling is greedy at
-temperature 0; above it, a ``torch.Generator`` draws the tokens.  The
-dense, moe, ssm and hybrid families are served (``--arch
-falcon-mamba-7b``, ``arctic-480b``, ``llama4-maverick-400b-a17b``,
-``jamba-v0.1-52b``, each with ``--reduced`` on the CPU); encdec and vlm
-raise, and so does ``--model-parallel`` > 1 until the multi-device
-slice.  ``generate`` is the CLI's body after the config: it serves any
-``ModelConfig`` (a depth-cut one too) and returns the tokens and the
-JSON line.
+temperature 0; above it, a ``torch.Generator`` draws the tokens.  Every
+family is served (``--arch falcon-mamba-7b``, ``arctic-480b``,
+``llama4-maverick-400b-a17b``, ``jamba-v0.1-52b``, ``whisper-small``,
+``llava-next-34b``, each with ``--reduced`` on the CPU): as in the
+reference CLI, whisper's stub audio frontend gives zero frames (B,
+n_frames, d) and llava's stub vision tower zero patches (B, n_patches,
+d), in the model's dtype, and llava's cache holds the patches too.
+``--model-parallel`` > 1 raises until the multi-device slice.
+``generate`` is the CLI's body after the config: it serves any
+``ModelConfig`` (a depth-cut one too), takes given frames or patches in
+place of the zeros, and returns the tokens and the JSON line.
 """
 from __future__ import annotations
 
@@ -57,11 +60,16 @@ def _sync(dev: torch.device) -> None:
 
 def generate(cfg, *, batch: int, prompt_len: int, gen_len: int,
              temperature: float = 0.0, seed: int = 0,
-             device: DeviceLike = None) -> Tuple[np.ndarray, dict]:
+             device: DeviceLike = None,
+             frames: Optional[torch.Tensor] = None,
+             patches: Optional[torch.Tensor] = None
+             ) -> Tuple[np.ndarray, dict]:
     """Serve ``cfg`` once: a seeded model and prompt, the prefill, then
     ``gen_len`` decode steps (the first one the reference's warm-up,
-    outside the timed loop).  Returns the int32 (batch, gen_len) tokens
-    and the reference CLI's JSON line as a dict."""
+    outside the timed loop).  An encdec config takes ``frames`` (batch,
+    n_frames, d) and a vlm config ``patches`` (batch, n_patches, d), zeros
+    unless given.  Returns the int32 (batch, gen_len) tokens and the
+    reference CLI's JSON line as a dict."""
     tfm.check_supported(cfg)
     dev = resolve_device(device)
 
@@ -70,13 +78,23 @@ def generate(cfg, *, batch: int, prompt_len: int, gen_len: int,
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
                                           (batch, prompt_len)),
                              dtype=torch.int64, device=dev)
-    cache_len = prompt_len + gen_len
+    inputs = {"tokens": tokens}
+    dt = cfg.torch_dtype()
+    if cfg.family == "vlm":
+        inputs["patches"] = (torch.zeros(batch, cfg.n_patches, cfg.d_model,
+                                         dtype=dt, device=dev)
+                             if patches is None else patches.to(dev, dt))
+    if cfg.family == "encdec":
+        inputs["frames"] = (torch.zeros(batch, cfg.n_frames, cfg.d_model,
+                                        dtype=dt, device=dev)
+                            if frames is None else frames.to(dev, dt))
+    cache_len = prompt_len + gen_len + (
+        cfg.n_patches if cfg.family == "vlm" else 0)
     gen = torch.Generator(device=dev).manual_seed(seed)
 
     _sync(dev)
     t0 = time.perf_counter()
-    logits, state = tfm.prefill(model, {"tokens": tokens}, cfg,
-                                cache_len=cache_len)
+    logits, state = tfm.prefill(model, inputs, cfg, cache_len=cache_len)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
 

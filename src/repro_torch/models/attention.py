@@ -39,8 +39,25 @@ the two layouts for the tests.  The ring-buffer wrap (``pos >= S``) keeps
 the reference's result: all S cached slots and the new token (S + 1 keys)
 are attended before slot ``pos % S`` is overwritten.
 
-Ring attention raises until the multi-device slice, and cross attention
-until the encoder-decoder slice.
+Non-causal attention (whisper's encoder, ``causal=False``) hands the op
+exactly the S keys of the sequence: no mask would hide a zero tail, so an
+MHA cache of larger capacity is sliced (and copied) to S first.
+
+Cross attention (the encoder-decoder's decoder) attends the encoder's K
+and V, projected once a layer by ``cross_kv`` into a head-major
+``KVCache`` of capacity ``n_frames`` that no step writes:
+
+* prefill (``cross_attention``): the decoder's queries over all F keys,
+  non-causal, in one op call: a KV head's G query heads as G x Sq rows
+  over the (B * KV, F, hd) view (no copy), or, with padded heads, (B *
+  Hp, Sq, hd) over the expanded KV heads;
+* decode (``decode_attention(..., cross=True)``): one query row a head,
+  G rows a KV head over the (B * KV, F, hd) view itself (every key is
+  visible, so no copy and no mask).
+
+As in the reference, the prefill form adds no bias to q, k or v, the
+decode form adds ``bq`` to q, and neither rotates.  Ring attention raises
+until the multi-device slice.
 """
 from __future__ import annotations
 
@@ -107,10 +124,8 @@ class Attention(nn.Module):
 def init_attention(cfg: ModelConfig, device=None,
                    generator: Optional[torch.Generator] = None,
                    cross: bool = False) -> Attention:
-    if cross:
-        raise NotImplementedError(
-            "cross attention is not ported: it comes with the "
-            "encoder-decoder slice (ROADMAP queue 1, item 2)")
+    """Self attention or, with ``cross``, a decoder's cross attention: the
+    same leaves and draws (the reference's ``init_attention``)."""
     attn = Attention(cfg, device)
     with torch.no_grad():
         attn.reset_parameters(generator)
@@ -138,36 +153,56 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def _qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig,
          positions: torch.Tensor):
-    """q (B, S, Hp, hd), k, v (B, S, KV, hd), biased and rotated."""
+    """q (B, S, Hp, hd), k, v (B, S, KV, hd), biased and, with rope,
+    rotated."""
     q, k, v = _project(x, p.wq), _project(x, p.wk), _project(x, p.wv)
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.pos_embed == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
-def _expand_kv(kv: torch.Tensor, cfg: ModelConfig, s: int) -> torch.Tensor:
+def _expand_kv(kv: torch.Tensor, cfg: ModelConfig, s: int,
+               causal: bool = True) -> torch.Tensor:
     """(B, KV, cap, hd) cache -> (B * Hp, S, hd): the true KV heads
     replicated into the padded query-head layout (a copy), or, where that
-    layout is the cache's own (MHA, no padded heads), the cache itself at
-    its full capacity (no copy; the causal mask hides the tail)."""
+    layout is the cache's own (MHA, no padded heads), the cache itself:
+    at its full capacity when causal (no copy; the mask hides the tail),
+    else its first S slots (a copy unless cap == S)."""
     b, kvh, cap, hd = kv.shape
     if cfg.padded_heads == kvh:
-        return kv.view(b * kvh, cap, hd)
+        if causal or cap == s:
+            return kv.view(b * kvh, cap, hd)
+        return kv[:, :, :s].contiguous().view(b * kvh, s, hd)
     idx = torch.as_tensor(_kv_map(cfg), device=kv.device)
     return kv[:, idx, :s].contiguous().view(b * cfg.padded_heads, s, hd)
 
 
+def _out_proj(p: Attention, out: torch.Tensor, cfg: ModelConfig):
+    """(B * Hp, S, hd) attention output -> (B, S, d): the padded heads
+    masked, then ``wo``."""
+    hp, hd = cfg.padded_heads, cfg.head_dim
+    out = out.view(-1, hp, out.shape[1], hd)
+    if hp > cfg.n_heads:
+        out = out * _head_mask(cfg, out.dtype, out.device)
+    b, _, s, _ = out.shape
+    return out.transpose(1, 2).reshape(b, s, hp * hd) @ p.wo.reshape(
+        hp * hd, -1)
+
+
 def self_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
-                   positions: torch.Tensor, *, return_cache: bool = False,
+                   positions: torch.Tensor, *, causal: bool = True,
+                   return_cache: bool = False,
                    cache_len: Optional[int] = None):
-    """Train / prefill causal self-attention over the full sequence x (B,
-    S, d).  Returns (y, cache): with ``return_cache`` a head-major
-    ``KVCache`` of capacity ``cache_len`` (default S; slots past S are
-    zero), else None.  The reference's ``chunk`` argument picks between its
-    dense and chunked versions of one function; the flash op computes that
-    function at every length, so the port has no such argument."""
+    """Train / prefill self-attention over the full sequence x (B, S, d),
+    causal or (an encoder's) not.  Returns (y, cache): with
+    ``return_cache`` a head-major ``KVCache`` of capacity ``cache_len``
+    (default S; slots past S are zero), else None.  The reference's
+    ``chunk`` argument picks between its dense and chunked versions of one
+    function; the flash op computes that function at every length, so the
+    port has no such argument."""
     _unsupported(cfg)
     b, s, _ = x.shape
     hp, hd = cfg.padded_heads, cfg.head_dim
@@ -176,30 +211,72 @@ def self_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     cache.k[:, :, :s] = k.transpose(1, 2)
     cache.v[:, :, :s] = v.transpose(1, 2)
     qh = q.transpose(1, 2).reshape(b * hp, s, hd)
-    kx, vx = _expand_kv(cache.k, cfg, s), _expand_kv(cache.v, cfg, s)
-    out = ops.flash_attention(qh, kx, vx, causal=True,
-                              scale=hd ** -0.5).view(b, hp, s, hd)
-    if hp > cfg.n_heads:
-        out = out * _head_mask(cfg, out.dtype, out.device)
-    y = out.transpose(1, 2).reshape(b, s, hp * hd) @ p.wo.reshape(hp * hd,
-                                                                   -1)
-    return y, (cache if return_cache else None)
+    kx = _expand_kv(cache.k, cfg, s, causal)
+    vx = _expand_kv(cache.v, cfg, s, causal)
+    out = ops.flash_attention(qh, kx, vx, causal=causal, scale=hd ** -0.5)
+    return _out_proj(p, out, cfg), (cache if return_cache else None)
 
 
-def cross_attention(p, x, enc_kv, cfg: ModelConfig):
-    raise NotImplementedError(
-        "cross attention is not ported: it comes with the encoder-decoder "
-        "slice (ROADMAP queue 1, item 2)")
+def cross_kv(p: Attention, enc_out: torch.Tensor) -> KVCache:
+    """The encoder output (B, F, d) projected by a decoder layer's cross
+    ``wk`` and ``wv`` (no bias, as the reference) into a head-major
+    ``KVCache`` (B, KV, F, hd)."""
+    return KVCache(_project(enc_out, p.wk).transpose(1, 2).contiguous(),
+                   _project(enc_out, p.wv).transpose(1, 2).contiguous())
+
+
+def cross_attention(p: Attention, x: torch.Tensor, enc_kv: KVCache,
+                    cfg: ModelConfig) -> torch.Tensor:
+    """Decoder -> encoder attention of x (B, Sq, d) over ``enc_kv`` (B, KV,
+    F, hd): non-causal over all F keys, q unbiased and unrotated (the
+    reference's prefill form).  Without padded heads a KV head's G query
+    heads are G x Sq rows of one problem over the cache view (no copy);
+    padded heads take the expanded KV heads.  Returns y (B, Sq, d)."""
+    _unsupported(cfg)
+    b, sq, _ = x.shape
+    hp, hd = cfg.padded_heads, cfg.head_dim
+    kvh, f = enc_kv.k.shape[1], enc_kv.k.shape[2]
+    qh = _project(x, p.wq).transpose(1, 2).contiguous()   # (B, Hp, Sq, hd)
+    if hp == cfg.n_heads:
+        k = enc_kv.k.view(b * kvh, f, hd)
+        v = enc_kv.v.view(b * kvh, f, hd)
+        qh = qh.view(b * kvh, hp // kvh * sq, hd)
+    else:
+        k = _expand_kv(enc_kv.k, cfg, f, causal=False)
+        v = _expand_kv(enc_kv.v, cfg, f, causal=False)
+        qh = qh.view(b * hp, sq, hd)
+    out = ops.flash_attention(qh, k, v, causal=False, scale=hd ** -0.5)
+    return _out_proj(p, out.view(b * hp, sq, hd), cfg)
+
+
+def _cross_decode(p: Attention, x: torch.Tensor, cache: KVCache,
+                  cfg: ModelConfig):
+    """One query row a head over the static encoder cache, q with ``bq``
+    and unrotated (the reference's ``decode_attention(cross=True)``)."""
+    b = x.shape[0]
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim
+    h, g = cfg.n_heads, cfg.group_size
+    f = cache.k.shape[2]
+    q = _project(x, p.wq)[:, :, :h]
+    if cfg.qkv_bias:
+        q = q + p.bq[:h]
+    out = ops.flash_attention(
+        q.reshape(b * kvh, g, hd), cache.k.view(b * kvh, f, hd),
+        cache.v.view(b * kvh, f, hd), causal=False, scale=hd ** -0.5)
+    return out.reshape(b, 1, h * hd) @ p.wo[:h].reshape(h * hd, -1), cache
 
 
 def decode_attention(p: Attention, x: torch.Tensor, cache: KVCache, pos: int,
-                     cfg: ModelConfig):
+                     cfg: ModelConfig, *, cross: bool = False):
     """One-token decode: x (B, 1, d) at position ``pos`` (a host int)
     against ``cache`` (B, KV, S, hd).  Writes the new token's K and V into
     the cache IN PLACE (slot ``pos``, or ``pos % S`` after the wrap) and
-    returns (y, cache): the cache tensors are the caller's, updated.  (The
-    reference's ``cross=True`` form is ``cross_attention``'s, not ported.)"""
+    returns (y, cache): the cache tensors are the caller's, updated.  With
+    ``cross`` the cache is the encoder's, attended whole and not written
+    (``pos`` unused)."""
     _unsupported(cfg)
+    if cross:
+        return _cross_decode(p, x, cache, cfg)
     b = x.shape[0]
     kvh, hd = cfg.n_kv_heads, cfg.head_dim
     h, g = cfg.n_heads, cfg.group_size

@@ -6,9 +6,10 @@ reference's names and shapes, so ``convert.lm_params_to_port`` maps the
 reference's tree onto ``state_dict`` keys one to one: ``Norm`` is
 ``init_norm``/``apply_norm`` (``scale``, ``bias``), ``MLP`` is
 ``init_mlp``/``apply_mlp`` (``wi``, ``wg``, ``wo``) and ``Embedding`` is
-``init_embedding``/``embed_tokens``/``unembed`` (``tok``, ``head``).
-Learned positions and the sinusoidal table wait for the encoder-decoder
-slice.  Computation is dtype-polymorphic as in the reference: norms and
+``init_embedding``/``embed_tokens``/``unembed`` (``tok``, ``head`` and,
+with ``pos_embed == "learned"``, the 4096-row position table ``pos``);
+``sinusoidal_embedding`` is the encoder's fixed table.  Computation is
+dtype-polymorphic as in the reference: norms and
 RoPE compute in fp32 and return the activation dtype; weights are stored
 in the config's dtype, norm parameters in fp32.  ``reset_parameters``
 draws from an explicit ``torch.Generator``; the reference's JAX draws
@@ -90,6 +91,14 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
+def sinusoidal_embedding(n_pos: int, d: int, device=None) -> torch.Tensor:
+    """(n_pos, d) fp32: [sin | cos] of pos / 10000^(2i / d)."""
+    pos = torch.arange(n_pos, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(10000.0, 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=1)
+
+
 # ---------------------------------------------------------------------------
 # dense / MLP
 # ---------------------------------------------------------------------------
@@ -136,9 +145,12 @@ class MLP(nn.Module):
 # embeddings / unembedding
 # ---------------------------------------------------------------------------
 
+POS_ROWS = 4096  # the learned position table's rows; indexed mod POS_ROWS
+
+
 class Embedding(nn.Module):
     """``tok`` (padded_vocab, d); ``head`` (d, padded_vocab) unless the
-    embeddings are tied."""
+    embeddings are tied; ``pos`` (4096, d) with learned positions."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -149,6 +161,9 @@ class Embedding(nn.Module):
         if not cfg.tie_embeddings:
             self.head = _param(torch.empty(cfg.d_model, cfg.padded_vocab,
                                            dtype=dt, device=device))
+        if cfg.pos_embed == "learned":
+            self.pos = _param(torch.empty(POS_ROWS, cfg.d_model, dtype=dt,
+                                          device=device))
 
     def reset_parameters(self, gen: Optional[torch.Generator]) -> None:
         cfg, dev = self.cfg, self.tok.device
@@ -157,9 +172,16 @@ class Embedding(nn.Module):
         if not cfg.tie_embeddings:
             self.head.copy_(_normal(gen, self.head.shape, self.head.dtype,
                                     1.0 / math.sqrt(cfg.d_model), dev))
+        if cfg.pos_embed == "learned":
+            self.pos.copy_(_normal(gen, self.pos.shape, self.pos.dtype, 0.02,
+                                   dev))
 
     def embed(self, tokens: torch.Tensor) -> torch.Tensor:
         return self.tok[tokens]
+
+    def position(self, positions) -> torch.Tensor:
+        """The learned rows at ``positions`` (a tensor or an int) mod 4096."""
+        return self.pos[positions % self.pos.shape[0]]
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         """Logits (..., padded_vocab), the padded entries at -1e30."""

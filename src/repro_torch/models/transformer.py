@@ -1,7 +1,8 @@
-"""The transformer stack (port of ``repro.models.transformer``) for the
-dense, moe, ssm and hybrid families: ``init_model``, ``forward`` (modes
-``prefill`` and ``train``, forward only), ``prefill``, ``decode_step``,
-``DecodeState`` and ``make_decode_state``.
+"""The transformer stack (port of ``repro.models.transformer``) for every
+family: dense, moe, ssm, hybrid, encdec (whisper) and vlm (llava's
+backbone): ``init_model``, ``forward`` (modes ``prefill`` and ``train``,
+forward only), ``prefill``, ``decode_step``, ``DecodeState``,
+``make_decode_state`` and ``encoder_view``.
 
 A layer's mixer is attention or ``Mamba`` and its FFN an ``MLP`` or a
 ``MoE`` (with arctic's dense residual ``mlp_res`` or llama4's shared
@@ -11,9 +12,20 @@ period of layers (``period``) into groups and scans over them; here the
 layers are an ``nn.ModuleList`` run in order, and the decode state holds
 one cache a layer: a head-major ``KVCache`` (``attention``'s module
 docstring) or a ``MambaCache``.  ``scan_layers`` and ``remat`` stay
-config fields with no effect on the result.  encdec and vlm configs, ring
-attention and learned positions raise ``NotImplementedError`` naming the
-ROADMAP item that ports them.
+config fields with no effect on the result.  Ring attention raises
+``NotImplementedError`` naming the ROADMAP item that ports it.
+
+encdec: ``Transformer.encoder`` runs the stub frontend's frames (B, F,
+d) plus the sinusoidal table through ``encoder_view(cfg)``'s blocks with
+non-causal attention and its own ``norm_f``; each decoder ``Block`` adds
+``norm_x`` and ``cross`` (self attention, then cross attention, then the
+FFN) and projects the encoder output once into its cross K/V, which
+prefill keeps in ``DecodeState.enc_kvs`` (one head-major ``KVCache`` a
+decoder layer) and every decode step attends unchanged.  Learned
+positions (``embed.pos``, 4096 rows) are added at ``position % 4096``.
+vlm: ``batch["patches"]`` (B, P, d), the stub vision tower's output, is
+prepended to the token embeddings; positions run over patches and text
+and ``n_prefix`` = P.
 
 Prefill returns the last position's logits and, to keep memory at the
 size of one row, unembeds only that position: (B, d) @ (d, vocab) gives
@@ -29,8 +41,9 @@ token's K and V into the state's KV caches in place (JAX's
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Any, List, NamedTuple, Optional, Union
+from typing import List, NamedTuple, Optional, Union
 
 import torch
 from torch import nn
@@ -40,28 +53,12 @@ from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import moe as moe_mod
 from .config import ModelConfig
-from .layers import Embedding, MLP, Norm
-
-# the ROADMAP item that ports each family this port leaves out
-_DEFERRED = {
-    "encdec": "encdec (the encoder and cross attention): ROADMAP queue 1, "
-              "item 2",
-    "vlm": "vlm (the patch prefix): ROADMAP queue 1, item 2",
-}
+from .layers import Embedding, MLP, Norm, sinusoidal_embedding
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not serve yet: the encdec and vlm
-    families, ring attention, learned positions (whisper's, with its
-    encoder), and the scan options ``mamba`` raises for."""
-    if cfg.family in _DEFERRED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet; "
-            f"{_DEFERRED[cfg.family]}")
-    if cfg.pos_embed != "rope":
-        raise NotImplementedError(
-            f"{cfg.name}: pos_embed {cfg.pos_embed!r} comes with the "
-            f"encoder-decoder slice (ROADMAP queue 1, item 2)")
+    """Raise for what the port does not serve yet: ring attention and the
+    scan options ``mamba`` raises for."""
     attn_mod._unsupported(cfg)
     if "mamba" in cfg.layer_kinds():
         mamba_mod._unsupported(cfg)
@@ -79,16 +76,29 @@ def period(cfg: ModelConfig) -> int:
     return p
 
 
+def encoder_view(cfg: ModelConfig) -> ModelConfig:
+    """Encoder layers: same widths, non-causal attention, single-layer
+    period, no MoE."""
+    return dataclasses.replace(cfg, family="dense",
+                               n_layers=cfg.encoder_layers, n_experts=0,
+                               attn_every=0)
+
+
 class Block(nn.Module):
-    """norm1 -> mixer (attention or ``Mamba``) -> residual; norm2 -> FFN
+    """norm1 -> mixer (attention or ``Mamba``) -> residual; in a decoder
+    (``decoder``) norm_x -> cross attention -> residual; norm2 -> FFN
     (``MLP``, or ``MoE`` with ``mlp_res`` / ``mlp_shared``) -> residual."""
 
-    def __init__(self, cfg: ModelConfig, mixer: str, ffn: str, device=None):
+    def __init__(self, cfg: ModelConfig, mixer: str, ffn: str, device=None,
+                 decoder: bool = False):
         super().__init__()
         self.mixer_kind, self.ffn_kind = mixer, ffn
         self.norm1 = Norm(cfg, device)
         self.mixer = (attn_mod.Attention(cfg, device) if mixer == "attn"
                       else mamba_mod.Mamba(cfg, device))
+        if decoder:
+            self.norm_x = Norm(cfg, device)
+            self.cross = attn_mod.Attention(cfg, device)
         if cfg.d_ff:
             self.norm2 = Norm(cfg, device)
             if ffn == "moe":
@@ -102,8 +112,10 @@ class Block(nn.Module):
 
     def forward(self, x, cfg: ModelConfig, positions, mode: str,
                 cache=None, pos: Optional[int] = None,
-                cache_len: Optional[int] = None):
-        """Returns (x, new cache or None, the MoE's aux or None)."""
+                cache_len: Optional[int] = None, enc_out=None, enc_kv=None,
+                causal: bool = True):
+        """Returns (x, new cache or None, the cross K/V (a decoder's, in
+        ``prefill`` and ``decode``) or None, the MoE's aux or None)."""
         h = self.norm1(x)
         if self.mixer_kind == "attn":
             if mode == "decode":
@@ -111,7 +123,7 @@ class Block(nn.Module):
                                                      pos, cfg)
             else:
                 y, new_c = attn_mod.self_attention(
-                    self.mixer, h, cfg, positions,
+                    self.mixer, h, cfg, positions, causal=causal,
                     return_cache=(mode == "prefill"), cache_len=cache_len)
         elif mode == "decode":
             y, new_c = mamba_mod.decode_mamba(self.mixer, h, cache, cfg)
@@ -119,6 +131,17 @@ class Block(nn.Module):
             y, new_c = mamba_mod.apply_mamba(
                 self.mixer, h, cfg, return_cache=(mode == "prefill"))
         x = x + y
+        new_enc_kv = None
+        if hasattr(self, "cross"):
+            hx = self.norm_x(x)
+            if mode == "decode":
+                yx, new_enc_kv = attn_mod.decode_attention(
+                    self.cross, hx, enc_kv, pos, cfg, cross=True)
+            else:
+                ekv = attn_mod.cross_kv(self.cross, enc_out)
+                yx = attn_mod.cross_attention(self.cross, hx, ekv, cfg)
+                new_enc_kv = ekv if mode == "prefill" else None
+            x = x + yx
         aux = None
         if cfg.d_ff:
             h2 = self.norm2(x)
@@ -129,14 +152,27 @@ class Block(nn.Module):
             else:
                 y2 = self.ffn(h2)
             x = x + y2
-        return x, new_c, aux
+        return x, new_c, new_enc_kv, aux
+
+
+class Encoder(nn.Module):
+    """The encoder-decoder's encoder: ``layers`` (``encoder_layers``
+    blocks of ``encoder_view(cfg)``) and its own ``norm_f``."""
+
+    def __init__(self, cfg: ModelConfig, device=None):
+        super().__init__()
+        enc_cfg = encoder_view(cfg)
+        self.layers = nn.ModuleList(Block(enc_cfg, "attn", "mlp", device)
+                                    for _ in range(cfg.encoder_layers))
+        self.norm_f = Norm(enc_cfg, device)
 
 
 class Transformer(nn.Module):
-    """``embed`` (tok, head, pos), ``layers`` (one ``Block`` a layer) and
-    ``norm_f``: the reference's parameter tree with the group stack laid
-    out as layers (``convert.lm_params_to_port``).  Built with
-    uninitialised weights; ``init_model`` draws them."""
+    """``embed`` (tok, head, pos), ``layers`` (one ``Block`` a layer),
+    ``norm_f`` and, for encdec, ``encoder``: the reference's parameter
+    tree with the group stack laid out as layers
+    (``convert.lm_params_to_port``).  Built with uninitialised weights;
+    ``init_model`` draws them."""
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
@@ -144,11 +180,14 @@ class Transformer(nn.Module):
         check_supported(cfg)
         period(cfg)
         self.cfg = cfg
+        decoder = cfg.family == "encdec"
         self.embed = Embedding(cfg, device)
         self.layers = nn.ModuleList(
-            Block(cfg, mixer, ffn, device)
+            Block(cfg, mixer, ffn, device, decoder=decoder)
             for mixer, ffn in zip(cfg.layer_kinds(), cfg.ffn_kinds()))
         self.norm_f = Norm(cfg, device)
+        if decoder:
+            self.encoder = Encoder(cfg, device)
 
 
 def init_model(cfg: ModelConfig, seed: int = 0,
@@ -160,10 +199,13 @@ def init_model(cfg: ModelConfig, seed: int = 0,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     model = Transformer(cfg, dev)
+    layers = list(model.layers)
+    if cfg.family == "encdec":
+        layers += list(model.encoder.layers)
     with torch.no_grad():
         model.embed.reset_parameters(gen)
-        for layer in model.layers:
-            for name in ("mixer", "ffn", "mlp_res", "mlp_shared"):
+        for layer in layers:
+            for name in ("mixer", "cross", "ffn", "mlp_res", "mlp_shared"):
                 part = getattr(layer, name, None)
                 if part is not None:
                     part.reset_parameters(gen)
@@ -171,29 +213,61 @@ def init_model(cfg: ModelConfig, seed: int = 0,
 
 
 def _embed_input(params: Transformer, batch, cfg: ModelConfig):
-    """Token embedding; returns (x, positions, n_prefix)."""
-    tokens = batch["tokens"]
-    x = params.embed.embed(tokens)
+    """Token (+ the vlm's patch prefix) embedding, plus learned
+    positions; returns (x, positions, n_prefix)."""
+    x = params.embed.embed(batch["tokens"])
+    n_prefix = 0
+    if cfg.family == "vlm" and "patches" in batch:
+        patches = batch["patches"].to(x.dtype)
+        x = torch.cat([patches, x], dim=1)
+        n_prefix = patches.shape[1]
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
-    return x, positions, 0
+    if cfg.pos_embed == "learned":
+        x = x + params.embed.position(positions[0])
+    return x, positions, n_prefix
+
+
+def _encode(params: Transformer, batch, cfg: ModelConfig) -> torch.Tensor:
+    """The stub frontend's frames (B, F, d), in the model's dtype, plus
+    the sinusoidal table through the encoder (non-causal) -> (B, F, d)."""
+    frames = batch["frames"].to(cfg.torch_dtype())
+    b, f, _ = frames.shape
+    x = frames + sinusoidal_embedding(f, cfg.d_model,
+                                      frames.device).to(frames.dtype)
+    positions = torch.arange(f, device=x.device).expand(b, f)
+    enc_cfg = encoder_view(cfg)
+    for layer in params.encoder.layers:
+        x = layer(x, enc_cfg, positions, "train", causal=False)[0]
+    return params.encoder.norm_f(x)
 
 
 def _run_stack(params: Transformer, x, cfg: ModelConfig, positions,
                mode: str, caches=None, pos: Optional[int] = None,
-               cache_len: Optional[int] = None):
+               cache_len: Optional[int] = None, enc_out=None, enc_kvs=None):
     """Returns (x, the MoE layers' summed aux (fp32 scalar), the new
-    caches, one a layer, or None in ``train`` mode)."""
-    new_caches = []
+    caches, one a layer, or None in ``train`` mode, and the decoder's
+    cross K/V, one a layer, or None)."""
+    new_caches, new_enc_kvs = [], []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, layer in enumerate(params.layers):
-        x, c, aux = layer(x, cfg, positions, mode,
-                          cache=caches[i] if caches is not None else None,
-                          pos=pos, cache_len=cache_len)
+        x, c, ekv, aux = layer(
+            x, cfg, positions, mode,
+            cache=caches[i] if caches is not None else None, pos=pos,
+            cache_len=cache_len, enc_out=enc_out,
+            enc_kv=enc_kvs[i] if enc_kvs is not None else None)
         new_caches.append(c)
+        new_enc_kvs.append(ekv)
         if aux is not None:
             aux_total = aux_total + aux
-    return x, aux_total, (new_caches if mode != "train" else None)
+    enc = new_enc_kvs if cfg.family == "encdec" and mode != "train" else None
+    return x, aux_total, (new_caches if mode != "train" else None), enc
+
+
+def _decoder_input(params: Transformer, batch, cfg: ModelConfig):
+    """(x, positions, n_prefix, the encoder output or None)."""
+    enc_out = _encode(params, batch, cfg) if cfg.family == "encdec" else None
+    return (*_embed_input(params, batch, cfg), enc_out)
 
 
 @torch.no_grad()
@@ -202,40 +276,46 @@ def forward(params: Transformer, batch, cfg: ModelConfig,
     """Full-sequence forward. Returns (logits, aux, caches, enc_kvs,
     n_prefix) as the reference does; ``aux`` is the MoE layers' summed
     load-balance loss, ``caches`` one ``KVCache`` or ``MambaCache`` a
-    layer in ``prefill`` mode, else None."""
+    layer in ``prefill`` mode, else None, ``enc_kvs`` the decoder's cross
+    K/V (encdec, ``prefill`` mode), else None."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward mode {mode!r}; expected train or prefill")
-    x, positions, n_prefix = _embed_input(params, batch, cfg)
-    x, aux, caches = _run_stack(params, x, cfg, positions, mode)
+    x, positions, n_prefix, enc_out = _decoder_input(params, batch, cfg)
+    x, aux, caches, enc_kvs = _run_stack(params, x, cfg, positions, mode,
+                                         enc_out=enc_out)
     x = params.norm_f(x)
     logits = params.embed.unembed(x)
-    return logits, aux, caches, None, n_prefix
+    return logits, aux, caches, enc_kvs, n_prefix
 
 
 class DecodeState(NamedTuple):
     # one cache a layer: a head-major KVCache (attention) or a MambaCache
     caches: List[Union[attn_mod.KVCache, mamba_mod.MambaCache]]
-    enc_kvs: Any                    # cross-attn KV (encdec): None here
+    # encdec: the cross K/V, one head-major KVCache a decoder layer
+    enc_kvs: Optional[List[attn_mod.KVCache]]
     pos: int                        # next position to write (host int)
 
 
 @torch.no_grad()
 def prefill(params: Transformer, batch, cfg: ModelConfig,
             cache_len: Optional[int] = None):
-    """Run the prompt, build the decode state.  Returns (last_logits
-    (B, padded_vocab), state).
+    """Run the prompt (with the encdec's ``frames`` or the vlm's
+    ``patches``), build the decode state.  Returns (last_logits (B,
+    padded_vocab), state).
 
-    ``cache_len``: total KV capacity (>= prompt length) of the attention
-    layers' caches; extra slots are zero-filled and never attended before
-    a decode step writes them.  A ``MambaCache`` has no length.
+    ``cache_len``: total KV capacity (>= prompt length, the patch prefix
+    included) of the attention layers' caches; extra slots are
+    zero-filled and never attended before a decode step writes them.  A
+    ``MambaCache`` has no length.
     """
-    x, positions, n_prefix = _embed_input(params, batch, cfg)
-    x, _, caches = _run_stack(params, x, cfg, positions, "prefill",
-                              cache_len=cache_len)
+    x, positions, n_prefix, enc_out = _decoder_input(params, batch, cfg)
+    x, _, caches, enc_kvs = _run_stack(params, x, cfg, positions, "prefill",
+                                       cache_len=cache_len, enc_out=enc_out)
     x = params.norm_f(x[:, -1])
     logits = params.embed.unembed(x)
     prompt_len = batch["tokens"].shape[1] + n_prefix
-    return logits, DecodeState(caches=caches, enc_kvs=None, pos=prompt_len)
+    return logits, DecodeState(caches=caches, enc_kvs=enc_kvs,
+                               pos=prompt_len)
 
 
 @torch.no_grad()
@@ -243,10 +323,13 @@ def decode_step(params: Transformer, state: DecodeState, token,
                 cfg: ModelConfig):
     """token: (B,) integer -> (logits (B, padded_vocab), new state).  The
     state's KV caches are updated in place and carried into the new one;
-    each ``MambaCache`` is replaced."""
+    each ``MambaCache`` is replaced; the cross K/V are carried unchanged."""
     x = params.embed.embed(token[:, None])
-    x, _, caches = _run_stack(params, x, cfg, None, "decode",
-                              caches=state.caches, pos=state.pos)
+    if cfg.pos_embed == "learned":
+        x = x + params.embed.position(state.pos)
+    x, _, caches, _ = _run_stack(params, x, cfg, None, "decode",
+                                 caches=state.caches, pos=state.pos,
+                                 enc_kvs=state.enc_kvs)
     x = params.norm_f(x)
     logits = params.embed.unembed(x)[:, 0, :]
     return logits, DecodeState(caches=caches, enc_kvs=state.enc_kvs,
@@ -257,7 +340,8 @@ def make_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
                       dtype=None, device: DeviceLike = None) -> DecodeState:
     """Zero-initialised decode state with KV capacity ``cache_len`` (and,
     as in the reference, ``pos = cache_len``): a ``KVCache`` for each
-    attention layer, a ``MambaCache`` for each mamba layer."""
+    attention layer, a ``MambaCache`` for each mamba layer, and for
+    encdec a cross ``KVCache`` of capacity ``n_frames`` a layer."""
     check_supported(cfg)
     dtype = dtype or cfg.torch_dtype()
     dev = resolve_device(device)
@@ -265,8 +349,13 @@ def make_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
               if kind == "attn" else
               mamba_mod.init_mamba_cache(cfg, batch, dtype, dev)
               for kind in cfg.layer_kinds()]
-    return DecodeState(caches=caches, enc_kvs=None, pos=cache_len)
+    enc_kvs = None
+    if cfg.family == "encdec":
+        enc_kvs = [attn_mod.init_cache(cfg, batch, cfg.n_frames, dtype, dev)
+                   for _ in range(cfg.n_layers)]
+    return DecodeState(caches=caches, enc_kvs=enc_kvs, pos=cache_len)
 
 
-__all__ = ["DecodeState", "Transformer", "check_supported", "decode_step",
-           "forward", "init_model", "make_decode_state", "period", "prefill"]
+__all__ = ["DecodeState", "Encoder", "Transformer", "check_supported",
+           "decode_step", "encoder_view", "forward", "init_model",
+           "make_decode_state", "period", "prefill"]

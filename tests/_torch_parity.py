@@ -123,31 +123,82 @@ def dle_matrix(n: int, kind: str, seed: int = 0) -> np.ndarray:
 
 # -- the LM stack ---------------------------------------------------------------
 
+def ref_lm_params(cfg, seed: int = 0) -> dict:
+    """The reference's initial parameters for ``cfg`` (the JAX package's
+    ``ModelConfig``) as numpy, with every bias and norm parameter redrawn
+    (they start at exact zeros and ones).  Imports JAX when called: the
+    card's tests import this module and have no JAX."""
+    import jax
+    from repro.models import transformer as jtfm
+    params = jax.tree.map(np.asarray, jtfm.param_values(
+        jtfm.init_model(jax.random.PRNGKey(seed), cfg)))
+    rng = np.random.default_rng(seed + 100)
+
+    def redraw(path, a):
+        name = jax.tree_util.keystr(path)
+        if any(f"'{k}'" in name for k in ("bq", "bk", "bv", "bias")):
+            return (0.1 * rng.standard_normal(a.shape)).astype(a.dtype)
+        if "'scale'" in name:
+            return (1 + 0.1 * rng.standard_normal(a.shape)).astype(a.dtype)
+        return a
+
+    return jax.tree_util.tree_map_with_path(redraw, params)
+
+
+def lm_extra_inputs(cfg, batch: int, rng: np.random.Generator) -> dict:
+    """The stub frontends' inputs a config takes beside its tokens, drawn
+    N(0, 1) in fp32 from ``rng``: ``frames`` (batch, n_frames, d) for
+    encdec, ``patches`` (batch, n_patches, d) for vlm; {} otherwise."""
+    name = {"encdec": ("frames", "n_frames"),
+            "vlm": ("patches", "n_patches")}.get(cfg.family)
+    if name is None:
+        return {}
+    return {name[0]: rng.standard_normal(
+        (batch, getattr(cfg, name[1]), cfg.d_model)).astype(np.float32)}
+
+
+def _stack_layers(state: dict, prefix: str, per: int) -> dict:
+    """``{prefix}{i}.{part}.{name}`` state-dict entries stacked over the
+    groups under ``l{i % per}``, layer i = group x per + j."""
+    per_layer = {}
+    for key, a in state.items():
+        if key.startswith(prefix):
+            i, part, name = key[len(prefix):].split(".")
+            per_layer.setdefault((int(i) % per, part, name),
+                                 {})[int(i) // per] = a
+    blocks = {f"l{j}": {} for j in range(per)}
+    for (j, part, name), by_group in per_layer.items():
+        blocks[f"l{j}"].setdefault(part, {})[name] = np.stack(
+            [by_group[g] for g in range(len(by_group))])
+    return blocks
+
+
 def lm_params_to_reference(model, cfg) -> dict:
     """The port's ``Transformer`` for ``cfg`` as the reference's parameter
     tree (the inverse of ``convert.lm_params_to_port``): nested dicts of
     numpy arrays, layer i = group x period + j stacked over the groups
-    under ``blocks/l{j}``."""
+    under ``blocks/l{j}``; an encoder's layers under ``encoder/blocks/l0``
+    with its ``norm_f``."""
     from repro_torch.models.transformer import period
-    per = period(cfg)
+    state = {k: to_numpy(t) for k, t in model.state_dict().items()}
     tree = {"embed": {}, "norm_f": {},
-            "blocks": {f"l{j}": {} for j in range(per)}}
-    per_layer = {}
-    for key, t in model.state_dict().items():
-        a = to_numpy(t)
+            "blocks": _stack_layers(state, "layers.", period(cfg))}
+    for key, a in state.items():
         parts = key.split(".")
         if parts[0] in ("embed", "norm_f"):
             tree[parts[0]][parts[1]] = a
-        else:  # layers.{i}.{part}.{name}
-            i = int(parts[1])
-            per_layer.setdefault((i % per, parts[2], parts[3]),
-                                 {})[i // per] = a
-    for (j, part, name), by_group in per_layer.items():
-        tree["blocks"][f"l{j}"].setdefault(part, {})[name] = np.stack(
-            [by_group[g] for g in range(len(by_group))])
+    blocks = list(tree["blocks"].values())
+    if cfg.family == "encdec":
+        tree["encoder"] = {
+            "blocks": _stack_layers(state, "encoder.layers.", 1),
+            "norm_f": {k.split(".")[-1]: a for k, a in state.items()
+                       if k.startswith("encoder.norm_f.")}}
+        blocks += list(tree["encoder"]["blocks"].values())
     # parameterless norms are empty dicts in the reference's tree
-    for block in tree["blocks"].values():
+    for block in blocks:
         block.setdefault("norm1", {})
+        if "cross" in block:
+            block.setdefault("norm_x", {})
         if cfg.d_ff:
             block.setdefault("norm2", {})
     return tree

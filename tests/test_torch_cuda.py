@@ -25,7 +25,13 @@ whatever its operands' alignment, its final state within rtol = atol =
 1e-4.  The ssm and hybrid LM (reduced falcon-mamba and the 2-layer jamba
 stand-in): one scan launch a mamba layer a prefill, none in decode, each
 scan call held at the op; logits as the dense LM's, fp32 within n_layers
-x 1e-4.  The dense LM (reduced olmo-1b and
+x 1e-4.  The encdec and vlm LM (reduced whisper with 80 frames and
+reduced llava): one prefill kernel a flash call (whisper's encoder, self
+and cross attention), one split-KV kernel a call a decode step, each bf16
+call held at the op; logits as the dense LM's, fp32 within (decoder +
+encoder layers) x 2e-5; and the flash op at whisper's shapes (B 32 x 12
+heads of 64: 1500 x 1500, 64 x 1500 and 1 x 1500, non-causal) to the
+standalone kernels' contracts.  The dense LM (reduced olmo-1b and
 granite-8b with GQA): one flash kernel launch a layer a prefill or decode
 step; fp32 logits within n_layers x 2e-5 of plain attention's, bf16
 logits within sqrt(2) x bf16's own noise of plain attention's (the plain
@@ -1187,6 +1193,114 @@ def test_ssm_and_hybrid_through_the_kernels(cuda_device, arch, overrides,
     for step in range(len(got16)):
         assert_contract(got32[step], plain32[step], "rel_frobenius",
                         1e-4 * cfg.n_layers)
+        floor = 2 ** 0.5 * rel_frobenius(plain16[step], plain32[step])
+        assert rel_frobenius(got16[step], plain16[step]) <= floor, step
+
+
+# -- the encdec and vlm families ------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_whisper_shapes(cuda_device, dtype):
+    """whisper-small's three new callers at B 32 x 12 heads of 64: the
+    encoder (non-causal 1500 x 1500), the cross prefill (non-causal 64
+    queries over 1500 keys) and the cross decode (one query, non-causal,
+    split-KV), each one launch of its kernel, within 2e-5 (fp32) or one
+    bf16 ulp + 2e-5 of the plain fp32 result (bf16)."""
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    for sq, skv in ((1500, 1500), (64, 1500), (1, 1500)):
+        q, k, v = (torch.randn(384, s, 64, generator=g, device=cuda_device)
+                   .to(dtype) for s in (sq, skv, skv))
+        before = launch_counts()
+        got = ops.flash_attention(q, k, v, causal=False)
+        kernel = flash_attention.choose_kernel(sq, dtype)
+        assert _launched(before) == {kernel.name: 1}
+        want = ref.flash_attention(q.float(), k.float(), v.float(),
+                                   causal=False)
+        err = (got.float() - want).abs()
+        if dtype == torch.float32:
+            assert float(err.max()) <= 2e-5, (sq, skv)
+        else:
+            slack = bf16_ulp(torch.maximum(got.float().abs(), want.abs()))
+            assert bool((err <= slack + 2e-5).all()), (sq, skv)
+
+
+def _encdec_steps(model, cfg, batch, forced, monkeypatch):
+    """``_lm_steps`` with the stub inputs in ``batch``: a prefill launches
+    one prefill kernel a flash call (an encoder layer's, a decoder
+    layer's self and cross attention), a decode step one split-KV kernel
+    a call (self and cross), every bf16 call held at the op."""
+    from repro_torch.backends import registry
+    from repro_torch.models import transformer as tfm
+    v = cfg.vocab_size
+    bf16 = cfg.dtype == "bfloat16"
+    L = cfg.n_layers
+    calls = ((cfg.encoder_layers + 2 * L, 2 * L) if cfg.family == "encdec"
+             else (L, L))
+    prefill_kernel = ("flash_attention_mma" if bf16
+                      else "flash_attention_tf32x3")
+    cache_len = batch["tokens"].shape[1] + 8 + cfg.n_patches
+
+    def through_kernels(fn, kernel, n, *args, **kw):
+        held = []
+        before = launch_counts()
+        with _flash_held_at_op(monkeypatch, held):
+            out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert _launched(before) == {kernel: n}
+        assert held == ([0] * n if bf16 else []), held
+        return out
+
+    logits, state = through_kernels(tfm.prefill, prefill_kernel, calls[0],
+                                    model, batch, cfg, cache_len=cache_len)
+    with registry.use_backend("torch"):
+        want, plain = tfm.prefill(model, batch, cfg, cache_len=cache_len)
+    got, ref_ = [logits[:, :v].float()], [want[:, :v].float()]
+    for tok in forced:
+        logits, state = through_kernels(
+            tfm.decode_step, "flash_attention_splitkv", calls[1], model,
+            state, tok, cfg)
+        with registry.use_backend("torch"):
+            want, plain = tfm.decode_step(model, plain, tok, cfg)
+        got.append(logits[:, :v].float())
+        ref_.append(want[:, :v].float())
+    return got, ref_
+
+
+@pytest.mark.parametrize("arch,overrides", [
+    ("whisper-small", {"n_frames": 80}), ("llava-next-34b", {})],
+    ids=["whisper", "llava"])
+def test_encdec_and_vlm_through_the_kernels(cuda_device, arch, overrides,
+                                            monkeypatch):
+    """Reduced whisper (80 frames, so that the encoder's calls take the
+    prefill kernels) and reduced llava (8 patches, GQA over 1 KV head) in
+    bf16 and in fp32 on the same weights and seeded frames or patches:
+    every bf16 flash call held at the op; fp32 logits within (layers,
+    encoder's too) x 2e-5 of plain attention's, bf16 logits within
+    sqrt(2) x bf16's own noise."""
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import transformer as tfm
+    cfg = reduced_config(arch, dtype="bfloat16", **overrides)
+    cfg32 = reduced_config(arch, **overrides)
+    model = tfm.init_model(cfg, seed=0, device=cuda_device)
+    model32 = tfm.Transformer(cfg32, cuda_device)
+    model32.load_state_dict({k: t.float()
+                             for k, t in model.state_dict().items()})
+    g = torch.Generator(device=cuda_device).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=g,
+                           device=cuda_device)
+    forced = torch.randint(0, cfg.vocab_size, (4, 2), generator=g,
+                           device=cuda_device)
+    key, n = (("frames", cfg.n_frames) if cfg.family == "encdec"
+              else ("patches", cfg.n_patches))
+    stub = torch.randn(2, n, cfg.d_model, generator=g, device=cuda_device)
+    batch = {"tokens": tokens, key: stub.to(torch.bfloat16)}
+    got16, plain16 = _encdec_steps(model, cfg, batch, forced, monkeypatch)
+    got32, plain32 = _encdec_steps(model32, cfg32, batch, forced,
+                                   monkeypatch)
+    layers = cfg.n_layers + cfg.encoder_layers
+    for step in range(len(got16)):
+        assert_contract(got32[step], plain32[step], "rel_frobenius",
+                        2e-5 * layers)
         floor = 2 ** 0.5 * rel_frobenius(plain16[step], plain32[step])
         assert rel_frobenius(got16[step], plain16[step]) <= floor, step
 
