@@ -156,18 +156,45 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    split-KV a layer a step; on the same weights a prefill with layers 0,
    19 and 39's flash calls held at the op and 8 teacher-forced steps with
    every flash call held; one prefill and 8 decode steps profiled.
+11. train: the port's training path at olmo-1b's full width and depth
+   (bf16, remat on, random weights from the seed, the synthetic token
+   pipeline), every run under deterministic kernels:
+   ``repro_torch.launch.train.main(["--arch", "olmo-1b", "--steps", "8",
+   "--global-batch", "4", "--seq-len", "4096", "--lr", "3e-3"])`` on the
+   card: every loss finite, the last below the first, exactly 16
+   ``flash_attention_mma`` launches a step forward and 16 in the remat
+   recompute and nothing else; its step time (the watchdog's, from the
+   step's start to the loss read back, a synchronize), tokens/s, model
+   FLOP/s (``accounting.model_flops``) over the bf16 peak and peak memory
+   printed; 4 steps at ``--compress-grads 4 --moments int8`` (losses
+   finite; one ``covariance`` and 8 ``jacobi_sweep_smem`` launches a
+   compressed parameter a step); ``--preempt-at 4 --ckpt-dir
+   build/train_ckpt`` and a resume to step 8, whose losses must equal the
+   uninterrupted run's bitwise; one step of the same weights with every
+   flash call held at the op (the ops phase's bf16 contract), the
+   attention ``Function``'s gradients of layers 0 and 15 against autograd
+   through the plain fp32 version of the same operands (one bf16 ulp plus
+   2e-5 x max |want|), the forward kernel and the torch backward timed at
+   that shape; the step's forward, backward and optimizer profiled apart
+   (device time, busy share, the flash kernel a call); one fp32 step's
+   gradients on ``flash_attention_tf32x3`` against the op's ``torch``
+   backend (each parameter within n_layers x 2e-5); the scan's
+   ``Function`` at falcon-mamba-7b's widths (1 x 1024 x 8192, N 16, fp32)
+   against autograd through the plain version (1e-5), its backward timed.
 
 Each path is checked against the kernels it runs: phase 3 against the
 three PCA/SVD kernels, phases 4, 6 and 7 against those and the
 shared-memory sweep, phase 5 against the seven kernels of its five ops,
 phase 8 against the two flash kernels of bf16 serving and the Gram and
 shared-memory sweep of the consumers, phases 9 and 10 against the scan
-and the two flash kernels of bf16 serving.  The last three lines are the
-kernels' JSON record (each kernel's launches from the phase that drives
-it, ``launches_serve`` from phase 6, ``launches_control`` from phase 7
-and ``launches_lm`` from the serve runs and consumers of phases 8 to
-10), the card's name and power limit, and ``{"ok": true, "device":
-{...}}``.
+and the two flash kernels of bf16 serving, phase 11 against the bf16
+prefill kernel and, with compression, the Gram and shared-memory sweep.
+The last three lines are the kernels' JSON record (each kernel's
+launches from the phase that drives it, ``launches_serve`` from phase 6,
+``launches_control`` from phase 7, ``launches_lm`` from the serve runs
+and consumers of phases 8 to 10 and ``launches_train`` from phase 11's
+trainer runs), the card's name and power limit, and ``{"ok": true,
+"device": {...}}``.
 Without a CUDA device the script exits with code 2 and prints no result.
 """
 from __future__ import annotations
@@ -324,6 +351,30 @@ VLM_ARCH = "llava-next-34b"
 VLM_LAYERS = 40
 VLM_BATCH, VLM_PROMPT, VLM_GEN = 8, 1024, 32
 VLM_HELD_LAYERS = (0, 19, 39)
+# phase 11: training olmo-1b whole (src/repro/configs/olmo_1b.py: 16
+# layers, d 2048, 16 heads x 128, d_ff 8192, vocab 50304, bf16, remat on;
+# 1.28e9 parameters) through the trainer CLI on the synthetic pipeline,
+# B 4 x 4096, 8 steps at lr 3e-3; the compression leg (rank 4, int8
+# moments) for 4 steps; a preemption after step 4 and a resume to 8, the
+# checkpoints under build/ (gitignored)
+TRAIN_ARCH = "olmo-1b"
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_LR = 8, 4, 4096, 3e-3
+TRAIN_COMP_STEPS, TRAIN_COMP_RANK = 4, 4
+TRAIN_PREEMPT_AT = 4
+TRAIN_CKPT = pathlib.Path(__file__).resolve().parent / "build" / \
+    "train_ckpt"
+# the scan's Function at falcon-mamba-7b's layer widths (batch, L,
+# d_inner, N), fp32, and its gradients against autograd through the plain
+# version: both sum in fp32 in other orders (the chunked adjoint against
+# the step-by-step loop), held to the CPU tests' 1e-5 relative Frobenius
+SCAN_GRAD_SHAPE = (1, 1024, 8192, 16)
+SCAN_GRAD_TOL = 1e-5
+# the attention Function's bf16 gradients against autograd through the
+# plain fp32 version on the same operands: the backward computes in fp32
+# (recomputing O in fp32) and rounds each gradient to bf16 once, so each
+# value is within one bf16 ulp of the larger of the two, plus this share
+# of max |want| for two fp32 sums over 4096 keys in other orders
+FA_GRAD_SLACK = 2e-5
 # a scan call against the plain version on the same operands, y and the
 # final state: the ops phase's fp32 contract
 SCAN_RTOL = SCAN_ATOL = 1e-4
@@ -2002,6 +2053,40 @@ def sweeps_apart_from_plain(calls) -> int:
     return apart
 
 
+@contextlib.contextmanager
+def pca_calls_kept(calls: dict):
+    """Inside the block every ``covariance`` and ``jacobi_sweep`` call is
+    kept in ``calls[name]`` as ``(args, kwargs, result)``, the floating
+    operands and the result copied (callers may reuse them; the pivot
+    table stays shared, as ``sweeps_apart_from_plain`` groups by it)."""
+    def copied(x):
+        if isinstance(x, tuple):
+            return tuple(copied(t) for t in x)
+        return x.clone() if torch.is_tensor(x) and x.is_floating_point() \
+            else x
+
+    def keeper(name):
+        def call(op, *args, **kw):
+            out = op(*args, **kw)
+            calls[name].append((copied(args), kw, copied(out)))
+            return out
+        return op_calls(name, call)
+
+    calls.update(covariance=[], jacobi_sweep=[])
+    with keeper("covariance"), keeper("jacobi_sweep"):
+        yield
+
+
+def pca_calls_against_plain(calls: dict):
+    """The kept calls replayed on the ops' ``torch`` backend: (the Grams'
+    largest relative Frobenius error, how many sweeps differ bitwise)."""
+    from repro_torch.kernels import ops
+    gram_err = max(errors(out, ops.covariance(
+        *args, **dict(kw, backend="torch")))[2]
+        for args, kw, out in calls["covariance"])
+    return gram_err, sweeps_apart_from_plain(calls["jacobi_sweep"])
+
+
 def lm_consumers(cache, dev) -> dict:
     """The three PCA consumers through their entry points, their kernel
     launches counted (the path), then held to their plain versions:
@@ -2014,7 +2099,7 @@ def lm_consumers(cache, dev) -> dict:
     ``LM_GRAM_TOL``, each sweep bitwise."""
     import dataclasses
     from repro_torch.backends import registry
-    from repro_torch.kernels import launch_counts, ops, reset_launch_counts
+    from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.models import kv_compression as kvc
     from repro_torch.optim import compression as comp
     from repro_torch.optim import spectral
@@ -2045,20 +2130,11 @@ def lm_consumers(cache, dev) -> dict:
         out, _, _ = comp.compress_tree(grads, state, ccfg)
         return errs, rank, spectra, out
 
-    calls = {"covariance": [], "jacobi_sweep": []}
-
-    def kept(name):
-        def call(op, *args, **kw):  # the result copied: callers may reuse it
-            out = op(*args, **kw)
-            calls[name].append((args, kw, tuple(t.clone() for t in out)
-                                if isinstance(out, tuple) else out.clone()))
-            return out
-        return op_calls(name, call)
-
+    calls = {}
     torch.cuda.synchronize()
     reset_launch_counts()
     t0 = time.perf_counter()
-    with kept("covariance"), kept("jacobi_sweep"):
+    with pca_calls_kept(calls):
         errs, rank, spectra, out = run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2081,12 +2157,9 @@ def lm_consumers(cache, dev) -> dict:
 
     with registry.use_backend("torch"):
         p_errs, p_rank, p_spectra, p_out = run()
-        # each kernel call of the counted run on the plain version
-        t0 = time.perf_counter()
-        gram_err = max(errors(out_k, ops.covariance(
-            *args, **dict(kw, backend="torch")))[2]
-            for args, kw, out_k in calls["covariance"])
-    sweeps_apart = sweeps_apart_from_plain(calls["jacobi_sweep"])
+    # each kernel call of the counted run on the plain version
+    t0 = time.perf_counter()
+    gram_err, sweeps_apart = pca_calls_against_plain(calls)
     replay = time.perf_counter() - t0
     shapes = sorted({tuple(args[0].shape) for args, _, _ in
                      calls["jacobi_sweep"]})
@@ -2720,6 +2793,472 @@ def encdec_vlm_phase(dev) -> dict:
             "wall_s": wall}
 
 
+# -- phase 11: training ---------------------------------------------------------
+
+def train_config():
+    """olmo-1b whole, ``tp`` 1 (as the trainer CLI sets it)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TRAIN_ARCH), tp=1)
+
+
+def train_argv(steps: int, *extra) -> list:
+    return ["--arch", TRAIN_ARCH, "--steps", str(steps), "--global-batch",
+            str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ), "--lr",
+            str(TRAIN_LR), "--seed", str(SEED), "--log-every", "1", *extra]
+
+
+@contextlib.contextmanager
+def step_times(times: list):
+    """Inside the block the trainer's watchdog appends each step's time to
+    ``times``: from the step's start to its loss read back on the host (a
+    synchronize), the optimizer's update included."""
+    from repro_torch.launch import train
+    base = train.Watchdog
+
+    class Timed(base):
+        def end_step(self):
+            dt = super().end_step()
+            times.append(dt)
+            return dt
+
+    train.Watchdog = Timed
+    try:
+        yield
+    finally:
+        train.Watchdog = base
+
+
+def run_train(what: str, argv: list, dev) -> dict:
+    """``train.main(argv)`` on the card: its losses (each finite), JSON
+    line, launches, step times and peak memory."""
+    import io
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    times, out = [], io.StringIO()
+    t0 = time.perf_counter()
+    with step_times(times), contextlib.redirect_stdout(out):
+        losses = train.main(argv, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    lines = out.getvalue().strip().splitlines()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"train {what}: {len(losses)} steps in {wall:.1f} s; losses "
+        f"{json.dumps(losses)}; step times (s) {json.dumps(times)}; "
+        f"launches {json.dumps({k: n for k, n in counts.items() if n})}; "
+        f"peak device memory {peak_gb:.2f} GB")
+    check(all(np.isfinite(losses)), f"train {what}: a loss is not finite")
+    line = json.loads(lines[-1]) if lines[-1].startswith("{") else None
+    return {"losses": losses, "line": line, "launches": counts,
+            "times": times, "peak_gb": peak_gb, "wall_s": wall}
+
+
+def launched(what: str, counts: dict, want: dict) -> None:
+    got = {k: n for k, n in counts.items() if n}
+    want = {k: n for k, n in want.items() if n}
+    check(got == want, f"{what} launched {got}, not {want}")
+
+
+@contextlib.contextmanager
+def train_flash_held(held: list, kept: dict, keep):
+    """``op_calls`` for ``flash_attention`` in a training step: every call
+    held at the op right after it (the kernel's bf16 output against the
+    plain version's fp32 result on the same operands, at the ops phase's
+    contract), and the operands of the calls in ``keep`` kept."""
+    from repro_torch.backends import registry
+    count = [0]
+
+    def call(op, q, k, v, **kw):
+        out = op(q, k, v, **kw)
+        i, count[0] = count[0], count[0] + 1
+        ops_in = [t.detach() for t in (q, k, v)]
+        with torch.no_grad(), registry.use_backend("torch"):
+            want32 = op(*(t.float() for t in ops_in), **kw)
+        g = out.detach().float()
+        slack = bf16_ulp(torch.maximum(g.abs(), want32.abs())) \
+            + FA_BF16_SLACK
+        held.append({"call": i, "q": list(q.shape),
+                     "over": int(((g - want32).abs() > slack).sum()),
+                     "max_abs_err": float((g - want32).abs().max())})
+        if i in keep:
+            kept[i] = ([t.clone() for t in ops_in], kw)
+        return out
+    with op_calls("flash_attention", call):
+        yield
+
+
+def attention_grads_held(kept: dict, dev) -> dict:
+    """The attention ``Function``'s gradients on each kept call's bf16
+    operands (a seeded dO) against autograd through the plain fp32
+    version of the same operands (``FA_GRAD_SLACK``); the forward kernel
+    and the torch backward timed at that call's shape."""
+    from repro_torch.kernels import grad as kgrad
+    from repro_torch.kernels import launch_counts, ops, ref
+    from repro_torch.kernels import reset_launch_counts
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    out = {}
+    for i, ((q, k, v), kw) in sorted(kept.items()):
+        dout = torch.randn(q.shape, generator=gen, device=dev).to(q.dtype)
+        args = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        reset_launch_counts()
+        got = torch.autograd.grad(ops.flash_attention(*args, **kw), args,
+                                  dout)
+        torch.cuda.synchronize()
+        launched(f"train: the attention Function of call {i}",
+                 launch_counts(), {"flash_attention_mma": 1})
+        args32 = [t.float().requires_grad_(True) for t in (q, k, v)]
+        want = torch.autograd.grad(ref.flash_attention(
+            *args32, causal=kw["causal"], scale=kw["scale"],
+            q_offset=kw.get("q_offset", 0)), args32, dout.float())
+        rec = {}
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            g = g.float()
+            slack = bf16_ulp(torch.maximum(g.abs(), w.abs())) \
+                + FA_GRAD_SLACK * float(w.abs().max())
+            rec[name] = {"over": int(((g - w).abs() > slack).sum()),
+                         "max_abs_err": float((g - w).abs().max()),
+                         "rel_fro": errors(g, w)[2]}
+        del want, args32
+        scale, causal = kw["scale"], kw["causal"]
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: ops.flash_attention(q, k, v, **kw), 5)
+        bwd_ms = time_ms(lambda: kgrad.attention_backward(
+            q, k, v, dout, causal=causal, scale=scale,
+            q_offset=kw.get("q_offset", 0), chunk=kw["chunk"]), 3)
+        out[i] = {**rec, "shape": list(q.shape), "fwd_ms": fwd_ms,
+                  "bwd_torch_ms": bwd_ms}
+        log(f"train: attention call {i} {list(q.shape)} bf16: the "
+            f"Function's gradients vs autograd through plain fp32 "
+            f"{json.dumps(rec)} (bound: one bf16 ulp + {FA_GRAD_SLACK:g} "
+            f"x max |want|); forward kernel {fwd_ms:.4f} ms, torch "
+            f"backward {bwd_ms:.4f} ms")
+        check(all(r["over"] == 0 for r in rec.values()),
+              f"train: the attention Function's gradients of call {i} "
+              f"are off the plain fp32 gradients: {rec}")
+    return out
+
+
+def step_profile(model, cfg, state, opt_cfg, batch) -> dict:
+    """One training step's forward, backward and optimizer update, each
+    under torch.profiler apart: device time, wall, the flash kernel's
+    device time a call in the forward and in the backward's recompute."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    params = dict(model.named_parameters())
+    box = {}
+
+    def region(fn):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        events = [e for e in prof.key_averages() if e.device_time_total > 0]
+        mma = [e for e in events if "flash_mma_kernel" in e.key]
+        calls = sum(e.count for e in mma)
+        return {"wall_s": wall,
+                "device_s": sum(e.device_time_total for e in events) / 1e6,
+                "mma_calls": calls,
+                "mma_device_ms": (sum(e.device_time_total for e in mma)
+                                  / 1e3 / calls if calls else None),
+                "top": [{"name": e.key[:72], "calls": e.count,
+                         "s": e.device_time_total / 1e6} for e in sorted(
+                             events, key=lambda e: -e.device_time_total)[:8]]}
+
+    def forward():
+        box["loss"], _ = tfm.loss_fn(model, batch, cfg)
+
+    def backward():
+        box["grads"] = dict(zip(params, torch.autograd.grad(
+            box.pop("loss"), list(params.values()))))
+
+    def update():
+        adamw.update(box.pop("grads"), state.opt, params, opt_cfg)
+
+    out = {name: region(fn) for name, fn in (("forward", forward),
+                                              ("backward", backward),
+                                              ("optimizer", update))}
+    wall = sum(r["wall_s"] for r in out.values())
+    busy = sum(r["device_s"] for r in out.values())
+    out["step"] = {"wall_s": wall, "device_s": busy,
+                   "busy_share": busy / wall}
+    return out
+
+
+def fp32_step_grads(cfg, batch, dev) -> dict:
+    """One fp32 step's gradients of olmo-1b (its own seeded weights) with
+    attention on the kernels (``flash_attention_tf32x3``, the Function's
+    backward) and on the op's ``torch`` backend: each parameter's within
+    n_layers x ``LM_FP32_TOL`` relative Frobenius."""
+    import dataclasses
+    from repro_torch.backends import registry
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as tfm
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    model = tfm.init_model(cfg32, seed=SEED, device=dev, train=True)
+    params = list(model.parameters())
+
+    def grads():
+        loss, _ = tfm.loss_fn(model, batch, cfg32)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    reset_launch_counts()
+    loss_k, got = grads()
+    torch.cuda.synchronize()
+    launched("train fp32 step", launch_counts(),
+             {"flash_attention_tf32x3": 2 * cfg.n_layers})
+    reset_launch_counts()
+    with registry.use_backend("torch"):
+        loss_t, want = grads()
+    torch.cuda.synchronize()
+    launched("train fp32 step on the torch backend", launch_counts(), {})
+    errs = {name: errors(g, w)[2] for (name, _), g, w in zip(
+        model.named_parameters(), got, want)}
+    tol = cfg.n_layers * LM_FP32_TOL
+    worst = max(errs, key=errs.get)
+    log(f"train fp32 step: loss {float(loss_k):.7f} (kernels) vs "
+        f"{float(loss_t):.7f} (plain attention); gradients rel-Frobenius "
+        f"at most {errs[worst]:.3e} ({worst}), median "
+        f"{float(np.median(list(errs.values()))):.3e} (bound {tol:.2e})")
+    check(errs[worst] <= tol, f"train fp32 step: {worst}'s gradient "
+          f"{errs[worst]:.3e} off the plain version (> {tol:.2e})")
+    return {"max_err": errs[worst], "worst": worst, "tol": tol}
+
+
+def scan_grads_held(dev) -> dict:
+    """The scan's ``Function`` at falcon-mamba-7b's layer widths in fp32:
+    its gradients (the chunked adjoint, chunk ``mamba_chunk``) against
+    autograd through the plain version, and the forward kernel's and the
+    torch backward's times."""
+    from repro_torch.kernels import grad as kgrad
+    from repro_torch.kernels import launch_counts, ops, ref
+    from repro_torch.kernels import reset_launch_counts
+    b, length, d, n = SCAN_GRAD_SHAPE
+    chunk = ssm_config().mamba_chunk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    u, B, C = randn(b, length, d), randn(b, length, n), randn(b, length, n)
+    dt = torch.nn.functional.softplus(randn(b, length, d) - 4.0)
+    A = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).expand(
+        d, n).contiguous()
+    D = torch.ones(d, device=dev)
+    dy, dstate = randn(b, length, d), randn(b, d, n)
+    args = [t.requires_grad_(True) for t in (u, dt, A, B, C, D)]
+    reset_launch_counts()
+    got = torch.autograd.grad(ops.mamba_scan(*args, chunk=chunk,
+                                             return_state=True), args,
+                              (dy, dstate))
+    torch.cuda.synchronize()
+    launched("train: the scan Function", launch_counts(), {"mamba_scan": 1})
+    t0 = time.perf_counter()
+    want = torch.autograd.grad(ref.mamba_scan(*args, return_state=True),
+                               args, (dy, dstate))
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    names = ("du", "ddelta", "dA", "dB", "dC", "dD")
+    errs = {nm: errors(g, w)[2] for nm, g, w in zip(names, got, want)}
+    plain = [t.detach() for t in args]
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: ops.mamba_scan(*plain, return_state=True),
+                         3)
+    bwd_ms = time_ms(lambda: kgrad.scan_backward(
+        *plain, dy, dstate, chunk=chunk), 2)
+    log(f"train: scan Function at {list(SCAN_GRAD_SHAPE)} fp32: gradients "
+        f"vs autograd through plain {json.dumps(errs)} (bound "
+        f"{SCAN_GRAD_TOL:g}); forward kernel {fwd_ms:.4f} ms, torch "
+        f"backward {bwd_ms:.3f} ms (chunk {chunk}), autograd through the "
+        f"plain loop {plain_s:.3f} s wall")
+    check(max(errs.values()) <= SCAN_GRAD_TOL, f"train: the scan "
+          f"Function's gradients off the plain version: {errs}")
+    return {"errs": errs, "fwd_ms": fwd_ms, "bwd_torch_ms": bwd_ms,
+            "plain_autograd_s": plain_s}
+
+
+def train_phase(dev) -> dict:
+    """Phase 11: training olmo-1b whole on the card (the module
+    docstring's item 11)."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import accounting
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.transformer import Transformer
+    from repro_torch.optim import adamw
+    from repro_torch.optim.compression import CompressionConfig
+
+    t_phase = time.perf_counter()
+    cfg = train_config()
+    L = cfg.n_layers
+    flash = {"flash_attention_mma": 2 * L * TRAIN_STEPS}  # forward, remat
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    # the embedding's backward adds with atomics: deterministic kernels
+    # make the resumed run's losses bitwise the uninterrupted run's
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        main = run_train("olmo-1b", train_argv(TRAIN_STEPS), dev)
+        losses = main["losses"]
+        launched("train olmo-1b", main["launches"], flash)
+        check(len(losses) == TRAIN_STEPS and losses[-1] < losses[0],
+              f"train olmo-1b: the loss did not fall ({losses})")
+        step_s = float(np.median(main["times"][1:]))
+        shape = ShapeCell("smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+        flops = accounting.model_flops(cfg, shape)
+        tokens = TRAIN_BATCH * TRAIN_SEQ
+        mfu = flops / step_s / PEAK_BF16
+        log(f"train olmo-1b: step {step_s:.4f} s (median of steps 2-"
+            f"{TRAIN_STEPS}, host clock ending in a synchronize), "
+            f"{tokens / step_s:.1f} tokens/s, model FLOP/s "
+            f"{flops / step_s:.4e} = {mfu:.4f} of the bf16 peak "
+            f"({flops:.4e} FLOP a step, 6 x {accounting.param_counts(cfg)['total']} "
+            f"x {tokens}); first step {main['times'][0]:.3f} s; peak "
+            f"device memory {main['peak_gb']:.2f} GB; {json.dumps(main['line'])}")
+
+        # compression sees the reference's layout: a layer leaf stacked
+        # over the layers, one Gram and its sweeps a stacked leaf
+        comp_cfg = CompressionConfig(rank=TRAIN_COMP_RANK)
+        meta = dict(Transformer(cfg, "meta").named_parameters())
+        stacked = steps_mod.stack_layers(meta, cfg)
+        n_comp = sum(1 for p in stacked.values() if p.ndim >= 2
+                     and p.numel() >= comp_cfg.min_size)
+        calls = {}
+        with pca_calls_kept(calls):
+            comp = run_train("compressed, int8 moments", train_argv(
+                TRAIN_COMP_STEPS, "--compress-grads", str(TRAIN_COMP_RANK),
+                "--moments", "int8"), dev)
+        want = {"flash_attention_mma": 2 * L * TRAIN_COMP_STEPS,
+                "covariance": TRAIN_COMP_STEPS * n_comp,
+                "jacobi_sweep_smem": TRAIN_COMP_STEPS * n_comp
+                * comp_cfg.jacobi_sweeps}
+        launched("train compressed", comp["launches"], want)
+        check(len(calls["covariance"]) == want["covariance"]
+              and len(calls["jacobi_sweep"]) == want["jacobi_sweep_smem"],
+              f"train compressed: {len(calls['covariance'])} Gram and "
+              f"{len(calls['jacobi_sweep'])} sweep calls kept for {want}")
+        gram_err, sweeps_apart = pca_calls_against_plain(calls)
+        grams = sorted({tuple(args[0].shape)
+                        for args, _, _ in calls["covariance"]})
+        del calls
+        check(gram_err <= LM_GRAM_TOL, f"train compressed: a Gram off the "
+              f"plain Gram ({gram_err:.3e} > {LM_GRAM_TOL:g})")
+        check(sweeps_apart == 0, f"train compressed: {sweeps_apart} sweeps "
+              f"differ bitwise from the plain sweep")
+        # the same schedule and moments without compression: what the
+        # losses do at lr 3e-3 apart from it
+        plain = run_train("int8 moments", train_argv(
+            TRAIN_COMP_STEPS, "--moments", "int8"), dev)
+        launched("train int8", plain["launches"],
+                 {"flash_attention_mma": 2 * L * TRAIN_COMP_STEPS})
+        log(f"train compressed: {n_comp} stacked leaves compressed a step "
+            f"(one Gram and {comp_cfg.jacobi_sweeps} sweeps each; Gram "
+            f"operands {grams}); every Gram within {gram_err:.3e} of the "
+            f"plain Gram, every sweep bitwise the plain sweep; losses "
+            f"{json.dumps(comp['losses'])} against "
+            f"{json.dumps(plain['losses'])} uncompressed")
+
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+        ckpt = ["--ckpt-dir", str(TRAIN_CKPT)]
+        first = run_train("preempted", train_argv(
+            TRAIN_STEPS, "--preempt-at", str(TRAIN_PREEMPT_AT), *ckpt), dev)
+        rest = run_train("resumed", train_argv(TRAIN_STEPS, *ckpt), dev)
+        shutil.rmtree(TRAIN_CKPT, ignore_errors=True)
+        resumed = first["losses"] + rest["losses"]
+        diff = max(abs(a - b) for a, b in zip(resumed, losses))
+        log(f"train: preempted at {TRAIN_PREEMPT_AT} and resumed: losses "
+            f"{json.dumps(resumed)}, max |difference| from the "
+            f"uninterrupted run {diff:.3e} (held: bitwise, deterministic "
+            f"kernels)")
+        check(resumed == losses, "train: the preempted and resumed run's "
+              "losses differ from the uninterrupted run's")
+        launched("train preempted", first["launches"],
+                 {"flash_attention_mma": 2 * L * TRAIN_PREEMPT_AT})
+        launched("train resumed", rest["launches"], {
+            "flash_attention_mma": 2 * L * (TRAIN_STEPS - TRAIN_PREEMPT_AT)})
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    launches = {k: sum(r["launches"][k]
+                       for r in (main, comp, plain, first, rest))
+                for k in main["launches"]}
+
+    # one step of the same seeded model on the pipeline's first batch: every
+    # flash call held at the op, the operands of layers 0 and L - 1 kept
+    opt_cfg = adamw.AdamWConfig(lr=TRAIN_LR, warmup_steps=max(
+        2, TRAIN_STEPS // 10), decay_steps=TRAIN_STEPS)
+    model = tfm.init_model(cfg, seed=SEED, device=dev, train=True)
+    params = dict(model.named_parameters())
+    state = steps_mod.TrainState(model, adamw.init(params, opt_cfg),
+                                 torch.zeros((), dtype=torch.int32,
+                                             device=dev))
+    step_fn, _ = steps_mod.build_train_step(cfg, shape, opt_cfg,
+                                            device=dev)
+    pipe = TokenPipeline(DataConfig(seq_len=TRAIN_SEQ,
+                                    global_batch=TRAIN_BATCH,
+                                    vocab_size=cfg.vocab_size, seed=SEED))
+    batch = {"tokens": torch.as_tensor(pipe.batch_at(0)[:, :TRAIN_SEQ],
+                                       dtype=torch.int64, device=dev)}
+    held, kept = [], {}
+    reset_launch_counts()
+    with train_flash_held(held, kept, keep=(0, L - 1)):
+        state, metrics = step_fn(state, batch)
+    torch.cuda.synchronize()
+    launched("train held step", launch_counts(),
+             {"flash_attention_mma": 2 * L})
+    over = [h for h in held if h["over"]]
+    log(f"train held step: loss {float(metrics['loss']):.7f} (the "
+        f"trainer's first {losses[0]:.7f}); {len(held)} flash calls held "
+        f"at the op, max_abs_err "
+        f"{max(h['max_abs_err'] for h in held):.3e}")
+    check(len(held) == 2 * L and not over, f"train: a flash call of the "
+          f"step off the plain version beyond one bf16 ulp + "
+          f"{FA_BF16_SLACK:g}: {over[:2]}")
+    attn = attention_grads_held(kept, dev)
+    del kept
+    prof = step_profile(model, cfg, state, opt_cfg, batch)
+    bh = TRAIN_BATCH * cfg.n_heads
+    fwd_bound = attention_bound(bh, TRAIN_SEQ, TRAIN_SEQ, cfg.head_dim, True)
+    scores = TRAIN_SEQ * (TRAIN_SEQ + 1) / 2
+    bwd_bound = bound_ms(2 * bh * cfg.head_dim * TRAIN_SEQ * 8,
+                         10 * bh * cfg.head_dim * scores, PEAK_BF16)
+    log(f"train step profile: " + "; ".join(
+        f"{name} {r['wall_s']:.4f} s wall, {r['device_s']:.4f} s on the "
+        f"device" for name, r in prof.items() if name != "step")
+        + f"; busy share {prof['step']['busy_share']:.3f}; "
+        f"flash_attention_mma {prof['forward']['mma_device_ms']:.4f} ms a "
+        f"call in the forward, {prof['backward']['mma_device_ms']:.4f} in "
+        f"the recompute (bound {fwd_bound[0]:.4f}, {fwd_bound[1]}); torch "
+        f"attention backward {attn[0]['bwd_torch_ms']:.3f} ms a layer "
+        f"(a backward kernel's bound {bwd_bound[0]:.4f}, {bwd_bound[1]})")
+    for name in ("forward", "backward", "optimizer"):
+        log(f"train step {name} by device time: "
+            f"{json.dumps(prof[name]['top'])}")
+    del model, state, params, step_fn
+    torch.cuda.empty_cache()
+    fp32 = fp32_step_grads(cfg, batch, dev)
+    torch.cuda.empty_cache()
+    scan = scan_grads_held(dev)
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"train: phase {wall:.1f} s")
+    return {"launches": launches, "losses": losses, "step_s": step_s,
+            "tokens_per_s": tokens / step_s, "model_flops_per_s":
+            flops / step_s, "mfu": mfu, "peak_gb": main["peak_gb"],
+            "comp_losses": comp["losses"], "int8_losses": plain["losses"],
+            "comp_gram_err": gram_err, "resumed": resumed,
+            "attention": attn, "profile": prof, "fwd_bound": fwd_bound,
+            "bwd_bound": bwd_bound, "fp32": fp32, "scan": scan,
+            "wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -2791,6 +3330,7 @@ def main() -> int:
     lm = lm_phase(dev)
     families = families_phase(dev)
     phase10 = encdec_vlm_phase(dev)
+    trained = train_phase(dev)
     prof = lm["profile"]
     rows["flash_attention_mma"].update(
         lm_device_ms=prof["mma_device_ms"], lm_bound_ms=prof["mma_bound"][0],
@@ -2814,6 +3354,19 @@ def main() -> int:
         vlm_device_ms=vl["splitkv_device_ms"],
         vlm_bound_ms=vl["splitkv_bound"][0],
         vlm_decode_busy_share=vl["decode_busy_share"])
+    tp = trained["profile"]
+    rows["flash_attention_mma"].update(
+        train_device_ms=tp["forward"]["mma_device_ms"],
+        train_recompute_device_ms=tp["backward"]["mma_device_ms"],
+        train_bound_ms=trained["fwd_bound"][0],
+        train_bwd_torch_ms=trained["attention"][0]["bwd_torch_ms"],
+        train_bwd_bound_ms=trained["bwd_bound"][0],
+        train_step_busy_share=tp["step"]["busy_share"])
+    rows["mamba_scan"].update(
+        train_bwd_torch_ms=trained["scan"]["bwd_torch_ms"],
+        train_fwd_ms=trained["scan"]["fwd_ms"],
+        train_shape=f"{'x'.join(map(str, SCAN_GRAD_SHAPE[:3]))} N "
+                    f"{SCAN_GRAD_SHAPE[3]} fp32 (falcon-mamba-7b widths)")
     ssm_prof = families["ssm"]["profile"]
     rows["mamba_scan"].update(
         lm_device_ms=ssm_prof["scan_device_ms"],
@@ -2841,6 +3394,7 @@ def main() -> int:
         row["launches_lm"] = (lm["launches"][k.name]
                               + families["launches"][k.name]
                               + phase10["launches"][k.name])
+        row["launches_train"] = trained["launches"][k.name]
         record.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))

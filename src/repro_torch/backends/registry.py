@@ -108,6 +108,11 @@ def set_default_backend(name: Optional[str]) -> None:
     _PROCESS_DEFAULT = None if name is None else _check_backend(name)
 
 
+def scoped_backend() -> Optional[str]:
+    """This thread's ``use_backend`` override, or None."""
+    return getattr(_STATE, "backend", None)
+
+
 @contextlib.contextmanager
 def use_backend(name: str):
     """Scoped (thread-local) backend override."""

@@ -1,7 +1,6 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig, plus reduced
 smoke-test configs (port of ``repro.configs``; the ten architecture files
-are copied as data).  ``configs/shapes.py``, the training and dry-run
-shapes, waits for the training slice."""
+are copied as data).  ``configs/shapes.py`` holds the shape cells."""
 from __future__ import annotations
 
 import dataclasses

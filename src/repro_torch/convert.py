@@ -16,7 +16,10 @@ arrays and returns the port's ``Transformer`` holding the same numbers
 the learned position table alike, by name); ``decode_state_to_reference``
 maps a decode state's caches to the reference's group-stacked ones:
 head-major KV caches (the cross K/V too) to (B, S, KV, hd), Mamba caches
-as they are.
+as they are; ``lm_tree`` maps a state dict back onto the reference's
+parameter tree.  ``adamw_state_to_port`` and ``adamw_state_to_reference``
+carry an AdamW state (its moments, which mirror the parameter tree, the
+int8 mode's ``{"q", "s"}`` pairs and the step count) either way.
 """
 from __future__ import annotations
 
@@ -100,6 +103,51 @@ def lm_state_dict(params, cfg) -> Dict[str, np.ndarray]:
     return out
 
 
+def _stack_layers(state: dict, prefix: str, per: int) -> dict:
+    """``{prefix}{i}.{part}.{name}`` entries stacked over the groups under
+    ``l{i % per}``, layer i = group x per + j."""
+    per_layer = {}
+    for key, a in state.items():
+        if key.startswith(prefix):
+            i, part, name = key[len(prefix):].split(".")
+            per_layer.setdefault((int(i) % per, part, name),
+                                 {})[int(i) // per] = a
+    blocks = {f"l{j}": {} for j in range(per)}
+    for (j, part, name), by_group in per_layer.items():
+        blocks[f"l{j}"].setdefault(part, {})[name] = np.stack(
+            [by_group[g] for g in range(len(by_group))])
+    return blocks
+
+
+def lm_tree(state: Dict[str, np.ndarray], cfg) -> dict:
+    """A state dict of numpy arrays (the port's keys) as the reference's
+    parameter tree, the inverse of ``lm_state_dict``: layer i = group x
+    period + j stacked over the groups under ``blocks/l{j}``, an encoder's
+    layers under ``encoder/blocks/l0`` with its ``norm_f``, and the empty
+    dicts of parameterless norms."""
+    from .models.transformer import period
+    tree = {"embed": {}, "norm_f": {},
+            "blocks": _stack_layers(state, "layers.", period(cfg))}
+    for key, a in state.items():
+        parts = key.split(".")
+        if parts[0] in ("embed", "norm_f"):
+            tree[parts[0]][parts[1]] = a
+    blocks = list(tree["blocks"].values())
+    if cfg.family == "encdec":
+        tree["encoder"] = {
+            "blocks": _stack_layers(state, "encoder.layers.", 1),
+            "norm_f": {k.split(".")[-1]: a for k, a in state.items()
+                       if k.startswith("encoder.norm_f.")}}
+        blocks += list(tree["encoder"]["blocks"].values())
+    for block in blocks:
+        block.setdefault("norm1", {})
+        if "cross" in block:
+            block.setdefault("norm_x", {})
+        if cfg.d_ff:
+            block.setdefault("norm2", {})
+    return tree
+
+
 def lm_params_to_port(params, cfg, device: DeviceLike = None):
     """The port's ``Transformer`` for ``cfg`` holding the reference's
     parameter values ``params`` (``tfm.param_values`` of the reference's
@@ -142,3 +190,81 @@ def decode_state_to_reference(state, cfg) -> dict:
             "enc_kvs": (None if state.enc_kvs is None
                         else stacked(state.enc_kvs)),
             "pos": int(state.pos)}
+
+
+# -- the AdamW state ----------------------------------------------------------
+
+def _is_pair(node) -> bool:
+    """An int8 moment leaf: {"q": blocks, "s": scales}."""
+    return isinstance(node, dict) and set(node) == {"q", "s"} and not any(
+        isinstance(v, dict) for v in node.values())
+
+
+def _pick(tree, key: str):
+    """The tree with each int8 pair replaced by its ``key`` part."""
+    if _is_pair(tree):
+        return tree[key]
+    if isinstance(tree, dict):
+        return {k: _pick(v, key) for k, v in tree.items()}
+    return tree
+
+
+def _pair_up(q, s):
+    """Two trees of one structure zipped into one of {"q", "s"} leaves."""
+    if isinstance(q, dict):
+        return {k: _pair_up(q[k], s[k]) for k in q}
+    return {"q": q, "s": s}
+
+
+def _has_pairs(tree) -> bool:
+    if _is_pair(tree):
+        return True
+    return isinstance(tree, dict) and any(_has_pairs(v)
+                                          for v in tree.values())
+
+
+def _moments_to_port(tree, cfg, dev) -> dict:
+    """A moment tree (the parameter tree's structure) as the port's dict
+    of named tensors, an int8 pair as {"q", "s"} tensors."""
+    if not _has_pairs(tree):
+        return {k: _tensor(a, dev) for k, a in lm_state_dict(tree,
+                                                            cfg).items()}
+    scales = lm_state_dict(_pick(tree, "s"), cfg)
+    return {k: {"q": _tensor(a, dev), "s": _tensor(scales[k], dev)}
+            for k, a in lm_state_dict(_pick(tree, "q"), cfg).items()}
+
+
+def adamw_state_to_port(opt, cfg, device: DeviceLike = None):
+    """The reference's ``OptState`` (``m``, ``v`` mirroring its parameter
+    tree, ``count``; leaves readable by numpy) as the port's, on
+    ``device`` (default ``cuda``)."""
+    from .optim.adamw import OptState
+    dev = resolve_device(device)
+    return OptState(m=_moments_to_port(opt.m, cfg, dev),
+                    v=_moments_to_port(opt.v, cfg, dev),
+                    count=torch.tensor(int(np.asarray(opt.count)),
+                                       dtype=torch.int32, device=dev))
+
+
+def _to_numpy32(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def adamw_state_to_reference(opt, cfg) -> dict:
+    """A port ``OptState`` as the reference's fields in numpy: {"m": tree,
+    "v": tree, "count": int32}, each tree the parameter tree's structure
+    (``lm_tree``), an int8 moment a {"q", "s"} pair; bf16 moments come as
+    fp32 arrays holding the same values."""
+    def tree(moments):
+        first = next(iter(moments.values()))
+        if isinstance(first, dict):
+            return _pair_up(
+                lm_tree({k: _to_numpy32(m["q"]) for k, m in moments.items()},
+                        cfg),
+                lm_tree({k: _to_numpy32(m["s"]) for k, m in moments.items()},
+                        cfg))
+        return lm_tree({k: _to_numpy32(m) for k, m in moments.items()}, cfg)
+
+    return {"m": tree(opt.m), "v": tree(opt.v),
+            "count": np.int32(int(opt.count))}

@@ -12,6 +12,10 @@ Each op resolves a named backend per call (``repro_torch.backends``):
 
 ``backend=None`` follows the registry's resolution order, whose last rule
 follows the tensor: ``cuda`` for a CUDA tensor, ``torch`` for a CPU one.
+``flash_attention`` and ``mamba_scan`` are differentiable: where
+gradients are enabled and an input requires one, the resolved op runs as
+the forward of a ``torch.autograd.Function`` whose backward is PyTorch
+ops (``kernels.grad``).
 The three path ops take one problem (2-D) or a batch (3-D).  The reference
 pads shapes up to block multiples for Pallas; the CUDA kernels mask their
 ragged edges instead, so nothing here pads, and the block arguments kept
@@ -30,6 +34,7 @@ from . import cordic as _cordic
 from . import dle as _dle
 from . import flash_attention as _fa
 from . import fused as _fused
+from . import grad as _grad
 from . import mamba_scan as _ms
 from . import mm_engine as _mm
 from . import ref as _ref
@@ -212,15 +217,25 @@ def _fa_torch(q, k, v, *, causal, scale, block_q=0, block_k=0, q_offset=0):
                                 q_offset=q_offset)
 
 
+def _needs_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def flash_attention(q, k, v, causal: bool = True, scale=None,
                     block_q: int = 128, block_k: int = 128,
-                    q_offset: int = 0, *, backend: Optional[str] = None):
+                    q_offset: int = 0, *, backend: Optional[str] = None,
+                    chunk: int = 1024):
     """Softmax attention of q (BH, Sq, D) over k/v (BH, Skv, D); query row
     i sits at position i + ``q_offset``.  Any Sq and Skv: keys are masked
-    by the true Skv, never padded."""
-    return registry.resolve("flash_attention", backend, like=q)(
-        q, k, v, causal=causal, scale=scale, block_q=block_q,
-        block_k=block_k, q_offset=q_offset)
+    by the true Skv, never padded.  ``chunk``: the KV chunk of the
+    backward, where gradients flow (the models pass ``cfg.attn_chunk``)."""
+    fn = registry.resolve("flash_attention", backend, like=q)
+    if _needs_grad(q, k, v):
+        return _grad.flash_attention(fn, q, k, v, causal=causal, scale=scale,
+                                     q_offset=q_offset, chunk=chunk,
+                                     block_q=block_q, block_k=block_k)
+    return fn(q, k, v, causal=causal, scale=scale, block_q=block_q,
+              block_k=block_k, q_offset=q_offset)
 
 
 # -- mamba_scan -------------------------------------------------------------
@@ -246,6 +261,12 @@ def mamba_scan(u, delta, A, B, C, D_skip, chunk: int = 128, *,
                return_state: bool = False, backend: Optional[str] = None):
     """Selective scan y (batch, L, D) of u, delta (batch, L, D), A (D, N),
     B, C (batch, L, N) and D_skip (D,), with an fp32 state; with
-    ``return_state``, (y, the final state (batch, D, N) fp32)."""
-    return registry.resolve("mamba_scan", backend, like=u)(
-        u, delta, A, B, C, D_skip, chunk=chunk, return_state=return_state)
+    ``return_state``, (y, the final state (batch, D, N) fp32).  ``chunk``:
+    the backward's recompute chunk, where gradients flow (the models pass
+    ``cfg.mamba_chunk``)."""
+    fn = registry.resolve("mamba_scan", backend, like=u)
+    if _needs_grad(u, delta, A, B, C, D_skip):
+        return _grad.mamba_scan(fn, u, delta, A, B, C, D_skip, chunk=chunk,
+                                return_state=return_state)
+    return fn(u, delta, A, B, C, D_skip, chunk=chunk,
+              return_state=return_state)

@@ -1,3 +1,3 @@
-"""The LM stack of the port (port of ``repro.models``): the dense family's
-configuration, layers, attention and transformer, and the KV-cache PCA
-compression.  MoE, Mamba and the other families are not ported yet."""
+"""The LM stack of the port (port of ``repro.models``): the configuration,
+layers, attention, Mamba, MoE and the transformer of every family, for
+serving and training, and the KV-cache PCA compression."""

@@ -19,7 +19,9 @@ Cache layout.  ``KVCache`` is head-major, (B, KV, S, hd), contiguous, so a
   step) and, for MHA without head padding, attends straight from the
   cache: its capacity may exceed the prompt, and the causal mask keeps
   every row off the zero tail (the kernels visit only keys up to the
-  last row's diagonal);
+  last row's diagonal); training (no cache asked for) permutes K and V
+  into a head-major copy and hands that to the op, so autograd keeps no
+  cache;
 * an MHA decode step (G = 1) writes the new token's K and V at slot
   ``pos`` and attends the cache in place, with Sq = 1 and ``q_offset =
   pos``: no copy of the cache, and the split-KV kernel reads keys
@@ -58,6 +60,9 @@ and V, projected once a layer by ``cross_kv`` into a head-major
 As in the reference, the prefill form adds no bias to q, k or v, the
 decode form adds ``bq`` to q, and neither rotates.  Ring attention raises
 until the multi-device slice.
+
+Where gradients flow, the op's backward (``kernels.grad``) runs over KV
+chunks of ``cfg.attn_chunk``, which every full-sequence call passes.
 """
 from __future__ import annotations
 
@@ -207,13 +212,18 @@ def self_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     b, s, _ = x.shape
     hp, hd = cfg.padded_heads, cfg.head_dim
     q, k, v = _qkv(p, x, cfg, positions)
-    cache = init_cache(cfg, b, max(cache_len or s, s), k.dtype, k.device)
-    cache.k[:, :, :s] = k.transpose(1, 2)
-    cache.v[:, :, :s] = v.transpose(1, 2)
+    if return_cache:
+        cache = init_cache(cfg, b, max(cache_len or s, s), k.dtype, k.device)
+        cache.k[:, :, :s] = k.transpose(1, 2)
+        cache.v[:, :, :s] = v.transpose(1, 2)
+    else:
+        cache = KVCache(k.transpose(1, 2).contiguous(),
+                        v.transpose(1, 2).contiguous())
     qh = q.transpose(1, 2).reshape(b * hp, s, hd)
     kx = _expand_kv(cache.k, cfg, s, causal)
     vx = _expand_kv(cache.v, cfg, s, causal)
-    out = ops.flash_attention(qh, kx, vx, causal=causal, scale=hd ** -0.5)
+    out = ops.flash_attention(qh, kx, vx, causal=causal, scale=hd ** -0.5,
+                              chunk=cfg.attn_chunk)
     return _out_proj(p, out, cfg), (cache if return_cache else None)
 
 
@@ -245,7 +255,8 @@ def cross_attention(p: Attention, x: torch.Tensor, enc_kv: KVCache,
         k = _expand_kv(enc_kv.k, cfg, f, causal=False)
         v = _expand_kv(enc_kv.v, cfg, f, causal=False)
         qh = qh.view(b * hp, sq, hd)
-    out = ops.flash_attention(qh, k, v, causal=False, scale=hd ** -0.5)
+    out = ops.flash_attention(qh, k, v, causal=False, scale=hd ** -0.5,
+                              chunk=cfg.attn_chunk)
     return _out_proj(p, out.view(b * hp, sq, hd), cfg)
 
 

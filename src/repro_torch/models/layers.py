@@ -38,7 +38,9 @@ def _normal(gen: Optional[torch.Generator], shape, dtype, scale: float,
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    return nn.Parameter(t, requires_grad=False)  # forward only, for now
+    """A parameter without gradients: serving's default.  A model built
+    for training turns them on (``Transformer(..., train=True)``)."""
+    return nn.Parameter(t, requires_grad=False)
 
 
 # ---------------------------------------------------------------------------

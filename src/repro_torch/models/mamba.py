@@ -7,7 +7,9 @@ call a layer, where the reference runs its chunked associative scan
 (``_chunked_scan``): on the card that is the ``mamba_scan`` kernel, on the
 CPU its plain version.  Both compute the same recurrence with an fp32
 state, so ``mamba_chunk`` (the reference's chunk length) changes no
-result here; the two sum in other orders, within fp32 rounding.  Decode
+result here; the two sum in other orders, within fp32 rounding.  Where
+gradients flow, the op's backward (``kernels.grad``) recomputes the
+states in chunks of ``mamba_chunk``.  Decode
 (``decode_mamba``) is the reference's plain one-step recurrence in
 PyTorch: the reference calls no kernel there either.
 
@@ -108,11 +110,10 @@ def _ssm_params(p: Mamba, xc: torch.Tensor, cfg: ModelConfig):
 def apply_mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
                 chunk: Optional[int] = None, return_cache: bool = False):
     """Train/prefill path.  x (B, S, d) -> (y, cache or None).  ``chunk``
-    (the reference's scan chunk) has no effect: the scan op runs each
-    channel over all of S.  The cache's conv part is the last d_conv - 1
-    raw inputs, zero-padded in front for a shorter prompt; its state is
-    the scan's final state."""
-    del chunk
+    (default ``cfg.mamba_chunk``) is the backward's recompute chunk; the
+    forward runs each channel over all of S.  The cache's conv part is the
+    last d_conv - 1 raw inputs, zero-padded in front for a shorter prompt;
+    its state is the scan's final state."""
     _unsupported(cfg)
     s = x.shape[1]
     di, K = cfg.d_inner, cfg.d_conv
@@ -128,7 +129,7 @@ def apply_mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
     A = -torch.exp(p.A_log)
     y, state = ops.mamba_scan(xc.float().contiguous(), dt.contiguous(), A,
                               B_ssm.contiguous(), C_ssm.contiguous(), p.D,
-                              return_state=True)
+                              chunk or cfg.mamba_chunk, return_state=True)
     y = (y * F.silu(z.float())).to(x.dtype)
     out = y @ p.out_proj
     if not return_cache:

@@ -1,7 +1,7 @@
 """The transformer stack (port of ``repro.models.transformer``) for every
 family: dense, moe, ssm, hybrid, encdec (whisper) and vlm (llava's
-backbone): ``init_model``, ``forward`` (modes ``prefill`` and ``train``,
-forward only), ``prefill``, ``decode_step``, ``DecodeState``,
+backbone): ``init_model``, ``forward`` (modes ``prefill`` and ``train``),
+``loss_fn``, ``prefill``, ``decode_step``, ``DecodeState``,
 ``make_decode_state`` and ``encoder_view``.
 
 A layer's mixer is attention or ``Mamba`` and its FFN an ``MLP`` or a
@@ -11,9 +11,20 @@ expert ``mlp_shared``), by ``cfg.layer_kinds()`` and ``cfg.ffn_kinds()``;
 period of layers (``period``) into groups and scans over them; here the
 layers are an ``nn.ModuleList`` run in order, and the decode state holds
 one cache a layer: a head-major ``KVCache`` (``attention``'s module
-docstring) or a ``MambaCache``.  ``scan_layers`` and ``remat`` stay
-config fields with no effect on the result.  Ring attention raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+docstring) or a ``MambaCache``.  ``scan_layers`` stays a config field
+with no effect.  Ring attention raises ``NotImplementedError`` naming the
+ROADMAP item that ports it.
+
+Training.  ``Transformer(cfg, train=True)`` (``init_model(...,
+train=True)``) gives parameters that require gradients; serving's models
+have none.  ``forward(..., mode="train")`` builds the autograd graph
+wherever gradients are enabled, with each decoder and encoder layer
+under ``torch.utils.checkpoint`` when ``cfg.remat`` is set (the
+reference's ``jax.checkpoint`` of each group; here of each layer): a
+layer's activations are recomputed in the backward pass, and with them
+its flash and scan calls.  ``loss_fn`` is the reference's: the fp32
+cross-entropy of the shifted logits past ``n_prefix`` plus ``AUX_COEF``
+x the MoE layers' ``aux``.
 
 encdec: ``Transformer.encoder`` runs the stub frontend's frames (B, F,
 d) plus the sinusoidal table through ``encoder_view(cfg)``'s blocks with
@@ -34,13 +45,15 @@ the same values as the reference's full (B, S, vocab) logits sliced at
 ``forward`` keeps the reference's full logits and returns the MoE layers'
 summed load-balance ``aux``.
 
-Everything runs under ``torch.no_grad()``; ``decode_step`` writes the new
+``prefill`` and ``decode_step`` run under ``torch.no_grad()``, as does
+``forward`` in ``prefill`` mode; ``decode_step`` writes the new
 token's K and V into the state's KV caches in place (JAX's
 ``donate_argnums`` in the reference's serve loop) and replaces each
 ``MambaCache``, so a state is consumed by the step that takes it.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import List, NamedTuple, Optional, Union
@@ -48,12 +61,17 @@ from typing import List, NamedTuple, Optional, Union
 import torch
 from torch import nn
 
+from torch.utils.checkpoint import checkpoint
+
 from .._device import DeviceLike, resolve_device
+from ..backends import registry
 from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import moe as moe_mod
 from .config import ModelConfig
 from .layers import Embedding, MLP, Norm, sinusoidal_embedding
+
+AUX_COEF = 0.01  # MoE load-balance loss weight
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -172,9 +190,10 @@ class Transformer(nn.Module):
     ``norm_f`` and, for encdec, ``encoder``: the reference's parameter
     tree with the group stack laid out as layers
     (``convert.lm_params_to_port``).  Built with uninitialised weights;
-    ``init_model`` draws them."""
+    ``init_model`` draws them.  Its parameters require gradients with
+    ``train``, and not otherwise."""
 
-    def __init__(self, cfg: ModelConfig, device=None):
+    def __init__(self, cfg: ModelConfig, device=None, train: bool = False):
         super().__init__()
         cfg.validate()
         check_supported(cfg)
@@ -188,17 +207,19 @@ class Transformer(nn.Module):
         self.norm_f = Norm(cfg, device)
         if decoder:
             self.encoder = Encoder(cfg, device)
+        self.requires_grad_(train)
 
 
-def init_model(cfg: ModelConfig, seed: int = 0,
-               device: DeviceLike = None) -> Transformer:
+def init_model(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
+               train: bool = False) -> Transformer:
     """A model with random weights drawn from a ``torch.Generator`` seeded
     with ``seed`` on ``device`` (default ``cuda``; raises without a card
-    unless ``device="cpu"``).  The reference draws from ``jax.random``, so
-    the two packages' weights differ for one seed."""
+    unless ``device="cpu"``), its parameters requiring gradients with
+    ``train``.  The reference draws from ``jax.random``, so the two
+    packages' weights differ for one seed."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
-    model = Transformer(cfg, dev)
+    model = Transformer(cfg, dev, train=train)
     layers = list(model.layers)
     if cfg.family == "encdec":
         layers += list(model.encoder.layers)
@@ -209,7 +230,7 @@ def init_model(cfg: ModelConfig, seed: int = 0,
                 part = getattr(layer, name, None)
                 if part is not None:
                     part.reset_parameters(gen)
-    return model.eval()
+    return model.train(train)
 
 
 def _embed_input(params: Transformer, batch, cfg: ModelConfig):
@@ -238,8 +259,29 @@ def _encode(params: Transformer, batch, cfg: ModelConfig) -> torch.Tensor:
     positions = torch.arange(f, device=x.device).expand(b, f)
     enc_cfg = encoder_view(cfg)
     for layer in params.encoder.layers:
-        x = layer(x, enc_cfg, positions, "train", causal=False)[0]
+        x = _layer_call(layer, cfg.remat)(x, enc_cfg, positions, "train",
+                                          causal=False)[0]
     return params.encoder.norm_f(x)
+
+
+def _layer_call(layer: Block, remat: bool):
+    """``layer`` itself, or, with ``remat`` where gradients are enabled,
+    ``layer`` under ``torch.utils.checkpoint``: its activations are not
+    kept but recomputed in the backward pass.  The recompute runs on
+    autograd's thread, which for a CUDA tensor is not the caller's: it
+    re-enters the caller's scoped backend (``registry.use_backend``), so
+    that it runs the ops the forward ran."""
+    if not (remat and torch.is_grad_enabled()):
+        return layer
+    scoped = registry.scoped_backend()
+
+    def contexts():
+        return contextlib.nullcontext(), (
+            registry.use_backend(scoped) if scoped
+            else contextlib.nullcontext())
+
+    return lambda *args, **kw: checkpoint(layer, *args, use_reentrant=False,
+                                          context_fn=contexts, **kw)
 
 
 def _run_stack(params: Transformer, x, cfg: ModelConfig, positions,
@@ -250,8 +292,9 @@ def _run_stack(params: Transformer, x, cfg: ModelConfig, positions,
     cross K/V, one a layer, or None)."""
     new_caches, new_enc_kvs = [], []
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    remat = cfg.remat and mode == "train"
     for i, layer in enumerate(params.layers):
-        x, c, ekv, aux = layer(
+        x, c, ekv, aux = _layer_call(layer, remat)(
             x, cfg, positions, mode,
             cache=caches[i] if caches is not None else None, pos=pos,
             cache_len=cache_len, enc_out=enc_out,
@@ -270,22 +313,37 @@ def _decoder_input(params: Transformer, batch, cfg: ModelConfig):
     return (*_embed_input(params, batch, cfg), enc_out)
 
 
-@torch.no_grad()
 def forward(params: Transformer, batch, cfg: ModelConfig,
             mode: str = "train"):
     """Full-sequence forward. Returns (logits, aux, caches, enc_kvs,
     n_prefix) as the reference does; ``aux`` is the MoE layers' summed
     load-balance loss, ``caches`` one ``KVCache`` or ``MambaCache`` a
     layer in ``prefill`` mode, else None, ``enc_kvs`` the decoder's cross
-    K/V (encdec, ``prefill`` mode), else None."""
+    K/V (encdec, ``prefill`` mode), else None.  ``train`` mode builds the
+    autograd graph where gradients are enabled; ``prefill`` never does."""
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward mode {mode!r}; expected train or prefill")
-    x, positions, n_prefix, enc_out = _decoder_input(params, batch, cfg)
-    x, aux, caches, enc_kvs = _run_stack(params, x, cfg, positions, mode,
-                                         enc_out=enc_out)
-    x = params.norm_f(x)
-    logits = params.embed.unembed(x)
+    with torch.set_grad_enabled(torch.is_grad_enabled() and mode == "train"):
+        x, positions, n_prefix, enc_out = _decoder_input(params, batch, cfg)
+        x, aux, caches, enc_kvs = _run_stack(params, x, cfg, positions,
+                                             mode, enc_out=enc_out)
+        x = params.norm_f(x)
+        logits = params.embed.unembed(x)
     return logits, aux, caches, enc_kvs, n_prefix
+
+
+def loss_fn(params: Transformer, batch, cfg: ModelConfig):
+    """The training loss: (ce + ``AUX_COEF`` x aux, {"ce", "aux"}), ce the
+    fp32 cross-entropy of the logits past ``n_prefix`` (the vlm's patches)
+    at each position against the next token."""
+    logits, aux, _, _, n_prefix = forward(params, batch, cfg, "train")
+    tokens = batch["tokens"]
+    preds = logits[:, n_prefix:][:, :-1].float()
+    targets = tokens[:, 1:].long()
+    logz = torch.logsumexp(preds, dim=-1)
+    gold = torch.gather(preds, -1, targets[..., None])[..., 0]
+    ce = (logz - gold).mean()
+    return ce + AUX_COEF * aux, {"ce": ce, "aux": aux}
 
 
 class DecodeState(NamedTuple):
@@ -356,6 +414,7 @@ def make_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
     return DecodeState(caches=caches, enc_kvs=enc_kvs, pos=cache_len)
 
 
-__all__ = ["DecodeState", "Encoder", "Transformer", "check_supported",
-           "decode_step", "encoder_view", "forward", "init_model",
-           "make_decode_state", "period", "prefill"]
+__all__ = ["AUX_COEF", "DecodeState", "Encoder", "Transformer",
+           "check_supported", "decode_step", "encoder_view", "forward",
+           "init_model", "loss_fn", "make_decode_state", "period",
+           "prefill"]

@@ -1,3 +1,2 @@
-"""Optimizer-side PCA consumers of the port (port of ``repro.optim``):
-spectral gradient telemetry and PCA gradient compression.  AdamW waits for
-the training slice."""
+"""The port's optimizer side (port of ``repro.optim``): AdamW and the PCA
+consumers, spectral gradient telemetry and PCA gradient compression."""

@@ -157,48 +157,24 @@ def lm_extra_inputs(cfg, batch: int, rng: np.random.Generator) -> dict:
         (batch, getattr(cfg, name[1]), cfg.d_model)).astype(np.float32)}
 
 
-def _stack_layers(state: dict, prefix: str, per: int) -> dict:
-    """``{prefix}{i}.{part}.{name}`` state-dict entries stacked over the
-    groups under ``l{i % per}``, layer i = group x per + j."""
-    per_layer = {}
-    for key, a in state.items():
-        if key.startswith(prefix):
-            i, part, name = key[len(prefix):].split(".")
-            per_layer.setdefault((int(i) % per, part, name),
-                                 {})[int(i) // per] = a
-    blocks = {f"l{j}": {} for j in range(per)}
-    for (j, part, name), by_group in per_layer.items():
-        blocks[f"l{j}"].setdefault(part, {})[name] = np.stack(
-            [by_group[g] for g in range(len(by_group))])
-    return blocks
-
-
 def lm_params_to_reference(model, cfg) -> dict:
     """The port's ``Transformer`` for ``cfg`` as the reference's parameter
     tree (the inverse of ``convert.lm_params_to_port``): nested dicts of
-    numpy arrays, layer i = group x period + j stacked over the groups
-    under ``blocks/l{j}``; an encoder's layers under ``encoder/blocks/l0``
-    with its ``norm_f``."""
-    from repro_torch.models.transformer import period
-    state = {k: to_numpy(t) for k, t in model.state_dict().items()}
-    tree = {"embed": {}, "norm_f": {},
-            "blocks": _stack_layers(state, "layers.", period(cfg))}
-    for key, a in state.items():
-        parts = key.split(".")
-        if parts[0] in ("embed", "norm_f"):
-            tree[parts[0]][parts[1]] = a
-    blocks = list(tree["blocks"].values())
-    if cfg.family == "encdec":
-        tree["encoder"] = {
-            "blocks": _stack_layers(state, "encoder.layers.", 1),
-            "norm_f": {k.split(".")[-1]: a for k, a in state.items()
-                       if k.startswith("encoder.norm_f.")}}
-        blocks += list(tree["encoder"]["blocks"].values())
-    # parameterless norms are empty dicts in the reference's tree
-    for block in blocks:
-        block.setdefault("norm1", {})
-        if "cross" in block:
-            block.setdefault("norm_x", {})
-        if cfg.d_ff:
-            block.setdefault("norm2", {})
-    return tree
+    numpy arrays (``convert.lm_tree``)."""
+    from repro_torch import convert
+    return convert.lm_tree({k: to_numpy(t)
+                            for k, t in model.state_dict().items()}, cfg)
+
+
+def compression_state_to_port(state) -> "object":
+    """The reference's ``CompressionState`` (leaves keyed by the tuple of
+    ``str`` path entries, ``("['blocks']", "['l0']", ...)``) as the
+    port's, keyed by the dotted names of the reference's layout
+    (``blocks.l0...``: ``launch.steps.stack_layers``), on the CPU."""
+    from repro_torch.optim import compression as tcomp
+
+    def port(tree):
+        return {".".join(part[2:-2] for part in path):
+                None if a is None else torch.as_tensor(np.array(a))
+                for path, a in tree.items()}
+    return tcomp.CompressionState(q=port(state.q), error=port(state.error))

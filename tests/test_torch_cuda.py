@@ -39,7 +39,13 @@ bf16 run against the plain fp32 run of the same weights), and each bf16
 flash call held at the op, on the operands the model gave it, to the
 standalone kernels' bf16 contract.  KV
 compression: the Gram kernel to 1e-6 of the plain Gram, the sweep kernel
-bitwise the plain sweep, one launch a sweep.
+bitwise the plain sweep, one launch a sweep.  Training: each
+differentiable op (``kernels.grad``: the kernel's forward, a PyTorch
+backward) against autograd through the plain version, attention in fp32
+within 1e-5 and in bf16 within one bf16 ulp plus 2e-5 x max |want| of the
+plain fp32 gradients, the scan within 1e-5; a reduced olmo-1b step's
+gradients within n_layers x 2e-5 of plain attention's, with one flash
+launch a layer forward and one in the remat recompute.
 """
 import contextlib
 
@@ -1335,3 +1341,112 @@ def test_kv_compression_sweep_kernel_is_bitwise_the_plain_sweep(cuda_device):
     torch.cuda.synchronize()
     assert _launched(before) == {"covariance": 2, "jacobi_sweep_smem": 24}
     assert err.is_cuda and 0 <= float(err) < 0.5 and ratio == 0.25
+
+
+# -- the differentiable ops (kernels.grad) ----------------------------------------
+
+FA_GRAD_SHAPES = [  # (BH, Sq, Skv, D, causal, q_offset, chunk)
+    (4, 256, 256, 128, True, 0, 64),
+    (4, 200, 333, 64, True, 133, 128),
+    (6, 96, 500, 20, False, 0, 1024),
+    (2, 1024, 1024, 128, True, 0, 256),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FA_GRAD_SHAPES, ids=str)
+def test_flash_attention_gradients_on_the_card(cuda_device, shape, dtype):
+    """The attention Function (the kernel forward, the torch FA-2
+    backward) against autograd through the plain fp32 version of the same
+    operands: fp32 within 1e-5 relative Frobenius; bf16 each value within
+    one bf16 ulp of the larger, plus 2e-5 x max |want| (fp32 arithmetic,
+    rounded once)."""
+    bh, sq, skv, d, causal, q_offset, chunk = shape
+    g = torch.Generator(device=cuda_device).manual_seed(sq + skv + d)
+    q, k, v = (torch.randn(bh, n, d, generator=g, device=cuda_device)
+               .to(dtype).requires_grad_(True) for n in (sq, skv, skv))
+    dout = torch.randn(bh, sq, d, generator=g, device=cuda_device).to(dtype)
+    before = launch_counts()
+    out = ops.flash_attention(q, k, v, causal=causal, scale=d ** -0.5,
+                              q_offset=q_offset, chunk=chunk)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    after = launch_counts()
+    kernel = flash_attention.choose_kernel(sq, dtype).name
+    assert after[kernel] == before[kernel] + 1
+    args = [t.detach().float().requires_grad_(True) for t in (q, k, v)]
+    want = torch.autograd.grad(ref.flash_attention(
+        *args, causal=causal, scale=d ** -0.5, q_offset=q_offset), args,
+        dout.float())
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        if dtype == torch.float32:
+            assert rel_frobenius(a, b) <= 1e-5
+            continue
+        a = a.float()
+        slack = bf16_ulp(torch.maximum(a.abs(), b.abs())) \
+            + 2e-5 * float(b.abs().max())
+        assert bool(((a - b).abs() <= slack).all())
+
+
+@pytest.mark.parametrize("return_state", [False, True])
+@pytest.mark.parametrize("shape", [(2, 300, 64, 16, 256), (1, 77, 40, 5, 32),
+                                   (3, 512, 128, 16, 100)], ids=str)
+def test_mamba_scan_gradients_on_the_card(cuda_device, shape, return_state):
+    """The scan Function (the kernel forward, the chunked adjoint) against
+    autograd through the plain version: within 1e-5 relative Frobenius."""
+    b, length, d, n, chunk = shape
+    g = torch.Generator(device=cuda_device).manual_seed(length + d + n)
+
+    def randn(*s):
+        return torch.randn(s, generator=g, device=cuda_device)
+
+    args = [randn(b, length, d),
+            torch.nn.functional.softplus(randn(b, length, d) - 3.0),
+            -torch.rand(d, n, generator=g, device=cuda_device) * 4,
+            randn(b, length, n), randn(b, length, n), randn(d)]
+    args = [t.requires_grad_(True) for t in args]
+    cots = (randn(b, length, d), randn(b, d, n))
+    before = launch_counts()["mamba_scan"]
+    out = ops.mamba_scan(*args, chunk=chunk, return_state=return_state)
+    outs = out if return_state else (out,)
+    got = torch.autograd.grad(outs, args, cots[:len(outs)])
+    assert launch_counts()["mamba_scan"] == before + 1
+    want = torch.autograd.grad(
+        ref.mamba_scan(*args, return_state=return_state), args,
+        cots[:len(outs)] if return_state else cots[0])
+    for a, w in zip(got, want):
+        assert rel_frobenius(a, w) <= 1e-5
+
+
+def test_train_step_on_the_card(cuda_device):
+    """A reduced olmo-1b train step through the trainer's step builder on
+    the kernels: one flash launch a layer forward and one a layer in the
+    recompute, the loss and gradients in fp32 within n_layers x 2e-5 of
+    the same step on plain attention."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.backends import registry
+    from repro_torch.models import transformer as tfm
+    cfg = dataclasses.replace(configs.reduced_config("olmo-1b"), remat=True)
+    model = tfm.init_model(cfg, seed=0, device=cuda_device, train=True)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 96),
+                           generator=torch.Generator().manual_seed(0)).to(
+        cuda_device)
+    params = list(model.parameters())
+
+    def grads():
+        loss, _ = tfm.loss_fn(model, {"tokens": tokens}, cfg)
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    before = launch_counts()["flash_attention_tf32x3"]
+    loss, got = grads()
+    assert launch_counts()["flash_attention_tf32x3"] == \
+        before + 2 * cfg.n_layers
+    with registry.use_backend("torch"):
+        want_loss, want = grads()
+    assert launch_counts()["flash_attention_tf32x3"] == \
+        before + 2 * cfg.n_layers
+    tol = cfg.n_layers * 2e-5
+    assert abs(float(loss) - float(want_loss)) <= tol * abs(float(want_loss))
+    for a, b in zip(got, want):
+        assert rel_frobenius(a, b) <= tol

@@ -34,7 +34,11 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.kernels.ops, repro_torch.serving.solver, "
             "repro_torch.configs, repro_torch.models.transformer, "
             "repro_torch.models.kv_compression, repro_torch.optim.spectral, "
-            "repro_torch.optim.compression, repro_torch.launch.serve\n"
+            "repro_torch.optim.compression, repro_torch.launch.serve, "
+            "repro_torch.launch.train, repro_torch.launch.steps, "
+            "repro_torch.optim.adamw, repro_torch.kernels.grad, "
+            "repro_torch.checkpoint, repro_torch.data, repro_torch.runtime, "
+            "repro_torch.configs.shapes, repro_torch.launch.accounting\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)")

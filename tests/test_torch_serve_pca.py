@@ -11,6 +11,7 @@ loading in the other), ``--autotune`` and the flag-conflict exits (code
 leg prints ``{"skipped": true}`` (no persistent tier).
 """
 import json
+import time
 
 import pytest
 import torch
@@ -96,13 +97,36 @@ def test_closed_loop_writes_trace_metrics_and_profile(P, capsys, tmp_path):
                    "aten::" in str(e.get("name", "")) for e in events)
 
 
-def test_open_loop_with_the_controller(P, capsys):
-    argv = ["--arrivals", "poisson", "--rate", "400", "--requests", "40",
-            "--op", "eigh", "--dims", "6,12", "--tenants",
-            "whale:0.9,mouse:0.1", "--scheduler", "wfq", "--admission",
-            "shed", "--slo-ms", "200", "--controller", "on",
-            "--reprofile-every", "0.02", "--profile-window", "0.5",
-            "--min-dwell", "0.05", "--sweeps", "6", "--tile", "8"]
+def _virtual_time(P, monkeypatch):
+    """Inside the test, P's CLI builds its server on a ``VirtualClock`` and
+    its frontend replays the arrival stream in virtual time (``pace=False``):
+    the run no longer depends on the host's thread scheduling and load."""
+    s = P.serving
+    build, run = P.serve_pca.build_server, s.TrafficFrontend.run
+    monkeypatch.setattr(P.serve_pca, "build_server", lambda spec, **kw:
+                        build(spec, clock=s.VirtualClock(), **kw))
+    monkeypatch.setattr(s.TrafficFrontend, "run",
+                        lambda self, arrivals, pace=False:
+                        run(self, arrivals, pace=False))
+
+
+OPEN_CONTROLLED = ["--arrivals", "poisson", "--rate", "400", "--requests",
+                   "40", "--op", "eigh", "--dims", "6,12", "--tenants",
+                   "whale:0.9,mouse:0.1", "--scheduler", "wfq",
+                   "--admission", "shed", "--slo-ms", "200", "--controller",
+                   "on", "--reprofile-every", "0.02", "--profile-window",
+                   "0.5", "--min-dwell", "0.05", "--sweeps", "6", "--tile",
+                   "8"]
+
+
+def test_open_loop_with_the_controller(P, capsys, monkeypatch):
+    """The open loop with the controller on, in virtual time
+    (``_virtual_time``): paced on the wall clock, what this leg checks
+    depends on the host's speed (``test_paced_open_loop_sheds_all_on_a_
+    stalled_host``); the paced path keeps its own test
+    (``test_paced_run_with_a_swapping_controller_loses_no_request``)."""
+    _virtual_time(P, monkeypatch)
+    argv = OPEN_CONTROLLED
     rc, doc = _run(P, argv, capsys)
     assert rc == 0
     fe = doc["frontend"]
@@ -114,6 +138,30 @@ def test_open_loop_with_the_controller(P, capsys):
     assert ctrl["ticks"] >= 1 and ctrl["grid_size"] > 0
     assert doc["profile"]["requests"] == 40
     assert doc["obs"]["slo"]["requests"] == fe["served"] + fe["degraded"]
+    rc, again = _run(P, argv, capsys)       # virtual time: the same run
+    assert rc == 0 and again["frontend"] == fe
+    assert again["controller"]["ticks"] == ctrl["ticks"]
+
+
+def test_paced_open_loop_sheds_all_on_a_stalled_host(P, capsys,
+                                                     monkeypatch):
+    """The same leg paced on the wall clock (the CLI's own run) on a host
+    whose every dispatch stalls 1 s: the admission model, calibrated on
+    that host, predicts each request past the 200 ms SLO and sheds all 40,
+    so the leg's ``served > 0`` fails there.  This is why the leg above
+    runs in virtual time."""
+    submit = P.serving.LocalExecutor.submit
+
+    def stalled(self, *args, **kw):
+        time.sleep(1.0)
+        return submit(self, *args, **kw)
+
+    monkeypatch.setattr(P.serving.LocalExecutor, "submit", stalled)
+    rc, doc = _run(P, OPEN_CONTROLLED, capsys)
+    assert rc == 0
+    fe = doc["frontend"]
+    assert fe["served"] == fe["degraded"] == 0 and fe["shed"] == 40
+    assert doc["obs"]["slo"]["requests"] == 0
 
 
 def test_open_loop_documents_have_the_same_keys(capsys):
