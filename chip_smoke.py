@@ -181,9 +181,28 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    backend (each parameter within n_layers x 2e-5); the scan's
    ``Function`` at falcon-mamba-7b's widths (1 x 1024 x 8192, N 16, fp32)
    against autograd through the plain version (1e-5), its backward timed.
+12. mesh: the multi-device PCA path over ``serving.host_mesh()``, a 1-D
+   "data" mesh over every visible card (one here): (a) ``core.
+   fit_distributed`` of phase 3's matrix under phase 3's config with the
+   reference's early exit ``tol=1e-6`` (which it reads as the reference
+   does: the Gram on ``torch.matmul``, the unfused solve, no kernel
+   launched), its wall and sweeps printed, its
+   eigenvalues within the fp32 ``eigh`` budget of phase 3's fit and of
+   float64 numpy; (b) phase 6's 96 requests through ``PCAServer`` with
+   ``MeshExecutor(mesh=host_mesh())`` at ``max_inflight`` 1 and 3, a
+   cold and a warm pass each, ``submit`` under phase 6's sync guard,
+   every result bitwise phase 6's ``LocalExecutor`` result and within the
+   fp32 budget of float64 numpy, each pass's n_shards, wall and
+   requests/s printed; (c) ``serve_pca.main(["--mesh", "auto", ...])``
+   closed loop (the flags: plain torch ops) and the same mesh from a spec
+   with the kernels (``--spec``, svd over phase 7's dims), each plan's
+   executor ``mesh(data=N; N shards)``; (d) where more than one card is
+   visible, (a) and (b) again over meshes of 2 cards and of every card
+   (results within the fp32 budget), else ``{"multi_gpu": {"run": false,
+   "visible": 1}}`` on a line of its own.
 
 Each path is checked against the kernels it runs: phase 3 against the
-three PCA/SVD kernels, phases 4, 6 and 7 against those and the
+three PCA/SVD kernels, phases 4, 6, 7 and 12 against those and the
 shared-memory sweep, phase 5 against the seven kernels of its five ops,
 phase 8 against the two flash kernels of bf16 serving and the Gram and
 shared-memory sweep of the consumers, phases 9 and 10 against the scan
@@ -192,8 +211,9 @@ prefill kernel and, with compression, the Gram and shared-memory sweep.
 The last three lines are the kernels' JSON record (each kernel's
 launches from the phase that drives it, ``launches_serve`` from phase 6,
 ``launches_control`` from phase 7, ``launches_lm`` from the serve runs
-and consumers of phases 8 to 10 and ``launches_train`` from phase 11's
-trainer runs), the card's name and power limit, and ``{"ok": true,
+and consumers of phases 8 to 10, ``launches_train`` from phase 11's
+trainer runs and ``launches_mesh`` from phase 12), the card's name and
+power limit, and ``{"ok": true,
 "device": {...}}``.
 Without a CUDA device the script exits with code 2 and prints no result.
 """
@@ -369,6 +389,10 @@ TRAIN_CKPT = pathlib.Path(__file__).resolve().parent / "build" / \
 # the step-by-step loop), held to the CPU tests' 1e-5 relative Frobenius
 SCAN_GRAD_SHAPE = (1, 1024, 8192, 16)
 SCAN_GRAD_TOL = 1e-5
+# phase 12: the mesh.  fit_distributed's early exit, the reference's own
+# tol: its unfused 50-sweep solve at 784 is host-bound Python rounds,
+# 37.4-56.6 s on the H100, which would double the phase's minute
+MESH_FIT_TOL = 1e-6
 # the attention Function's bf16 gradients against autograd through the
 # plain fp32 version on the same operands: the backward computes in fp32
 # (recomputing O in fp32) and rounds each gradient to bf16 once, so each
@@ -841,7 +865,8 @@ def main_path(dev) -> dict:
           f"{counts['jacobi_sweep_smem']} shared-memory kernels, not one "
           f"grid kernel a sweep ({SWEEPS})")
     return {"wall_s": wall, "launches": counts,
-            "profile": profile_fit(X, config, dev)}
+            "profile": profile_fit(X, config, dev), "X": X, "config": config,
+            "eigenvalues": w, "eigenvalues64": w64}
 
 
 def profiled(what: str, fn) -> dict:
@@ -1341,42 +1366,49 @@ def ops_phase(dev, rows: dict) -> dict:
 
 # -- phase 6: the serving engine ---------------------------------------------
 
+def serve_config():
+    """The serving phases' solver config: the kernels, phase 4's sweeps,
+    pow2 buckets of T 64, a batch of 32."""
+    from repro_torch.core.pca import PCAConfig
+    return PCAConfig(fused=True, backend=BACKEND, sweeps=SWEEPS, T=FLUSH_T,
+                     S=FLUSH_REQUESTS)
+
+
+def no_sync(submit, guarded: list):
+    """``submit`` under the sync debug mode "error": a host sync in the
+    dispatch stage raises.  ``guarded[0]`` counts the guarded calls."""
+    def guarded_submit(*args):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            flush = submit(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        guarded[0] += 1
+        return flush
+    return guarded_submit
+
+
+def serve_pass(srv, burst: list):
+    """The burst of (op, request) through ``srv``, then drain: (served
+    results in order, wall seconds, telemetry of this pass alone)."""
+    srv.stats.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tickets = [srv.submit(a, op=op) for op, a in burst]
+    srv.drain()
+    wall = time.perf_counter() - t0
+    return [t.result() for t in tickets], wall, srv.stats
+
+
 def serve_phase(dev, requests: dict) -> dict:
     import dataclasses
-    from repro_torch.core.pca import PCAConfig
     from repro_torch.core.precision import ERROR_BUDGETS
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.serving import BucketPolicy, PCAServer
 
-    config = PCAConfig(fused=True, backend=BACKEND, sweeps=SWEEPS, T=FLUSH_T,
-                       S=FLUSH_REQUESTS)
+    config = serve_config()
     burst = [(op, a) for op, mats in requests.items() for a in mats]
     guarded = [0]
-
-    def no_sync(submit):
-        """``submit`` under the sync debug mode "error": a host sync in the
-        dispatch stage raises."""
-        def guarded_submit(*args):
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                flush = submit(*args)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            guarded[0] += 1
-            return flush
-        return guarded_submit
-
-    def one_pass(srv):
-        """The burst through ``srv``, then drain: (served results in
-        order, wall seconds, telemetry of this pass alone)."""
-        srv.stats.reset()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        tickets = [srv.submit(a, op=op) for op, a in burst]
-        srv.drain()
-        wall = time.perf_counter() - t0
-        return [t.result() for t in tickets], wall, srv.stats
-
     servers, passes, runs = {}, [], {}
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -1386,10 +1418,10 @@ def serve_phase(dev, requests: dict) -> dict:
             max_inflight=depth)
         check(srv.executor.device.type == "cuda",
               f"PCAServer() runs on {srv.executor.device}, not the card")
-        srv.executor.submit = no_sync(srv.executor.submit)
+        srv.executor.submit = no_sync(srv.executor.submit, guarded)
         run = runs[depth] = {}
         for name in ("cold", "warm"):
-            served, wall, stats = one_pass(srv)
+            served, wall, stats = serve_pass(srv, burst)
             passes.append(served)
             summary = stats.summary()
             flushes = list(stats.flush_records)
@@ -1451,9 +1483,10 @@ def serve_phase(dev, requests: dict) -> dict:
     # where the pipelined run's time goes (not counted in the launches)
     srv = servers[SERVE_DEPTHS[-1]]
     profile = profiled(f"serve[max_inflight={SERVE_DEPTHS[-1]}]",
-                       lambda: one_pass(srv))
+                       lambda: serve_pass(srv, burst))
     return {"launches": counts, "runs": runs, "worst": worst,
-            "profile": profile, "submits_guarded": guarded[0]}
+            "profile": profile, "submits_guarded": guarded[0],
+            "burst": burst, "served": passes[0]}
 
 
 # -- phase 7: the control plane and the serving CLI ---------------------------
@@ -3259,6 +3292,227 @@ def train_phase(dev) -> dict:
             "wall_s": wall}
 
 
+# -- phase 12: the mesh -------------------------------------------------------
+
+def mesh_fit(main_run: dict, mesh) -> dict:
+    """(a) ``fit_distributed`` of phase 3's matrix over ``mesh`` with
+    phase 3's config and ``tol=MESH_FIT_TOL`` (which it reads as the
+    reference does: the Gram on
+    ``torch.matmul``, the unfused solve), its eigenvalues held to phase
+    3's fit and to float64 numpy of the same Gram at the fp32 ``eigh``
+    budget; the sweeps it ran counted at ``core.jacobi._sweep_scan``."""
+    import dataclasses
+    from repro_torch.core import fit_distributed
+    from repro_torch.core import jacobi
+    from repro_torch.core.precision import ERROR_BUDGETS
+
+    X = main_run["X"]
+    rows = X.shape[0] - X.shape[0] % mesh.size
+    config = dataclasses.replace(main_run["config"], tol=MESH_FIT_TOL)
+    sweeps = [0]
+    real = jacobi._sweep_scan
+
+    def counted(*args, **kw):
+        sweeps[0] += 1
+        return real(*args, **kw)
+
+    jacobi._sweep_scan = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fit_distributed(X[:rows], mesh, config)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        jacobi._sweep_scan = real
+    w = res.eigenvalues.cpu().numpy()
+    budget = ERROR_BUDGETS["fp32"]["eigh"]
+    if rows == X.shape[0]:
+        err_fit = rel_frobenius(w, main_run["eigenvalues"])
+        w64 = main_run["eigenvalues64"]
+    else:  # rows that divide the mesh: phase 3's fit saw others
+        err_fit = None
+        X64 = X[:rows].astype(np.float64)
+        std = X64.std(axis=0)
+        std[std < 1e-8] = 1.0
+        Xs = (X64 - X64.mean(axis=0)) / std
+        w64 = np.linalg.eigvalsh(Xs.T @ Xs)[::-1]
+    err64 = rel_frobenius(w, w64)
+    where = ", ".join(str(d) for d in mesh.devices.flat)
+    vs_fit = "not run" if err_fit is None else f"{err_fit:.3e}"
+    log(f"mesh fit: fit_distributed({rows}x{X.shape[1]}) over mesh("
+        f"{dict(mesh.shape)}; {where}) wall {wall:.3f} s, {sweeps[0]} sweeps "
+        f"(sweeps={config.sweeps}, tol={config.tol}), off_norm "
+        f"{float(res.off_norm):.3e}; eigenvalue rel-Frobenius vs phase 3's "
+        f"fit {vs_fit}, vs float64 numpy {err64:.3e} (budget {budget:g})")
+    check(np.isfinite(w).all() and w.shape == (X.shape[1],),
+          "fit_distributed: eigenvalues not finite or misshapen")
+    check(err_fit is None or err_fit <= budget,
+          f"fit_distributed off phase 3's fit: {vs_fit}")
+    check(err64 <= budget, f"fit_distributed off float64 numpy: {err64:.3e}")
+    return {"devices": mesh.size, "rows": rows, "wall_s": wall,
+            "sweeps": sweeps[0], "err_fit": err_fit, "err64": err64,
+            "off_norm": float(res.off_norm)}
+
+
+def mesh_serve(serve: dict, mesh, guarded: list) -> dict:
+    """(b) Phase 6's 96 requests through ``PCAServer`` with
+    ``MeshExecutor(mesh=mesh)`` at each of ``SERVE_DEPTHS``, a cold and a
+    warm pass, ``submit`` under ``no_sync``: every result bitwise phase
+    6's ``LocalExecutor`` result (on one card) or within the fp32 budget
+    of float64 numpy (on more, whose shards solve smaller batches)."""
+    import dataclasses
+    import warnings
+    from repro_torch.core.precision import ERROR_BUDGETS
+    from repro_torch.serving import BucketPolicy, MeshExecutor, PCAServer
+
+    burst, local = serve["burst"], serve["served"]
+    budget = ERROR_BUDGETS["fp32"]
+    want = [reference_values(op, a) for op, a in burst]
+    runs = {}
+    for depth in SERVE_DEPTHS:
+        ex = MeshExecutor(mesh=mesh)
+        ex.submit = no_sync(ex.submit, guarded)
+        with warnings.catch_warnings():  # the kwarg shim's deprecation
+            warnings.simplefilter("ignore", DeprecationWarning)
+            srv = PCAServer(serve_config(),
+                            policy=BucketPolicy(T=FLUSH_T, mode="pow2"),
+                            max_inflight=depth, executor=ex)
+        run = runs[depth] = {}
+        for name in ("cold", "warm"):
+            served, wall, stats = serve_pass(srv, burst)
+            summary = stats.summary()
+            shards = sorted({r.n_shards for r in stats.records})
+            run[name] = {"wall_s": wall, "flushes": summary["flushes"],
+                         "requests_per_s": summary["requests_per_s"],
+                         "latency_p50_ms": summary["latency_p50_ms"],
+                         "latency_p99_ms": summary["latency_p99_ms"]}
+            log(f"mesh serve[{ex.describe()} max_inflight={depth} {name}]: "
+                f"{len(burst)} requests in {summary['flushes']} flushes, "
+                f"wall {wall:.3f} s, {summary['requests_per_s']:.1f} "
+                f"requests/s, latency p50 {summary['latency_p50_ms']:.1f} ms "
+                f"p99 {summary['latency_p99_ms']:.1f} ms, n_shards {shards}")
+            check(shards == [ex.n_shards] and srv.inflight() == 0,
+                  f"mesh serve: records on {shards} shards, "
+                  f"{srv.inflight()} flushes left in flight")
+            for (op, a), g, w, w64 in zip(burst, served, local, want):
+                if mesh.size == 1:
+                    for f in dataclasses.fields(w):
+                        check(np.array_equal(getattr(g, f.name),
+                                             getattr(w, f.name)),
+                              f"mesh serve {op}.{f.name} differs bitwise "
+                              f"from phase 6's LocalExecutor result")
+                got = g.S if op == "svd" else g.eigenvalues
+                err = rel_frobenius(got, w64)
+                check(np.isfinite(got).all()
+                      and err <= budget["svd" if op == "svd" else "eigh"],
+                      f"mesh serve {op} {a.shape}: rel-Frobenius {err:.3e} "
+                      f"over budget")
+        run["n_shards"] = ex.n_shards
+        run["executor"] = ex.describe()
+    log(f"mesh serve: every result of the {2 * len(SERVE_DEPTHS)} passes "
+        + ("bitwise phase 6's LocalExecutor results" if mesh.size == 1
+           else "within the fp32 budget of float64 numpy"))
+    return runs
+
+
+def mesh_cli() -> dict:
+    """(c) ``serve_pca.main(["--mesh", "auto", ...])`` closed loop with the
+    CLI's flags (plain torch ops on the card), then the same mesh from a
+    spec that runs the kernels (``--spec``: the flags cannot name a
+    backend), svd over phase 7's dims: each plan's executor is
+    ``mesh(data=N; N shards)`` over the N visible cards."""
+    import tempfile
+    from repro_torch.kernels import launch_counts
+    from repro_torch.serving import (ExecutionSpec, SchedulingSpec,
+                                     ServerSpec)
+
+    n = torch.cuda.device_count()
+    want = f"mesh(data={n}; {n} shards)"
+    out = {}
+    spec = ServerSpec(
+        scheduling=SchedulingSpec(mode="pow2", T=FLUSH_T,
+                                  max_batch=FLUSH_REQUESTS, max_inflight=3),
+        execution=ExecutionSpec(mesh="auto", backend=BACKEND, fused=True,
+                                sweeps=SWEEPS))
+    path = pathlib.Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_")) / \
+        "server.json"
+    spec.save(path)
+    for name, argv in (
+            ("flags", ["--mesh", "auto", "--op", "eigh", "--requests", 32]),
+            ("spec", ["--spec", path, "--op", "svd", "--requests",
+                      CONTROL_REQUESTS, "--dims",
+                      ",".join(map(str, CONTROL_DIMS))])):
+        before = launch_counts()
+        doc = run_cli(argv)
+        moved = {k: v - before[k] for k, v in launch_counts().items()}
+        s = doc["summary"]
+        log(f"mesh cli[{name}] serve_pca {' '.join(map(str, argv))}: "
+            f"{json.dumps({'plan': doc['plan'], 'summary': s})}")
+        check(doc["plan"]["executor"] == want,
+              f"serve_pca --mesh auto served through "
+              f"{doc['plan']['executor']}, not {want}")
+        check(s["requests"] == argv[argv.index("--requests") + 1]
+              and s["cache_hit_rate"] == 1.0,
+              f"mesh cli[{name}]: {s['requests']} requests, cache hit rate "
+              f"{s['cache_hit_rate']}")
+        if name == "spec":
+            for kernel in ("covariance", "jacobi_sweep", "jacobi_sweep_smem",
+                           "mm_engine_matmul"):
+                check(moved[kernel] > 0,
+                      f"mesh cli: {kernel} never launched")
+        out[name] = {"wall_s": doc["_wall_s"], "plan": doc["plan"],
+                     "requests_per_s": s["requests_per_s"],
+                     "latency_p50_ms": s["latency_p50_ms"],
+                     "latency_p99_ms": s["latency_p99_ms"],
+                     "launches": {k: v for k, v in moved.items() if v}}
+    return out
+
+
+def mesh_phase(main_run: dict, serve: dict) -> dict:
+    """Phase 12: the data-parallel fit (a), the sharded flush (b) and
+    ``serve_pca --mesh auto`` (c) over ``host_mesh()`` -- every visible
+    card -- and (d) over meshes of 2 cards and of every card where more
+    than one is visible."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import host_mesh
+
+    t_phase = time.perf_counter()
+    mesh = host_mesh()
+    guarded = [0]
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    fit = mesh_fit(main_run, mesh)
+    after_fit = launch_counts()
+    check(not any(after_fit.values()),
+          f"fit_distributed launched kernels {after_fit}: its Gram is "
+          f"torch.matmul and its solve unfused, as the reference's")
+    served = mesh_serve(serve, mesh, guarded)
+    cli = mesh_cli()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    log(f"mesh: launches {json.dumps(counts)}; {guarded[0]} "
+        f"MeshExecutor.submit calls under set_sync_debug_mode('error'), "
+        f"none synced the host")
+    for name in FLUSH_KERNELS:
+        check(counts[name] > 0, f"kernel {name} never launched in the mesh "
+              f"phase")
+    visible = torch.cuda.device_count()
+    multi = {"run": visible > 1, "visible": visible}
+    if visible > 1:
+        multi["legs"] = {}
+        for n in sorted({2, visible}):
+            sub = host_mesh(n)
+            multi["legs"][n] = {"fit": mesh_fit(main_run, sub),
+                                "serve": mesh_serve(serve, sub, guarded)}
+    log(json.dumps({"multi_gpu": {k: v for k, v in multi.items()
+                                  if k != "legs"}}))
+    wall = time.perf_counter() - t_phase
+    log(f"mesh: phase {wall:.1f} s")
+    return {"launches": counts, "fit": fit, "serve": served, "cli": cli,
+            "multi_gpu": multi, "wall_s": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
@@ -3331,6 +3585,7 @@ def main() -> int:
     families = families_phase(dev)
     phase10 = encdec_vlm_phase(dev)
     trained = train_phase(dev)
+    mesh = mesh_phase(main_run, serve)
     prof = lm["profile"]
     rows["flash_attention_mma"].update(
         lm_device_ms=prof["mma_device_ms"], lm_bound_ms=prof["mma_bound"][0],
@@ -3395,6 +3650,7 @@ def main() -> int:
                               + families["launches"][k.name]
                               + phase10["launches"][k.name])
         row["launches_train"] = trained["launches"][k.name]
+        row["launches_mesh"] = mesh["launches"][k.name]
         record.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))

@@ -7,7 +7,8 @@ top-k selection -> projection O = X V_k.
 None = plain ``torch.matmul``; ``"cuda"`` (the counterpart of the
 reference's ``"pallas"``) or ``"torch"`` routes every matmul through the
 ``mm_engine_matmul`` op, and the fused ops (``fused=True``) through the
-same backend.  ``fit_distributed`` is not ported yet.
+same backend.  ``fit_distributed`` is the data-parallel fit over a device
+mesh.
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from .._device import DeviceLike, as_input
-from .covariance import blocked_covariance, standardize
+from .covariance import (blocked_covariance, distributed_covariance,
+                         standardize)
 from .jacobi import DEFAULT_SWEEPS, EighResult, jacobi_eigh
 
 
@@ -129,3 +131,33 @@ def fit_transform(X, k: int, config: PCAConfig = PCAConfig(),
     X = as_input(X, device, config.precision)
     res = fit(X, config)
     return transform(X, res, k, config), res
+
+
+def fit_distributed(X, mesh, config: PCAConfig = PCAConfig(),
+                    data_axis: str = "data") -> PCAResult:
+    """Data-parallel PCA over ``mesh`` (a ``parallel.sharding.Mesh``): the
+    covariance block-streamed across the mesh (each data shard one
+    row-block group of the paper's schedule, ``block_m=config.T``), Jacobi
+    on the d x d covariance on the mesh's first device.
+
+    As in the reference, ``config.fused``, ``config.backend`` and
+    ``config.precision`` are ignored: the Gram streams through
+    ``torch.matmul`` and the solve is the unfused Jacobi, whatever the
+    config says.  Numpy input, and a tensor elsewhere, goes to the mesh's
+    first device, where the whole X is standardized before it is split.
+    """
+    X = as_input(X, mesh.devices.flat[0])
+    if config.standardize:
+        Xs, mean, scale = standardize(X)
+    else:
+        Xs = X
+        mean = torch.zeros((X.shape[1],), device=X.device)
+        scale = torch.ones((X.shape[1],), device=X.device)
+    C = distributed_covariance(Xs, mesh, data_axis=data_axis,
+                               block_m=config.T)
+    res = jacobi_eigh(C, sweeps=config.sweeps, tol=config.tol,
+                      pivot=config.pivot, rotation=config.rotation,
+                      angle=config.angle)
+    evcr, cvcr = evcr_cvcr(res.eigenvalues)
+    return PCAResult(res.eigenvectors, res.eigenvalues, mean, scale, evcr,
+                     cvcr, res.off_norm)

@@ -137,8 +137,9 @@ def main(argv=None, device: DeviceLike = None) -> np.ndarray:
     args = ap.parse_args(argv)
     if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model-parallel > 1 needs the multi-device slice (ROADMAP "
-            "queue 1, item 4); one card serves the whole model")
+            "--model-parallel > 1 needs the LM half of the multi-device "
+            "work (ROADMAP queue 1, item 4b); one card serves the whole "
+            "model")
 
     cfg = (reduced_config(args.arch) if args.reduced
            else get_config(args.arch))

@@ -62,12 +62,17 @@ Spec files (every construction flag resolves into one frozen ServerSpec;
 construction flag -- the error names the clash):
   PYTHONPATH=src python -m repro_torch.launch.serve_pca --spec server.json
 
-Not ported: ``--cache-dir`` (the persistent executable tier raises) and a
-``--mesh`` over more than one device (it raises; ``auto`` or N on a
-one-device host serves on that device).
+Sharded serving (each flush's batch split across a mesh of the visible
+cards by ``serving.MeshExecutor``; ``auto`` on one card is a 1-device
+mesh, ``mesh(data=1; 1 shards)``):
+  PYTHONPATH=src python -m repro_torch.launch.serve_pca --spec server.json \
+      --mesh auto
+
+Not ported: ``--cache-dir`` (the persistent executable tier raises).
 
 Smoke (``--selftest``): mixed shapes through every op against numpy, a
-mesh leg (``auto``, one device here), an async-pipeline leg (bit-for-bit
+mesh leg (``auto``: every visible card, or the one CPU device; it prints
+its executor), an async-pipeline leg (bit-for-bit
 the synchronous engine), an autotune leg (the tuned plan and a mid-stream
 ``apply_plan`` hot-swap bit-identical to a cold server on the plan), an
 observability leg, a frontend leg (a seeded open-loop run under a virtual
@@ -156,7 +161,8 @@ def selftest(device: DeviceLike = None) -> int:
     assert summary["mean_batch"] == 4.0, summary
 
     # sharded leg: the same eigh traffic through a mesh over every visible
-    # device must match numpy too (on one device: a LocalExecutor there).
+    # device must match numpy too (a MeshExecutor, over one device here
+    # or there).
     # From here on, multi-kwarg servers are built through the spec API --
     # the legs double as spec-vs-kwarg parity checks, since every result
     # is compared against the kwarg-built ``srv``
@@ -495,9 +501,7 @@ def main(argv=None, device: DeviceLike = None) -> int:
                     help="shard each flush's batch axis across a device "
                          "mesh: 'none' (single device, default), 'auto' "
                          "(every visible device), or an integer N (first N "
-                         "devices; clamps to what is visible).  Where that "
-                         "is one device the server runs on it; a mesh over "
-                         "more than one is not ported yet and raises")
+                         "devices; clamps to what is visible)")
     ap.add_argument("--inflight", type=int, default=1,
                     help="pipeline depth: how many dispatched flushes may "
                          "be in flight at once, counting the one being "

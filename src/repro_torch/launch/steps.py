@@ -6,7 +6,7 @@
 eager model, and the (shape, dtype) pairs of the cell's inputs
 (``configs.shapes.input_specs``).  The reference returns jit-ready
 functions with sharding trees for a mesh; a ``mesh`` here raises until
-the multi-device slice (ROADMAP queue 1, item 4).
+the LM half of the multi-device work (ROADMAP queue 1, item 4b).
 
 A train step is the reference's: ``loss_fn``, its gradients with respect
 to every parameter (zeros for one the loss does not reach), then, with
@@ -47,9 +47,9 @@ class TrainState(NamedTuple):
 def _one_device(mesh) -> None:
     if mesh is not None:
         raise NotImplementedError(
-            "a mesh (data or model parallelism) comes with the multi-device "
-            "slice (ROADMAP queue 1, item 4); the port's steps run on one "
-            "device")
+            "a mesh (data or model parallelism) comes with the LM half of "
+            "the multi-device work (ROADMAP queue 1, item 4b); the port's "
+            "steps run on one device")
 
 
 def _on(batch: dict, dev: torch.device) -> dict:

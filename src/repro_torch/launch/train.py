@@ -20,8 +20,8 @@ cursor); SIGTERM/SIGINT checkpoint after the current step and exit with
 ``STALL_EXIT_CODE``.  ``main`` returns the losses and prints the
 reference's final JSON line.  The weights are drawn from a
 ``torch.Generator`` seeded with ``--seed`` (the reference's come from
-``jax.random``); ``--model-parallel`` > 1 raises until the multi-device
-slice (ROADMAP queue 1, item 4).
+``jax.random``); ``--model-parallel`` > 1 raises until the LM half of the
+multi-device work (ROADMAP queue 1, item 4b).
 """
 from __future__ import annotations
 
@@ -66,8 +66,9 @@ def main(argv=None, device: DeviceLike = None):
     args = ap.parse_args(argv)
     if args.model_parallel > 1:
         raise NotImplementedError(
-            "--model-parallel > 1 needs the multi-device slice (ROADMAP "
-            "queue 1, item 4); the port trains on one device")
+            "--model-parallel > 1 needs the LM half of the multi-device "
+            "work (ROADMAP queue 1, item 4b); the port trains on one "
+            "device")
 
     dev = resolve_device(device)
     cfg = (reduced_config(args.arch) if args.reduced

@@ -87,7 +87,8 @@ def _unsupported(cfg: ModelConfig) -> None:
     if cfg.attn_impl == "ring":
         raise NotImplementedError(
             "ring attention (parallel/ring_attention.py) is not ported: it "
-            "comes with the multi-device slice (ROADMAP queue 1, item 4)")
+            "comes with the LM half of the multi-device work (ROADMAP "
+            "queue 1, item 4b)")
 
 
 class Attention(nn.Module):

@@ -13,7 +13,7 @@ nothing from that expert.  The expert products are the reference's plain
 ``einsum``s, outside any Pallas kernel, so ``torch.bmm`` here.
 
 The reference's ``shard_map`` path (experts sharded over a mesh axis)
-waits for the multi-device slice (ROADMAP queue 1, item 4);
+waits for the LM half of the multi-device work (ROADMAP queue 1, item 4b);
 ``_dispatch_compute_combine`` keeps its ``e0`` / ``E_local`` arguments,
 the share of the experts that one device holds.
 """

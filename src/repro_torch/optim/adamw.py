@@ -13,8 +13,8 @@ reference's train step donates its state.  Moment dtype is configurable:
 The arithmetic is the reference's, step for step, in fp32: the learning
 rate, the bias corrections and the clip factor are 0-d fp32 tensors on
 the parameters' device, so a step asks nothing of the host.  The
-reference's ``moment_axes`` (the moments' sharding roles) waits for the
-multi-device slice (ROADMAP queue 1, item 4).
+reference's ``moment_axes`` (the moments' sharding roles) waits for the LM
+half of the multi-device work (ROADMAP queue 1, item 4b).
 """
 from __future__ import annotations
 

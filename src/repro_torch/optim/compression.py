@@ -55,8 +55,8 @@ def _check_local(cfg: CompressionConfig) -> None:
     if cfg.axis_name is not None:
         raise NotImplementedError(
             f"axis_name={cfg.axis_name!r}: the all-reduce of P and Q across "
-            "devices comes with the multi-device slice (ROADMAP queue 1, "
-            "item 4); use axis_name=None on one device")
+            "devices comes with the LM half of the multi-device work "
+            "(ROADMAP queue 1, item 4b); use axis_name=None on one device")
 
 
 def _as_matrix(g: torch.Tensor) -> torch.Tensor:

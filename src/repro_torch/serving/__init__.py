@@ -6,7 +6,9 @@ Heterogeneous requests are padded into T-multiple shape buckets
 (``solver``), and ``engine.PCAServer`` runs the queue with deadline-aware
 microbatching, a solver cache (``cache``: a bounded in-memory LRU keyed by
 ``SolverKey``) and telemetry (``stats``).  Flush placement is an executor
-(``sharded.LocalExecutor``: one device, ``cuda`` by default); flush timing
+(``sharded.LocalExecutor``: one device, ``cuda`` by default;
+``sharded.MeshExecutor``: the flush's batch sharded over a device mesh,
+``host_mesh`` the 1-D mesh over the visible cards); flush timing
 is a pipeline (``inflight``): the executor launches without blocking the
 host, a bounded in-flight queue holds launched flushes, each with a CUDA
 event as its completion signal, and retirement gathers each flush to the
@@ -25,9 +27,7 @@ multi-tenant arrivals through WFQ and admission control.
 
 Not exported, because not ported yet: ``DiskCache``, ``aot_supported`` and
 ``content_hash`` (the persistent executable tier serializes XLA
-executables; ``PCAServer(cache_dir=...)`` raises), and ``MeshExecutor`` and
-``host_mesh`` (a mesh over more than one device; ``mesh_executor`` raises
-for one, ROADMAP queue 1 item 4).
+executables; ``PCAServer(cache_dir=...)`` raises).
 """
 from .autotune import (AutotuneResult, CostModel, ServingPlan,
                        TrafficProfile, TRACE_KINDS, autotune, bandit_search,
@@ -47,7 +47,7 @@ from .frontend import (ADMISSION_MODES, ARRIVALS, AdmissionController,
                        generate, materialize, merge, parse_tenants,
                        profile_of)
 from .inflight import InFlightFlush, InFlightQueue
-from .sharded import LocalExecutor, mesh_executor
+from .sharded import LocalExecutor, MeshExecutor, host_mesh, mesh_executor
 from .spec import (CacheSpec, ControllerSpec, ExecutionSpec, ObsSpec,
                    SchedulingSpec, ServerSpec, SpecConflictError,
                    build_server, resolve_spec, validate_args)
@@ -67,13 +67,13 @@ __all__ = [
     "BatchedPCAResult", "BatchedSVDResult", "BucketPolicy", "CacheSpec",
     "ControllerSpec", "CostModel", "ExecutableCache",
     "ExecutionSpec", "FlushRecord", "InFlightFlush", "InFlightQueue",
-    "LRUCache", "LocalExecutor", "OPS", "ObsSpec",
+    "LRUCache", "LocalExecutor", "MeshExecutor", "OPS", "ObsSpec",
     "PCAServer", "POLICIES", "RequestRecord", "SchedulingSpec",
     "ServedEigh", "ServedPCA", "ServedSVD", "ServerSpec",
     "ServingController", "ServingPlan", "ServingStats", "SolverKey",
     "SpecConflictError", "Ticket", "TrafficProfile", "TRACE_KINDS",
     "autotune", "bandit_search", "build_server",
-    "build_solver_fn", "environment_fingerprint",
+    "build_solver_fn", "environment_fingerprint", "host_mesh",
     "jacobi_eigh_batched", "jacobi_svd_batched",
     "mesh_executor", "pad_to_bucket", "padding_waste", "pca_fit_batched",
     "pca_transform_batched", "percentile", "plan_grid", "replay",

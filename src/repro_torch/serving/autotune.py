@@ -168,12 +168,7 @@ def plan_grid(modes: Sequence[str] = POLICIES,
     grid stays scheduling-only unless a caller -- the serving controller
     -- grows them); the analytic cost model cannot separate backends, so
     a widened backend axis only pays off under measured bandit rungs.
-
-    A mesh that resolves to more than one device (``n_shards() > 1``) is
-    left out: the port builds no multi-device executor yet (ROADMAP queue
-    1 item 4), so such a plan could be scored and chosen but not served.
     """
-    meshes = [m for m in meshes if ServingPlan(mesh=m).n_shards() <= 1]
     plans = []
     for mode in modes:
         caps = pow2_caps if mode == "pow2" else (None,)

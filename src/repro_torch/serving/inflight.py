@@ -17,7 +17,9 @@ The serving engine is a three-stage software pipeline:
 
 ``InFlightFlush`` is created by an executor (``sharded.LocalExecutor
 .submit``) around the launched result tree, its host copy and a
-``torch.cuda.Event`` recorded on the launch stream right after both; the
+``torch.cuda.Event`` recorded on the launch stream right after both -- one
+of each a shard for ``sharded.MeshExecutor``, whose shards' results are
+concatenated in shard order when the flush retires; the
 engine then annotates it with its bookkeeping and links ``retire()`` back
 to its own retire stage, so a ``Ticket`` can force exactly its own flush
 home.  The copy to the host is enqueued at launch, on the launch stream,
@@ -66,27 +68,28 @@ def _unpack(out, host: np.ndarray):
 class InFlightFlush:
     """Handle for one dispatched microbatch awaiting retirement.
 
-    Executors construct it around the just-launched result tree, its
-    host copy in flight, the ready event and the host buffers the launch
-    copied from (all kept alive until the flush retires); the engine
-    attaches its bookkeeping at dispatch time.  ``result`` waits for the
-    one copy, unpacks it once and releases the buffers.
+    Executors construct it around the just-launched result trees (one a
+    shard, in shard order), their host copies in flight, the ready events
+    and the host buffers the launch copied from (all kept alive until the
+    flush retires); the engine attaches its bookkeeping at dispatch time.
+    ``result`` waits for the copies, unpacks each once, concatenates the
+    shards and releases the buffers.
     """
 
     __slots__ = ("seq", "key", "entries", "t_dispatch", "t_launched",
                  "backend", "batch_size", "padded_batch", "cache_hit",
                  "inflight_depth", "n_shards", "retired", "span_id",
-                 "_out", "_host", "_copy", "_event", "_staged",
+                 "_outs", "_host", "_copies", "_events", "_staged",
                  "_retire_cb")
 
-    def __init__(self, out, n_shards: int = 1,
-                 copy: Optional[torch.Tensor] = None,
-                 event: Optional[torch.cuda.Event] = None,
+    def __init__(self, outs: Sequence, n_shards: int = 1,
+                 copies: Sequence[torch.Tensor] = (),
+                 events: Sequence[torch.cuda.Event] = (),
                  staged: Sequence[torch.Tensor] = ()):
-        self._out = out            # result tree, on the executor's device
-        self._host = None          # numpy results, unpacked once on demand
-        self._copy = copy          # pinned host copy in flight (a card)
-        self._event = event        # recorded on the launch stream after it
+        self._outs = tuple(outs)      # result trees, one a shard
+        self._host = None             # numpy results, unpacked once
+        self._copies = tuple(copies)  # pinned host copies in flight (cards)
+        self._events = tuple(events)  # each recorded after its shard's copy
         self._staged = tuple(staged)  # pinned inputs of the launch's copies
         self.n_shards = n_shards
         self.retired = False
@@ -105,33 +108,39 @@ class InFlightFlush:
         self._retire_cb: Optional[Callable] = None
 
     def ready(self) -> bool:
-        """Completion detection without blocking the host."""
-        if self.retired or self._host is not None or self._event is None:
+        """Completion detection without blocking the host: every shard's
+        event has passed."""
+        if self.retired or self._host is not None:
             return True
-        return self._event.query()
+        return all(e.query() for e in self._events)
 
     def block_until_ready(self) -> "InFlightFlush":
-        """Block until the flush, and its copy to the host, finished."""
-        if not self.retired and self._host is None and self._event is not None:
-            self._event.synchronize()
+        """Block until the flush, and its copies to the host, finished."""
+        if not self.retired and self._host is None:
+            for e in self._events:
+                e.synchronize()
         return self
 
     def result(self):
         """The flush's results as one host tree of numpy arrays (blocks
-        until the flush's one copy has landed).
+        until the flush's copies have landed).
 
         Per-request slicing happens on the host copy (slicing a device
         tensor per ticket is O(batch) copies).  The results are copied out
-        of the pinned buffer, which goes back to PyTorch's pool with the
-        device tensors and the pinned inputs."""
+        of the pinned buffers, which go back to PyTorch's pool with the
+        device tensors and the pinned inputs; the shards' trees are
+        concatenated along the batch axis in shard order."""
         if self._host is None:
-            if self._copy is None:
-                self._host = type(self._out)(
-                    *(t.detach().numpy() for t in self._out))
+            if not self._copies:
+                hosts = [type(out)(*(t.detach().numpy() for t in out))
+                         for out in self._outs]
             else:
-                self._event.synchronize()
-                self._host = _unpack(self._out, self._copy.numpy().copy())
-            self._out = self._copy = None
+                self.block_until_ready()
+                hosts = [_unpack(out, copy.numpy().copy())
+                         for out, copy in zip(self._outs, self._copies)]
+            self._host = hosts[0] if len(hosts) == 1 else type(hosts[0])(
+                *(np.concatenate(leaves) for leaves in zip(*hosts)))
+            self._outs = self._copies = self._events = ()
             self._staged = ()
         return self._host
 

@@ -15,7 +15,8 @@ Three groups:
     a ``ServerSpec`` JSON of either package loads in the other;
   * the port's own seams: the spec names the port's backends (a reference
     spec naming ``"pallas"`` fails with a named error), ``mesh_executor``
-    clamps to the visible devices, and every entry point that builds an
+    returns the reference's executor for every spec, clamped to the
+    visible devices, and every entry point that builds an
     executor takes ``device=``, defaults to the card and raises without
     one -- a CPU server stays on the CPU through every plan swap.
 """
@@ -1399,21 +1400,36 @@ def test_spec_takes_the_port_backends():
 # ===========================================================================
 
 def test_mesh_executor_clamps_to_the_visible_devices(monkeypatch):
-    from repro_torch.serving import LocalExecutor, mesh_executor
+    """``mesh_executor`` returns what the reference's returns for every
+    spec: a ``LocalExecutor`` for None/"none"/"local"/N <= 1, else a
+    ``MeshExecutor`` over the visible devices (clamped), a 1-device mesh
+    included."""
+    from repro_torch.serving import (LocalExecutor, MeshExecutor,
+                                     mesh_executor)
+    ref = PKGS["ref"].serving
 
-    for spec in ("auto", "2", 8):
+    specs = (None, "none", "local", "0", "1", 1, "auto", "2", "4", 8)
+    for spec in specs:  # this process's reference sees one CPU device
+        want = ref.mesh_executor(spec)
         ex = mesh_executor(spec, device="cpu")
-        assert type(ex) is LocalExecutor and ex.device.type == "cpu"
+        assert type(ex).__name__ == type(want).__name__, spec
+        assert ex.n_shards == want.n_shards == 1 and ex.device.type == "cpu"
+        assert ex.describe() == want.describe().replace(
+            "local(1 device)", "local(cpu)"), spec
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    for spec in ("auto", "4", 8, None, "1"):
+    for spec in ("auto", "4", 8):
+        ex = mesh_executor(spec)
+        assert type(ex) is MeshExecutor and ex.device.type == "cuda"
+        assert ex.n_shards == 1 and ex.describe() == "mesh(data=1; 1 shards)"
+    for spec in (None, "1"):
         ex = mesh_executor(spec)
         assert type(ex) is LocalExecutor and ex.device.type == "cuda"
         assert ex.n_shards == 1
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     for spec in ("auto", "2", 8):
-        with pytest.raises(NotImplementedError, match="resolves to 2"):
-            mesh_executor(spec)
+        ex = mesh_executor(spec)
+        assert type(ex) is MeshExecutor and ex.n_shards == 2
     assert type(mesh_executor("1")) is LocalExecutor
 
 
@@ -1429,21 +1445,21 @@ def test_plan_n_shards_counts_the_visible_cards(monkeypatch):
 
 def test_plan_grid_leaves_out_meshes_over_more_than_one_device(
         monkeypatch):
-    """A mesh plan the port cannot serve (more than one device) never
-    enters the grid that ``autotune`` and the controller search; on one
-    device every mesh stays, as in the reference."""
+    """No mesh plan is left out any more: on one card and on two, every
+    mesh of the axis enters the grid that ``autotune`` and the controller
+    search, as in the reference."""
     s = PKGS["port"].serving
     meshes = ("none", "auto", "1", "2")
+    want = PKGS["ref"].serving.plan_grid(meshes=meshes)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    assert {p.mesh for p in s.plan_grid(meshes=meshes)} == set(meshes)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    grid = s.plan_grid(meshes=meshes)
-    assert {p.mesh for p in grid} == {"none", "1"}
-    assert len(grid) == len(s.plan_grid(meshes=("none", "1")))
+    for cards in (1, 2):
+        monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+        grid = s.plan_grid(meshes=meshes)
+        assert {p.mesh for p in grid} == set(meshes)
+        assert [p.describe() for p in grid] == [p.describe() for p in want]
     ctrl = s.ServingController(
         PKGS["port"].server(), meshes=("none", "auto"))
-    assert {p.mesh for p in ctrl.grid} == {"none"}
+    assert {p.mesh for p in ctrl.grid} == {"none", "auto"}
 
 
 def test_entry_points_default_to_the_card(no_card):
@@ -1482,7 +1498,7 @@ def test_entry_points_build_on_the_card_when_one_is_there(monkeypatch):
     for srv in (s.build_server(spec),  # built, not run: no CUDA call
                 s.server_for_plan(s.ServingPlan(mesh="auto"))):
         assert srv.executor.device.type == "cuda"
-        assert srv.describe_plan()["executor"] == "local(cuda)"
+        assert srv.describe_plan()["executor"] == "mesh(data=1; 1 shards)"
 
 
 def test_apply_plan_keeps_a_cpu_server_on_the_cpu(no_card):

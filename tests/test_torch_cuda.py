@@ -45,7 +45,9 @@ backward) against autograd through the plain version, attention in fp32
 within 1e-5 and in bf16 within one bf16 ulp plus 2e-5 x max |want| of the
 plain fp32 gradients, the scan within 1e-5; a reduced olmo-1b step's
 gradients within n_layers x 2e-5 of plain attention's, with one flash
-launch a layer forward and one in the remat recompute.
+launch a layer forward and one in the remat recompute.  The mesh: a
+``MeshExecutor`` over ``cuda:0`` bitwise the ``LocalExecutor`` for every
+op, and ``fit_distributed`` over one card bitwise the plain ``fit``.
 """
 import contextlib
 
@@ -927,6 +929,61 @@ def test_executor_submit_makes_no_host_sync(cuda_device, op):
     want = ex.run(fn, batch, n_active)
     for g, w in zip(host, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("op", ["eigh", "svd", "pca"])
+def test_mesh_executor_on_the_card_is_bitwise_the_local_executor(
+        cuda_device, op):
+    """A ``MeshExecutor`` over ``cuda:0`` serves every field bitwise as
+    the ``LocalExecutor`` does, through the path's kernels, with no host
+    sync in ``submit``."""
+    import dataclasses
+    from repro_torch.serving import (BucketPolicy, LocalExecutor,
+                                     MeshExecutor, PCAServer, host_mesh)
+    mats = _served_burst(op)
+    cfg = tpca.PCAConfig(T=8, S=4, sweeps=12, fused=True, backend="cuda")
+    want = PCAServer(cfg, policy=BucketPolicy(T=8), max_delay_s=1e9,
+                     executor=LocalExecutor()).solve_many(mats, op=op)
+    for mesh in (host_mesh(1),):
+        ex = MeshExecutor(mesh=mesh)
+        submit = ex.submit
+
+        def guarded(*args):
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                return submit(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+
+        ex.submit = guarded
+        srv = PCAServer(cfg, policy=BucketPolicy(T=8), max_delay_s=1e9,
+                        max_inflight=3, executor=ex)
+        before = launch_counts()
+        got = srv.solve_many(mats, op=op)
+        assert _launched(before).get("jacobi_sweep_smem", 0) > 0
+        assert {r.n_shards for r in srv.stats.records} == {mesh.size}
+        for g, w in zip(got, want):
+            for f in dataclasses.fields(g):
+                np.testing.assert_array_equal(getattr(g, f.name),
+                                              getattr(w, f.name))
+
+
+def test_fit_distributed_on_one_card_is_the_plain_fit(cuda_device):
+    """Over a 1-card mesh ``fit_distributed`` is ``fit`` with the plain
+    config (``torch.matmul`` Gram, unfused solve) bit for bit, and within
+    the fp32 budget of the kernels' fit."""
+    from repro_torch.serving import host_mesh
+    X = data(4000, 48, seed=5)
+    cfg = tpca.PCAConfig(T=64, sweeps=12)
+    got = tpca.fit_distributed(X, host_mesh(1), cfg)
+    assert got.eigenvalues.device == cuda_device
+    plain = tpca.fit(X, cfg, device=cuda_device)
+    for g, w in zip(got, plain):
+        assert torch.equal(g, w)
+    kernels = tpca.fit(X, tpca.PCAConfig(T=64, sweeps=12, fused=True,
+                                         backend="cuda"), device=cuda_device)
+    assert_contract(got.eigenvalues, kernels.eigenvalues, "rel_frobenius",
+                    1e-4)
 
 
 def _control_spec(**obs):

@@ -235,8 +235,8 @@ def test_port_selftest_on_the_cpu(capsys):
         "", " sharded", " async", " autotune", " obs", " cold-start",
         " frontend", " spec", " controller")}
     assert legs["serve_pca cold-start"] == {"skipped": True}
-    assert legs["serve_pca sharded"] == {"executor": "local(cpu)",
-                                         "n_shards": 1}
+    assert legs["serve_pca sharded"] == {
+        "executor": "mesh(data=1; 1 shards)", "n_shards": 1}
     assert legs["serve_pca controller"]["swaps"] >= 1
     assert legs["serve_pca frontend"]["served"] > 0
 

@@ -40,7 +40,8 @@ from repro_torch.core.pca import PCAConfig
 from repro_torch.core.precision import ERROR_BUDGETS
 from repro_torch.serving import (BucketPolicy, CacheSpec, ExecutionSpec,
                                  InFlightFlush, InFlightQueue, LRUCache,
-                                 LocalExecutor, PCAServer, ServedEigh,
+                                 LocalExecutor, MeshExecutor, PCAServer,
+                                 ServedEigh,
                                  ServedPCA, ServedSVD, ServerSpec, SolverKey,
                                  environment_fingerprint, mesh_executor,
                                  threshold_router)
@@ -586,11 +587,15 @@ def test_features_not_ported_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="DiskCache"):
         PCAServer.from_spec(ServerSpec(cache=CacheSpec(
             cache_dir="somewhere")), device="cpu")
+    # a mesh over more than one device is served by the MeshExecutor
+    # (built, not run: nothing touches CUDA)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="MeshExecutor"):
-        PCAServer.from_spec(ServerSpec(execution=ExecutionSpec(
-            mesh="auto")))
+    srv = PCAServer.from_spec(ServerSpec(execution=ExecutionSpec(
+        mesh="auto")))
+    assert type(srv.executor) is MeshExecutor
+    assert srv.executor.n_shards == 2
+    assert srv.describe_plan()["executor"] == "mesh(data=2; 2 shards)"
 
 
 def test_deprecation_shim_counts_explicit_kwargs():
@@ -609,12 +614,15 @@ def test_mesh_executor_local_specs(spec, monkeypatch):
 
 @pytest.mark.parametrize("spec", ["auto", "2", 8])
 def test_mesh_executor_other_specs_raise(spec, monkeypatch):
-    # a mesh spec raises where it resolves to more than one device (on one
-    # device it gives a LocalExecutor, tests/test_torch_control.py)
+    # the other specs no longer raise: each builds a MeshExecutor over the
+    # visible cards (two here), clamping N to them, as the reference does
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        mesh_executor(spec)
+    ex = mesh_executor(spec)
+    assert type(ex) is MeshExecutor and ex.n_shards == 2
+    assert [str(d) for d in ex.shard_devices] == ["cuda:0", "cuda:1"]
+    assert ex.describe() == "mesh(data=2; 2 shards)"
+    assert ex.round_batch(3) == 4
 
 
 @pytest.mark.parametrize("n,k", [(1, 1), (5, 4), (8, 4), (0, 3), (9, 8)])

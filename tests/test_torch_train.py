@@ -360,8 +360,15 @@ def test_resume_or_init(tmp_path):
 
 
 def test_pick_mesh_waits_for_the_multi_device_slice():
+    # the mesh is picked (tests/test_torch_mesh.py holds its shapes to the
+    # reference's); a step on it waits for the LM half of the multi-device
+    # work
+    mesh = telastic.pick_mesh(2, devices=["cpu"] * 8, global_batch=4)
+    assert dict(mesh.shape) == {"data": 4, "model": 2}
+    cfg = tconfigs.reduced_config("olmo-1b")
+    shape = tshapes.ShapeCell("x", 8, 4, "train")
     with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        telastic.pick_mesh(2)
+        tsteps.build_step("train", cfg, shape, device="cpu", mesh=mesh)
 
 
 # -- step builders --------------------------------------------------------------
