@@ -200,6 +200,28 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    visible, (a) and (b) again over meshes of 2 cards and of every card
    (results within the fp32 budget), else ``{"multi_gpu": {"run": false,
    "visible": 1}}`` on a line of its own.
+13. mesh lm: the LM half of multi-device on a NCCL process group of the
+   visible cards, started through a ``FileStore`` under ``build/`` (a
+   world of one rank on one card; every collective then spans one rank
+   and is elided): (a) olmo-1b through ``train.main([..., "--model-
+   parallel", "1"])`` on phase 11's argv with ``--preempt-at 4``, 4
+   steps, exactly 32 flash launches a step, the losses within 1e-5
+   relative of phase 11's first four (bitwise or not, printed), then 2
+   steps at ``--compress-grads 4 --moments int8`` on phase 11's
+   compressed schedule, every Gram and sweep replayed on the plain ops
+   (1e-5, bitwise), the losses within 1e-5 of phase 11's; (b) olmo-1b
+   through ``serve.main([..., "--model-parallel", "1"])`` at phase 8's
+   cell, its line and tokens printed, then a prefill and 8
+   teacher-forced steps through the mesh's ``build_prefill`` and
+   ``build_serve_step`` held to phase 8's one-device path on the same
+   weights within phase 8's bf16 logits bound; (c) jamba's period
+   through ``serve.generate(..., mesh=)``, 7 scans a prefill, the MoE's
+   dropped share equal to phase 9's, and a prefill and 8 steps through
+   the mesh's steps against the one-device path; per leg its wall,
+   tokens/s, peak memory, collectives a step by kind and launches; (d)
+   where two cards or more are visible, olmo-1b at ``--model-parallel
+   2`` for 2 steps, one process a card (``chip_smoke.py --mesh-worker``),
+   within 1e-3 of (a)'s losses, else a line that says it was skipped.
 
 Each path is checked against the kernels it runs: phase 3 against the
 three PCA/SVD kernels, phases 4, 6, 7 and 12 against those and the
@@ -207,12 +229,14 @@ shared-memory sweep, phase 5 against the seven kernels of its five ops,
 phase 8 against the two flash kernels of bf16 serving and the Gram and
 shared-memory sweep of the consumers, phases 9 and 10 against the scan
 and the two flash kernels of bf16 serving, phase 11 against the bf16
-prefill kernel and, with compression, the Gram and shared-memory sweep.
+prefill kernel and, with compression, the Gram and shared-memory sweep,
+phase 13 against those, the split-KV kernel and the scan.
 The last three lines are the kernels' JSON record (each kernel's
 launches from the phase that drives it, ``launches_serve`` from phase 6,
 ``launches_control`` from phase 7, ``launches_lm`` from the serve runs
 and consumers of phases 8 to 10, ``launches_train`` from phase 11's
-trainer runs and ``launches_mesh`` from phase 12), the card's name and
+trainer runs, ``launches_mesh`` from phase 12 and ``launches_mesh_lm``
+from phase 13), the card's name and
 power limit, and ``{"ok": true,
 "device": {...}}``.
 Without a CUDA device the script exits with code 2 and prints no result.
@@ -393,6 +417,21 @@ SCAN_GRAD_TOL = 1e-5
 # tol: its unfused 50-sweep solve at 784 is host-bound Python rounds,
 # 37.4-56.6 s on the H100, which would double the phase's minute
 MESH_FIT_TOL = 1e-6
+# phase 13: the LM half of multi-device on a NCCL process group of the
+# visible cards (world 1 on one card): olmo-1b trained through the
+# trainer CLI on phase 11's argv, 4 steps (--preempt-at 4, so that the
+# learning-rate schedule is phase 11's) held to phase 11's first 4 losses,
+# then 2 compressed int8 steps on phase 11's compressed schedule; olmo-1b
+# served as phase 8 and its prefill and LM_FORCED steps through the mesh's
+# steps held to the one-device path; jamba's period as phase 9; on two
+# cards or more, --model-parallel 2 for 2 steps in one process a card
+MESH_LM_STEPS = 4
+MESH_LM_COMP_STEPS = 2
+MESH_LM_TOL = 1e-5           # relative, the losses against phase 11's
+MESH_MULTI_STEPS = 2
+MESH_MULTI_TOL = 1e-3        # relative: bf16 and another reduction order
+MESH_STORE = pathlib.Path(__file__).resolve().parent / "build" / \
+    "mesh_store"
 # the attention Function's bf16 gradients against autograd through the
 # plain fp32 version on the same operands: the backward computes in fp32
 # (recomputing O in fp32) and rounds each gradient to bf16 once, so each
@@ -3513,7 +3552,321 @@ def mesh_phase(main_run: dict, serve: dict) -> dict:
             "multi_gpu": multi, "wall_s": wall}
 
 
+# -- phase 13: the LM half of multi-device ------------------------------------
+
+def mesh_legs_log(what: str, run: dict, steps: int, tokens: int) -> None:
+    per = {k: n / max(1, steps) for k, n in run["collectives"].items()}
+    log(f"mesh lm {what}: wall {run['wall_s']:.2f} s, "
+        f"{tokens * steps / run['wall_s']:.1f} tokens/s over the run, peak "
+        f"device memory {run['peak_gb']:.2f} GB, collectives a step "
+        f"{json.dumps(per)} (every group spans one rank at world 1 and is "
+        f"elided, so 0 is the count there), launches "
+        f"{json.dumps({k: n for k, n in run['launches'].items() if n})}")
+
+
+def counted(fn):
+    """(fn's result, its kernel launches, its collectives, wall, peak
+    memory)."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.parallel import collectives
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    collectives.reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {"launches": launch_counts(),
+                 "collectives": collectives.counts(),
+                 "wall_s": time.perf_counter() - t0,
+                 "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def mesh_train(trained: dict, dev) -> dict:
+    """(a) olmo-1b through ``train.main(..., --model-parallel 1)`` on the
+    bound mesh: 4 steps of phase 11's run, 32 flash launches a step, the
+    losses against phase 11's; then 2 compressed int8 steps with every
+    Gram and sweep replayed on the plain ops."""
+    import io
+    from repro_torch.launch import train
+    L = train_config().n_layers
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        argv = train_argv(TRAIN_STEPS, "--preempt-at", str(MESH_LM_STEPS),
+                          "--model-parallel", "1")
+        with contextlib.redirect_stdout(io.StringIO()):
+            losses, run = counted(lambda: train.main(argv, device=dev))
+        launched("mesh lm train", run["launches"],
+                 {"flash_attention_mma": 2 * L * MESH_LM_STEPS})
+        ref = trained["losses"][:MESH_LM_STEPS]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+        bitwise = losses == ref
+        log(f"mesh lm train: losses {json.dumps(losses)} against phase "
+            f"11's {json.dumps(ref)}: max relative distance {rel:.3e}"
+            f"{' (bitwise)' if bitwise else ' (not bitwise)'}")
+        check(len(losses) == MESH_LM_STEPS and rel <= MESH_LM_TOL,
+              f"mesh lm train: the losses are {rel:.3e} from phase 11's")
+        mesh_legs_log("train", run, MESH_LM_STEPS, TRAIN_BATCH * TRAIN_SEQ)
+        calls = {}
+        argv = train_argv(TRAIN_COMP_STEPS, "--compress-grads",
+                          str(TRAIN_COMP_RANK), "--moments", "int8",
+                          "--preempt-at", str(MESH_LM_COMP_STEPS),
+                          "--model-parallel", "1")
+        with pca_calls_kept(calls), contextlib.redirect_stdout(
+                io.StringIO()):
+            comp, crun = counted(lambda: train.main(argv, device=dev))
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    gram_err, sweeps_apart = pca_calls_against_plain(calls)
+    n_gram = len(calls["covariance"])
+    del calls
+    check(crun["launches"]["covariance"] == n_gram > 0
+          and crun["launches"]["jacobi_sweep_smem"] > 0
+          and crun["launches"]["flash_attention_mma"]
+          == 2 * L * MESH_LM_COMP_STEPS,
+          f"mesh lm compressed: launches {crun['launches']}")
+    check(gram_err <= LM_GRAM_TOL and sweeps_apart == 0,
+          f"mesh lm compressed: a Gram {gram_err:.3e} off the plain Gram or "
+          f"{sweeps_apart} sweeps apart from the plain sweep")
+    ref = trained["comp_losses"][:MESH_LM_COMP_STEPS]
+    crel = max(abs(a - b) / abs(b) for a, b in zip(comp, ref))
+    log(f"mesh lm compressed: losses {json.dumps(comp)} against phase 11's "
+        f"{json.dumps(ref)} (max relative distance {crel:.3e}); {n_gram} "
+        f"Grams within {gram_err:.3e} of the plain Gram, every sweep bitwise "
+        f"the plain sweep")
+    check(crel <= MESH_LM_TOL, f"mesh lm compressed: the losses are "
+          f"{crel:.3e} from phase 11's")
+    mesh_legs_log("compressed", crun, MESH_LM_COMP_STEPS,
+                  TRAIN_BATCH * TRAIN_SEQ)
+    launches = {k: run["launches"][k] + crun["launches"][k]
+                for k in run["launches"]}
+    return {"losses": losses, "rel": rel, "bitwise": bitwise,
+            "comp_losses": comp, "comp_rel": crel, "gram_err": gram_err,
+            "launches": launches, "collectives": run["collectives"],
+            "wall_s": run["wall_s"] + crun["wall_s"],
+            "peak_gb": max(run["peak_gb"], crun["peak_gb"])}
+
+
+def mesh_forced(cfg, mesh, model, prompt, forced, dev):
+    """A prefill and ``len(forced)`` teacher-forced steps through the
+    mesh's ``build_prefill`` and ``build_serve_step`` and through the
+    one-device path, on the same model: the two runs' logits, a list each,
+    and the mesh runs' launches a prefill and a step."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import transformer as tfm
+    v = cfg.vocab_size
+    cache_len = LM_PROMPT + LM_GEN
+    pre, _ = steps_mod.build_prefill(cfg, ShapeCell(
+        "m", LM_PROMPT, LM_BATCH, "prefill"), mesh=mesh)
+    step, _ = steps_mod.build_serve_step(cfg, ShapeCell(
+        "m", cache_len, LM_BATCH, "decode"), mesh=mesh)
+    tokens = torch.as_tensor(prompt, dtype=torch.int64, device=dev)
+    reset_launch_counts()
+    logits, state = pre(model, {"tokens": tokens}, cache_len=cache_len)
+    torch.cuda.synchronize()
+    launches = [{k: n for k, n in launch_counts().items() if n}]
+    one, ostate = tfm.prefill(model, {"tokens": tokens}, cfg,
+                              cache_len=cache_len)
+    got, want = [logits[:, :v].float()], [one[:, :v].float()]
+    for tok in forced:
+        reset_launch_counts()
+        _, logits, state = step(model, state, tok)
+        torch.cuda.synchronize()
+        launches.append({k: n for k, n in launch_counts().items() if n})
+        one, ostate = tfm.decode_step(model, ostate, torch.as_tensor(
+            tok, dtype=torch.int64, device=dev), cfg)
+        got.append(logits[:, :v].float())
+        want.append(one[:, :v].float())
+    return got, want, launches
+
+
+def mesh_serve_lm(lm: dict, dev) -> dict:
+    """(b) olmo-1b through ``serve.main(..., --model-parallel 1)``, then a
+    prefill and ``LM_FORCED`` forced steps on the mesh's steps against
+    phase 8's one-device path, within phase 8's bf16 logits bound."""
+    import io
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.sharding import rules_for_mesh
+    from repro_torch.runtime import pick_mesh
+    cfg = lm_config()
+    argv = ["--arch", LM_ARCH, "--batch", str(LM_BATCH), "--prompt-len",
+            str(LM_PROMPT), "--gen-len", str(LM_GEN), "--seed", str(SEED),
+            "--model-parallel", "1"]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        gen, run = counted(lambda: serve.main(argv, device=dev))
+    line = json.loads(out.getvalue().strip().splitlines()[-1])
+    log(f"mesh lm serve: {json.dumps(line)}; tokens[0] "
+        f"{gen[0].tolist()}")
+    served("mesh lm", gen, cfg, run["launches"],
+           {"flash_attention_mma": cfg.n_layers,
+            "flash_attention_splitkv": cfg.n_layers * LM_GEN})
+    mesh_legs_log("serve", run, LM_GEN, LM_BATCH)
+    mesh = pick_mesh(1, global_batch=LM_BATCH)
+    model = tfm.init_model(cfg, seed=SEED, device=dev,
+                           rules=rules_for_mesh(mesh))
+    got, want, launches = mesh_forced(cfg, mesh, model, lm_prompt(cfg),
+                                      gen[:, :LM_FORCED].T, dev)
+    del model
+    torch.cuda.empty_cache()
+    check(launches[0] == {"flash_attention_mma": cfg.n_layers}
+          and all(c == {"flash_attention_splitkv": cfg.n_layers}
+                  for c in launches[1:]),
+          f"mesh lm forced: launches {launches}")
+    err = [errors(g, w)[2] for g, w in zip(got, want)]
+    bound = lm["bf16_bound"]
+    log(f"mesh lm forced: logits rel-Frobenius against the one-device path "
+        f"(prefill, then {LM_FORCED} steps) "
+        f"{json.dumps([float(f'{e:.3e}') for e in err])}, phase 8's bound "
+        f"{json.dumps([float(f'{b:.3e}') for b in bound])}; bitwise "
+        f"{all(e == 0 for e in err)}")
+    check(all(e <= b for e, b in zip(err, bound)),
+          "mesh lm forced: the mesh's logits beyond phase 8's bf16 bound")
+    return {"serve": line, "tokens": gen[0].tolist(), "err": err,
+            "launches": run["launches"], "collectives": run["collectives"],
+            "wall_s": run["wall_s"], "peak_gb": run["peak_gb"],
+            "forced_launches": launches}
+
+
+def mesh_hybrid(families: dict, dev) -> dict:
+    """(c) jamba's period through ``serve.generate`` on the bound mesh: 7
+    scans and one prefill kernel a prefill, the MoE's dropped share equal
+    to phase 9's (one shard: every expert local)."""
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.sharding import rules_for_mesh
+    from repro_torch.runtime import pick_mesh
+    cfg = hybrid_config()
+    kinds = cfg.layer_kinds()
+    n_mamba, n_attn = kinds.count("mamba"), kinds.count("attn")
+    mesh = pick_mesh(1, global_batch=LM_BATCH)
+    routes = []
+    with moe_routes(routes):
+        (gen, line), run = counted(lambda: serve.generate(
+            cfg, batch=LM_BATCH, prompt_len=LM_PROMPT, gen_len=LM_GEN,
+            seed=SEED, device=dev, mesh=mesh))
+    served("mesh hybrid", gen, cfg, run["launches"],
+           {"mamba_scan": n_mamba, "flash_attention_mma": n_attn,
+            "flash_attention_splitkv": n_attn * LM_GEN})
+    drops = {"prefill": dropped_share(routes, cfg, LM_BATCH * LM_PROMPT),
+             "decode": dropped_share(routes, cfg, LM_BATCH)}
+    del routes
+    log(f"mesh hybrid: {json.dumps(line)}; MoE dropped {json.dumps(drops)} "
+        f"against phase 9's {json.dumps(families['hybrid']['drops'])}")
+    check(drops == families["hybrid"]["drops"],
+          "mesh hybrid: the MoE's dropped share differs from phase 9's")
+    mesh_legs_log("hybrid", run, LM_GEN, LM_BATCH)
+    model = tfm.init_model(cfg, seed=SEED, device=dev,
+                           rules=rules_for_mesh(mesh))
+    got, want, launches = mesh_forced(cfg, mesh, model, lm_prompt(cfg),
+                                      gen[:, :LM_FORCED].T, dev)
+    del model
+    torch.cuda.empty_cache()
+    check(launches[0] == {"mamba_scan": n_mamba,
+                          "flash_attention_mma": n_attn}
+          and all(c == {"flash_attention_splitkv": n_attn}
+                  for c in launches[1:]),
+          f"mesh hybrid forced: launches {launches}")
+    err = max(errors(g, w)[2] for g, w in zip(got, want))
+    log(f"mesh hybrid forced: a prefill and {LM_FORCED} steps on the mesh's "
+        f"steps, {n_mamba} scans a prefill; logits against the one-device "
+        f"path max rel-Frobenius {err:.3e}")
+    check(err <= LM_FP32_TOL, f"mesh hybrid: the mesh's logits {err:.3e} "
+          f"from the one-device path's")
+    return {"serve": line, "drops": drops, "launches": run["launches"],
+            "collectives": run["collectives"], "wall_s": run["wall_s"],
+            "peak_gb": run["peak_gb"], "err": err}
+
+
+def mesh_worker(rank: int, world: int, store: str, out: str) -> int:
+    """One process of the multi-card leg: rank ``rank`` of a NCCL world
+    of ``world`` cards on the ``FileStore`` ``store``, training olmo-1b at
+    ``--model-parallel 2``; rank 0 writes its losses to ``out``."""
+    from repro_torch.launch import train
+    from repro_torch.parallel import collectives
+    dev = collectives.init_world("cuda", store_path=store, rank=rank,
+                                 world_size=world)
+    try:
+        losses = train.main(train_argv(
+            TRAIN_STEPS, "--preempt-at", str(MESH_MULTI_STEPS),
+            "--model-parallel", "2"), device=dev)
+        if rank == 0:
+            pathlib.Path(out).write_text(json.dumps(losses))
+    finally:
+        collectives.close_world()
+    return 0
+
+
+def mesh_multi(train_run: dict) -> dict:
+    """Where two cards or more are visible: olmo-1b at ``--model-parallel
+    2`` for 2 steps in one process a card, held to (a)'s losses."""
+    import subprocess
+    visible = torch.cuda.device_count()
+    if visible < 2:
+        log(f"mesh lm multi-card: skipped, {visible} card visible (the "
+            f"leg needs two)")
+        return {"run": False, "visible": visible}
+    store = MESH_STORE.with_name("mesh_multi_store")
+    out = MESH_STORE.with_name("mesh_multi_losses.json")
+    for p in (store, out):
+        p.unlink(missing_ok=True)
+    procs = [subprocess.Popen([sys.executable, __file__, "--mesh-worker",
+                               str(r), str(visible), str(store), str(out)])
+             for r in range(visible)]
+    try:
+        codes = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:   # a worker past the time limit is stopped
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        store.unlink(missing_ok=True)
+    check(all(c == 0 for c in codes), f"mesh lm multi-card: exit {codes}")
+    losses = json.loads(out.read_text())
+    ref = train_run["losses"][:MESH_MULTI_STEPS]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+    log(f"mesh lm multi-card: {visible} cards, losses {json.dumps(losses)} "
+        f"against (a)'s {json.dumps(ref)}, max relative distance {rel:.3e}")
+    check(rel <= MESH_MULTI_TOL, f"mesh lm multi-card: {rel:.3e} from (a)")
+    return {"run": True, "visible": visible, "losses": losses, "rel": rel}
+
+
+def mesh_lm_phase(trained: dict, lm: dict, families: dict, dev) -> dict:
+    """Phase 13: the LM half of multi-device on a NCCL process group of
+    one rank a card (the module docstring's item 13)."""
+    from repro_torch.parallel import collectives
+    t_phase = time.perf_counter()
+    MESH_STORE.parent.mkdir(parents=True, exist_ok=True)
+    MESH_STORE.unlink(missing_ok=True)
+    collectives.init_world("cuda", store_path=str(MESH_STORE), rank=0,
+                           world_size=1)
+    try:
+        train_run = mesh_train(trained, dev)
+        serve_run = mesh_serve_lm(lm, dev)
+        hybrid_run = mesh_hybrid(families, dev)
+    finally:
+        collectives.close_world()
+        MESH_STORE.unlink(missing_ok=True)
+    multi = mesh_multi(train_run)
+    launches = {k: sum(r["launches"][k] for r in (train_run, serve_run,
+                                                  hybrid_run))
+                for k in train_run["launches"]}
+    wall = time.perf_counter() - t_phase
+    log(f"mesh lm: launches {json.dumps({k: n for k, n in launches.items() if n})}; "
+        f"phase {wall:.1f} s")
+    return {"train": train_run, "serve": serve_run, "hybrid": hybrid_run,
+            "multi_gpu": multi, "launches": launches, "wall_s": wall}
+
+
 def main() -> int:
+    if len(sys.argv) > 1 and sys.argv[1] == "--mesh-worker":
+        return mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                           sys.argv[5])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs a CUDA card", file=sys.stderr)
@@ -3586,6 +3939,7 @@ def main() -> int:
     phase10 = encdec_vlm_phase(dev)
     trained = train_phase(dev)
     mesh = mesh_phase(main_run, serve)
+    mesh_lm = mesh_lm_phase(trained, lm, families, dev)
     prof = lm["profile"]
     rows["flash_attention_mma"].update(
         lm_device_ms=prof["mma_device_ms"], lm_bound_ms=prof["mma_bound"][0],
@@ -3651,6 +4005,7 @@ def main() -> int:
                               + phase10["launches"][k.name])
         row["launches_train"] = trained["launches"][k.name]
         row["launches_mesh"] = mesh["launches"][k.name]
+        row["launches_mesh_lm"] = mesh_lm["launches"][k.name]
         record.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))

@@ -18,6 +18,14 @@ missing leaf, a shape, a stored dtype) before it loads any, then returns
 the state: new tensors on each template tensor's device in its dtype (the
 reference casts to the template's dtype too), numpy arrays and numbers
 for those leaves, and each ``nn.Module`` of the template loaded in place.
+
+On a mesh the state holds each rank's shards.  ``save(...,
+shardings=)`` (a tree matching the state, a ``parallel.Sharding`` at each
+sharded leaf, None or absent elsewhere) writes the LOGICAL tensors: every
+rank gathers each sharded leaf, rank 0 alone writes, and every rank waits
+at a barrier for the commit.  ``restore(..., shardings=)`` reads the
+logical tensors and places each rank's block, onto any mesh: the mesh
+that saved need not be the one that restores.
 """
 from __future__ import annotations
 
@@ -67,21 +75,47 @@ def _to_numpy(leaf) -> Tuple[np.ndarray, str]:
     return arr, str(arr.dtype)
 
 
+def _shardings(shardings) -> Dict[str, Any]:
+    """{leaf key: Sharding} of a shardings tree (its leaves keyed as the
+    state's are)."""
+    return dict(_flatten(shardings)) if shardings is not None else {}
+
+
+def _writer(shardings: Dict[str, Any]) -> bool:
+    """Whether this process writes: rank 0 of a sharded save, or the one
+    process of an unsharded one."""
+    for sh in shardings.values():
+        mesh = sh.rules.mesh
+        if mesh is not None and mesh.bound:
+            return mesh.rank == 0
+    return True
+
+
 def save(directory, step: int, state, metadata: Optional[Dict] = None,
-         keep: int = 3) -> pathlib.Path:
+         keep: int = 3, shardings=None) -> pathlib.Path:
     d = pathlib.Path(directory)
-    d.mkdir(parents=True, exist_ok=True)
     tmp = d / f"step_{step}.tmp"
     final = d / f"step_{step}"
-    if tmp.exists():
-        shutil.rmtree(tmp)
-    tmp.mkdir()
+    shards = _shardings(shardings)
+    writer = _writer(shards)
+    if writer:
+        d.mkdir(parents=True, exist_ok=True)
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir()
 
     manifest = {"step": step, "metadata": metadata or {}, "leaves": {}}
     for key, leaf in _flatten(state):
+        if key in shards and isinstance(leaf, torch.Tensor):
+            leaf = shards[key].gather(leaf.detach())
+        if not writer:
+            continue
         arr, dtype = _to_numpy(leaf)
         np.save(tmp / f"{key}.npy", arr)
         manifest["leaves"][key] = {"shape": list(arr.shape), "dtype": dtype}
+    if not writer:
+        _barrier(shards)
+        return final
     with open(tmp / "manifest.json", "w") as f:
         json.dump(manifest, f)
         f.flush()
@@ -90,7 +124,15 @@ def save(directory, step: int, state, metadata: Optional[Dict] = None,
         shutil.rmtree(final)
     tmp.rename(final)          # atomic commit
     _retain(d, keep)
+    _barrier(shards)
     return final
+
+
+def _barrier(shardings: Dict[str, Any]) -> None:
+    if any(sh.rules.mesh is not None and sh.rules.mesh.bound
+           for sh in shardings.values()):
+        from ..parallel import collectives
+        collectives.barrier()
 
 
 def _retain(d: pathlib.Path, keep: int):
@@ -159,9 +201,11 @@ def _rebuild(node, values: dict, path=()):
     return type(node)(v for _, v in out)
 
 
-def restore(directory, state_like, step: Optional[int] = None):
+def restore(directory, state_like, step: Optional[int] = None,
+            shardings=None):
     """Load ``step`` (default: latest) into the structure of
-    ``state_like``.  Returns (state, metadata)."""
+    ``state_like`` (on a mesh its local shards, placed by ``shardings``,
+    a tree matching the state).  Returns (state, metadata)."""
     d = pathlib.Path(directory)
     if step is None:
         step = latest_step(d)
@@ -171,17 +215,27 @@ def restore(directory, state_like, step: Optional[int] = None):
     manifest = json.loads((cdir / "manifest.json").read_text())
 
     flat = _flatten(state_like)
+    shards = _shardings(shardings)
     for key, like in flat:          # every check before anything is read
         meta = manifest["leaves"].get(key)
         if meta is None:
             raise KeyError(f"checkpoint {cdir} missing leaf {key}")
         want_shape = tuple(getattr(like, "shape", meta["shape"]))
-        if tuple(meta["shape"]) != want_shape:
+        have = tuple(meta["shape"])
+        if key in shards:
+            have = shards[key].shape(have)
+        if have != want_shape:
             raise ValueError(f"{key}: checkpoint shape "
                              f"{tuple(meta['shape'])} != expected "
                              f"{want_shape}")
     arrays = {key: _load(cdir, key, manifest["leaves"][key])
               for key, _ in flat}
+    for key, sh in shards.items():
+        if key in arrays:
+            a = arrays[key]
+            wide = a.view(np.int16) if a.dtype == np.uint16 else a
+            block = sh.local(torch.from_numpy(wide)).contiguous().numpy()
+            arrays[key] = block.view(a.dtype)
     values = {key: _as_like(arrays[key], manifest["leaves"][key]["dtype"],
                             like) for key, like in flat}
     return _rebuild(state_like, values), manifest["metadata"]

@@ -20,8 +20,22 @@ cursor); SIGTERM/SIGINT checkpoint after the current step and exit with
 ``STALL_EXIT_CODE``.  ``main`` returns the losses and prints the
 reference's final JSON line.  The weights are drawn from a
 ``torch.Generator`` seeded with ``--seed`` (the reference's come from
-``jax.random``); ``--model-parallel`` > 1 raises until the LM half of the
-multi-device work (ROADMAP queue 1, item 4b).
+``jax.random``).
+
+Devices.  Where the torchrun environment is present (``WORLD_SIZE``,
+``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``, ``MASTER_PORT``) ``main``
+starts the process group (NCCL on cards, gloo with ``device="cpu"``), or
+joins one the caller started; then ``runtime.pick_mesh(--model-parallel,
+global_batch=)`` lays the world's ranks on a (data, model) mesh as the
+reference does, ``cfg.tp`` is its model axis, and the step runs on each
+rank's shards (``launch.steps``), the pipeline reading the rows of the
+rank's data coordinate.  Without that environment the mesh is the one
+device, (1, 1) whatever ``--model-parallel`` asks, as the reference on
+one device.  Rank 0 alone prints; a rank the mesh leaves idle returns
+no losses.  On 8 cards:
+  PYTHONPATH=src torchrun --nproc-per-node 8 \\
+      -m repro_torch.launch.train --arch olmo-1b \\
+      --model-parallel 4 --global-batch 8 --seq-len 4096
 """
 from __future__ import annotations
 
@@ -41,8 +55,24 @@ from ..data import DataConfig, TokenPipeline
 from ..models import transformer as tfm
 from ..optim import adamw
 from ..optim import compression as comp
-from ..runtime import STALL_EXIT_CODE, Watchdog
+from ..parallel import collectives as C
+from ..runtime import STALL_EXIT_CODE, Watchdog, pick_mesh
 from . import steps as steps_mod
+
+
+def world_mesh(model_parallel: int, global_batch: int, device: DeviceLike):
+    """(the mesh, this rank's device): the process group started from the
+    torchrun environment where it is present (or joined where the caller
+    started one) and the world's ranks picked onto a (data, model) mesh;
+    else a (1, 1) mesh of ``device``."""
+    dev = resolve_device(device)
+    if C.torchrun_env() and not C.world_started():
+        C.init_world(dev.type)
+    if C.world_started():
+        mesh = pick_mesh(model_parallel, global_batch=global_batch)
+        return mesh, (mesh.device if mesh.member else dev)
+    return pick_mesh(model_parallel, devices=[dev],
+                     global_batch=global_batch), dev
 
 
 def main(argv=None, device: DeviceLike = None):
@@ -64,16 +94,13 @@ def main(argv=None, device: DeviceLike = None):
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.model_parallel > 1:
-        raise NotImplementedError(
-            "--model-parallel > 1 needs the LM half of the multi-device "
-            "work (ROADMAP queue 1, item 4b); the port trains on one "
-            "device")
 
-    dev = resolve_device(device)
+    mesh, dev = world_mesh(args.model_parallel, args.global_batch, device)
+    if not mesh.member:
+        return []
     cfg = (reduced_config(args.arch) if args.reduced
            else get_config(args.arch))
-    cfg = dataclasses.replace(cfg, tp=1)
+    cfg = dataclasses.replace(cfg, tp=mesh.shape["model"])
     shape = ShapeCell("cli", args.seq_len, args.global_batch, "train")
     opt_cfg = adamw.AdamWConfig(lr=args.lr, moment_dtype=args.moments,
                                 warmup_steps=max(2, args.steps // 10),
@@ -82,31 +109,41 @@ def main(argv=None, device: DeviceLike = None):
                 if args.compress_grads else None)
 
     step_fn, _ = steps_mod.build_train_step(
-        cfg, shape, opt_cfg=opt_cfg, comp_cfg=comp_cfg, device=dev)
+        cfg, shape, opt_cfg=opt_cfg, comp_cfg=comp_cfg, mesh=mesh)
+    rules = step_fn.rules
+    lead = mesh.rank == 0
 
     pipe = TokenPipeline(DataConfig(
         seq_len=args.seq_len, global_batch=args.global_batch,
-        vocab_size=cfg.vocab_size, seed=args.seed))
+        vocab_size=cfg.vocab_size, seed=args.seed),
+        process_index=rules.index("batch"),
+        process_count=rules.size("batch"))
 
     def init_state():
+        # every rank draws the whole model, then keeps its shard
         model = tfm.init_model(cfg, seed=args.seed, device=dev, train=True)
-        params = dict(model.named_parameters())
         comp_state = (steps_mod.init_compression(
-            params, cfg, comp_cfg,
+            dict(model.named_parameters()), cfg, comp_cfg,
             torch.Generator(device=dev).manual_seed(args.seed + 1))
             if comp_cfg else None)
+        tfm.shard_model(model, rules)
+        params = dict(model.named_parameters())
         return steps_mod.TrainState(
-            params=model, opt=adamw.init(params, opt_cfg),
+            params=model, opt=adamw.init(
+                params, opt_cfg, tfm.param_shardings(model, rules)),
             step=torch.zeros((), dtype=torch.int32, device=dev),
             comp=comp_state)
 
     state = init_state()
+    shardings = steps_mod.train_state_shardings(state.params, rules, opt_cfg)
     start_step = 0
     if args.ckpt_dir and checkpointer.latest_step(args.ckpt_dir) is not None:
-        state, meta = checkpointer.restore(args.ckpt_dir, state)
+        state, meta = checkpointer.restore(args.ckpt_dir, state,
+                                           shardings=shardings)
         pipe.restore(meta.get("data", {"step": 0}))
         start_step = int(meta.get("step", 0))
-        print(f"[train] resumed from step {start_step}", flush=True)
+        if lead:
+            print(f"[train] resumed from step {start_step}", flush=True)
 
     stop = {"flag": False, "reason": None}
 
@@ -122,7 +159,7 @@ def main(argv=None, device: DeviceLike = None):
             return
         checkpointer.save(args.ckpt_dir, step, state,
                           metadata={"step": step, "data": pipe.state(),
-                                    "arch": cfg.name})
+                                    "arch": cfg.name}, shardings=shardings)
 
     def inputs(step):
         tokens = pipe.batch_at(step)[:, : args.seq_len]
@@ -151,7 +188,8 @@ def main(argv=None, device: DeviceLike = None):
                 print("[train] stall detected -> emergency checkpoint",
                       flush=True)
                 sys.exit(STALL_EXIT_CODE)
-            if step % args.log_every == 0 or step == args.steps - 1:
+            if lead and (step % args.log_every == 0
+                         or step == args.steps - 1):
                 print(f"[train] step {step} loss {loss:.4f} "
                       f"({dt*1000:.0f} ms, lr {float(metrics['lr']):.2e}, "
                       f"gnorm {float(metrics['grad_norm']):.2f})",
@@ -160,8 +198,9 @@ def main(argv=None, device: DeviceLike = None):
                 save(step + 1)
             if args.preempt_at and step + 1 >= args.preempt_at:
                 save(step + 1)
-                print(f"[train] simulated preemption at {step + 1}",
-                      flush=True)
+                if lead:
+                    print(f"[train] simulated preemption at {step + 1}",
+                          flush=True)
                 return losses
             if stop["flag"]:
                 save(step + 1)
@@ -169,9 +208,10 @@ def main(argv=None, device: DeviceLike = None):
                       f"checkpointed at {step + 1}", flush=True)
                 sys.exit(STALL_EXIT_CODE)
         save(args.steps)
-        print(json.dumps({"final_loss": losses[-1],
-                          "first_loss": losses[0],
-                          "watchdog": wd.summary()}), flush=True)
+        if lead:
+            print(json.dumps({"final_loss": losses[-1],
+                              "first_loss": losses[0],
+                              "watchdog": wd.summary()}), flush=True)
         return losses
     finally:
         for sig, handler in handlers.items():

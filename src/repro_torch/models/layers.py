@@ -15,6 +15,17 @@ in the config's dtype, norm parameters in fp32.  ``reset_parameters``
 draws from an explicit ``torch.Generator``; the reference's JAX draws
 differ, so parity carries the reference's values across instead of
 re-drawing them.
+
+On a mesh (``rules`` of a bound ``Mesh``; ``REPLICATED`` by default, where
+every collective is the identity) each module holds its local shard, its
+``roles()`` naming each tensor's per-dim roles (the reference's ``Px``
+annotations): ``MLP`` is column-parallel in ``wi``/``wg`` and
+row-parallel in ``wo``, its partial output all-reduced over "model";
+``Embedding`` is vocab-parallel (``tok`` ("vocab", "fsdp"): the lookup
+masked to this rank's rows, then all-reduced; ``unembed`` gives this
+rank's vocab columns, the padding masked by global index, so only in the
+last shard); ``Norm`` is replicated.  Every ``"fsdp"`` dim is gathered
+before use (``collectives.fsdp_gather``).
 """
 from __future__ import annotations
 
@@ -24,6 +35,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..parallel import collectives as C
+from ..parallel.sharding import REPLICATED
 from .config import ModelConfig
 
 NEG_INF = -1e30  # the reference's mask value (scores and padded vocab)
@@ -60,6 +73,9 @@ class Norm(nn.Module):
         if cfg.norm == "layernorm":
             self.bias = _param(torch.zeros(cfg.d_model, dtype=torch.float32,
                                            device=device))
+
+    def roles(self) -> dict:
+        return {"scale": (None,), "bias": (None,)}
 
     def forward(self, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
         xf = x.float()
@@ -134,13 +150,22 @@ class MLP(nn.Module):
         self.wo.copy_(_normal(gen, self.wo.shape, self.wo.dtype,
                               1.0 / math.sqrt(d_ff), dev))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x @ self.wi
+    def roles(self) -> dict:
+        return {"wi": ("fsdp", "tp"), "wg": ("fsdp", "tp"),
+                "wo": ("tp", "fsdp")}
+
+    def partial(self, x: torch.Tensor, rules=REPLICATED) -> torch.Tensor:
+        """This rank's share of the output (the reference's
+        ``_dense_partial``): x already in the "model" region."""
+        h = x @ C.fsdp_gather(self.wi, rules, 0)
         if self.kind == "swiglu":
-            h = nn.functional.silu(x @ self.wg) * h
+            h = nn.functional.silu(x @ C.fsdp_gather(self.wg, rules, 0)) * h
         else:
             h = nn.functional.gelu(h, approximate="tanh")  # jax.nn.gelu
-        return h @ self.wo
+        return h @ C.fsdp_gather(self.wo, rules, 1)
+
+    def forward(self, x: torch.Tensor, rules=REPLICATED) -> torch.Tensor:
+        return C.reduce_from(self.partial(C.copy_to(x, rules), rules), rules)
 
 
 # ---------------------------------------------------------------------------
@@ -178,18 +203,38 @@ class Embedding(nn.Module):
             self.pos.copy_(_normal(gen, self.pos.shape, self.pos.dtype, 0.02,
                                    dev))
 
-    def embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.tok[tokens]
+    def roles(self) -> dict:
+        return {"tok": ("vocab", "fsdp"), "head": ("fsdp", "vocab"),
+                "pos": (None, "fsdp")}
 
-    def position(self, positions) -> torch.Tensor:
+    def vocab_offset(self, rules=REPLICATED) -> int:
+        """The global id of this rank's first vocab row."""
+        return rules.index("vocab") * self.tok.shape[0]
+
+    def embed(self, tokens: torch.Tensor, rules=REPLICATED) -> torch.Tensor:
+        tok = C.fsdp_gather(self.tok, rules, 1)
+        if rules.size("vocab") == 1:
+            return tok[tokens]
+        rel = tokens - self.vocab_offset(rules)
+        mine = (rel >= 0) & (rel < tok.shape[0])
+        x = tok[rel.clamp(0, tok.shape[0] - 1)]
+        x = torch.where(mine[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+        return C.reduce_from(x, rules, "vocab")
+
+    def position(self, positions, rules=REPLICATED) -> torch.Tensor:
         """The learned rows at ``positions`` (a tensor or an int) mod 4096."""
-        return self.pos[positions % self.pos.shape[0]]
+        pos = C.fsdp_gather(self.pos, rules, 1)
+        return pos[positions % pos.shape[0]]
 
-    def unembed(self, x: torch.Tensor) -> torch.Tensor:
-        """Logits (..., padded_vocab), the padded entries at -1e30."""
+    def unembed(self, x: torch.Tensor, rules=REPLICATED) -> torch.Tensor:
+        """Logits (..., padded_vocab), the padded entries at -1e30; on a
+        mesh this rank's vocab columns (..., padded_vocab / shards)."""
         cfg = self.cfg
-        w = self.tok.mT if cfg.tie_embeddings else self.head
-        logits = x @ w
-        if cfg.padded_vocab > cfg.vocab_size:
-            logits[..., cfg.vocab_size:] = NEG_INF
+        w = (C.fsdp_gather(self.tok, rules, 1).mT if cfg.tie_embeddings
+             else C.fsdp_gather(self.head, rules, 0))
+        logits = C.copy_to(x, rules, "vocab") @ w
+        v0 = self.vocab_offset(rules)
+        if v0 + w.shape[1] > cfg.vocab_size:
+            logits[..., max(0, cfg.vocab_size - v0):] = NEG_INF
         return logits

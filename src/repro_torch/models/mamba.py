@@ -21,6 +21,17 @@ is applied in fp32 before the cast back.  ``ssm_dtype="bfloat16"`` (the
 reference then keeps a bf16 state; the kernel keeps fp32) and
 ``ssm_impl="kernel_proxy"`` (the reference's dry-run stand-in for the
 kernel's memory traffic, not a numerics path) raise.
+
+On a mesh (``rules``; ``REPLICATED`` by default) the layer is
+tensor-parallel over ``d_inner`` with the reference's roles: ``in_proj``
+("fsdp", "tp") column-parallel, stored as this rank's channels of its x
+half and of its z half together (``CHUNKS``: the dim is two pieces, each
+split); the conv, ``dt_w``, ``dt_b``, ``A_log`` and ``D`` on this rank's
+channels; ``x_proj`` ("tp", None) row-parallel, its partial output
+all-reduced before ``dt``/B/C; ``out_proj`` ("tp", "fsdp") row-parallel,
+its partial output all-reduced.  The scan kernel runs on this rank's
+channels and the decode state's ``d_inner`` is sharded (("batch", "tp",
+None)).
 """
 from __future__ import annotations
 
@@ -32,6 +43,8 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..kernels import ops
+from ..parallel import collectives as C
+from ..parallel.sharding import REPLICATED
 from .config import ModelConfig
 from .layers import _normal, _param
 
@@ -80,6 +93,15 @@ class Mamba(nn.Module):
         self.D = empty((di,), torch.float32)
         self.out_proj = empty((di, d))
 
+    # in_proj's dim 1 is two pieces (x, z), each split over "model"
+    CHUNKS = {"in_proj": {1: 2}}
+
+    def roles(self) -> dict:
+        return {"in_proj": ("fsdp", "tp"), "conv_w": (None, "tp"),
+                "conv_b": ("tp",), "x_proj": ("tp", None),
+                "dt_w": (None, "tp"), "dt_b": ("tp",), "A_log": ("tp", None),
+                "D": ("tp",), "out_proj": ("tp", "fsdp")}
+
     def reset_parameters(self, gen: Optional[torch.Generator]) -> None:
         """The reference's ``init_mamba``: normal projections scaled by
         1/sqrt(fan-in), conv bias 0, dt bias softplus^-1(0.01), S4D-real
@@ -98,17 +120,25 @@ class Mamba(nn.Module):
         self.D.fill_(1.0)
 
 
-def _ssm_params(p: Mamba, xc: torch.Tensor, cfg: ModelConfig):
-    """xc (..., di), the conv output -> (dt, B, C) in fp32."""
+def _ssm_params(p: Mamba, xc: torch.Tensor, cfg: ModelConfig,
+                rules=REPLICATED):
+    """xc (..., di), the conv output -> (dt, B, C) in fp32.  On a mesh
+    ``x_proj``'s partial sums over this rank's channels are summed in
+    fp32, and the result enters the channel-parallel region again."""
     R, N = cfg.dt_rank, cfg.ssm_state
-    proj = (xc @ p.x_proj).float()
+    if rules.size("tp") == 1:
+        proj = (xc @ p.x_proj).float()
+    else:
+        proj = C.copy_to(C.reduce_from(xc.float() @ p.x_proj.float(),
+                                       rules), rules)
     dt_r, B_ssm, C_ssm = torch.split(proj, [R, N, N], dim=-1)
     dt = F.softplus(dt_r @ p.dt_w.float() + p.dt_b)
     return dt, B_ssm, C_ssm
 
 
 def apply_mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
-                chunk: Optional[int] = None, return_cache: bool = False):
+                chunk: Optional[int] = None, return_cache: bool = False,
+                rules=REPLICATED):
     """Train/prefill path.  x (B, S, d) -> (y, cache or None).  ``chunk``
     (default ``cfg.mamba_chunk``) is the backward's recompute chunk; the
     forward runs each channel over all of S.  The cache's conv part is the
@@ -116,8 +146,10 @@ def apply_mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
     its state is the scan's final state."""
     _unsupported(cfg)
     s = x.shape[1]
-    di, K = cfg.d_inner, cfg.d_conv
-    xin, z = torch.split(x @ p.in_proj, di, dim=-1)
+    K = cfg.d_conv
+    in_proj = C.fsdp_gather(p.in_proj, rules, 0)
+    xin, z = torch.split(C.copy_to(x, rules) @ in_proj,
+                         in_proj.shape[1] // 2, dim=-1)
     # causal depthwise conv over S, summed tap by tap as the reference does
     xpad = F.pad(xin, (0, 0, K - 1, 0))
     xc = xpad[:, :s] * p.conv_w[0]
@@ -125,13 +157,13 @@ def apply_mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
         xc = xc + xpad[:, i:i + s] * p.conv_w[i]
     xc = F.silu(xc + p.conv_b)
 
-    dt, B_ssm, C_ssm = _ssm_params(p, xc, cfg)
+    dt, B_ssm, C_ssm = _ssm_params(p, xc, cfg, rules)
     A = -torch.exp(p.A_log)
     y, state = ops.mamba_scan(xc.float().contiguous(), dt.contiguous(), A,
                               B_ssm.contiguous(), C_ssm.contiguous(), p.D,
                               chunk or cfg.mamba_chunk, return_state=True)
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = y @ p.out_proj
+    out = C.reduce_from(y @ C.fsdp_gather(p.out_proj, rules, 1), rules)
     if not return_cache:
         return out, None
     # xpad has S + K - 1 rows: from S on, the last K - 1 inputs (a copy,
@@ -140,34 +172,42 @@ def apply_mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
 
 
 def decode_mamba(p: Mamba, x: torch.Tensor, cache: MambaCache,
-                 cfg: ModelConfig):
+                 cfg: ModelConfig, rules=REPLICATED):
     """One-token decode, the reference's plain recurrence.  x (B, 1, d)
     -> (y (B, 1, d), a new ``MambaCache``)."""
     _unsupported(cfg)
-    xin, z = torch.split((x @ p.in_proj)[:, 0], cfg.d_inner, dim=-1)
+    in_proj = C.fsdp_gather(p.in_proj, rules, 0)
+    xin, z = torch.split((x @ in_proj)[:, 0], in_proj.shape[1] // 2, dim=-1)
     window = torch.cat([cache.conv, xin[:, None, :]], dim=1)  # (B, K, di)
     xc = torch.einsum("bkd,kd->bd", window, p.conv_w)
     xc = F.silu(xc + p.conv_b)
 
-    dt, B_ssm, C_ssm = _ssm_params(p, xc, cfg)          # (B, di), (B, N)
+    dt, B_ssm, C_ssm = _ssm_params(p, xc, cfg, rules)   # (B, di), (B, N)
     A = -torch.exp(p.A_log)
     xf = xc.float()
     decay = torch.exp(dt[..., None] * A[None])                # (B, di, N)
     state = decay * cache.state + (dt * xf)[..., None] * B_ssm[:, None, :]
     y = torch.einsum("bdn,bn->bd", state, C_ssm) + p.D * xf
     y = (y * F.silu(z.float())).to(x.dtype)
-    out = (y @ p.out_proj)[:, None, :]
-    return out, MambaCache(conv=window[:, 1:], state=state)
+    out = C.reduce_from(y @ C.fsdp_gather(p.out_proj, rules, 1), rules)
+    return out[:, None, :], MambaCache(conv=window[:, 1:], state=state)
 
 
 def init_mamba_cache(cfg: ModelConfig, batch: int, dtype,
-                     device=None) -> MambaCache:
+                     device=None, d_inner: Optional[int] = None
+                     ) -> MambaCache:
+    di = cfg.d_inner if d_inner is None else d_inner
     return MambaCache(
-        conv=torch.zeros(batch, cfg.d_conv - 1, cfg.d_inner, dtype=dtype,
+        conv=torch.zeros(batch, cfg.d_conv - 1, di, dtype=dtype,
                          device=device),
-        state=torch.zeros(batch, cfg.d_inner, cfg.ssm_state,
+        state=torch.zeros(batch, di, cfg.ssm_state,
                           dtype=torch.float32, device=device))
 
 
+def mamba_cache_axes() -> MambaCache:
+    return MambaCache(conv=("batch", None, "tp"),
+                      state=("batch", "tp", None))
+
+
 __all__ = ["Mamba", "MambaCache", "apply_mamba", "decode_mamba",
-           "init_mamba_cache"]
+           "init_mamba_cache", "mamba_cache_axes"]

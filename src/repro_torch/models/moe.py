@@ -12,10 +12,18 @@ an assignment past its expert's capacity is dropped, and its token gets
 nothing from that expert.  The expert products are the reference's plain
 ``einsum``s, outside any Pallas kernel, so ``torch.bmm`` here.
 
-The reference's ``shard_map`` path (experts sharded over a mesh axis)
-waits for the LM half of the multi-device work (ROADMAP queue 1, item 4b);
-``_dispatch_compute_combine`` keeps its ``e0`` / ``E_local`` arguments,
-the share of the experts that one device holds.
+On a mesh (``rules``; ``REPLICATED`` by default) this is the
+reference's expert-parallel ``shard_map`` path (``src/repro/models/
+moe.py:108-200``) with its collectives issued here: the experts are
+sharded over "model" (``E_local = E / tp`` from ``e0 = rank x
+E_local``), the tokens over the batch axes, the routing local to the
+data shard with ``C = capacity(T_local)`` (so where capacity binds the
+drops, and the result, differ from one device's, as the reference's do),
+``_dispatch_compute_combine`` called as it is on the experts' ``"fsdp"``
+dim gathered, arctic's dense residual and llama4's shared expert adding
+their partial outputs before the ONE all-reduce over "model", and the
+aux statistics ``(me_sum, ce_cnt, n_tok)`` all-reduced over the batch
+axes.
 """
 from __future__ import annotations
 
@@ -26,6 +34,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel import collectives as coll
+from ..parallel.sharding import REPLICATED
 from .config import ModelConfig
 from .layers import MLP, _normal, _param
 
@@ -43,6 +53,11 @@ class MoE(nn.Module):
         self.wi = _param(torch.empty(E, d, f, dtype=dt, device=device))
         self.wg = _param(torch.empty(E, d, f, dtype=dt, device=device))
         self.wo = _param(torch.empty(E, f, d, dtype=dt, device=device))
+
+    def roles(self) -> dict:
+        return {"router": (None, None), "wi": ("expert", "fsdp", None),
+                "wg": ("expert", "fsdp", None),
+                "wo": ("expert", None, "fsdp")}
 
     def reset_parameters(self, gen: Optional[torch.Generator]) -> None:
         """The reference's ``init_moe``: normal, scaled by 1/sqrt(d) (the
@@ -119,24 +134,69 @@ def _dispatch_compute_combine(xf, gate, idx, wi, wg, wo, *, E: int, k: int,
     return (y_tok * gates_flat).view(k, T, d).sum(0)
 
 
+def _routing_local(p: MoE, xf: torch.Tensor, cfg: ModelConfig):
+    """Per-shard routing: (gate, idx, (me_sum, ce_cnt, n_tokens)) for the
+    cross-shard aux reduction."""
+    E, k = cfg.n_experts, cfg.top_k
+    probs = torch.softmax(xf.float() @ p.router, dim=-1)
+    gate, idx = torch.topk(probs, k, dim=-1)
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    ce_cnt = torch.zeros(E, dtype=torch.float32, device=xf.device
+                         ).index_add_(0, idx.reshape(-1),
+                                      torch.ones(idx.numel(),
+                                                 device=xf.device))
+    n_tok = torch.full((), float(xf.shape[0]), device=xf.device)
+    return gate, idx, (probs.sum(0), ce_cnt, n_tok)
+
+
+def _apply_sharded(p: MoE, x, cfg: ModelConfig, mlp_res, mlp_shared, rules):
+    b, s, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    xf = x.reshape(b * s, d)
+    gate, idx, (me_sum, ce_cnt, n_tok) = _routing_local(p, xf, cfg)
+    E_local = E // rules.size("expert")
+    wi = coll.fsdp_gather(p.wi, rules, 1)
+    wg = coll.fsdp_gather(p.wg, rules, 1)
+    wo = coll.fsdp_gather(p.wo, rules, 2)
+    xt = coll.copy_to(xf, rules, "expert")
+    y = _dispatch_compute_combine(
+        xt, coll.copy_to(gate, rules, "expert"), idx, wi, wg, wo, E=E, k=k,
+        C=capacity(b * s, cfg), e0=rules.index("expert") * E_local,
+        E_local=E_local)
+    for mlp in (mlp_res, mlp_shared):
+        if mlp is not None:
+            y = y + mlp.partial(xt, rules)
+    y = coll.reduce_from(y.to(x.dtype), rules, "expert")
+    me_sum = coll.reduce_from(me_sum, rules, "batch")
+    ce_cnt = coll.role_all_reduce(ce_cnt, rules, "batch")
+    n_tok = coll.role_all_reduce(n_tok, rules, "batch")
+    aux = E * torch.sum((me_sum / n_tok) * (ce_cnt / (n_tok * k)))
+    return y.reshape(b, s, d), aux
+
+
 def apply_moe(p: MoE, x: torch.Tensor, cfg: ModelConfig,
               mlp_res: Optional[MLP] = None,
-              mlp_shared: Optional[MLP] = None
+              mlp_shared: Optional[MLP] = None, rules=REPLICATED
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d) -> (y, aux).  ``mlp_res`` (arctic's dense residual)
     and ``mlp_shared`` (llama4's shared expert) are dense FFNs on the same
     tokens, added into the same sum (the reference's ``_dense_partial``
-    is ``MLP.forward``: swiglu, or tanh-gelu without ``wg``)."""
+    is ``MLP.forward``: swiglu, or tanh-gelu without ``wg``).  On a mesh
+    whose expert or batch roles span more than one rank, the
+    expert-parallel path (module docstring); x is this rank's tokens."""
+    if rules.size("expert") > 1 or rules.size("batch") > 1:
+        return _apply_sharded(p, x, cfg, mlp_res, mlp_shared, rules)
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     gate, idx, aux = _routing(p, xf, cfg)
     C = capacity(b * s, cfg)
-    y = _dispatch_compute_combine(xf, gate, idx, p.wi, p.wg, p.wo,
-                                  E=cfg.n_experts, k=cfg.top_k, C=C, e0=0,
-                                  E_local=cfg.n_experts)
+    y = _dispatch_compute_combine(
+        xf, gate, idx, coll.fsdp_gather(p.wi, rules, 1),
+        coll.fsdp_gather(p.wg, rules, 1), coll.fsdp_gather(p.wo, rules, 2),
+        E=cfg.n_experts, k=cfg.top_k, C=C, e0=0, E_local=cfg.n_experts)
     for mlp in (mlp_res, mlp_shared):
         if mlp is not None:
-            y = y + mlp(xf)
+            y = y + mlp(xf, rules)
     return y.reshape(b, s, d).to(x.dtype), aux
 
 

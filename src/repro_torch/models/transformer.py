@@ -12,8 +12,22 @@ period of layers (``period``) into groups and scans over them; here the
 layers are an ``nn.ModuleList`` run in order, and the decode state holds
 one cache a layer: a head-major ``KVCache`` (``attention``'s module
 docstring) or a ``MambaCache``.  ``scan_layers`` stays a config field
-with no effect.  Ring attention raises ``NotImplementedError`` naming the
-ROADMAP item that ports it.
+with no effect.
+
+On a mesh every function takes ``rules`` (``REPLICATED`` by default, the
+one-device path) and the model holds this rank's shard of each parameter
+(``shard_model``, or ``init_model(..., rules=)``: every rank draws the
+whole model from the seed and keeps its shard).  ``param_axes(model)``
+gives each parameter's roles (the reference's, parameter by parameter)
+and ``param_shardings`` their ``Sharding``s; ``decode_state_axes`` the
+decode state's.  The batch is this rank's rows.  ``forward`` returns this
+rank's vocab columns of the logits; ``prefill`` and ``decode_step``
+gather them whole.  ``loss_fn`` is a vocab-parallel cross-entropy (an
+all-reduce of the max, then of the sum, the gold logit from the rank
+that holds it) over the global batch: its first value is this rank's
+objective (its rows' share of the cross-entropy plus the aux term),
+whose gradients summed over the batch ranks are the global loss's; the
+metrics hold the global ``ce`` and ``aux``.
 
 Training.  ``Transformer(cfg, train=True)`` (``init_model(...,
 train=True)``) gives parameters that require gradients; serving's models
@@ -65,6 +79,8 @@ from torch.utils.checkpoint import checkpoint
 
 from .._device import DeviceLike, resolve_device
 from ..backends import registry
+from ..parallel import collectives as C
+from ..parallel.sharding import REPLICATED, Sharding, pad_to_multiple
 from . import attention as attn_mod
 from . import mamba as mamba_mod
 from . import moe as moe_mod
@@ -75,9 +91,8 @@ AUX_COEF = 0.01  # MoE load-balance loss weight
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not serve yet: ring attention and the
-    scan options ``mamba`` raises for."""
-    attn_mod._unsupported(cfg)
+    """Raise for what the port does not serve yet: the scan options
+    ``mamba`` raises for."""
     if "mamba" in cfg.layer_kinds():
         mamba_mod._unsupported(cfg)
 
@@ -131,33 +146,38 @@ class Block(nn.Module):
     def forward(self, x, cfg: ModelConfig, positions, mode: str,
                 cache=None, pos: Optional[int] = None,
                 cache_len: Optional[int] = None, enc_out=None, enc_kv=None,
-                causal: bool = True):
+                causal: bool = True, rules=REPLICATED):
         """Returns (x, new cache or None, the cross K/V (a decoder's, in
         ``prefill`` and ``decode``) or None, the MoE's aux or None)."""
         h = self.norm1(x)
         if self.mixer_kind == "attn":
             if mode == "decode":
                 y, new_c = attn_mod.decode_attention(self.mixer, h, cache,
-                                                     pos, cfg)
+                                                     pos, cfg, rules=rules)
             else:
                 y, new_c = attn_mod.self_attention(
                     self.mixer, h, cfg, positions, causal=causal,
-                    return_cache=(mode == "prefill"), cache_len=cache_len)
+                    return_cache=(mode == "prefill"), cache_len=cache_len,
+                    rules=rules)
         elif mode == "decode":
-            y, new_c = mamba_mod.decode_mamba(self.mixer, h, cache, cfg)
+            y, new_c = mamba_mod.decode_mamba(self.mixer, h, cache, cfg,
+                                              rules)
         else:
             y, new_c = mamba_mod.apply_mamba(
-                self.mixer, h, cfg, return_cache=(mode == "prefill"))
+                self.mixer, h, cfg, return_cache=(mode == "prefill"),
+                rules=rules)
         x = x + y
         new_enc_kv = None
         if hasattr(self, "cross"):
             hx = self.norm_x(x)
             if mode == "decode":
                 yx, new_enc_kv = attn_mod.decode_attention(
-                    self.cross, hx, enc_kv, pos, cfg, cross=True)
+                    self.cross, hx, enc_kv, pos, cfg, cross=True,
+                    rules=rules)
             else:
-                ekv = attn_mod.cross_kv(self.cross, enc_out)
-                yx = attn_mod.cross_attention(self.cross, hx, ekv, cfg)
+                ekv = attn_mod.cross_kv(self.cross, enc_out, rules)
+                yx = attn_mod.cross_attention(self.cross, hx, ekv, cfg,
+                                              rules)
                 new_enc_kv = ekv if mode == "prefill" else None
             x = x + yx
         aux = None
@@ -166,9 +186,9 @@ class Block(nn.Module):
             if self.ffn_kind == "moe":
                 y2, aux = moe_mod.apply_moe(
                     self.ffn, h2, cfg, mlp_res=getattr(self, "mlp_res", None),
-                    mlp_shared=getattr(self, "mlp_shared", None))
+                    mlp_shared=getattr(self, "mlp_shared", None), rules=rules)
             else:
-                y2 = self.ffn(h2)
+                y2 = self.ffn(h2, rules)
             x = x + y2
         return x, new_c, new_enc_kv, aux
 
@@ -211,12 +231,14 @@ class Transformer(nn.Module):
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
-               train: bool = False) -> Transformer:
+               train: bool = False, rules=None) -> Transformer:
     """A model with random weights drawn from a ``torch.Generator`` seeded
     with ``seed`` on ``device`` (default ``cuda``; raises without a card
     unless ``device="cpu"``), its parameters requiring gradients with
     ``train``.  The reference draws from ``jax.random``, so the two
-    packages' weights differ for one seed."""
+    packages' weights differ for one seed.  With ``rules`` of a mesh the
+    whole model is drawn and each parameter cut to this rank's shard
+    (``shard_model``)."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     model = Transformer(cfg, dev, train=train)
@@ -230,13 +252,58 @@ def init_model(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
                 part = getattr(layer, name, None)
                 if part is not None:
                     part.reset_parameters(gen)
+    if rules is not None:
+        shard_model(model, rules)
     return model.train(train)
 
 
-def _embed_input(params: Transformer, batch, cfg: ModelConfig):
+def param_axes(model: Transformer) -> dict:
+    """Each parameter's roles a dim, keyed by its name (the reference's
+    ``Px`` annotations, parameter by parameter; a layer's leaf carries no
+    ``"layers"`` role, the port's layers being a list)."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        if not hasattr(mod, "roles"):
+            continue
+        roles = mod.roles()
+        for name, _ in mod.named_parameters(recurse=False):
+            out[f"{prefix}.{name}" if prefix else name] = roles[name]
+    return out
+
+
+def param_chunks(model: Transformer) -> dict:
+    """{name: {dim: pieces}} of the parameters stored in pieces (mamba's
+    ``in_proj``)."""
+    out = {}
+    for prefix, mod in model.named_modules():
+        for name, ch in getattr(mod, "CHUNKS", {}).items():
+            out[f"{prefix}.{name}"] = ch
+    return out
+
+
+def param_shardings(model: Transformer, rules) -> dict:
+    """A ``Sharding`` for each parameter under ``rules``."""
+    chunks = param_chunks(model)
+    return {k: Sharding(rules, ax, chunks.get(k))
+            for k, ax in param_axes(model).items()}
+
+
+def shard_model(model: Transformer, rules) -> Transformer:
+    """Cut each parameter of a whole model to this rank's shard, in
+    place."""
+    sh = param_shardings(model, rules)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if sh[name].is_sharded():
+                p.data = sh[name].local(p.data).contiguous().clone()
+    return model
+
+
+def _embed_input(params: Transformer, batch, cfg: ModelConfig,
+                 rules=REPLICATED):
     """Token (+ the vlm's patch prefix) embedding, plus learned
     positions; returns (x, positions, n_prefix)."""
-    x = params.embed.embed(batch["tokens"])
+    x = params.embed.embed(batch["tokens"], rules)
     n_prefix = 0
     if cfg.family == "vlm" and "patches" in batch:
         patches = batch["patches"].to(x.dtype)
@@ -245,11 +312,12 @@ def _embed_input(params: Transformer, batch, cfg: ModelConfig):
     b, s = x.shape[:2]
     positions = torch.arange(s, device=x.device).expand(b, s)
     if cfg.pos_embed == "learned":
-        x = x + params.embed.position(positions[0])
+        x = x + params.embed.position(positions[0], rules)
     return x, positions, n_prefix
 
 
-def _encode(params: Transformer, batch, cfg: ModelConfig) -> torch.Tensor:
+def _encode(params: Transformer, batch, cfg: ModelConfig,
+            rules=REPLICATED) -> torch.Tensor:
     """The stub frontend's frames (B, F, d), in the model's dtype, plus
     the sinusoidal table through the encoder (non-causal) -> (B, F, d)."""
     frames = batch["frames"].to(cfg.torch_dtype())
@@ -260,7 +328,7 @@ def _encode(params: Transformer, batch, cfg: ModelConfig) -> torch.Tensor:
     enc_cfg = encoder_view(cfg)
     for layer in params.encoder.layers:
         x = _layer_call(layer, cfg.remat)(x, enc_cfg, positions, "train",
-                                          causal=False)[0]
+                                          causal=False, rules=rules)[0]
     return params.encoder.norm_f(x)
 
 
@@ -286,7 +354,8 @@ def _layer_call(layer: Block, remat: bool):
 
 def _run_stack(params: Transformer, x, cfg: ModelConfig, positions,
                mode: str, caches=None, pos: Optional[int] = None,
-               cache_len: Optional[int] = None, enc_out=None, enc_kvs=None):
+               cache_len: Optional[int] = None, enc_out=None, enc_kvs=None,
+               rules=REPLICATED):
     """Returns (x, the MoE layers' summed aux (fp32 scalar), the new
     caches, one a layer, or None in ``train`` mode, and the decoder's
     cross K/V, one a layer, or None)."""
@@ -298,7 +367,7 @@ def _run_stack(params: Transformer, x, cfg: ModelConfig, positions,
             x, cfg, positions, mode,
             cache=caches[i] if caches is not None else None, pos=pos,
             cache_len=cache_len, enc_out=enc_out,
-            enc_kv=enc_kvs[i] if enc_kvs is not None else None)
+            enc_kv=enc_kvs[i] if enc_kvs is not None else None, rules=rules)
         new_caches.append(c)
         new_enc_kvs.append(ekv)
         if aux is not None:
@@ -307,14 +376,16 @@ def _run_stack(params: Transformer, x, cfg: ModelConfig, positions,
     return x, aux_total, (new_caches if mode != "train" else None), enc
 
 
-def _decoder_input(params: Transformer, batch, cfg: ModelConfig):
+def _decoder_input(params: Transformer, batch, cfg: ModelConfig,
+                   rules=REPLICATED):
     """(x, positions, n_prefix, the encoder output or None)."""
-    enc_out = _encode(params, batch, cfg) if cfg.family == "encdec" else None
-    return (*_embed_input(params, batch, cfg), enc_out)
+    enc_out = (_encode(params, batch, cfg, rules) if cfg.family == "encdec"
+               else None)
+    return (*_embed_input(params, batch, cfg, rules), enc_out)
 
 
 def forward(params: Transformer, batch, cfg: ModelConfig,
-            mode: str = "train"):
+            mode: str = "train", rules=REPLICATED):
     """Full-sequence forward. Returns (logits, aux, caches, enc_kvs,
     n_prefix) as the reference does; ``aux`` is the MoE layers' summed
     load-balance loss, ``caches`` one ``KVCache`` or ``MambaCache`` a
@@ -324,26 +395,47 @@ def forward(params: Transformer, batch, cfg: ModelConfig,
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward mode {mode!r}; expected train or prefill")
     with torch.set_grad_enabled(torch.is_grad_enabled() and mode == "train"):
-        x, positions, n_prefix, enc_out = _decoder_input(params, batch, cfg)
+        x, positions, n_prefix, enc_out = _decoder_input(params, batch, cfg,
+                                                         rules)
         x, aux, caches, enc_kvs = _run_stack(params, x, cfg, positions,
-                                             mode, enc_out=enc_out)
+                                             mode, enc_out=enc_out,
+                                             rules=rules)
         x = params.norm_f(x)
-        logits = params.embed.unembed(x)
+        logits = params.embed.unembed(x, rules)
     return logits, aux, caches, enc_kvs, n_prefix
 
 
-def loss_fn(params: Transformer, batch, cfg: ModelConfig):
+def loss_fn(params: Transformer, batch, cfg: ModelConfig, rules=REPLICATED):
     """The training loss: (ce + ``AUX_COEF`` x aux, {"ce", "aux"}), ce the
     fp32 cross-entropy of the logits past ``n_prefix`` (the vlm's patches)
-    at each position against the next token."""
-    logits, aux, _, _, n_prefix = forward(params, batch, cfg, "train")
+    at each position against the next token.  On a mesh the first value
+    is this rank's objective (module docstring) and ``ce`` the global
+    batch's."""
+    logits, aux, _, _, n_prefix = forward(params, batch, cfg, "train",
+                                          rules)
     tokens = batch["tokens"]
     preds = logits[:, n_prefix:][:, :-1].float()
     targets = tokens[:, 1:].long()
-    logz = torch.logsumexp(preds, dim=-1)
-    gold = torch.gather(preds, -1, targets[..., None])[..., 0]
-    ce = (logz - gold).mean()
-    return ce + AUX_COEF * aux, {"ce": ce, "aux": aux}
+    nb = rules.size("batch")
+    if rules.size("vocab") == 1:
+        logz = torch.logsumexp(preds, dim=-1)
+        gold = torch.gather(preds, -1, targets[..., None])[..., 0]
+        if nb == 1:
+            ce = (logz - gold).mean()
+            return ce + AUX_COEF * aux, {"ce": ce, "aux": aux}
+    else:   # vocab-parallel: the max, the sum and the gold logit reduced
+        m = C.role_all_reduce(preds.detach().amax(-1), rules, "vocab", "max")
+        logz = m + torch.log(C.reduce_from(
+            torch.exp(preds - m[..., None]).sum(-1), rules, "vocab"))
+        rel = targets - params.embed.vocab_offset(rules)
+        mine = (rel >= 0) & (rel < preds.shape[-1])
+        gold = torch.gather(preds, -1, rel.clamp(0, preds.shape[-1] - 1)
+                            [..., None])[..., 0]
+        gold = C.reduce_from(torch.where(mine, gold, torch.zeros_like(gold)),
+                             rules, "vocab")
+    share = (logz - gold).sum() / (logz.numel() * nb)
+    ce = C.role_all_reduce(share.detach(), rules, "batch")
+    return share + AUX_COEF * aux, {"ce": ce, "aux": aux.detach()}
 
 
 class DecodeState(NamedTuple):
@@ -356,7 +448,7 @@ class DecodeState(NamedTuple):
 
 @torch.no_grad()
 def prefill(params: Transformer, batch, cfg: ModelConfig,
-            cache_len: Optional[int] = None):
+            cache_len: Optional[int] = None, rules=REPLICATED):
     """Run the prompt (with the encdec's ``frames`` or the vlm's
     ``patches``), build the decode state.  Returns (last_logits (B,
     padded_vocab), state).
@@ -364,13 +456,17 @@ def prefill(params: Transformer, batch, cfg: ModelConfig,
     ``cache_len``: total KV capacity (>= prompt length, the patch prefix
     included) of the attention layers' caches; extra slots are
     zero-filled and never attended before a decode step writes them.  A
-    ``MambaCache`` has no length.
+    ``MambaCache`` has no length.  On a mesh the logits are this rank's
+    rows with every vocab column, and each cache this rank's block.
     """
-    x, positions, n_prefix, enc_out = _decoder_input(params, batch, cfg)
+    x, positions, n_prefix, enc_out = _decoder_input(params, batch, cfg,
+                                                     rules)
     x, _, caches, enc_kvs = _run_stack(params, x, cfg, positions, "prefill",
-                                       cache_len=cache_len, enc_out=enc_out)
+                                       cache_len=cache_len, enc_out=enc_out,
+                                       rules=rules)
     x = params.norm_f(x[:, -1])
-    logits = params.embed.unembed(x)
+    logits = C.role_all_gather(params.embed.unembed(x, rules), rules,
+                               "vocab", -1)
     prompt_len = batch["tokens"].shape[1] + n_prefix
     return logits, DecodeState(caches=caches, enc_kvs=enc_kvs,
                                pos=prompt_len)
@@ -378,43 +474,66 @@ def prefill(params: Transformer, batch, cfg: ModelConfig,
 
 @torch.no_grad()
 def decode_step(params: Transformer, state: DecodeState, token,
-                cfg: ModelConfig):
+                cfg: ModelConfig, rules=REPLICATED):
     """token: (B,) integer -> (logits (B, padded_vocab), new state).  The
     state's KV caches are updated in place and carried into the new one;
     each ``MambaCache`` is replaced; the cross K/V are carried unchanged."""
-    x = params.embed.embed(token[:, None])
+    x = params.embed.embed(token[:, None], rules)
     if cfg.pos_embed == "learned":
-        x = x + params.embed.position(state.pos)
+        x = x + params.embed.position(state.pos, rules)
     x, _, caches, _ = _run_stack(params, x, cfg, None, "decode",
                                  caches=state.caches, pos=state.pos,
-                                 enc_kvs=state.enc_kvs)
+                                 enc_kvs=state.enc_kvs, rules=rules)
     x = params.norm_f(x)
-    logits = params.embed.unembed(x)[:, 0, :]
+    logits = C.role_all_gather(params.embed.unembed(x, rules)[:, 0, :],
+                               rules, "vocab", -1)
     return logits, DecodeState(caches=caches, enc_kvs=state.enc_kvs,
                                pos=state.pos + 1)
 
 
 def make_decode_state(cfg: ModelConfig, batch: int, cache_len: int,
-                      dtype=None, device: DeviceLike = None) -> DecodeState:
+                      dtype=None, device: DeviceLike = None,
+                      rules=REPLICATED) -> DecodeState:
     """Zero-initialised decode state with KV capacity ``cache_len`` (and,
     as in the reference, ``pos = cache_len``): a ``KVCache`` for each
     attention layer, a ``MambaCache`` for each mamba layer, and for
-    encdec a cross ``KVCache`` of capacity ``n_frames`` a layer."""
+    encdec a cross ``KVCache`` of capacity ``n_frames`` a layer.  On a
+    mesh ``batch`` is the global batch and each leaf this rank's block
+    (the capacity rounded up to a multiple of the "seq_tp" shards)."""
     check_supported(cfg)
     dtype = dtype or cfg.torch_dtype()
     dev = resolve_device(device)
-    caches = [attn_mod.init_cache(cfg, batch, cache_len, dtype, dev)
+    b = batch // rules.size("batch")
+    cap = pad_to_multiple(cache_len, rules.size("seq_tp"))
+    caches = [attn_mod.init_cache(cfg, b, cap // rules.size("seq_tp"),
+                                  dtype, dev)
               if kind == "attn" else
-              mamba_mod.init_mamba_cache(cfg, batch, dtype, dev)
+              mamba_mod.init_mamba_cache(
+                  cfg, b, dtype, dev, cfg.d_inner // rules.size("tp"))
               for kind in cfg.layer_kinds()]
     enc_kvs = None
     if cfg.family == "encdec":
-        enc_kvs = [attn_mod.init_cache(cfg, batch, cfg.n_frames, dtype, dev)
+        enc_kvs = [attn_mod.init_cache(cfg, b, cfg.n_frames, dtype, dev)
                    for _ in range(cfg.n_layers)]
     return DecodeState(caches=caches, enc_kvs=enc_kvs, pos=cache_len)
 
 
+def decode_state_axes(cfg: ModelConfig) -> DecodeState:
+    """The roles of every leaf of a decode state (head-major caches:
+    ("batch", None, "seq_tp", None); the encoder's K/V whole on the
+    sequence)."""
+    kv = attn_mod.cache_axes()
+    caches = [kv if kind == "attn" else mamba_mod.mamba_cache_axes()
+              for kind in cfg.layer_kinds()]
+    enc_kvs = None
+    if cfg.family == "encdec":
+        enc = ("batch", None, None, None)
+        enc_kvs = [attn_mod.KVCache(enc, enc) for _ in range(cfg.n_layers)]
+    return DecodeState(caches=caches, enc_kvs=enc_kvs, pos=())
+
+
 __all__ = ["AUX_COEF", "DecodeState", "Encoder", "Transformer",
-           "check_supported", "decode_step", "encoder_view", "forward",
-           "init_model", "loss_fn", "make_decode_state", "period",
-           "prefill"]
+           "check_supported", "decode_state_axes", "decode_step",
+           "encoder_view", "forward", "init_model", "loss_fn",
+           "make_decode_state", "param_axes", "param_chunks",
+           "param_shardings", "period", "prefill", "shard_model"]

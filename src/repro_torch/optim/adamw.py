@@ -12,17 +12,28 @@ reference's train step donates its state.  Moment dtype is configurable:
 
 The arithmetic is the reference's, step for step, in fp32: the learning
 rate, the bias corrections and the clip factor are 0-d fp32 tensors on
-the parameters' device, so a step asks nothing of the host.  The
-reference's ``moment_axes`` (the moments' sharding roles) waits for the LM
-half of the multi-device work (ROADMAP queue 1, item 4b).
+the parameters' device, so a step asks nothing of the host.
+
+On a mesh the parameters, gradients and moments are each rank's local
+shards, and ``shardings`` (a ``Sharding`` a parameter name,
+``transformer.param_shardings``) says how: ``update`` is elementwise on
+the shards, ``global_norm`` sums the squares of the LOGICAL gradient
+(a shard's sum all-reduced over the axes the leaf is split across, never
+over those it is replicated across, so each element counts once), and an
+int8 ``v`` is quantised over the whole last dim, as the reference's
+(``moment_axes``: its ``q``/``s`` leaves keep the leading dims' roles
+and replicate the two block dims), the last dim gathered before the
+quantisation and cut back after the dequantisation.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Mapping, NamedTuple, Tuple, Union
+from typing import Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import torch
+
+from ..parallel import collectives as C
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,17 +96,51 @@ def _moment_like(p: torch.Tensor, dtype: str, which: str) -> Moment:
     return torch.zeros(p.shape, dtype=dt, device=p.device)
 
 
-def init(params: Mapping[str, torch.Tensor], cfg: AdamWConfig) -> OptState:
+def _zeros_whole_last(p: torch.Tensor, sh) -> torch.Tensor:
+    """A zero fp32 tensor of ``p``'s local shape with its last dim whole
+    (what an int8 ``v`` quantises)."""
+    shape = list(p.shape)
+    if sh is not None and shape:
+        shape[-1] = _whole_last(sh, p.ndim, shape[-1])
+    return torch.zeros(shape, dtype=torch.float32, device=p.device)
+
+
+def _whole_last(sh, ndim: int, n: int) -> int:
+    """The logical size of the last dim of a leaf of local size ``n``."""
+    if ndim == 0 or len(sh.roles) < ndim:
+        return n
+    return n * sh.rules.size(sh.roles[ndim - 1])
+
+
+def init(params: Mapping[str, torch.Tensor], cfg: AdamWConfig,
+         shardings: Optional[Mapping] = None) -> OptState:
     if cfg.moment_dtype not in _MOMENT_DTYPES:
         raise ValueError(f"moment_dtype {cfg.moment_dtype!r}; expected one "
                          f"of {_MOMENT_DTYPES}")
     device = next(iter(params.values())).device
+    shardings = shardings or {}
+
+    def v_like(k, p):
+        if cfg.moment_dtype == "int8" and k in shardings:
+            return _quantize(_zeros_whole_last(p, shardings[k]))
+        return _moment_like(p, cfg.moment_dtype, "v")
     return OptState(
         m={k: _moment_like(p, cfg.moment_dtype, "m")
            for k, p in params.items()},
-        v={k: _moment_like(p, cfg.moment_dtype, "v")
-           for k, p in params.items()},
+        v={k: v_like(k, p) for k, p in params.items()},
         count=torch.zeros((), dtype=torch.int32, device=device))
+
+
+def moment_axes(param_axes: Mapping[str, tuple], cfg: AdamWConfig,
+                which: str = "v") -> dict:
+    """The roles of a moment's leaves (the reference's ``moment_axes``):
+    the parameter's, except an int8 ``v``, whose ``q`` and ``s`` leaves
+    keep the leading dims' roles and replicate the (blocks, 128) dims."""
+    if cfg.moment_dtype != "int8" or which == "m":
+        return dict(param_axes)
+    return {k: {"q": tuple(ax)[:-1] + (None, None),
+                "s": tuple(ax)[:-1] + (None, None)}
+            for k, ax in param_axes.items()}
 
 
 def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -110,39 +155,66 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.minimum(warm, cos)
 
 
-def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
+def global_norm(tree: Mapping[str, torch.Tensor],
+                shardings: Optional[Mapping] = None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in fp32, the leaves taken
-    in sorted key order (the reference's tree order for a flat dict)."""
+    in sorted key order (the reference's tree order for a flat dict).  On
+    a mesh each leaf's local sum of squares is all-reduced over the axes
+    the leaf is split across (one collective a set of axes), so that the
+    norm is the logical tree's."""
+    sqs = {k: torch.sum(torch.square(tree[k].to(torch.float32)))
+           for k in tree}
+    if shardings:
+        by_axes = {}
+        for k in sorted(tree):
+            sh = shardings.get(k)
+            axes = sh.sharded_axes() if sh is not None else ()
+            if axes:
+                by_axes.setdefault(axes, []).append(k)
+        for axes, keys in by_axes.items():
+            mesh = shardings[keys[0]].rules.mesh
+            summed = C.all_reduce(torch.stack([sqs[k] for k in keys]), mesh,
+                                  axes)
+            sqs.update(zip(keys, summed.unbind(0)))
     total = None
     for k in sorted(tree):
-        sq = torch.sum(torch.square(tree[k].to(torch.float32)))
-        total = sq if total is None else total + sq
+        total = sqs[k] if total is None else total + sqs[k]
     return torch.sqrt(total)
 
 
 @torch.no_grad()
 def update(grads: Mapping[str, torch.Tensor], state: OptState,
-           params: Mapping[str, torch.Tensor], cfg: AdamWConfig
+           params: Mapping[str, torch.Tensor], cfg: AdamWConfig,
+           shardings: Optional[Mapping] = None
            ) -> Tuple[Mapping[str, torch.Tensor], OptState, dict]:
     """One AdamW step: ``params`` updated in place (and returned), a new
-    ``OptState`` and {"grad_norm", "lr"} as 0-d fp32 tensors."""
+    ``OptState`` and {"grad_norm", "lr"} as 0-d fp32 tensors.  On a mesh
+    ``shardings`` gives each leaf's ``Sharding`` (module docstring)."""
+    shardings = shardings or {}
     count = state.count + 1
     lr = lr_schedule(cfg, count)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shardings)
     clip = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                        max=1.0)
     int8 = cfg.moment_dtype == "int8"
 
-    def read_moment(mom, p, which):
+    def read_moment(mom, p, which, sh):
         if int8 and which == "v":
-            r = _dequantize(mom, p.shape)   # stores sqrt(v)
+            if sh is None or p.ndim == 0:
+                r = _dequantize(mom, p.shape)   # stores sqrt(v)
+            else:
+                r = sh.local_dim(_dequantize(mom, p.shape[:-1] + (
+                    _whole_last(sh, p.ndim, p.shape[-1]),)), p.ndim - 1)
             return r * r
         return mom.to(torch.float32)
 
-    def write_moment(x, which):
+    def write_moment(x, which, sh):
         if int8:
             if which == "v":
-                return _quantize(torch.sqrt(torch.clamp(x, min=0.0)))
+                r = torch.sqrt(torch.clamp(x, min=0.0))
+                if sh is not None and x.ndim:
+                    r = sh.gather_dim(r, x.ndim - 1)
+                return _quantize(r)
             return x.to(torch.bfloat16)
         dt = (torch.bfloat16 if cfg.moment_dtype == "bfloat16"
               else torch.float32)
@@ -153,17 +225,19 @@ def update(grads: Mapping[str, torch.Tensor], state: OptState,
     b2c = 1 - torch.pow(cfg.b2, countf)
     new_m, new_v = {}, {}
     for k, p in params.items():
+        sh = shardings.get(k)
         g = grads[k].to(torch.float32) * clip
-        mf = cfg.b1 * read_moment(state.m[k], p, "m") + (1 - cfg.b1) * g
-        vf = (cfg.b2 * read_moment(state.v[k], p, "v")
+        mf = cfg.b1 * read_moment(state.m[k], p, "m", sh) + (1 - cfg.b1) * g
+        vf = (cfg.b2 * read_moment(state.v[k], p, "v", sh)
               + (1 - cfg.b2) * g * g)
         upd = (mf / b1c) / (torch.sqrt(vf / b2c) + cfg.eps)
         pf = p.to(torch.float32)
         p.copy_(pf - lr * (upd + cfg.weight_decay * pf))
-        new_m[k], new_v[k] = write_moment(mf, "m"), write_moment(vf, "v")
+        new_m[k] = write_moment(mf, "m", sh)
+        new_v[k] = write_moment(vf, "v", sh)
     return params, OptState(new_m, new_v, count), {"grad_norm": gnorm,
                                                     "lr": lr}
 
 
 __all__ = ["AdamWConfig", "OptState", "global_norm", "init", "lr_schedule",
-           "update"]
+           "moment_axes", "update"]

@@ -21,9 +21,13 @@ they are ``jnp`` products in the reference.
 Gradients and parameters are tensors, which stay where they are, or
 arrays, which go to ``device`` (default ``cuda``).
 
-Across devices the reference all-reduces P and Q over ``axis_name``; here
-``axis_name`` must be None until the multi-device slice (ROADMAP queue
-1, item 4).
+Across pods the reference all-reduces P and Q over ``axis_name``; here
+``axis_name`` must be None until that exchange is ported (ROADMAP queue
+1, item 4b.4).  On a mesh the reference compresses the logical gradient
+with a replicated state (``launch/steps.py``, ``comp_specs = P()``), and
+so does the port's sharded train step: it gathers each compressed leaf's
+gradient whole, runs ``compress_tree`` identically on every rank and
+keeps its shard.
 """
 from __future__ import annotations
 
@@ -55,8 +59,9 @@ def _check_local(cfg: CompressionConfig) -> None:
     if cfg.axis_name is not None:
         raise NotImplementedError(
             f"axis_name={cfg.axis_name!r}: the all-reduce of P and Q across "
-            "devices comes with the LM half of the multi-device work "
-            "(ROADMAP queue 1, item 4b); use axis_name=None on one device")
+            "pods is not ported yet; it comes with the multi-device work's "
+            "item 4b.4 (ROADMAP queue 1: compression's pmean and "
+            "launch/pod_compression.py); use axis_name=None")
 
 
 def _as_matrix(g: torch.Tensor) -> torch.Tensor:

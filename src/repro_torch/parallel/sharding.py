@@ -25,15 +25,31 @@ reference does:
   "layers"    stacked-scan layer dim                 ()
 
 ``spec`` returns a plain tuple of axis names, one entry a dimension: the
-port's ``PartitionSpec``.  Placing tensors by those specs (``Rules.shard``,
-``Px``, ``split_tree``, ``stack_axes``) is the LM half of the multi-device
-work and raises until then.
+port's ``PartitionSpec``.
+
+The LM half runs one process a device (``parallel.collectives``).  A
+``Mesh`` built by ``Mesh.from_world`` is bound to that process group: it
+holds every rank's device, a ``DeviceMesh`` of the same shape and names,
+this rank's coordinate on each axis, and a process group for each axis
+and each tuple of axes (``comm``).  Every rank of the world calls
+``from_world`` together; a rank outside the mesh's ranks gets a mesh
+with ``member`` False.  A mesh not bound to a process group stays the
+single-controller mesh of the PCA half.
+
+Parameters live as each rank's local shard: ``Px`` (a tensor with its
+roles), ``split_tree``, ``stack_axes``, ``spec_tree`` and
+``sharding_tree`` carry the reference's meaning, and a ``Sharding`` (the
+rules, the roles, and the chunks of a dim stored in pieces) slices a
+whole tensor to this rank's block (``local``) and gathers it back
+(``gather``).  ``Rules.shard`` forms an activation's local placement
+from the whole tensor, ``Rules.gather`` undoes it.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Any, Optional, Sequence, Tuple
+import itertools
+from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,6 +64,14 @@ def _as_device(d) -> torch.device:
     return dev
 
 
+class _Comm(NamedTuple):
+    group: Any
+    size: int
+    index: int
+    members: list
+    perm: Optional[list]
+
+
 class Mesh:
     """Devices laid out on named axes.
 
@@ -56,7 +80,8 @@ class Mesh:
     devices must be distinct; the CPU device may repeat (virtual host
     devices).  All devices are of one type."""
 
-    def __init__(self, devices, axis_names: Sequence[str]):
+    def __init__(self, devices, axis_names: Sequence[str], *,
+                 _bound: bool = False):
         src = np.asarray(devices, dtype=object)
         arr = np.empty(src.shape, dtype=object)
         for i, d in np.ndenumerate(src):
@@ -73,13 +98,131 @@ class Mesh:
         if len(types) != 1:
             raise ValueError(f"a mesh holds one type of device, got {types}")
         cuda = [d for d in arr.flat if d.type == "cuda"]
-        if len(set(cuda)) != len(cuda):
+        if not _bound and len(set(cuda)) != len(cuda):
             raise ValueError(
                 "a mesh's CUDA devices must be distinct, got "
                 f"{[str(d) for d in arr.flat]}; only the CPU device may "
                 "repeat (virtual host devices)")
         self.devices = arr
         self.axis_names = names
+        # a single-controller mesh: no process group, one "rank" that is
+        # every device (only a 1-device mesh can run the LM half so)
+        self.bound = False
+        self.member = True
+        self.rank = 0
+        self.ranks = np.arange(arr.size).reshape(arr.shape)
+        self.device_mesh = None
+        self._comms = {}
+        self._cache = {}
+
+    @classmethod
+    def from_world(cls, shape: Sequence[int], axis_names: Sequence[str],
+                   ranks: Optional[Sequence[int]] = None) -> "Mesh":
+        """A mesh of ``shape`` over world ranks ``ranks`` (default the
+        first prod(shape)), bound to the started process group.  Every
+        rank of the world calls it (it creates the groups)."""
+        from . import collectives as C
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+        shape = tuple(int(n) for n in shape)
+        names = tuple(axis_names)
+        need = int(np.prod(shape))
+        ranks = list(range(need) if ranks is None else ranks)
+        world = dist.get_world_size()
+        if len(ranks) != need or max(ranks) >= world:
+            raise ValueError(f"a mesh of shape {shape} needs {need} of the "
+                             f"world's {world} ranks; got {ranks}")
+        me = C.world_device()
+        devs = [None] * world
+        dist.all_gather_object(devs, str(me))
+        grid = np.asarray(ranks).reshape(shape)
+        mesh = cls(np.asarray([devs[r] for r in ranks],
+                              dtype=object).reshape(shape), names,
+                   _bound=True)
+        mesh.bound = True
+        mesh.rank = dist.get_rank()
+        mesh.member = mesh.rank in ranks
+        mesh.ranks = grid
+        mesh.device_mesh = DeviceMesh(me.type, torch.as_tensor(grid),
+                                      mesh_dim_names=names)
+        # a group for every tuple of axes (in mesh order) spanning > 1
+        # rank; every rank creates every group, in one order
+        for k in range(1, len(names) + 1):
+            for sub in itertools.combinations(range(len(names)), k):
+                if int(np.prod([shape[i] for i in sub])) == 1:
+                    continue
+                rest = [i for i in range(len(names)) if i not in sub]
+                moved = np.moveaxis(grid, list(rest) + list(sub),
+                                    list(range(len(names))))
+                moved = moved.reshape(-1, int(np.prod(
+                    [shape[i] for i in sub])))
+                for members in moved:
+                    g = dist.new_group([int(r) for r in members])
+                    if mesh.rank in members:
+                        mesh._comms[tuple(names[i] for i in sub)] = g
+        return mesh
+
+    @property
+    def coords(self) -> dict:
+        """This rank's coordinate on each axis (None off the mesh)."""
+        if "coords" not in self._cache:
+            where = np.argwhere(self.ranks == self.rank)
+            self._cache["coords"] = (
+                dict(zip(self.axis_names, (int(c) for c in where[0])))
+                if self.member and len(where) else
+                {a: None for a in self.axis_names})
+        return self._cache["coords"]
+
+    @property
+    def device(self) -> torch.device:
+        """This rank's device."""
+        if not self.bound:
+            return self.devices.flat[0]
+        return self.devices[tuple(self.coords.values())]
+
+    def axes_size(self, axes) -> int:
+        axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+        return int(np.prod([self.shape[a] for a in axes]))
+
+    def axes_index(self, axes) -> int:
+        """This rank's linear index over ``axes`` (the first named axis
+        major)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+        c, idx = self.coords, 0
+        for a in axes:
+            idx = idx * self.shape[a] + c[a]
+        return idx
+
+    def comm(self, axes) -> Optional["_Comm"]:
+        """The process group over ``axes`` with this rank's index, its
+        members in the axes' linear order and their group ranks; None
+        where the axes span one rank."""
+        axes = tuple(axes)
+        if ("comm", axes) in self._cache:
+            return self._cache[("comm", axes)]
+        n = self.axes_size(axes)
+        if n == 1:
+            return None
+        if not self.bound:
+            raise ValueError(
+                f"a mesh of {self.size} devices without a process group "
+                "cannot run the LM half: build it with Mesh.from_world")
+        key = tuple(a for a in self.axis_names if a in axes)
+        c = self.coords
+        members = []
+        for lin in range(n):
+            idx, rem = dict(c), lin
+            for a in reversed(axes):
+                idx[a] = rem % self.shape[a]
+                rem //= self.shape[a]
+            members.append(int(self.ranks[tuple(idx[a] for a in
+                                                self.axis_names)]))
+        order = sorted(members)
+        perm = [order.index(m) for m in members]
+        out = _Comm(self._comms[key], n, self.axes_index(axes), members,
+                    None if perm == list(range(n)) else perm)
+        self._cache[("comm", axes)] = out
+        return out
 
     @property
     def shape(self) -> "collections.OrderedDict[str, int]":
@@ -167,14 +310,59 @@ class Rules:
         ``PartitionSpec``)."""
         return tuple(self.axis(r) for r in roles)
 
+    def axes(self, role: Optional[str]) -> tuple:
+        """The mesh axes ``role`` resolves to, as a tuple."""
+        ax = self.axis(role)
+        return () if ax is None else (ax,) if isinstance(ax, str) else ax
+
+    def size(self, role: Optional[str]) -> int:
+        """The number of shards of a dim of ``role`` (1 without a mesh)."""
+        axes = self.axes(role)
+        return 1 if self.mesh is None or not axes else \
+            self.mesh.axes_size(axes)
+
+    def index(self, role: Optional[str]) -> int:
+        """This rank's shard of a dim of ``role``."""
+        axes = self.axes(role)
+        return 0 if self.mesh is None or not axes else \
+            self.mesh.axes_index(axes)
+
+    def local_shape(self, shape, *roles) -> tuple:
+        """The local block's shape of a whole tensor of ``shape`` (each
+        sharded dim must divide, as a ``NamedSharding`` asks)."""
+        out = []
+        for n, r in zip(shape, roles):
+            k = self.size(r)
+            if n % k:
+                raise ValueError(f"dim {n} of role {r!r} does not split "
+                                 f"into {k} shards")
+            out.append(n // k)
+        return tuple(out) + tuple(shape[len(roles):])
+
     def shard(self, x, *roles):
-        """Activation placement; a no-op under the empty (single-device /
-        ``REPLICATED``) rule set."""
+        """The local placement of an activation: ``x`` is the whole
+        tensor, identical on every rank, and the result is this rank's
+        block of each dim of a sharded role (a view).  A no-op under the
+        empty (single-device / ``REPLICATED``) rule set and wherever the
+        roles span one rank."""
         if x is None or not self.mesh_axes:
             return x
-        raise NotImplementedError(
-            "Rules.shard: placing activations on a mesh is the LM half of "
-            "the multi-device work (ROADMAP queue 1, item 4b)")
+        return Sharding(self, roles).local(x)
+
+    def gather(self, x, *roles):
+        """The inverse of ``shard``: the whole tensor from every rank's
+        block (a collective; no gradient)."""
+        if x is None or not self.mesh_axes:
+            return x
+        return Sharding(self, roles).gather(x)
+
+    def spec_tree(self, axes_tree):
+        return map_axes(lambda ax: self.spec(*ax), axes_tree)
+
+    def sharding_tree(self, axes_tree):
+        """A ``Sharding`` for each roles leaf of ``axes_tree``: how this
+        rank's block of each leaf is cut from the whole tensor."""
+        return map_axes(lambda ax: Sharding(self, ax), axes_tree)
 
 
 REPLICATED = Rules(mesh_axes=(), fsdp=False, tensor=False)
@@ -182,6 +370,144 @@ REPLICATED = Rules(mesh_axes=(), fsdp=False, tensor=False)
 
 def rules_for_mesh(mesh: Mesh, **kw) -> Rules:
     return Rules(mesh_axes=tuple(mesh.axis_names), mesh=mesh, **kw)
+
+
+class Sharding:
+    """How a tensor of roles ``roles`` lies on ``rules``' mesh: each dim
+    of a sharded role is split into equal blocks in the linear order of
+    its axes, this rank holding one.  ``chunks`` ({dim: m}) marks a dim
+    stored as m equal pieces, each split so (mamba's ``in_proj``: its x
+    and z halves, so that a rank's channels of both lie together).
+    Dims past ``roles`` are whole."""
+
+    def __init__(self, rules: Rules, roles, chunks: Optional[dict] = None):
+        self.rules = rules
+        self.roles = tuple(roles)
+        self.chunks = dict(chunks or {})
+
+    def __repr__(self):
+        return f"Sharding({self.rules.spec(*self.roles)}, {self.chunks})"
+
+    def _dims(self):
+        """(dim, axes, size, index, chunks) of each sharded dim."""
+        r = self.rules
+        for d, role in enumerate(self.roles):
+            n = r.size(role)
+            if n > 1:
+                if not r.mesh.bound:
+                    r.mesh.comm(r.axes(role))      # raises: no group
+                yield d, r.axes(role), n, r.index(role), self.chunks.get(d, 1)
+
+    def is_sharded(self) -> bool:
+        return any(True for _ in self._dims())
+
+    def sharded_axes(self) -> tuple:
+        """The mesh axes this tensor is split over."""
+        return tuple(a for _, axes, _, _, _ in self._dims() for a in axes)
+
+    def shape(self, shape) -> tuple:
+        return self.rules.local_shape(tuple(shape), *self.roles[:len(shape)])
+
+    def local_dim(self, x: torch.Tensor, d: int) -> torch.Tensor:
+        """``x`` with dim ``d`` (whole) cut to this rank's block."""
+        for dim, _, n, i, m in self._dims():
+            if dim == d % x.ndim:
+                if x.shape[dim] % (n * m):
+                    raise ValueError(f"dim {x.shape[dim]} does not split "
+                                     f"into {n} x {m}")
+                piece = x.shape[dim] // m
+                blk = piece // n
+                parts = [x.narrow(dim, j * piece + i * blk, blk)
+                         for j in range(m)]
+                return parts[0] if m == 1 else torch.cat(parts, dim)
+        return x
+
+    def local(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole tensor ``x``."""
+        for dim, _, _, _, _ in list(self._dims()):
+            x = self.local_dim(x, dim)
+        return x
+
+    def gather_dim(self, x: torch.Tensor, d: int) -> torch.Tensor:
+        """``x`` with dim ``d`` gathered whole (a collective)."""
+        from . import collectives as C
+        for dim, axes, n, _, m in self._dims():
+            if dim == d % x.ndim:
+                full = C.all_gather(x, self.rules.mesh, axes, dim)
+                if m > 1:   # (n, m, blk) pieces -> (m, n, blk)
+                    shp = list(full.shape)
+                    blk = x.shape[dim] // m
+                    full = full.unflatten(dim, (n, m, blk)).transpose(
+                        dim, dim + 1).reshape(shp)
+                return full
+        return x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole tensor from every rank's block (a collective)."""
+        for dim, _, _, _, _ in list(self._dims()):
+            x = self.gather_dim(x, dim)
+        return x
+
+
+def map_axes(fn, tree):
+    """``fn`` of each roles leaf (``is_axes``) of a tree of dicts, lists,
+    tuples and NamedTuples."""
+    if is_axes(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_axes(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        kids = [map_axes(fn, t) for t in tree]
+        return (type(tree)(*kids) if hasattr(tree, "_fields")
+                else type(tree)(kids))
+    return tree
+
+
+class Px:
+    """A parameter leaf: a tensor (or anything with a shape) ``v`` and
+    its logical role a dim ``ax`` (the reference's ``Px``)."""
+    __slots__ = ("v", "ax")
+
+    def __init__(self, v, ax):
+        self.v = v
+        self.ax = tuple(ax)
+
+    def __repr__(self):
+        shape = tuple(getattr(self.v, "shape", ()))
+        return f"Px(shape={shape}, ax={self.ax})"
+
+
+def is_px(x) -> bool:
+    return isinstance(x, Px)
+
+
+def is_axes(x) -> bool:
+    """A per-dim role annotation: a *plain* tuple of None/str
+    (NamedTuples such as ``KVCache`` are tree nodes, not roles)."""
+    return type(x) is tuple and all(e is None or isinstance(e, str)
+                                    for e in x)
+
+
+def _map_px(fn, tree):
+    if is_px(tree):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_px(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)) and not is_axes(tree):
+        kids = [_map_px(fn, t) for t in tree]
+        return (type(tree)(*kids) if hasattr(tree, "_fields")
+                else type(tree)(kids))
+    return tree
+
+
+def split_tree(tree):
+    """(values, axes) from a tree of ``Px`` leaves."""
+    return _map_px(lambda p: p.v, tree), _map_px(lambda p: p.ax, tree)
+
+
+def stack_axes(axes_leaf: Tuple) -> Tuple:
+    """Axes for a stacked (scan-over-layers) parameter."""
+    return ("layers",) + tuple(axes_leaf)
 
 
 def batch_axes(tree):

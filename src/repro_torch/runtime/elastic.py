@@ -2,10 +2,12 @@
 
 ``resume_or_init`` restores the latest checkpoint into the structure of a
 template state, or initialises.  Checkpoints store whole (logical)
-tensors, so a restore needs no sharding here.  ``pick_mesh`` chooses the
-largest (data x model) grid the surviving devices support; training on
-it (a sharded train step) is the LM half of the multi-device work, and
-the trainer still raises for ``--model-parallel > 1``.
+tensors, so resuming on another mesh only needs that mesh's shardings
+(``shardings=``: each rank's block is cut on load).  ``pick_mesh``
+chooses the largest (data x model) grid the surviving devices support:
+in a started process group the world's ranks, one device a rank (a mesh
+bound to the group; every rank calls it, and a rank past the grid gets
+a mesh it is not a member of), else the devices given or visible.
 """
 from __future__ import annotations
 
@@ -26,6 +28,11 @@ def pick_mesh(model_parallel: int, devices=None,
     shrinks to the largest divisor of the batch that the devices support
     and the surplus devices stay idle.
     """
+    from ..parallel import collectives as C
+    bound = devices is None and C.world_started()
+    if bound:
+        import torch.distributed as dist
+        devices = list(range(dist.get_world_size()))
     devices = list(devices if devices is not None else visible_devices())
     n = len(devices)
     tp = model_parallel
@@ -36,18 +43,22 @@ def pick_mesh(model_parallel: int, devices=None,
         dp = min(dp, global_batch)
         while dp > 1 and global_batch % dp:
             dp -= 1
+    if bound:
+        return Mesh.from_world((dp, tp), ("data", "model"))
     return make_mesh((dp, tp), ("data", "model"), devices[: dp * tp])
 
 
 def resume_or_init(ckpt_dir, state_like, init_fn,
-                   step: Optional[int] = None):
+                   step: Optional[int] = None, shardings=None):
     """Restore ``step`` (default: the latest) of ``ckpt_dir`` into the
-    structure of ``state_like``, or call ``init_fn``.  Returns (state,
-    metadata, resumed: bool)."""
+    structure of ``state_like`` (its shards placed by ``shardings`` on a
+    mesh), or call ``init_fn``.  Returns (state, metadata, resumed:
+    bool)."""
     latest = checkpointer.latest_step(ckpt_dir)
     if latest is None:
         return init_fn(), {}, False
-    state, meta = checkpointer.restore(ckpt_dir, state_like, step=step)
+    state, meta = checkpointer.restore(ckpt_dir, state_like, step=step,
+                                       shardings=shardings)
     return state, meta, True
 
 

@@ -1507,3 +1507,47 @@ def test_train_step_on_the_card(cuda_device):
     assert abs(float(loss) - float(want_loss)) <= tol * abs(float(want_loss))
     for a, b in zip(got, want):
         assert rel_frobenius(a, b) <= tol
+
+
+def test_world_of_one_nccl_train_step_on_the_card(cuda_device, tmp_path):
+    """A train step on a mesh bound to a NCCL process group of one rank
+    (the driver's machine has one card) equals the one-device step:
+    the same loss, gradient norm and updated parameters, bit for bit
+    (every collective spans one rank and is elided)."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    from repro_torch.parallel import collectives
+    from repro_torch.parallel.sharding import Mesh
+    cfg = configs.reduced_config("olmo-1b")
+    shape = ShapeCell("t", 32, 2, "train")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 32),
+                           generator=torch.Generator().manual_seed(0))
+    collectives.init_world("cuda", store_path=str(tmp_path / "store"),
+                           rank=0, world_size=1)
+    try:
+        mesh = Mesh.from_world((1, 1), ("data", "model"))
+        assert mesh.bound and mesh.device == cuda_device
+        results = []
+        for kw in ({"mesh": mesh}, {"device": cuda_device}):
+            step, _ = steps.build_train_step(cfg, shape, **kw)
+            model = tfm.init_model(cfg, seed=0, device=cuda_device,
+                                   train=True)
+            params = dict(model.named_parameters())
+            state = steps.TrainState(
+                model, adamw.init(params, adamw.AdamWConfig()),
+                torch.zeros((), dtype=torch.int32, device=cuda_device))
+            collectives.reset_counts()
+            _, metrics = step(state, {"tokens": tokens})
+            results.append((float(metrics["loss"]),
+                            float(metrics["grad_norm"]),
+                            [p.detach().clone() for p in params.values()],
+                            collectives.counts()))
+    finally:
+        collectives.close_world()
+    (la, ga, pa, ca), (lb, gb, pb, _) = results
+    assert (la, ga) == (lb, gb) and ca == {}
+    for a, b in zip(pa, pb):
+        assert torch.equal(a, b)

@@ -38,7 +38,9 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.launch.train, repro_torch.launch.steps, "
             "repro_torch.optim.adamw, repro_torch.kernels.grad, "
             "repro_torch.checkpoint, repro_torch.data, repro_torch.runtime, "
-            "repro_torch.configs.shapes, repro_torch.launch.accounting\n"
+            "repro_torch.configs.shapes, repro_torch.launch.accounting, "
+            "repro_torch.parallel.collectives, "
+            "repro_torch.parallel.ring_attention\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'repro' or m.startswith('repro.'))\n"
             "print(bad)")
@@ -60,6 +62,39 @@ def test_source_imports_no_jax_and_no_reference():
             for name in names:
                 root = name.split(".")[0]
                 assert root not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def _module_level_imports(tree):
+    """The imports a module runs when it is imported: at its top level and
+    in its class bodies, not inside functions."""
+    todo = list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            continue
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            yield node
+        todo.extend(ast.iter_child_nodes(node))
+
+
+def test_torch_distributed_loads_lazily():
+    """No module of the port imports ``torch.distributed`` when it is
+    imported: the process group's module is imported inside the functions
+    that use it (``torch`` itself may load it; the port asks for nothing
+    of it before a world is started)."""
+    seen = []
+    for path in sorted(PKG.rglob("*.py")):
+        tree = ast.parse(path.read_text(), str(path))
+        for node in _module_level_imports(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            else:
+                names = [node.module or ""]
+                names += [f"{node.module}.{a.name}" for a in node.names]
+            for name in names:
+                assert not name.startswith("torch.distributed"), (path, name)
+        seen.append(path.name)
+    assert "collectives.py" in seen and "ring_attention.py" in seen
 
 
 def test_build_module_imports_without_nvcc():

@@ -305,11 +305,25 @@ def test_make_decode_state():
 
 
 def test_ring_attention_raises():
-    cfg = tconfigs.reduced_config("olmo-1b", attn_impl="ring")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        ttfm.init_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        ttfm.make_decode_state(cfg, 1, 4, device="cpu")
+    """Ring attention builds and runs (it raised until the multi-device
+    slice): without a mesh a ring config takes the reference's other
+    branch, attention over unpadded heads, and matches the reference's
+    ``REPLICATED`` forward; its decode state builds.  The 4-way ring is
+    held in ``tests/test_torch_dist_lm.py``."""
+    cfg = tconfigs.reduced_config("olmo-1b", attn_impl="ring", tp=4,
+                                  n_heads=6, n_kv_heads=2)
+    assert cfg.padded_heads == 6
+    jcfg = jconfigs.reduced_config("olmo-1b", attn_impl="ring", tp=4,
+                                   n_heads=6, n_kv_heads=2)
+    params = ref_lm_params(jcfg)
+    model = convert.lm_params_to_port(params, cfg, device="cpu")
+    tokens = np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 8))
+    got = ttfm.forward(model, {"tokens": torch.as_tensor(tokens)}, cfg)[0]
+    want = jtfm.forward(params, {"tokens": jnp.asarray(tokens)}, jcfg,
+                        REPLICATED)[0]
+    assert rel_frobenius(got, np.asarray(want)) < TOL
+    state = ttfm.make_decode_state(cfg, 1, 4, device="cpu")
+    assert state.caches[0].k.shape == (1, cfg.n_kv_heads, 4, cfg.head_dim)
 
 
 def test_entry_point_defaults_to_the_card():

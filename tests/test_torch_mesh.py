@@ -193,15 +193,28 @@ def test_rules_resolve_every_role_as_the_reference(axes):
     assert REPLICATED.axis("batch") == jsharding.REPLICATED.axis("batch")
 
 
-def test_rules_for_mesh_and_the_lm_half():
+def test_rules_for_mesh_and_the_lm_half(tmp_path):
+    """``Rules.shard`` forms an activation's local block: on a
+    single-controller mesh of 8 devices it has no process group and
+    raises; on a (1, 2) mesh bound to a 2-process gloo world each rank
+    gets its half of the "tp" dim, and ``gather`` gives the whole back."""
+    from _torch_dist import run_world
     mesh = _cpu_mesh(8, ("data", "model"), (4, 2))
     rules = rules_for_mesh(mesh)
     assert rules.mesh is mesh and rules.mesh_axes == ("data", "model")
     assert rules.axis("batch") == ("data",)
     x = torch.ones(2)
     assert REPLICATED.shard(x, "batch") is x and rules.shard(None) is None
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    with pytest.raises(ValueError, match="Mesh.from_world"):
         rules.shard(x, "batch")
+    one = rules_for_mesh(_cpu_mesh(1, ("data", "model"), (1, 1)))
+    assert one.shard(x, "batch") is x
+    out = run_world(2, "rules_shard", tmp_path)
+    assert out["bound"] and out["coords"] == {"data": 0, "model": 0}
+    whole = np.arange(24.0).reshape(2, 3, 4)
+    assert out["local"] == whole[:, :, :2].tolist()
+    assert out["gathered"] and out["replicated"]
+    assert out["counts"] == {"all_gather:model": 1}
 
 
 def test_batch_axes_leads_with_the_batch_role():

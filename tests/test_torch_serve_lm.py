@@ -115,8 +115,14 @@ def test_sample_is_argmax_at_temperature_zero():
 
 
 def test_model_parallel_raises():
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        serve.main(["--reduced", "--model-parallel", "2"], device="cpu")
+    """``--model-parallel`` no longer raises: with one process (no
+    torchrun environment) the mesh is (1, 1), as the reference's on one
+    device, and 2 serves what 1 does.  The 8-process world serves at 4 in
+    ``tests/test_torch_dist_train.py``."""
+    argv = ["--reduced", "--gen-len", "3", "--prompt-len", "6"]
+    one = serve.main(argv + ["--model-parallel", "1"], device="cpu")
+    two = serve.main(argv + ["--model-parallel", "2"], device="cpu")
+    np.testing.assert_array_equal(one, two)
 
 
 def test_generate_serves_a_depth_cut_config():

@@ -22,6 +22,7 @@ import signal
 import types
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 import torch
@@ -41,6 +42,7 @@ from repro_torch.launch import accounting as taccounting
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train
 from repro_torch.models import transformer as ttfm
+from repro_torch.optim import adamw as tadamw
 from repro_torch.runtime import elastic as telastic
 from repro_torch.runtime import watchdog as twatchdog
 
@@ -360,26 +362,66 @@ def test_resume_or_init(tmp_path):
 
 
 def test_pick_mesh_waits_for_the_multi_device_slice():
-    # the mesh is picked (tests/test_torch_mesh.py holds its shapes to the
-    # reference's); a step on it waits for the LM half of the multi-device
-    # work
+    """The mesh is picked (tests/test_torch_mesh.py holds its shapes to
+    the reference's).  A step is built on a picked mesh of one device
+    and trains as the one-device step does; a single-controller mesh of
+    8 devices has no process group for the LM half and is refused (the
+    8-process world is ``tests/test_torch_dist_train.py``)."""
     mesh = telastic.pick_mesh(2, devices=["cpu"] * 8, global_batch=4)
     assert dict(mesh.shape) == {"data": 4, "model": 2}
     cfg = tconfigs.reduced_config("olmo-1b")
     shape = tshapes.ShapeCell("x", 8, 4, "train")
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+    with pytest.raises(ValueError, match="process group"):
         tsteps.build_step("train", cfg, shape, device="cpu", mesh=mesh)
+    one = telastic.pick_mesh(2, devices=["cpu"], global_batch=4)
+    assert dict(one.shape) == {"data": 1, "model": 1}
+    step, _ = tsteps.build_step("train", cfg, shape, mesh=one)
+    plain, _ = tsteps.build_step("train", cfg, shape, device="cpu")
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (4, 8))
+    losses = []
+    for fn in (step, plain):
+        model = ttfm.init_model(cfg, seed=0, device="cpu", train=True)
+        params = dict(model.named_parameters())
+        state = tsteps.TrainState(model, tadamw.init(params,
+                                                     tadamw.AdamWConfig()),
+                                  torch.zeros((), dtype=torch.int32))
+        _, metrics = fn(state, {"tokens": tokens})
+        losses.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                       [p.detach().clone() for p in params.values()]))
+    assert losses[0][:2] == losses[1][:2]
+    for a, b in zip(losses[0][2], losses[1][2]):
+        assert torch.equal(a, b)
 
 
 # -- step builders --------------------------------------------------------------
 
 def test_steps_refuse_a_mesh():
+    """A step is built on a mesh for train, prefill and decode (a picked
+    one-device mesh here: its prefill and decode equal the one-device
+    steps'); anything but a ``Mesh`` is a ``TypeError``."""
     cfg = tconfigs.reduced_config("olmo-1b")
     shape = tshapes.ShapeCell("x", 8, 2, "train")
     for kind in ("train", "prefill", "decode"):
-        with pytest.raises(NotImplementedError, match="queue 1, item 4"):
+        with pytest.raises(TypeError, match="parallel.Mesh"):
             tsteps.build_step(kind, cfg, shape, device="cpu",
                               mesh=object())
+    mesh = telastic.pick_mesh(1, devices=["cpu"])
+    model = ttfm.init_model(cfg, seed=0, device="cpu")
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 8))
+    pre, _ = tsteps.build_step("prefill", cfg, tshapes.ShapeCell(
+        "x", 8, 2, "prefill"), mesh=mesh)
+    dec, _ = tsteps.build_step("decode", cfg, tshapes.ShapeCell(
+        "x", 8, 2, "decode"), mesh=mesh)
+    assert pre.rules.mesh is mesh and dec.rules.mesh is mesh
+    logits, state = pre(model, {"tokens": tokens})
+    want, wstate = ttfm.prefill(model, {"tokens": torch.as_tensor(tokens)},
+                                cfg)
+    assert torch.equal(logits, want)
+    tok = logits.argmax(-1)
+    nxt, step_logits, _ = dec(model, state, tok.numpy())
+    assert torch.equal(step_logits,
+                       ttfm.decode_step(model, wstate, tok, cfg)[0])
+    assert torch.equal(nxt, step_logits.argmax(-1))
 
 
 def test_prefill_and_serve_steps_are_the_served_path():
@@ -507,8 +549,13 @@ def test_cli_defaults_to_the_card():
 
 
 def test_cli_model_parallel_waits_for_the_multi_device_slice():
-    with pytest.raises(NotImplementedError, match="queue 1, item 4"):
-        train.main(REDUCED + ["--model-parallel", "2"], device="cpu")
+    """``--model-parallel 2`` with one process (no torchrun environment)
+    trains on a (1, 1) mesh, as the reference does on one device, and
+    gives the losses of ``--model-parallel 1``."""
+    argv = REDUCED + ["--steps", "3"]
+    two = train.main(argv + ["--model-parallel", "2"], device="cpu")
+    one = train.main(argv + ["--model-parallel", "1"], device="cpu")
+    assert len(two) == 3 and two == one
 
 
 def test_cli_stall_checkpoints_and_exits(tmp_path, monkeypatch):
@@ -543,3 +590,86 @@ def test_cli_sigterm_checkpoints_after_the_step(tmp_path, monkeypatch):
     _, meta = tckpt.restore(tmp_path, {})
     assert meta["data"] == {"step": 0} and meta["step"] == 2
     assert signal.getsignal(signal.SIGTERM) is handler
+
+
+# -- sharding specs (the LM half of multi-device) ------------------------------
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "jamba-v0.1-52b",
+                                  "whisper-small", "arctic-480b"])
+def test_spec_trees_are_the_references(arch):
+    """``param_spec_tree``, ``train_state_specs`` (float32 and int8
+    moments) and ``batch_specs`` give each leaf the reference's
+    ``PartitionSpec`` under the same rules (a layer's leaf without the
+    stacked layers' leading None); ``moment_axes``, ``Px`` and
+    ``split_tree`` are the reference's."""
+    from jax.sharding import PartitionSpec
+    from repro.launch import steps as jsteps
+    from repro.models import transformer as jtfm
+    from repro.optim import adamw as jadamw
+    from repro.parallel import sharding as jsh
+    from repro_torch.convert import lm_state_dict
+    from repro_torch.parallel import sharding as tsh
+    jcfg = jconfigs.reduced_config(arch, tp=4)
+    cfg = tconfigs.reduced_config(arch, tp=4)
+    model = ttfm.Transformer(cfg, "meta")
+    jrules = jsh.Rules(mesh_axes=("data", "model"))
+    rules = tsh.Rules(mesh_axes=("data", "model"))
+    groups = cfg.n_layers // ttfm.period(cfg)
+
+    def named(spec_tree):
+        """The reference's spec tree under the port's names."""
+        def leaf(path, p):
+            spec = tuple(p)
+            if any(getattr(k, "key", None) == "blocks" for k in path):
+                n = (cfg.encoder_layers if getattr(path[0], "key", None)
+                     == "encoder" else groups)
+                arr = np.empty(n, dtype=object)
+                for g in range(n):
+                    arr[g] = spec[1:]
+                return arr
+            return spec
+        tree = jax.tree_util.tree_map_with_path(
+            leaf, spec_tree, is_leaf=lambda x: isinstance(x, PartitionSpec))
+        return {k: tuple(v) for k, v in lm_state_dict(tree, jcfg).items()}
+
+    abstract = jtfm.abstract_init(jcfg)
+    assert tsteps.param_spec_tree(cfg, rules, model) == named(
+        jsteps.param_spec_tree(jcfg, jrules, abstract))
+    for md in ("float32", "int8"):
+        ocfg, tcfg = (jadamw.AdamWConfig(moment_dtype=md),
+                      tadamw.AdamWConfig(moment_dtype=md))
+        want = jsteps.train_state_specs(jcfg, jrules, abstract, ocfg)
+        got = tsteps.train_state_specs(cfg, rules, model, tcfg)
+        assert got.opt.m == named(want.opt.m)
+        if md == "float32":
+            assert got.opt.v == named(want.opt.v)
+        else:
+            for part in ("q", "s"):
+                sub = jax.tree.map(lambda d: d[part], want.opt.v,
+                                   is_leaf=lambda d: isinstance(d, dict)
+                                   and "q" in d)
+                assert {k: v[part] for k, v in got.opt.v.items()} == \
+                    named(sub)
+        assert tadamw.moment_axes(ttfm.param_axes(model), tcfg, "v") == {
+            k: (v if md == "float32" else
+                {"q": v[:-1] + (None, None), "s": v[:-1] + (None, None)})
+            for k, v in ttfm.param_axes(model).items()}
+    shape = tshapes.ShapeCell("x", 8, 4, "train")
+    jshape = jshapes.ShapeCell("x", 8, 4, "train")
+    def one(spec):   # PartitionSpec reads ("data",) as "data"
+        return tuple(a[0] if isinstance(a, tuple) and len(a) == 1 else a
+                     for a in spec)
+    assert {k: one(v) for k, v in tsteps.batch_specs(
+        cfg, shape, rules).items()} == {
+        k: tuple(v) for k, v in jsteps.batch_specs(jcfg, jshape,
+                                                   jrules).items()}
+    px = {"a": tsh.Px(torch.zeros(2, 3), ("fsdp", None)),
+          "b": [tsh.Px(torch.zeros(4), ("tp",))]}
+    values, axes = tsh.split_tree(px)
+    jvalues, jaxes = jsh.split_tree({"a": jsh.Px(np.zeros((2, 3)),
+                                                 ("fsdp", None)),
+                                     "b": [jsh.Px(np.zeros(4), ("tp",))]})
+    assert axes == jaxes and values["a"].shape == (2, 3)
+    assert tsh.stack_axes(("tp",)) == jsh.stack_axes(("tp",))
+    assert tsh.is_px(px["a"]) and tsh.is_axes(("tp", None))
+    assert rules.spec_tree(axes) == {"a": ("data", None), "b": [("model",)]}
