@@ -222,6 +222,24 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    where two cards or more are visible, olmo-1b at ``--model-parallel
    2`` for 2 steps, one process a card (``chip_smoke.py --mesh-worker``),
    within 1e-3 of (a)'s losses, else a line that says it was skipped.
+14. pod: the cross-pod compressed gradient exchange,
+   ``launch.pod_compression.main`` on a NCCL world of one rank at the
+   reference CLI's default cell (granite-8b at full width, 4 layers, seq
+   512, rank 8, bf16, one sequence: ``--mesh 1,1,1 --batch 1``), both
+   modes for 3 steps from the same weights: 4 flash launches a step
+   (``remat=False``), 9 Grams a compressed step, every Gram and sweep
+   replayed on the plain ops (1e-5, bitwise), 0 collectives and bytes
+   (every axis spans one rank), each mode's step seconds, peak memory and
+   ``compress_tree`` metrics beside the card, and the bytes a rank that
+   the leaves' sizes give on the 2 x 16 x 16 mesh; then, outside the
+   timed runs, the training forward's logits on the first batch through
+   the kernels against attention on the plain version (phase 8's bf16
+   and fp32 logits bounds) and the first compressed step once more
+   through ``pod_compression.build``, each flash call held at the op and
+   the loss within 1e-6 relative of the CLI's first; where two cards or
+   more are visible, ``--mesh 2,N/2,1`` on N cards under torchrun, its
+   bytes a rank those of the leaves' sizes, else a line that says it was
+   skipped.
 
 Each path is checked against the kernels it runs: phase 3 against the
 three PCA/SVD kernels, phases 4, 6, 7 and 12 against those and the
@@ -230,13 +248,14 @@ phase 8 against the two flash kernels of bf16 serving and the Gram and
 shared-memory sweep of the consumers, phases 9 and 10 against the scan
 and the two flash kernels of bf16 serving, phase 11 against the bf16
 prefill kernel and, with compression, the Gram and shared-memory sweep,
-phase 13 against those, the split-KV kernel and the scan.
+phase 13 against those, the split-KV kernel and the scan, phase 14
+against the bf16 prefill kernel, the Gram and the shared-memory sweep.
 The last three lines are the kernels' JSON record (each kernel's
 launches from the phase that drives it, ``launches_serve`` from phase 6,
 ``launches_control`` from phase 7, ``launches_lm`` from the serve runs
 and consumers of phases 8 to 10, ``launches_train`` from phase 11's
-trainer runs, ``launches_mesh`` from phase 12 and ``launches_mesh_lm``
-from phase 13), the card's name and
+trainer runs, ``launches_mesh`` from phase 12, ``launches_mesh_lm``
+from phase 13 and ``launches_pod`` from phase 14), the card's name and
 power limit, and ``{"ok": true,
 "device": {...}}``.
 Without a CUDA device the script exits with code 2 and prints no result.
@@ -245,6 +264,7 @@ from __future__ import annotations
 
 import contextlib
 import json
+import os
 import pathlib
 import re
 import shutil
@@ -432,6 +452,15 @@ MESH_MULTI_STEPS = 2
 MESH_MULTI_TOL = 1e-3        # relative: bf16 and another reduction order
 MESH_STORE = pathlib.Path(__file__).resolve().parent / "build" / \
     "mesh_store"
+# phase 14: the cross-pod compressed gradient exchange through
+# launch.pod_compression at the reference CLI's default cell (granite-8b
+# whole width, 4 layers, seq 512, rank 8, bf16), one sequence a card (the
+# card's share of --batch 512 over 512 devices), both modes for POD_STEPS
+# steps; on N >= 2 cards (N even) --mesh 2,N/2,1, one process a card
+POD_ARCH, POD_LAYERS, POD_SEQ, POD_RANK, POD_STEPS = "granite-8b", 4, 512, \
+    8, 3
+POD_STORE = pathlib.Path(__file__).resolve().parent / "build" / "pod_store"
+POD_OUT = pathlib.Path(__file__).resolve().parent / "build" / "pod_out"
 # the attention Function's bf16 gradients against autograd through the
 # plain fp32 version on the same operands: the backward computes in fp32
 # (recomputing O in fp32) and rounds each gradient to bf16 once, so each
@@ -3863,6 +3892,227 @@ def mesh_lm_phase(trained: dict, lm: dict, families: dict, dev) -> dict:
             "multi_gpu": multi, "launches": launches, "wall_s": wall}
 
 
+def pod_config(dtype: str = "bfloat16"):
+    """granite-8b at its full width cut to ``POD_LAYERS``, as the
+    reference CLI builds it."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(POD_ARCH), n_layers=POD_LAYERS,
+                               remat=False, dtype=dtype)
+
+
+def pod_argv(mesh: str, batch: int, dev) -> list:
+    return ["--arch", POD_ARCH, "--layers", str(POD_LAYERS), "--seq",
+            str(POD_SEQ), "--rank", str(POD_RANK), "--steps",
+            str(POD_STEPS), "--seed", str(SEED), "--mesh", mesh, "--batch",
+            str(batch), "--device", str(dev), "--out", str(POD_OUT)]
+
+
+def pod_leaf_bytes(shape: dict) -> dict:
+    """A step's all-reduce bytes a rank on a mesh of ``shape`` from the
+    leaves' sizes (``pod_compression.expected_bytes``), in bf16 (what the
+    port reduces) and with every gradient at 4 bytes (the reference's CPU
+    HLO)."""
+    from repro_torch.launch import pod_compression
+    from repro_torch.models import transformer as tfm
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = pod_config(dtype)
+        params = dict(tfm.Transformer(cfg, "meta").named_parameters())
+        out[dtype] = pod_compression.expected_bytes(params, cfg, POD_RANK,
+                                                    shape)
+    return out
+
+
+def pod_multi(card: str) -> dict:
+    """Where two cards or more are visible: the pod exchange at ``--mesh
+    2,N/2,1`` on N cards (N even), one process a card under torchrun, each
+    mode's bytes a rank against those of the leaves' sizes."""
+    visible = torch.cuda.device_count()
+    n = visible - visible % 2
+    if n < 2:
+        log(f"pod multi-card: skipped, {visible} card visible (the leg "
+            f"needs two)")
+        return {"run": False, "visible": visible}
+    out = POD_OUT.with_name("pod_multi")
+    shutil.rmtree(out, ignore_errors=True)
+    argv = pod_argv(f"2,{n // 2},1", n, "cuda")
+    argv[argv.index("--out") + 1] = str(out)
+    env = dict(os.environ, PYTHONPATH=str(
+        pathlib.Path(__file__).resolve().parent / "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "torch.distributed.run",
+                        "--nproc-per-node", str(n), "-m",
+                        "repro_torch.launch.pod_compression", *argv],
+                       capture_output=True, text=True, env=env, timeout=600)
+    check(r.returncode == 0, f"pod multi-card: exit {r.returncode}\n"
+          f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    rec = json.loads((out / f"pod_compression_{POD_ARCH}_L{POD_LAYERS}_r"
+                      f"{POD_RANK}.json").read_text())
+    want = pod_leaf_bytes(rec["mesh"])["bfloat16"]
+    got = {m: rec[m]["total_bytes"] for m in ("baseline", "compressed")}
+    log(f"pod multi-card: {n} cards, mesh {json.dumps(rec['mesh'])}, "
+        f"bytes a rank {json.dumps(got)} against the leaves' sizes "
+        f"{json.dumps(want)}; step s {json.dumps({m: rec[m]['mean_step_s'] for m in got})} "
+        f"in {time.perf_counter() - t0:.1f} s on {card}")
+    check(all(got[m] == want[m] for m in got),
+          "pod multi-card: the bytes differ from the leaves' sizes")
+    return {"run": True, "visible": visible, "cards": n, "bytes": got,
+            "record": rec}
+
+
+def pod_held(dev, rec: dict) -> dict:
+    """Phase 14's cell once more, outside the timed runs: the training
+    forward's logits on the first step's batch through the kernels against
+    the same forward with attention on the flash op's ``torch`` backend
+    (``logits_against_plain``: the bf16 run within sqrt(2) x the plain bf16
+    run's distance from the plain fp32 run of the same weights, the fp32
+    run within ``LM_FP32_TOL`` a layer); then the first compressed step
+    through ``pod_compression.build`` on a mesh of this card, every flash
+    call held at the op (``train_flash_held``) and its loss that of the
+    CLI's first step."""
+    import dataclasses
+    from repro_torch.backends import registry
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import pod_compression as pc
+    from repro_torch.models import transformer as tfm
+    from repro_torch.parallel.sharding import Mesh
+    cfg = pod_config()
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    v = cfg.vocab_size
+    tokens = pc.seeded_tokens(cfg, POD_STEPS, 1, POD_SEQ, SEED)[0]
+    batch = {"tokens": tokens.to(dev)}
+    model = tfm.init_model(cfg, seed=SEED, device=dev, train=True)
+
+    def logits(m, c, backend=None):
+        reset_launch_counts()
+        plain = (contextlib.nullcontext() if backend is None
+                 else registry.use_backend(backend))
+        with torch.no_grad(), plain:
+            out = tfm.forward(m, batch, c)[0][..., :v].float()
+        torch.cuda.synchronize()
+        if backend is None:
+            launched(f"pod forward[{c.dtype}]", launch_counts(),
+                     {lm_prefill_kernel(c): POD_LAYERS})
+        return out
+
+    got16, plain16 = logits(model, cfg), logits(model, cfg, "torch")
+    model32 = lm_fp32_copy(model, cfg32, dev)
+    got32, plain32 = logits(model32, cfg32), logits(model32, cfg32, "torch")
+    del model32
+    torch.cuda.empty_cache()
+    err16, floor16, err32 = logits_against_plain(
+        "pod forward", [got16], [plain16], [got32], [plain32], POD_LAYERS)
+    del got16, plain16, got32, plain32
+
+    mesh = Mesh(np.full((1, 1, 1), dev, dtype=object), pc.AXES)
+    state = pc.init_pod_state(model, cfg, mesh, POD_RANK, SEED)
+    step = pc.build(cfg, mesh, POD_SEQ, 1, "compressed", POD_RANK)
+    held = []
+    reset_launch_counts()
+    with train_flash_held(held, {}, keep=()):
+        _, metrics = step(model, tokens, state)
+    torch.cuda.synchronize()
+    launched("pod held step", launch_counts(),
+             {k: n // POD_STEPS
+              for k, n in rec["compressed"]["launches"].items()})
+    loss, first = float(metrics["loss"]), rec["compressed"]["losses"][0]
+    over = [h for h in held if h["over"]]
+    log(f"pod held step: loss {loss:.7f} (the CLI's first {first:.7f}); "
+        f"{len(held)} flash calls held at the op, max_abs_err "
+        f"{max(h['max_abs_err'] for h in held):.3e}")
+    check(len(held) == POD_LAYERS and not over, f"pod: a flash call of the "
+          f"step off the plain version beyond one bf16 ulp + "
+          f"{FA_BF16_SLACK:g}: {over[:2]}")
+    check(abs(loss - first) <= 1e-6 * abs(first),
+          f"pod: the held step's loss {loss} is not the CLI's first {first}")
+    return {"bf16_err": err16[0], "bf16_bound": floor16[0],
+            "fp32_err": err32[0], "loss": loss,
+            "flash_max_abs_err": max(h["max_abs_err"] for h in held)}
+
+
+def pod_phase(dev, card: str) -> dict:
+    """Phase 14: the cross-pod exchange on a NCCL world of one rank (the
+    module docstring's item 14)."""
+    import io
+    from repro_torch.launch import pod_compression
+    from repro_torch.parallel import collectives
+    t_phase = time.perf_counter()
+    POD_STORE.parent.mkdir(parents=True, exist_ok=True)
+    POD_STORE.unlink(missing_ok=True)
+    collectives.init_world("cuda", store_path=str(POD_STORE), rank=0,
+                           world_size=1)
+    calls = {}
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        try:
+            with pca_calls_kept(calls), contextlib.redirect_stdout(
+                    io.StringIO()) as out:
+                rec, run = counted(lambda: pod_compression.main(
+                    pod_argv("1,1,1", 1, dev)))
+        finally:
+            collectives.close_world()
+            POD_STORE.unlink(missing_ok=True)
+        held = pod_held(dev, rec)
+    finally:
+        torch.use_deterministic_algorithms(deterministic)
+    for line in out.getvalue().strip().splitlines():
+        log(f"pod cli: {line}")
+    gram_err, sweeps_apart = pca_calls_against_plain(calls)
+    n_gram, n_sweep = len(calls["covariance"]), len(calls["jacobi_sweep"])
+    del calls
+    launches = {}
+    for mode in ("baseline", "compressed"):
+        r = rec[mode]
+        for k, n in r["launches"].items():
+            launches[k] = launches.get(k, 0) + n
+        log(f"pod {mode}: step s {json.dumps(r['step_s'])} (mean past the "
+            f"first {r['mean_step_s']:.4f}), peak device memory "
+            f"{r['peak_memory_bytes'] / 1e9:.2f} GB, losses "
+            f"{json.dumps(r['losses'])}, compress_tree metrics "
+            f"{json.dumps(r['metrics'])}, collectives {json.dumps(r['counts'])}"
+            f" ({r['total_bytes']:.0f} bytes), launches "
+            f"{json.dumps(r['launches'])}; on {rec['card']}")
+        check(all(np.isfinite(r["losses"])), f"pod {mode}: a loss is not "
+              "finite")
+        check(r["counts"] == {} and r["total_bytes"] == 0
+              and r["expected_bytes"] == 0,
+              f"pod {mode}: collectives on a world of one: {r['counts']}")
+        want = {lm_prefill_kernel(pod_config()): POD_LAYERS * POD_STEPS}
+        if mode == "compressed":
+            want.update(covariance=n_gram, jacobi_sweep_smem=n_sweep)
+        check(r["launches"] == want, f"pod {mode}: launches "
+              f"{r['launches']}, not {want}")
+    check(run["launches"] == {k: launches.get(k, 0) for k in run["launches"]}
+          and run["collectives"] == {},
+          f"pod: the phase launched {run['launches']}, the modes {launches}")
+    check(n_gram == 9 * POD_STEPS,
+          f"pod: {n_gram} Grams in {POD_STEPS} compressed steps, not 9 a "
+          "step (granite-8b's 9 stacked matrices)")
+    check(gram_err <= LM_GRAM_TOL and sweeps_apart == 0,
+          f"pod: a Gram {gram_err:.3e} off the plain Gram or {sweeps_apart} "
+          "sweeps apart from the plain sweep")
+    first = [rec[m]["losses"][0] for m in ("baseline", "compressed")]
+    check(abs(first[0] - first[1]) <= 1e-6 * abs(first[0]),
+          f"pod: the modes' first losses {first} differ (same weights)")
+    prod = pod_leaf_bytes({"pod": 2, "data": 16, "model": 16})
+    log(f"pod: {n_gram} Grams within {gram_err:.3e} of the plain Gram, "
+        f"{n_sweep} sweeps bitwise the plain sweep; the first losses "
+        f"{json.dumps(first)} (bitwise {first[0] == first[1]}); bytes a "
+        f"rank on the 2 x 16 x 16 mesh from the leaves' sizes: bf16 "
+        f"{json.dumps(prod['bfloat16'])}, every gradient at 4 bytes "
+        f"{json.dumps(prod['float32'])}; a world of one moves 0")
+    multi = pod_multi(card)
+    wall = time.perf_counter() - t_phase
+    log(f"pod: launches {json.dumps(launches)}; phase {wall:.1f} s")
+    return {"record": rec, "launches": {k: launches.get(k, 0)
+                                        for k in run["launches"]},
+            "gram_err": gram_err, "n_gram": n_gram, "n_sweep": n_sweep,
+            "held": held, "production_bytes": prod, "multi_gpu": multi,
+            "wall_s": wall}
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-worker":
         return mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
@@ -3940,6 +4190,7 @@ def main() -> int:
     trained = train_phase(dev)
     mesh = mesh_phase(main_run, serve)
     mesh_lm = mesh_lm_phase(trained, lm, families, dev)
+    pod = pod_phase(dev, card)
     prof = lm["profile"]
     rows["flash_attention_mma"].update(
         lm_device_ms=prof["mma_device_ms"], lm_bound_ms=prof["mma_bound"][0],
@@ -4006,6 +4257,7 @@ def main() -> int:
         row["launches_train"] = trained["launches"][k.name]
         row["launches_mesh"] = mesh["launches"][k.name]
         row["launches_mesh_lm"] = mesh_lm["launches"][k.name]
+        row["launches_pod"] = pod["launches"][k.name]
         record.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))

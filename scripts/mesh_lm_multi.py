@@ -2,8 +2,10 @@
 multi-card leg of ``chip_smoke.py`` (olmo-1b at ``--model-parallel 2``
 for 2 steps, one process a card) beside a one-card run of the same argv,
 then the serve CLI under torchrun at ``--model-parallel N`` (N the
-visible cards) beside one card's tokens.  On a host with two cards or
-more:
+visible cards) beside one card's tokens, then phase 14's pod leg: the
+cross-pod gradient exchange at ``--mesh 2,N/2,1`` on N cards (N even),
+one process a card under torchrun, each mode's bytes a rank against
+those that the leaves' sizes give.  On a host with two cards or more:
 
     python3 scripts/mesh_lm_multi.py
 """
@@ -71,6 +73,10 @@ dist.destroy_process_group()
     cs.log(f"serve tokens at --model-parallel {n} equal to one card's: "
            f"share {float(np.mean(toks == one))}; row 0 "
            f"{toks[0][:16].tolist()} against {one[0][:16].tolist()}")
+    t0 = time.perf_counter()
+    pod = cs.pod_multi(cs.nvidia_smi())
+    pod.pop("record", None)
+    cs.log(f"pod: {json.dumps(pod)} in {time.perf_counter() - t0:.1f} s")
     return r.returncode
 
 

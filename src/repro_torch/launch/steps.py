@@ -155,25 +155,40 @@ def _on(batch: dict, dev: torch.device, rules: Rules,
     return out
 
 
+def all_reduce_tree(tree: Dict[str, torch.Tensor], mesh: Mesh, axes,
+                    op: str = "sum") -> Dict[str, torch.Tensor]:
+    """Each tensor of ``tree`` all-reduced over ``axes`` of ``mesh`` (one
+    all-reduce of a flat buffer a dtype, the keys in sorted order); the
+    tree as it is where the axes span one rank."""
+    out = dict(tree)
+    if mesh.axes_size(axes) == 1:
+        return out
+    by_dtype: Dict[torch.dtype, list] = {}
+    for k in sorted(tree):
+        by_dtype.setdefault(tree[k].dtype, []).append(k)
+    for keys in by_dtype.values():
+        flat = C.all_reduce(torch.cat([tree[k].reshape(-1) for k in keys]),
+                            mesh, axes, op=op)
+        for k, part in zip(keys, flat.split([tree[k].numel()
+                                             for k in keys])):
+            out[k] = part.view_as(tree[k])
+    return out
+
+
 def reduce_grads(grads: Dict[str, torch.Tensor], shardings: dict,
                  rules: Rules) -> Dict[str, torch.Tensor]:
     """Each gradient summed over the batch axes its leaf is not split
-    across (one all-reduce of a flat buffer for each set of axes and
-    dtype)."""
+    across (``all_reduce_tree`` for each set of axes)."""
     batch = rules.axes("batch")
-    buckets: Dict[tuple, list] = {}
+    groups: Dict[tuple, dict] = {}
     for k in sorted(grads):
         axes = tuple(a for a in batch
                      if a not in shardings[k].sharded_axes())
-        if axes and rules.mesh.axes_size(axes) > 1:
-            buckets.setdefault((axes, grads[k].dtype), []).append(k)
+        if axes:
+            groups.setdefault(axes, {})[k] = grads[k]
     out = dict(grads)
-    for (axes, _), keys in buckets.items():
-        flat = C.all_reduce(torch.cat([grads[k].reshape(-1) for k in keys]),
-                            rules.mesh, axes)
-        for k, part in zip(keys, flat.split([grads[k].numel()
-                                             for k in keys])):
-            out[k] = part.view_as(grads[k])
+    for axes, tree in groups.items():
+        out.update(all_reduce_tree(tree, rules.mesh, axes))
     return out
 
 
@@ -321,7 +336,7 @@ def build_step(kind: str, cfg: ModelConfig, shape: ShapeCell, **kw):
     return build_serve_step(cfg, shape, **kw)
 
 
-__all__ = ["TrainState", "batch_specs", "build_prefill", "build_serve_step",
+__all__ = ["TrainState", "all_reduce_tree", "batch_specs", "build_prefill", "build_serve_step",
            "build_step", "build_train_step", "init_compression",
            "param_spec_tree", "reduce_grads", "rules_for_cell",
            "stack_layers", "train_state_shardings", "train_state_specs",

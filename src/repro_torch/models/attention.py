@@ -318,7 +318,8 @@ def self_attention(p: Attention, x: torch.Tensor, cfg: ModelConfig,
                      v.transpose(1, 2).contiguous())
         cache = (_local_cache(kv, cache_len or s, rules) if return_cache
                  else None)
-    qh = q.transpose(1, 2).reshape(b * hl, s, hd)
+    # contiguous at B == 1 too, where the reshape is a strided view
+    qh = q.transpose(1, 2).reshape(b * hl, s, hd).contiguous()
     kx = _expand_kv(kv.k, cfg, s, causal, h0, hl)
     vx = _expand_kv(kv.v, cfg, s, causal, h0, hl)
     out = ops.flash_attention(qh, kx, vx, causal=causal, scale=hd ** -0.5,

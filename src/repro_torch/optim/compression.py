@@ -21,13 +21,19 @@ they are ``jnp`` products in the reference.
 Gradients and parameters are tensors, which stay where they are, or
 arrays, which go to ``device`` (default ``cuda``).
 
-Across pods the reference all-reduces P and Q over ``axis_name``; here
-``axis_name`` must be None until that exchange is ported (ROADMAP queue
-1, item 4b.4).  On a mesh the reference compresses the logical gradient
-with a replicated state (``launch/steps.py``, ``comp_specs = P()``), and
-so does the port's sharded train step: it gathers each compressed leaf's
-gradient whole, runs ``compress_tree`` identically on every rank and
-keeps its shard.
+With ``axis_name`` (the cross-pod exchange, ``launch/pod_compression``)
+the reductions run over that axis of ``mesh``, a ``parallel.Mesh`` bound
+to the process group: each exact leaf, P = G Q before
+``_orthonormalize`` and Q = G^T P after it are mean-all-reduced
+(``jax.lax.pmean``; ``parallel.collectives.all_reduce(..., op="mean")``,
+counted there), each rank holding its own state (its pod's subspace and
+error feedback).  An axis that spans one rank issues nothing, so a world
+of one computes the local result.  ``axis_name=None`` is the local
+path, and ignores ``mesh``.  In the sharded train step the reference
+compresses the logical gradient with a replicated state
+(``launch/steps.py``, ``comp_specs = P()``), and so does the port's:
+it gathers each compressed leaf's gradient whole, runs ``compress_tree``
+identically on every rank and keeps its shard.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import torch
 from .._device import DeviceLike, as_input
 from ..core.jacobi import jacobi_eigh
 from ..kernels import ops
+from ..parallel import collectives as C
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,13 +62,18 @@ class CompressionState(NamedTuple):
     error: Dict[str, Optional[torch.Tensor]]  # per-param error feedback
 
 
-def _check_local(cfg: CompressionConfig) -> None:
-    if cfg.axis_name is not None:
-        raise NotImplementedError(
-            f"axis_name={cfg.axis_name!r}: the all-reduce of P and Q across "
-            "pods is not ported yet; it comes with the multi-device work's "
-            "item 4b.4 (ROADMAP queue 1: compression's pmean and "
-            "launch/pod_compression.py); use axis_name=None")
+def _reducer(cfg: CompressionConfig, mesh):
+    """The mean over ``cfg.axis_name`` of ``mesh`` (``jax.lax.pmean``), or
+    the identity without an axis."""
+    axis = cfg.axis_name
+    if axis is None:
+        return lambda x: x
+    names = getattr(mesh, "axis_names", ())
+    if axis not in names:
+        raise ValueError(
+            f"axis_name={axis!r} needs a parallel.Mesh with that axis; got "
+            + ("no mesh" if mesh is None else f"axes {names}"))
+    return lambda x: C.all_reduce(x, mesh, axis, op="mean")
 
 
 def _as_matrix(g: torch.Tensor) -> torch.Tensor:
@@ -106,25 +118,27 @@ def init_state(params: Mapping[str, torch.Tensor], cfg: CompressionConfig,
 
 
 def compress_tree(grads: Mapping[str, torch.Tensor], state: CompressionState,
-                  cfg: CompressionConfig, device: DeviceLike = None
+                  cfg: CompressionConfig, device: DeviceLike = None,
+                  mesh=None
                   ) -> Tuple[Dict[str, torch.Tensor], CompressionState, dict]:
-    """Returns (approximated grads, new state, metrics)."""
-    _check_local(cfg)
+    """Returns (approximated grads, reduced over ``cfg.axis_name`` of
+    ``mesh`` where it is set; new state; metrics)."""
+    reduce = _reducer(cfg, mesh)
     new_q, new_e, out = {}, {}, {}
     comp_bytes = full_bytes = 0
     for k in sorted(grads):
         g = as_input(grads[k], device)
         q = state.q.get(k)
         if q is None:
-            out[k] = g
+            out[k] = reduce(g)
             new_q[k] = new_e[k] = None
             full_bytes += g.numel() * 4
             continue
         g2 = _as_matrix(g).float()
         if cfg.error_feedback:
             g2 = g2 + _as_matrix(state.error[k])
-        p = _orthonormalize(g2 @ q, cfg.jacobi_sweeps)   # (m, r)
-        qn = g2.T @ p                                     # (n, r)
+        p = _orthonormalize(reduce(g2 @ q), cfg.jacobi_sweeps)   # (m, r)
+        qn = reduce(g2.T @ p)                                     # (n, r)
         g_hat = p @ qn.T
         new_e[k] = ((g2 - g_hat) if cfg.error_feedback
                     else torch.zeros_like(g2)).reshape(g.shape)

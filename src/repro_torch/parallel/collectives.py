@@ -23,8 +23,14 @@ Each takes the ``Rules`` and a role (or the mesh and its axes); a role
 that resolves to no axis, or to axes of size 1, makes the call the
 identity, and nothing is issued or counted (``counts`` then stays 0 on a
 world of one).  Every call issued is counted by kind and axes:
-``counts()`` gives ``{"all_reduce:model": n, ...}``, ``reset_counts``
-zeroes them.
+``counts()`` gives ``{"all_reduce:model": n, ...}``, and ``byte_counts()``
+the bytes of the tensors handed to ``torch.distributed`` under the same
+keys (each call's operand, ``numel() * element_size()``: the input of an
+all-gather, the whole input of a reduce-scatter, every tensor sent by a
+ring shift), a device's share as the reference's ``collective_bytes``
+counts operands in its per-device HLO; ``reset_counts`` zeroes both.
+``all_reduce(..., op="mean")`` is ``jax.lax.pmean``: the sum divided by
+the axes' size.
 
 ``init_world`` starts the process group: from the torchrun environment
 (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK``, ``MASTER_ADDR``,
@@ -42,6 +48,7 @@ from typing import Optional, Sequence
 import torch
 
 _COUNTS: "collections.Counter[str]" = collections.Counter()
+_BYTES: "collections.Counter[str]" = collections.Counter()
 TORCHRUN_ENV = ("WORLD_SIZE", "RANK", "LOCAL_RANK", "MASTER_ADDR",
                 "MASTER_PORT")
 
@@ -50,12 +57,19 @@ def counts() -> dict:
     return dict(_COUNTS)
 
 
+def byte_counts() -> dict:
+    return dict(_BYTES)
+
+
 def reset_counts() -> None:
     _COUNTS.clear()
+    _BYTES.clear()
 
 
-def _count(kind: str, axes) -> None:
-    _COUNTS[f"{kind}:{'+'.join(axes)}"] += 1
+def _count(kind: str, axes, *operands: torch.Tensor) -> None:
+    key = f"{kind}:{'+'.join(axes)}"
+    _COUNTS[key] += 1
+    _BYTES[key] += sum(t.numel() * t.element_size() for t in operands)
 
 
 def _dist():
@@ -155,7 +169,10 @@ def _comm(mesh, axes):
 
 def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum"
                ) -> torch.Tensor:
-    """The sum (or ``"max"``) of ``x`` over ``axes``, in a new tensor."""
+    """The sum (``"max"``, or ``"mean"``: the sum over the axes' size) of
+    ``x`` over ``axes``, in a new tensor."""
+    if op not in ("sum", "max", "mean"):
+        raise ValueError(f"all_reduce op {op!r}; expected sum, max or mean")
     c = _comm(mesh, axes)
     if c is None:
         return x
@@ -163,8 +180,8 @@ def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum"
     out = x.contiguous().clone()
     dist.all_reduce(out, op=dist.ReduceOp.MAX if op == "max"
                     else dist.ReduceOp.SUM, group=c.group)
-    _count("all_reduce", _axes(axes))
-    return out
+    _count("all_reduce", _axes(axes), out)
+    return out.div_(c.size) if op == "mean" else out
 
 
 def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
@@ -177,7 +194,7 @@ def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     x = x.contiguous().reshape((1,) + tuple(x.shape))
     out = x.new_empty((c.size,) + tuple(x.shape[1:]))
     dist.all_gather_into_tensor(out, x, group=c.group)
-    _count("all_gather", _axes(axes))
+    _count("all_gather", _axes(axes), x)
     x = x[0]
     if c.perm is not None:
         out = out[c.perm]
@@ -208,7 +225,7 @@ def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     out = blocks.new_empty(blocks.shape[1:])
     dist.reduce_scatter_tensor(out, blocks.reshape((-1,) + out.shape[1:]),
                                group=c.group)
-    _count("reduce_scatter", _axes(axes))
+    _count("reduce_scatter", _axes(axes), blocks)
     return out.movedim(0, dim)
 
 
@@ -224,13 +241,14 @@ def ring_shift(tensors: Sequence[torch.Tensor], mesh, axes
     nxt, prv = c.members[(c.index + 1) % c.size], \
         c.members[(c.index - 1) % c.size]
     outs = [torch.empty_like(t) for t in tensors]
+    sent = [t.contiguous() for t in tensors]
     ops = []
-    for t, o in zip(tensors, outs):
-        ops.append(dist.P2POp(dist.isend, t.contiguous(), nxt, c.group))
+    for t, o in zip(sent, outs):
+        ops.append(dist.P2POp(dist.isend, t, nxt, c.group))
         ops.append(dist.P2POp(dist.irecv, o, prv, c.group))
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    _count("ring_shift", _axes(axes))
+    _count("ring_shift", _axes(axes), *sent)
     return outs
 
 
@@ -364,8 +382,8 @@ def role_all_gather(x: torch.Tensor, rules, role: str, dim: int
     return x if r is None else all_gather(x, *r, dim)
 
 
-__all__ = ["all_gather", "all_reduce", "barrier", "close_world", "copy_to",
-           "counts", "fsdp_gather", "init_world", "local_block",
-           "reduce_from", "reduce_scatter", "reset_counts", "ring_shift",
-           "role_all_gather", "role_all_reduce", "seq_gather",
+__all__ = ["all_gather", "all_reduce", "barrier", "byte_counts",
+           "close_world", "copy_to", "counts", "fsdp_gather", "init_world",
+           "local_block", "reduce_from", "reduce_scatter", "reset_counts",
+           "ring_shift", "role_all_gather", "role_all_reduce", "seq_gather",
            "seq_scatter", "torchrun_env", "world_device", "world_started"]

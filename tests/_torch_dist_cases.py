@@ -8,6 +8,8 @@ directory (the reference's parameters under the port's names, prompts,
 activations); each case writes rank 0's results there as ``.npz`` and
 returns a small JSON document.
 """
+import dataclasses
+import hashlib
 import pathlib
 import sys
 
@@ -17,10 +19,11 @@ import torch
 from repro_torch import configs as tconfigs
 from repro_torch.checkpoint import checkpointer
 from repro_torch.configs.shapes import ShapeCell
-from repro_torch.launch import serve, steps, train
+from repro_torch.launch import pod_compression, serve, steps, train
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as tfm
 from repro_torch.optim import adamw
+from repro_torch.optim import compression as tcomp
 from repro_torch.parallel import collectives as C
 from repro_torch.parallel.ring_attention import ring_attention
 from repro_torch.parallel.sharding import (Mesh, REPLICATED, Rules,
@@ -328,4 +331,105 @@ def rules_shard(tmp: pathlib.Path):
             "counts": C.counts()}
 
 
-CASES = {"lm": lm, "trainer": trainer, "rules_shard": rules_shard}
+# ---------------------------------------------------------------------------
+# the pod exchange on a 2 x 2 x 2 ("pod", "data", "model") world
+# ---------------------------------------------------------------------------
+
+def _digest(tensors: dict) -> str:
+    h = hashlib.sha256()
+    for k in sorted(tensors):
+        if tensors[k] is not None:
+            h.update(k.encode())
+            h.update(tensors[k].detach().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _gather_object(obj) -> list:
+    """Every rank's ``obj``, through ``torch.distributed`` itself (not
+    counted by ``collectives``)."""
+    import torch.distributed as dist
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def pod_compression_world(tmp: pathlib.Path, layers: int, seq: int,
+                          batch: int, rank: int, cli: list, bad: dict):
+    """Each mode's step of ``launch.pod_compression.build`` from the
+    reference's weights and each pod's numpy state: rank 0's collectives,
+    bytes and metrics, whether the ranks agree (parameters everywhere,
+    state within a pod), the exchanged gradients that the step hands to
+    ``adamw.update`` and the new parameters (rank 0) and each pod's new
+    state (its first rank); then the CLI at a small size, and the raises
+    of ``--mesh`` and ``--batch`` that do not fit the world."""
+    pc = pod_compression
+    inputs = np.load(tmp / "pod_inputs.npz")
+    mesh = Mesh.from_world((2, 2, 2), pc.AXES)
+    cfg = dataclasses.replace(tconfigs.reduced_config(
+        "granite-8b", **pc.REDUCED_WIDTHS), n_layers=layers, remat=False)
+    pod = mesh.coords["pod"]
+    head = mesh.coords["data"] == mesh.coords["model"] == 0
+    out, arrays = {}, {}
+    for mode in pc.MODES:
+        model = _model(cfg, _params_of(inputs, "p/"), train_=True)
+        like = steps.init_compression(dict(model.named_parameters()), cfg,
+                                      pc.comp_config(rank))
+        state = tcomp.CompressionState(
+            q={k: None if v is None else torch.from_numpy(
+                inputs[f"q/{k}"][pod].copy()) for k, v in like.q.items()},
+            error={k: None if v is None else torch.from_numpy(
+                inputs[f"e/{k}"][pod].copy())
+                for k, v in like.error.items()})
+        step = pc.build(cfg, mesh, seq, batch, mode, rank)
+        handed = {}
+        update = adamw.update
+
+        def kept(grads, *args, **kw):
+            handed.update({k: g.detach().clone() for k, g in grads.items()})
+            return update(grads, *args, **kw)
+        C.reset_counts()
+        adamw.update = kept
+        try:
+            state, metrics = step(model, inputs["tokens"], state)
+        finally:
+            adamw.update = update
+        got = {"counts": C.counts(), "bytes": C.byte_counts(),
+               "lr": float(metrics["lr"]),
+               "metrics": {k: int(metrics[k]) for k in
+                           ("compressed_bytes", "exact_bytes")
+                           if k in metrics}}
+        params = {k: p.detach() for k, p in model.named_parameters()}
+        ranks = _gather_object((pod, _digest(params), _digest(state.q),
+                                _digest(state.error)))
+        got["params_agree"] = len({r[1] for r in ranks}) == 1
+        got["pod_agrees"] = all(len({r[2:] for r in ranks if r[0] == p})
+                                == 1 for p in (0, 1))
+        got["pods_differ"] = (ranks[0][3] != ranks[-1][3]
+                              if mode == "compressed" else None)
+        out[mode] = got
+        if _rank() == 0:
+            arrays.update({f"{mode}/p/{k}": _np(p)
+                           for k, p in params.items()})
+            arrays.update({f"{mode}/g/{k}": _np(g) for k, g in
+                           steps.stack_layers(handed, cfg).items()})
+        if mode == "compressed" and head:
+            np.savez(tmp / f"pod_state_{pod}.npz",
+                     **{f"{w}/{k}": _np(v) for w, tree in
+                        (("q", state.q), ("e", state.error))
+                        for k, v in tree.items() if v is not None})
+    _save(tmp, "pod_out", arrays)
+
+    rec = pod_compression.main(cli)
+    out["cli"] = rec
+    out["raises"] = {}
+    for name, argv in bad.items():
+        try:
+            pod_compression.main(argv)
+            out["raises"][name] = None
+        except ValueError as e:
+            out["raises"][name] = str(e)
+    return out
+
+
+CASES = {"lm": lm, "trainer": trainer, "rules_shard": rules_shard,
+         "pod_compression_world": pod_compression_world}

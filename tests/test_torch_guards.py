@@ -36,6 +36,7 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.models.kv_compression, repro_torch.optim.spectral, "
             "repro_torch.optim.compression, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.launch.steps, "
+            "repro_torch.launch.pod_compression, "
             "repro_torch.optim.adamw, repro_torch.kernels.grad, "
             "repro_torch.checkpoint, repro_torch.data, repro_torch.runtime, "
             "repro_torch.configs.shapes, repro_torch.launch.accounting, "

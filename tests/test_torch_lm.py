@@ -372,6 +372,17 @@ def test_flash_operands_are_what_the_kernels_take(monkeypatch, case):
     D) and k, v (BH, Skv, D), contiguous and of one dtype: the CUDA
     wrapper raises on anything else, and the CPU's plain version would
     not notice."""
+    _flash_operands(monkeypatch, case, 2)
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + ["olmo_wrap", "granite_wrap"])
+def test_flash_operands_at_batch_one(monkeypatch, case):
+    """The same at batch 1, where reshaping the (B, H, S, hd) query view to
+    (B * H, S, hd) keeps its strides instead of copying."""
+    _flash_operands(monkeypatch, case, 1)
+
+
+def _flash_operands(monkeypatch, case, batch):
     arch, ov = CASES.get(case, ("olmo-1b" if case == "olmo_wrap" else
                                 "granite-8b", {}))
     cfg = tconfigs.reduced_config(arch, **ov)
@@ -388,7 +399,8 @@ def test_flash_operands_are_what_the_kernels_take(monkeypatch, case):
                     **kw)
 
     monkeypatch.setattr(tattn.ops, "flash_attention", spy)
-    tokens = torch.arange(2 * PROMPT).reshape(2, PROMPT) % cfg.vocab_size
+    tokens = torch.arange(batch * PROMPT).reshape(batch, PROMPT) % \
+        cfg.vocab_size
     wrap = case.endswith("_wrap")
     _, st = ttfm.prefill(model, {"tokens": tokens}, cfg,
                          cache_len=PROMPT if wrap else CACHE_LEN)

@@ -241,12 +241,12 @@ def test_init_state_is_seeded_and_skips_small_params():
         np.testing.assert_array_equal(a.q[k].numpy(), b.q[k].numpy())
 
 
-def test_axis_name_raises_until_multi_device():
+def test_axis_name_without_a_mesh_raises():
     g = {"w": torch.ones(64, 32)}
     cfg = comp.CompressionConfig(rank=2, min_size=1, axis_name="pod")
     state = comp.init_state(g, cfg)
-    with pytest.raises(NotImplementedError,
-                       match=r"multi-device work's item 4b\.4"):
+    with pytest.raises(ValueError, match="axis_name='pod' needs a "
+                       "parallel.Mesh with that axis; got no mesh"):
         comp.compress_tree(g, state, cfg)
 
 
