@@ -240,6 +240,25 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    more are visible, ``--mesh 2,N/2,1`` on N cards under torchrun, its
    bytes a rank those of the leaves' sizes, else a line that says it was
    skipped.
+15. moe: the moe family at every published width with all 128 experts
+   in every layer, cut in depth to 2 layers (one arctic layer holds 26.8
+   GB of experts, one llama4 layer 32.2 GB), one model after the other
+   (each freed before the next): arctic-480b (top-2 beside a dense
+   residual FFN) and llama4-maverick-400b-a17b (top-1 beside a shared
+   expert, vocab 202048) through ``serve.generate`` at phase 8's B 4 x
+   4096, 32 generated: 2 ``flash_attention_mma`` a prefill and 2
+   ``flash_attention_splitkv`` a step, nothing else; its JSON line, peak
+   memory and the MoE's dropped share at prefill and decode (C = 1); the
+   init's peak less the parameters' bytes within the largest single
+   draw's fp32 bytes + 0.5 GiB; on the same weights the served prefill's
+   flash calls held at the op (the plain fp32 version 8 of the BH
+   problems at a time), layer 0's MoE output against a plain fp32 layer
+   on the same routing, expert by expert (2^-6 a token, relative
+   Frobenius), a 512-token prompt and 8 teacher-forced steps through the
+   kernels against plain attention (every flash call held at the op,
+   logits within phase 8's bf16 bound), layer 0's MoE ops profiled at
+   both shapes, and one prefill and 8 decode steps profiled beside the
+   prefill's FLOP floor and the decode's weight-read floor.
 
 Each path is checked against the kernels it runs: phase 3 against the
 three PCA/SVD kernels, phases 4, 6, 7 and 12 against those and the
@@ -249,13 +268,15 @@ shared-memory sweep of the consumers, phases 9 and 10 against the scan
 and the two flash kernels of bf16 serving, phase 11 against the bf16
 prefill kernel and, with compression, the Gram and shared-memory sweep,
 phase 13 against those, the split-KV kernel and the scan, phase 14
-against the bf16 prefill kernel, the Gram and the shared-memory sweep.
+against the bf16 prefill kernel, the Gram and the shared-memory sweep,
+phase 15 against the two flash kernels of bf16 serving.
 The last three lines are the kernels' JSON record (each kernel's
 launches from the phase that drives it, ``launches_serve`` from phase 6,
 ``launches_control`` from phase 7, ``launches_lm`` from the serve runs
 and consumers of phases 8 to 10, ``launches_train`` from phase 11's
 trainer runs, ``launches_mesh`` from phase 12, ``launches_mesh_lm``
-from phase 13 and ``launches_pod`` from phase 14), the card's name and
+from phase 13, ``launches_pod`` from phase 14 and ``launches_moe`` from
+phase 15's serve runs), the card's name and
 power limit, and ``{"ok": true,
 "device": {...}}``.
 Without a CUDA device the script exits with code 2 and prints no result.
@@ -461,6 +482,38 @@ POD_ARCH, POD_LAYERS, POD_SEQ, POD_RANK, POD_STEPS = "granite-8b", 4, 512, \
     8, 3
 POD_STORE = pathlib.Path(__file__).resolve().parent / "build" / "pod_store"
 POD_OUT = pathlib.Path(__file__).resolve().parent / "build" / "pod_out"
+# phase 15: the moe family at every published width with all 128 experts
+# in every layer (src/repro/configs/arctic_480b.py: d 7168, 56 query heads
+# over 8 KV heads of 128, 128 experts of d_ff 4864 top-2 beside a dense
+# residual FFN, vocab 32000; llama4_maverick_400b_a17b.py: d 5120, 40 over
+# 8 heads of 128, 128 experts of d_ff 8192 top-1 beside a shared expert,
+# vocab 202048), cut in depth to MOE_LAYERS of 35 and 48 layers: one arctic
+# layer holds 26.8 GB of experts and one llama4 layer 32.2 GB in bf16, so
+# two layers (55.4 and 69.3 GB with the embeddings) are what one card
+# holds; moe_every is 1, so one layer is a whole period and two give the
+# decode a layer-to-layer hand-off.  Served as phase 8 (B 4 x 4096, 32
+# generated, greedy), one model at a time.  The logits leg runs a
+# MOE_SHORT_PROMPT-token prompt (plain attention's fp32 scores of the
+# served prefill, 15.0 and 10.7 GB, do not fit beside the weights); the
+# served prefill's flash calls are held at the op MOE_HOLD_ROWS of the BH
+# problems at a time
+MOE_ARCHS = ("arctic-480b", "llama4-maverick-400b-a17b")
+MOE_LAYERS = 2
+MOE_SHORT_PROMPT = 512
+MOE_HOLD_ROWS = 8
+# the init's peak less the parameters' bytes: the largest single draw's
+# fp32 bytes and this much for the allocator's rounding and small tensors
+MOE_INIT_SLACK = 0.5 * 2 ** 30
+# layer 0's MoE output against a plain fp32 computation of the same layer
+# on the same routing (each expert from fp32 copies of its weights, the
+# dense residual or shared expert added in fp32), relative Frobenius a
+# token: the layer runs bf16 operands with fp32 accumulation and rounds
+# h, g, silu(g), their product, the expert output, the gate, the gated
+# product and the sum (and the residual's own four) to bf16, each at most
+# 2^-8 relative, about 2^-9 r.m.s.; their sum over about ten roundings
+# stays under 2^-6, while a token sent to another slot or expert, or
+# dropped where it was kept, is off by the size of its expert output
+MOE_LAYER_TOL = 2.0 ** -6
 # the attention Function's bf16 gradients against autograd through the
 # plain fp32 version on the same operands: the backward computes in fp32
 # (recomputing O in fp32) and rounds each gradient to bf16 once, so each
@@ -2004,15 +2057,23 @@ def op_calls(name: str, call):
         setattr(ops, name, op)
 
 
-def flash_held_at_op(held: list, keep=None):
+def flash_held_at_op(held: list, keep=None, rows: int = None):
     """``op_calls`` for ``flash_attention`` that holds each bf16 call whose
     index in the block is in ``keep`` (every one if None) at the op,
     right after it (a decode step writes the cache in place): the
     kernel's output against the plain version's fp32 result on the same
-    operands, at the ops phase's bf16 contract.  Appends a record a call
-    held."""
+    operands, at the ops phase's bf16 contract.  With ``rows`` the plain
+    version runs ``rows`` of the BH problems at a time (they are
+    independent; its fp32 scores are (BH, Sq, Skv)).  Appends a record a
+    call held."""
     from repro_torch.backends import registry
     count = [0]
+
+    def plain32(op, q, k, v, kw):
+        step = rows or q.shape[0]
+        return torch.cat([op(q[i:i + step].float(), k[i:i + step].float(),
+                             v[i:i + step].float(), **kw)
+                          for i in range(0, q.shape[0], step)])
 
     def call(op, q, k, v, **kw):
         out = op(q, k, v, **kw)
@@ -2020,7 +2081,7 @@ def flash_held_at_op(held: list, keep=None):
         if out.dtype == torch.bfloat16 and (keep is None or i in keep):
             t0 = time.perf_counter()
             with registry.use_backend("torch"):
-                want32 = op(q.float(), k.float(), v.float(), **kw)
+                want32 = plain32(op, q, k, v, kw)
             g = out.float()
             slack = bf16_ulp(torch.maximum(g.abs(), want32.abs())) \
                 + FA_BF16_SLACK
@@ -4113,6 +4174,344 @@ def pod_phase(dev, card: str) -> dict:
             "wall_s": wall}
 
 
+# -- phase 15: the moe family at 128 experts -----------------------------------
+
+def moe_config(arch: str):
+    """``arch`` at every published width and all 128 experts, cut in depth
+    to ``MOE_LAYERS``, ``tp`` 1 (as ``hybrid_config`` cuts jamba)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(arch), n_layers=MOE_LAYERS, tp=1)
+
+
+def largest_draw_bytes(model) -> int:
+    """The fp32 bytes of ``init_model``'s largest single draw: a whole
+    parameter, or one expert's matrix of an expert tensor."""
+    from repro_torch.models.moe import MoE
+    most = 0
+    for mod in model.modules():
+        for name, t in mod.named_parameters(recurse=False):
+            per_expert = isinstance(mod, MoE) and name != "router"
+            most = max(most, 4 * (t[0].numel() if per_expert
+                                  else t.numel()))
+    return most
+
+
+@contextlib.contextmanager
+def moe_layer_kept(kept: dict):
+    """Inside the block the first ``apply_moe`` call keeps its module, its
+    input, its dense residual or shared expert, its routing (gate, idx)
+    and its output in ``kept``."""
+    from repro_torch.models import moe
+    apply, routing = moe.apply_moe, moe._routing
+
+    def route(p, xf, cfg):
+        out = routing(p, xf, cfg)
+        kept.update(gate=out[0], idx=out[1])
+        return out
+
+    def call(p, x, cfg, **kw):
+        if kept:
+            return apply(p, x, cfg, **kw)
+        moe._routing = route
+        try:
+            y, aux = apply(p, x, cfg, **kw)
+        finally:
+            moe._routing = routing
+        kept.update(p=p, x=x, y=y, mlps=[m for m in (
+            kw.get("mlp_res"), kw.get("mlp_shared")) if m is not None])
+        return y, aux
+    moe.apply_moe = call
+    try:
+        yield
+    finally:
+        moe.apply_moe = apply
+
+
+def moe_layer_plain(kept: dict, cfg) -> torch.Tensor:
+    """The kept MoE layer in fp32 on its routing, expert by expert: each
+    expert takes the first C of its assignments in slot-major order (every
+    token's first choice before any second), computes swiglu from fp32
+    copies of its weights and adds gate x output into its tokens' rows;
+    then the dense residual or shared expert in fp32.  (T, d) fp32."""
+    from torch.nn import functional as F
+    from repro_torch.models.moe import capacity
+    p, x = kept["p"], kept["x"]
+    xf = x.reshape(-1, x.shape[-1]).float()
+    T = xf.shape[0]
+    C = capacity(T, cfg)
+    e_flat = kept["idx"].T.reshape(-1)
+    g_flat = kept["gate"].T.reshape(-1).float()
+    tok = torch.arange(T, device=xf.device).repeat(cfg.top_k)
+    y = torch.zeros_like(xf)
+    for e in range(cfg.n_experts):
+        sel = (e_flat == e).nonzero()[:C, 0]
+        if sel.numel():
+            t = tok[sel]
+            h = xf[t] @ p.wi[e].float()
+            g = xf[t] @ p.wg[e].float()
+            out = (F.silu(g) * h) @ p.wo[e].float()
+            y.index_add_(0, t, out * g_flat[sel, None])
+    for mlp in kept["mlps"]:
+        h = xf @ mlp.wi.float()
+        h = (F.silu(xf @ mlp.wg.float()) * h if mlp.kind == "swiglu"
+             else F.gelu(h, approximate="tanh"))
+        y += h @ mlp.wo.float()
+    return y
+
+
+def moe_layer_against_plain(what: str, kept: dict, cfg) -> dict:
+    """Layer 0's served ``apply_moe`` output against ``moe_layer_plain``:
+    the largest relative Frobenius error of a token within
+    ``MOE_LAYER_TOL``."""
+    t0 = time.perf_counter()
+    want = moe_layer_plain(kept, cfg)
+    got = kept["y"].reshape(want.shape).float()
+    diff = torch.linalg.norm(got - want, dim=1)
+    per_token = diff / torch.linalg.norm(want, dim=1).clamp_min(1e-30)
+    worst = int(per_token.argmax())
+    rec = {"tokens": want.shape[0], "per_token_max": float(per_token.max()),
+           "per_token_mean": float(per_token.mean()),
+           "rel_frobenius": errors(got, want)[2], "worst_token": worst,
+           "hold_s": time.perf_counter() - t0}
+    log(f"{what}: layer 0's MoE output on the served prompt against a plain "
+        f"fp32 layer on the same routing ({rec['tokens']} tokens, each "
+        f"expert from fp32 copies of its weights): relative Frobenius a "
+        f"token max {rec['per_token_max']:.3e} (token {worst}), mean "
+        f"{rec['per_token_mean']:.3e}, whole {rec['rel_frobenius']:.3e}; "
+        f"bound {MOE_LAYER_TOL:.3e} a token (bf16 operands, fp32 "
+        f"accumulation) ({rec['hold_s']:.3f} s)")
+    check(rec["per_token_max"] <= MOE_LAYER_TOL,
+          f"{what}: layer 0's MoE off the plain fp32 layer beyond "
+          f"{MOE_LAYER_TOL:.3e} at token {worst}")
+    return rec
+
+
+def moe_op_profile(kept: dict, cfg) -> dict:
+    """Layer 0's ``apply_moe`` on the kept prefill input and on its last
+    position (a decode step's shape: one token a row, C = 1) under
+    torch.profiler with CPU and CUDA activities: each aten op's own device
+    time (router GEMM, topk, the one-hot and its cumsum in ``positions``,
+    the dispatch scatter and gather, the three ``bmm``, the combine, the
+    dense FFN beside the experts), the largest first."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import moe
+
+    def own_ms(e):
+        t = getattr(e, "self_device_time_total", None)
+        return (t if t is not None else e.self_cuda_time_total) / 1e3
+
+    out = {}
+    for shape, x in (("prefill", kept["x"]), ("decode", kept["x"][:, -1:])):
+        mlps = kept["mlps"]
+        kw = {"mlp_res": mlps[0]} if cfg.dense_residual else (
+            {"mlp_shared": mlps[0]} if cfg.shared_expert else {})
+        moe.apply_moe(kept["p"], x, cfg, **kw)  # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            moe.apply_moe(kept["p"], x, cfg, **kw)
+            torch.cuda.synchronize()
+        ops = sorted(((e.key, e.count, own_ms(e)) for e in prof.key_averages()
+                      if e.key.startswith("aten::") and own_ms(e) > 0),
+                     key=lambda r: -r[2])
+        out[shape] = {"tokens": x.shape[0] * x.shape[1],
+                      "device_ms": sum(r[2] for r in ops),
+                      "ops": [{"op": k, "calls": n, "ms": round(ms, 4)}
+                              for k, n, ms in ops[:14]]}
+    return out
+
+
+def moe_floors(cfg, model) -> dict:
+    """The least time of a served prefill (its operations at the bf16 peak)
+    and of a decode step (every weight it reads, once, at the memory
+    rate): the capacity-padded expert products, the dense FFN beside
+    them, the attention projections and causal scores; the decode reads
+    every parameter but the embedding table, of which it reads B rows."""
+    from repro_torch.models.moe import capacity
+    T = LM_BATCH * LM_PROMPT
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    hd, H, KV = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    experts = 3 * 2 * E * capacity(T, cfg) * d * f
+    dense = 3 * 2 * T * d * f if (cfg.dense_residual
+                                  or cfg.shared_expert) else 0
+    proj = 2 * T * d * (2 * H + 2 * KV) * hd
+    scores = 4 * LM_BATCH * H * hd * LM_PROMPT * (LM_PROMPT + 1) / 2
+    flops = cfg.n_layers * (experts + dense + proj + scores)
+    weights = sum(t.numel() * t.element_size() for t in model.parameters())
+    tok = model.embed.tok
+    read = weights - tok.numel() * tok.element_size()
+    return {"prefill_flop": flops,
+            "prefill_floor_ms": flops / PEAK_BF16 * 1e3,
+            "decode_bytes": read,
+            "decode_floor_ms": read / PEAK_BYTES * 1e3,
+            "expert_flop_a_layer": experts, "dense_flop_a_layer": dense,
+            "proj_flop_a_layer": proj, "score_flop_a_layer": scores}
+
+
+def moe_serve(arch: str, dev, bound16: list) -> dict:
+    """One moe model through ``serve.generate`` (2 ``flash_attention_mma``
+    a prefill, 2 ``flash_attention_splitkv`` a step), its drops, its
+    init's peak, then on the same weights: the served prefill's flash
+    calls held at the op and layer 0's MoE against a plain fp32 layer,
+    the logits of a short prompt and ``LM_FORCED`` steps against plain
+    attention, the MoE's ops profiled at both shapes, and a profiled
+    prefill and decode."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.moe import capacity
+
+    cfg = moe_config(arch)
+    what = f"moe {arch} ({MOE_LAYERS} layers)"
+    n_attn = cfg.layer_kinds().count("attn")
+    n_moe = cfg.ffn_kinds().count("moe")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    routes = []
+    reset_launch_counts()
+    with moe_routes(routes):
+        gen, line = serve.generate(cfg, batch=LM_BATCH,
+                                   prompt_len=LM_PROMPT, gen_len=LM_GEN,
+                                   seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{what} serve: {json.dumps(line)}; peak device memory "
+        f"{peak_gb:.2f} GB ({base / 1e9:.2f} GB held before it)")
+    served(what, gen, cfg, counts,
+           {"flash_attention_mma": n_attn,
+            "flash_attention_splitkv": n_attn * LM_GEN})
+    drops = {"prefill": dropped_share(routes, cfg, LM_BATCH * LM_PROMPT),
+             "decode": dropped_share(routes, cfg, LM_BATCH)}
+    check(drops["prefill"][1] == n_moe * LM_BATCH * LM_PROMPT * cfg.top_k
+          and drops["decode"][1] == n_moe * LM_GEN * LM_BATCH * cfg.top_k,
+          f"{what}: MoE routings "
+          f"{[(t, tuple(i.shape)) for t, i in routes][:3]} are not one a "
+          f"MoE layer a step")
+    del routes
+    log(f"{what} MoE dropped assignments: prefill {drops['prefill'][0]} of "
+        f"{drops['prefill'][1]} (capacity "
+        f"{capacity(LM_BATCH * LM_PROMPT, cfg)} an expert), decode "
+        f"{drops['decode'][0]} of {drops['decode'][1]} (capacity "
+        f"{capacity(LM_BATCH, cfg)} an expert)")
+
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = tfm.init_model(cfg, seed=SEED, device=dev)  # serve's weights
+    torch.cuda.synchronize()
+    init = {"s": time.perf_counter() - t0,
+            "peak_over_base": torch.cuda.max_memory_allocated() - base,
+            "param_bytes": sum(t.numel() * t.element_size()
+                               for t in model.parameters()),
+            "largest_draw_bytes": largest_draw_bytes(model)}
+    init["transient"] = init["peak_over_base"] - init["param_bytes"]
+    log(f"{what} init: {init['s']:.2f} s, parameters "
+        f"{init['param_bytes'] / 1e9:.2f} GB, peak less the parameters "
+        f"{init['transient'] / 1e9:.3f} GB against the largest single draw "
+        f"{init['largest_draw_bytes'] / 1e9:.3f} GB (fp32) + 0.5 GiB")
+    check(init["transient"] <= init["largest_draw_bytes"] + MOE_INIT_SLACK,
+          f"{what}: the init's peak exceeds the parameters by "
+          f"{init['transient'] / 1e9:.3f} GB")
+
+    tokens = torch.as_tensor(lm_prompt(cfg), dtype=torch.int64, device=dev)
+    flash, kept = [], {}
+    reset_launch_counts()
+    with flash_held_at_op(flash, rows=MOE_HOLD_ROWS), moe_layer_kept(kept):
+        logits, state = tfm.prefill(model, {"tokens": tokens}, cfg,
+                                    cache_len=LM_PROMPT + LM_GEN)
+    torch.cuda.synchronize()
+    moved = {k: n for k, n in launch_counts().items() if n}
+    check(moved == {"flash_attention_mma": n_attn},
+          f"{what} prefill launched {moved}")
+    check(np.array_equal(logits.argmax(-1).cpu().numpy(), gen[:, 0]),
+          f"{what}: the prefill does not give the served first token")
+    over = [h for h in flash if h["over"]]
+    log(f"{what}: the served prefill's bf16 flash held at the op in "
+        f"{len(flash)} calls (q {flash[0]['q']} kv {flash[0]['kv']}, the "
+        f"plain fp32 version {MOE_HOLD_ROWS} problems at a time), "
+        f"max_abs_err {max(h['max_abs_err'] for h in flash):.3e} (the "
+        f"holds {sum(h['hold_s'] for h in flash):.3f} s)")
+    check(len(flash) == n_attn and not over,
+          f"{what}: flash off the plain version beyond one bf16 ulp + "
+          f"{FA_BF16_SLACK:g} at the op: {over[:2]}")
+    del state, logits
+    layer = moe_layer_against_plain(what, kept, cfg)
+    ops = moe_op_profile(kept, cfg)
+    del kept
+    for shape, rec in ops.items():
+        log(f"{what} MoE layer 0 at {shape} ({rec['tokens']} tokens): "
+            f"{rec['device_ms']:.3f} ms on the device, by op "
+            f"{json.dumps(rec['ops'])}")
+
+    short = {"tokens": tokens[:, :MOE_SHORT_PROMPT]}
+    got, ref, state = lm_against_plain(model, cfg, dev, short,
+                                       gen[:, :LM_FORCED].T,
+                                       MOE_SHORT_PROMPT + LM_FORCED)
+    del state
+    err16 = [errors(g, r)[2] for g, r in zip(got, ref)]
+    log(f"{what}: logits rel-Frobenius on a {MOE_SHORT_PROMPT}-token prompt "
+        f"(prefill, then {LM_FORCED} teacher-forced steps), bf16 kernels "
+        f"vs plain attention {json.dumps([float(f'{e:.3e}') for e in err16])}"
+        f", phase 8's bound "
+        f"{json.dumps([float(f'{b:.3e}') for b in bound16])}")
+    check(all(e <= b for e, b in zip(err16, bound16)),
+          f"{what}: the kernels move the logits beyond phase 8's bf16 bound")
+    del got, ref
+
+    prof = model_profile(model, cfg, dev, {"tokens": tokens},
+                         LM_PROMPT + LM_GEN)
+    floors = moe_floors(cfg, model)
+    del model
+    torch.cuda.empty_cache()
+    # the prefill expands the 8 KV heads to the query heads; a decode
+    # step folds each KV head's query heads over its own keys
+    bh, d = LM_BATCH * cfg.n_heads, cfg.head_dim
+    prof["mma_bound"] = attention_bound(bh, LM_PROMPT, LM_PROMPT, d, True)
+    prof["splitkv_bound"] = attention_bound(
+        LM_BATCH * cfg.n_kv_heads, cfg.group_size,
+        LM_PROMPT + (LM_PROFILE_STEPS + 1) / 2, d, False)
+    log_profile(what, prof)
+    check(prof["finite"] and np.array_equal(prof["first_tokens"], gen[:, 0]),
+          f"{what}: the profiled prefill does not give the served first "
+          "token")
+    log(f"{what} floors: prefill {floors['prefill_flop']:.4g} FLOP, "
+        f"{floors['prefill_floor_ms']:.2f} ms at the bf16 peak (measured "
+        f"{1e3 * line['prefill_s']:.1f} ms); decode reads "
+        f"{floors['decode_bytes'] / 1e9:.2f} GB a step, "
+        f"{floors['decode_floor_ms']:.2f} ms at {PEAK_BYTES / 1e12:.2f} "
+        f"TB/s (measured {1e3 * line['decode_per_token_s']:.2f} ms a token, "
+        f"{prof['decode_step_device_ms']:.2f} on the device)")
+    return {"serve": line, "launches": counts, "peak_gb": peak_gb,
+            "drops": drops, "init": init, "flash_held": len(flash),
+            "layer": layer, "ops": ops, "bf16_err": err16, "profile": prof,
+            "floors": floors}
+
+
+def moe_phase(dev, lm: dict) -> dict:
+    """Phase 15: arctic-480b and llama4-maverick-400b-a17b at full width
+    with all 128 experts, cut in depth, through the port's serving path
+    (the module docstring's item 15); ``lm`` is phase 8's result (its
+    bf16 logits bound)."""
+    t_phase = time.perf_counter()
+    log(f"moe: {MOE_LAYERS} layers of each model (every width as published, "
+        f"all 128 experts a layer): one arctic-480b layer holds 26.8 GB of "
+        f"experts and one llama4 layer 32.2 GB in bf16, so the whole models "
+        f"(35 and 48 layers) do not fit one card")
+    runs = {arch: moe_serve(arch, dev, lm["bf16_bound"])
+            for arch in MOE_ARCHS}
+    wall = time.perf_counter() - t_phase
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in runs[MOE_ARCHS[0]]["launches"]}
+    log(f"moe: launches {json.dumps({k: n for k, n in launches.items() if n})}"
+        f"; phase {wall:.1f} s")
+    return {"runs": runs, "launches": launches, "wall_s": wall}
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-worker":
         return mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
@@ -4191,6 +4590,7 @@ def main() -> int:
     mesh = mesh_phase(main_run, serve)
     mesh_lm = mesh_lm_phase(trained, lm, families, dev)
     pod = pod_phase(dev, card)
+    moe = moe_phase(dev, lm)
     prof = lm["profile"]
     rows["flash_attention_mma"].update(
         lm_device_ms=prof["mma_device_ms"], lm_bound_ms=prof["mma_bound"][0],
@@ -4214,6 +4614,14 @@ def main() -> int:
         vlm_device_ms=vl["splitkv_device_ms"],
         vlm_bound_ms=vl["splitkv_bound"][0],
         vlm_decode_busy_share=vl["decode_busy_share"])
+    for arch, run in moe["runs"].items():
+        mp = run["profile"]
+        rows["flash_attention_mma"][f"moe_{arch}"] = {
+            "device_ms": mp["mma_device_ms"], "bound_ms": mp["mma_bound"][0]}
+        rows["flash_attention_splitkv"][f"moe_{arch}"] = {
+            "device_ms": mp["splitkv_device_ms"],
+            "bound_ms": mp["splitkv_bound"][0],
+            "decode_busy_share": mp["decode_busy_share"]}
     tp = trained["profile"]
     rows["flash_attention_mma"].update(
         train_device_ms=tp["forward"]["mma_device_ms"],
@@ -4258,6 +4666,7 @@ def main() -> int:
         row["launches_mesh"] = mesh["launches"][k.name]
         row["launches_mesh_lm"] = mesh_lm["launches"][k.name]
         row["launches_pod"] = pod["launches"][k.name]
+        row["launches_moe"] = moe["launches"][k.name]
         record.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))

@@ -144,12 +144,12 @@ class Attention(nn.Module):
                 "bq": (h, None), "bk": (None, None), "bv": (None, None)}
 
     def reset_parameters(self, gen: Optional[torch.Generator]) -> None:
-        cfg, dev = self.cfg, self.wq.device
+        cfg = self.cfg
         sq = 1.0 / math.sqrt(cfg.d_model)
         for w, scale in ((self.wq, sq), (self.wk, sq), (self.wv, sq),
                          (self.wo, 1.0 / math.sqrt(cfg.padded_heads
                                                    * cfg.head_dim))):
-            w.copy_(_normal(gen, w.shape, w.dtype, scale, dev))
+            _normal(gen, w, scale)
         # zero the padded head slice (exactness: their output is masked)
         self.wq[:, cfg.n_heads:, :] = 0
         if cfg.qkv_bias:

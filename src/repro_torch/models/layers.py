@@ -42,12 +42,15 @@ from .config import ModelConfig
 NEG_INF = -1e30  # the reference's mask value (scores and padded vocab)
 
 
-def _normal(gen: Optional[torch.Generator], shape, dtype, scale: float,
-            device) -> torch.Tensor:
-    """``scale`` x a standard normal draw in fp32, cast to ``dtype`` (the
-    reference's ``_normal``)."""
-    x = torch.randn(shape, generator=gen, dtype=torch.float32, device=device)
-    return (scale * x).to(dtype)
+def _normal(gen: Optional[torch.Generator], w: torch.Tensor,
+            scale: float) -> None:
+    """Fill ``w`` in place with ``scale`` x a standard normal draw in fp32,
+    cast to ``w``'s dtype (the reference's ``_normal``).  The draw is the
+    one transient: scaled in place and copied into ``w``, which casts it,
+    so its values are those of ``(scale * x).to(dtype)``."""
+    x = torch.randn(w.shape, generator=gen, dtype=torch.float32,
+                    device=w.device)
+    w.copy_(x.mul_(scale))
 
 
 def _param(t: torch.Tensor) -> nn.Parameter:
@@ -140,15 +143,11 @@ class MLP(nn.Module):
     def reset_parameters(self, gen: Optional[torch.Generator]) -> None:
         d_model, d_ff = self.wi.shape
         scale_in = 1.0 / math.sqrt(d_model)
-        dev = self.wi.device
         # the reference's key order: wi, wg, wo
-        self.wi.copy_(_normal(gen, self.wi.shape, self.wi.dtype, scale_in,
-                              dev))
+        _normal(gen, self.wi, scale_in)
         if self.kind == "swiglu":
-            self.wg.copy_(_normal(gen, self.wg.shape, self.wg.dtype,
-                                  scale_in, dev))
-        self.wo.copy_(_normal(gen, self.wo.shape, self.wo.dtype,
-                              1.0 / math.sqrt(d_ff), dev))
+            _normal(gen, self.wg, scale_in)
+        _normal(gen, self.wo, 1.0 / math.sqrt(d_ff))
 
     def roles(self) -> dict:
         return {"wi": ("fsdp", "tp"), "wg": ("fsdp", "tp"),
@@ -193,15 +192,12 @@ class Embedding(nn.Module):
                                           device=device))
 
     def reset_parameters(self, gen: Optional[torch.Generator]) -> None:
-        cfg, dev = self.cfg, self.tok.device
-        self.tok.copy_(_normal(gen, self.tok.shape, self.tok.dtype, 0.02,
-                               dev))
+        cfg = self.cfg
+        _normal(gen, self.tok, 0.02)
         if not cfg.tie_embeddings:
-            self.head.copy_(_normal(gen, self.head.shape, self.head.dtype,
-                                    1.0 / math.sqrt(cfg.d_model), dev))
+            _normal(gen, self.head, 1.0 / math.sqrt(cfg.d_model))
         if cfg.pos_embed == "learned":
-            self.pos.copy_(_normal(gen, self.pos.shape, self.pos.dtype, 0.02,
-                                   dev))
+            _normal(gen, self.pos, 0.02)
 
     def roles(self) -> dict:
         return {"tok": ("vocab", "fsdp"), "head": ("fsdp", "vocab"),

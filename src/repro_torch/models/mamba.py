@@ -109,8 +109,7 @@ class Mamba(nn.Module):
         dev = self.in_proj.device
         for w in (self.in_proj, self.conv_w, self.x_proj, self.dt_w,
                   self.out_proj):
-            w.copy_(_normal(gen, w.shape, w.dtype,
-                            1.0 / math.sqrt(w.shape[0]), dev))
+            _normal(gen, w, 1.0 / math.sqrt(w.shape[0]))
         self.conv_b.zero_()
         self.dt_b.copy_(torch.log(torch.expm1(torch.full_like(self.dt_b,
                                                           0.01))))

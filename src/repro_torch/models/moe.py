@@ -61,13 +61,15 @@ class MoE(nn.Module):
 
     def reset_parameters(self, gen: Optional[torch.Generator]) -> None:
         """The reference's ``init_moe``: normal, scaled by 1/sqrt(d) (the
-        router, ``wi``, ``wg``) and 1/sqrt(f) (``wo``)."""
+        router, ``wi``, ``wg``) and 1/sqrt(f) (``wo``).  Each expert
+        tensor is drawn one expert's matrix at a time, in expert order, so
+        that a draw's fp32 transient is one (d, f) matrix, never the whole
+        (E, d, f) tensor."""
         d, f = self.wi.shape[1:]
-        dev = self.wi.device
-        for w, scale in ((self.router, d), (self.wi, d), (self.wg, d),
-                         (self.wo, f)):
-            w.copy_(_normal(gen, w.shape, w.dtype, 1.0 / math.sqrt(scale),
-                            dev))
+        _normal(gen, self.router, 1.0 / math.sqrt(d))
+        for w, scale in ((self.wi, d), (self.wg, d), (self.wo, f)):
+            for e in range(w.shape[0]):
+                _normal(gen, w[e], 1.0 / math.sqrt(scale))
 
 
 def capacity(tokens: int, cfg: ModelConfig) -> int:

@@ -1,6 +1,7 @@
 """The port's Mixture-of-Experts layer (``repro_torch.models.moe``)
 against the reference's single-shard path (``repro.models.moe``) on the
-CPU, at reduced widths (d 64, d_ff 128, 4 experts, fp32).
+CPU, at reduced widths (d 64, d_ff 128, 4 experts, fp32), the layer and
+its drops also at arctic's and llama4's published 128 experts.
 
 The reference's ``init_moe`` (and ``init_mlp`` for arctic's dense
 residual and llama4's shared expert) values are carried into the port's
@@ -114,26 +115,39 @@ def test_positions_are_slot_major_running_counts():
 
 # -- the layer -----------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "arctic-480b",
-                                  "llama4-maverick-400b-a17b"],
-                         ids=["top2", "top2_dense_residual",
-                              "top1_shared_expert"])
-def test_apply_moe_equals_reference(arch):
+# the published expert count: arctic's and llama4's 128 (the reduced
+# configs keep 4) at the reduced widths
+PUBLISHED = {"n_experts": 128}
+
+
+@pytest.mark.parametrize("arch,over", [
+    ("jamba-v0.1-52b", {}), ("arctic-480b", {}),
+    ("llama4-maverick-400b-a17b", {}), ("arctic-480b", PUBLISHED),
+    ("llama4-maverick-400b-a17b", PUBLISHED)],
+    ids=["top2", "top2_dense_residual", "top1_shared_expert",
+         "top2_dense_residual_128", "top1_shared_expert_128"])
+def test_apply_moe_equals_reference(arch, over):
     x = _x((2, 16, 64))
-    (y, aux), (ty, taux), (tcfg, moe) = _apply_both(arch, x)
+    (y, aux), (ty, taux), (tcfg, moe) = _apply_both(arch, x, **over)
+    assert tcfg.n_experts == over.get("n_experts", 4)
     assert ty.shape == x.shape and ty.dtype == torch.float32
     assert rel_frobenius(ty.numpy(), y) <= TOL
     assert abs(taux - aux) <= TOL * abs(aux)
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "arctic-480b",
-                                  "llama4-maverick-400b-a17b"])
-def test_low_capacity_drops_the_same_tokens(arch):
+@pytest.mark.parametrize("arch,over", [
+    ("jamba-v0.1-52b", {}), ("arctic-480b", {}),
+    ("llama4-maverick-400b-a17b", {}), ("arctic-480b", PUBLISHED),
+    ("llama4-maverick-400b-a17b", PUBLISHED)],
+    ids=["jamba-v0.1-52b", "arctic-480b", "llama4-maverick-400b-a17b",
+         "arctic-480b-128", "llama4-maverick-400b-a17b-128"])
+def test_low_capacity_drops_the_same_tokens(arch, over):
     """capacity_factor 0.25: most assignments are dropped; the outputs
     equal the reference's, so the same tokens are kept."""
     x = _x((2, 16, 64), seed=2)
     (y, aux), (ty, taux), (tcfg, moe) = _apply_both(arch, x,
-                                                    capacity_factor=0.25)
+                                                    capacity_factor=0.25,
+                                                    **over)
     assert rel_frobenius(ty.numpy(), y) <= TOL
     xf = torch.from_numpy(x.reshape(32, 64))
     _, idx, _ = tmoe._routing(moe, xf, tcfg)

@@ -8,12 +8,15 @@ reference's ``tfm.prefill`` and ``tfm.decode_step`` on the same weights
 prompt (``np.random.default_rng(seed)`` in both): the logits agree to
 fp32 rounding (``tests/test_torch_lm.py``), far below the gaps between
 the top two logits of these runs, so the argmax is the same token.
+The moe family is also served at its published 128 experts, its logits
+and drops held to the reference's step by step.
 """
 import contextlib
 import inspect
 import io
 import json
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,14 +24,17 @@ import torch
 
 from repro import configs as jconfigs
 from repro.launch import serve as jserve
+from repro.models import moe as jmoe
 from repro.models import transformer as jtfm
 from repro.parallel.sharding import REPLICATED
 from repro_torch import configs as tconfigs
 from repro_torch.launch import serve
+from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttfm
 
-from _torch_parity import lm_params_to_reference
+from _torch_parity import lm_params_to_reference, rel_frobenius
 
+TOL = 1e-5
 KEYS = ("arch", "prefill_s", "decode_per_token_s", "decode_tokens_per_s",
         "generated_shape", "sample_tokens")
 
@@ -95,6 +101,78 @@ def test_greedy_tokens_equal_the_reference_loop(arch):
     assert line["prefill_s"] > 0 and line["decode_tokens_per_s"] > 0
     want = _reference_greedy(arch, batch, prompt, gen_len, seed)
     np.testing.assert_array_equal(gen, want)
+
+
+def _routed(monkeypatch, module, record):
+    """Every ``module._routing`` call records (tokens, idx) through
+    ``record``; the reference's idx comes back through a debug callback
+    (its layers run under ``lax.scan``)."""
+    routing = module._routing
+
+    def call(p, xf, cfg):
+        out = routing(p, xf, cfg)
+        record(xf.shape[0], out[1])
+        return out
+    monkeypatch.setattr(module, "_routing", call)
+
+
+def _drops(routes, cfg) -> list:
+    """(tokens, dropped assignments) a routing: an assignment past its
+    expert's capacity is dropped (the reference's rule)."""
+    out = []
+    for t, idx in routes:
+        idx = torch.tensor(np.asarray(idx), dtype=torch.int64)
+        pos = tmoe.positions(idx.T.reshape(-1), cfg.n_experts)
+        out.append((t, int((pos >= tmoe.capacity(t, cfg)).sum())))
+    return out
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "llama4-maverick-400b-a17b"])
+def test_served_at_128_experts_equals_the_reference(arch, monkeypatch):
+    """The published 128 experts at the reduced widths, batch 4: a
+    16-token prefill (C = 2 slots an expert for arctic's top 2 of 64
+    tokens, 1 for llama4's top 1), then decode steps of 4 tokens (C = 1,
+    where capacity binds), the port's greedy tokens fed to both packages.
+    Each step's logits within ``TOL`` = 1e-5 relative Frobenius of the
+    reference's (fp32: the two sum the matmuls in other orders, about
+    1e-7), and every routing drops as many assignments in both."""
+    batch, prompt, steps, seed = 4, 16, 8, 3
+    over = {"n_experts": 128}
+    cfg = jconfigs.reduced_config(arch, **over)
+    tcfg = tconfigs.reduced_config(arch, **over)
+    model = ttfm.init_model(tcfg, seed=seed, device="cpu")
+    params = lm_params_to_reference(model, cfg)
+    tokens = np.random.default_rng(seed).integers(0, cfg.vocab_size,
+                                                  (batch, prompt))
+    routes, jroutes = [], []
+    _routed(monkeypatch, tmoe, lambda t, idx: routes.append((t, idx)))
+    _routed(monkeypatch, jmoe, lambda t, idx: jax.debug.callback(
+        lambda i: jroutes.append((t, np.asarray(i))), idx, ordered=True))
+    cache_len = prompt + steps
+    logits, state = ttfm.prefill(model, {"tokens": torch.as_tensor(tokens)},
+                                 tcfg, cache_len=cache_len)
+    jlogits, jstate = jtfm.prefill(
+        params, {"tokens": jnp.asarray(tokens, jnp.int32)}, cfg, REPLICATED,
+        cache_len=cache_len)
+    v = cfg.vocab_size
+    errs = [rel_frobenius(logits[:, :v].numpy(), np.asarray(jlogits)[:, :v])]
+    for _ in range(steps):
+        tok = logits.argmax(-1)
+        logits, state = ttfm.decode_step(model, state, tok, tcfg)
+        jlogits, jstate = jtfm.decode_step(
+            params, jstate, jnp.asarray(tok.numpy(), jnp.int32), cfg,
+            REPLICATED)
+        errs.append(rel_frobenius(logits[:, :v].numpy(),
+                                  np.asarray(jlogits)[:, :v]))
+    jax.effects_barrier()
+    assert max(errs) <= TOL, errs
+    n_moe = tcfg.ffn_kinds().count("moe")
+    assert len(routes) == len(jroutes) == n_moe * (1 + steps)
+    drops, jdrops = _drops(routes, tcfg), _drops(jroutes, tcfg)
+    assert drops == jdrops
+    assert tmoe.capacity(batch, tcfg) == 1
+    assert sum(n for t, n in drops if t == batch) > 0, \
+        "no assignment dropped in decode: C = 1 never bound"
 
 
 def test_temperature_sampling_is_seeded():
