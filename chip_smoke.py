@@ -259,6 +259,33 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    logits within phase 8's bf16 bound), layer 0's MoE ops profiled at
    both shapes, and one prefill and 8 decode steps profiled beside the
    prefill's FLOP floor and the decode's weight-read floor.
+16. train families: the ssm, hybrid, encdec and vlm families trained one
+   after the other (each freed before the next), every width as
+   published, bf16, remat, phase 11's schedule (8 steps, lr 3e-3, the
+   seed, fp32 moments; llava at LLaVA-1.5's fine-tuning lr 2e-5, at
+   which its loss falls) through the trainer's own loop (``launch.train.
+   run`` of the cut config on the CLI's flags; whisper through
+   ``train.main``): falcon-mamba-7b cut to 4 of 64 layers and jamba's
+   2-layer stand-in (Mamba + MLP, then GQA attention + the 16-expert
+   top-2 MoE) at B 4 x 4096, whisper-small whole at B 32 x 448 on zero
+   frames, llava-next-34b cut to 4 of 60 layers at B 8 x 1024 after 576
+   zero patches: every loss finite and the last below the first, exactly
+   one ``flash_attention_mma`` a flash call and one ``mamba_scan`` a
+   Mamba layer a step, forward and recompute (8 scans; 2 and 2; 72
+   flash; 8 flash), and nothing else; no registry op resolved to its
+   plain version in the run; step time, tokens/s, model FLOP/s over the
+   bf16 peak and peak memory printed; then, outside the timed run, one
+   step of the same seeded model with every flash call held at the op
+   (one bf16 ulp + 2e-5 of the plain fp32 result, 32 problems at a time)
+   and every scan call (falcon-mamba: layers 0 and 3) at rtol = atol =
+   1e-4, the MoE's dropped share printed; the step profiled (forward,
+   backward and optimizer device time and busy share, the two torch
+   backward passes' share of the step); the attention ``Function``'s
+   gradients at whisper's encoder layer 0 (non-causal square), its
+   decoder layer 0's cross attention (Sq != Skv) and llava's GQA layer 0
+   against autograd through plain attention (one bf16 ulp + 2e-5 x max
+   |want|), each call's forward kernel and torch backward timed beside
+   their bounds.
 
 Each path is checked against the kernels it runs: phase 3 against the
 three PCA/SVD kernels, phases 4, 6, 7 and 12 against those and the
@@ -269,14 +296,16 @@ and the two flash kernels of bf16 serving, phase 11 against the bf16
 prefill kernel and, with compression, the Gram and shared-memory sweep,
 phase 13 against those, the split-KV kernel and the scan, phase 14
 against the bf16 prefill kernel, the Gram and the shared-memory sweep,
-phase 15 against the two flash kernels of bf16 serving.
+phase 15 against the two flash kernels of bf16 serving, phase 16
+against the bf16 prefill kernel and the scan.
 The last three lines are the kernels' JSON record (each kernel's
 launches from the phase that drives it, ``launches_serve`` from phase 6,
 ``launches_control`` from phase 7, ``launches_lm`` from the serve runs
 and consumers of phases 8 to 10, ``launches_train`` from phase 11's
 trainer runs, ``launches_mesh`` from phase 12, ``launches_mesh_lm``
-from phase 13, ``launches_pod`` from phase 14 and ``launches_moe`` from
-phase 15's serve runs), the card's name and
+from phase 13, ``launches_pod`` from phase 14, ``launches_moe`` from
+phase 15's serve runs and ``launches_train_families`` from phase 16's
+trainer runs), the card's name and
 power limit, and ``{"ok": true,
 "device": {...}}``.
 Without a CUDA device the script exits with code 2 and prints no result.
@@ -284,6 +313,7 @@ Without a CUDA device the script exits with code 2 and prints no result.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import pathlib
@@ -514,6 +544,48 @@ MOE_INIT_SLACK = 0.5 * 2 ** 30
 # stays under 2^-6, while a token sent to another slot or expert, or
 # dropped where it was kept, is off by the size of its expert output
 MOE_LAYER_TOL = 2.0 ** -6
+# phase 16: training the ssm, hybrid, encdec and vlm families, one model
+# after the other (each freed before the next), every width as published,
+# bf16, remat on as the configs set it, phase 11's schedule (TRAIN_STEPS
+# steps at TRAIN_LR, the seed, fp32 moments) through the trainer's loop
+# (train.run for a cut config, train.main for whisper):
+# - ssm: falcon-mamba-7b (d 4096, d_inner 8192, N 16, d_conv 4, vocab
+#   65024) cut to 4 of its 64 layers (0.95e9 parameters), B 4 x 4096: the
+#   cut is time, the torch scan backward (kernels/grad.py) loops over every
+#   time step, about 0.4-1.8 s a layer a step at this shape;
+# - hybrid: jamba-v0.1-52b as the reference's own 2-layer stand-in
+#   (n_layers 2, attn_every 2, moe_every 2: Mamba + MLP of d_ff 14336, then
+#   GQA attention of 32 over 8 heads of 128 + the MoE of all 16 experts,
+#   top-2; 3.68e9 parameters, about 44 GB with bf16 gradients and fp32
+#   moments), B 4 x 4096: the period's 8 layers (12.8e9) do not fit one
+#   card with gradients and moments, and the config asks n_layers to be a
+#   multiple of attn_every;
+# - encdec: whisper-small whole (0.28e9) through train.main, B 32 x 448
+#   (Whisper's decoder context, n_text_ctx 448), zero frames as the
+#   trainers feed;
+# - vlm: llava-next-34b (d 7168, 56 over 8 heads, d_ff 20480, vocab 64000)
+#   cut to 4 of its 60 layers (3.15e9, about 38 GB with gradients and
+#   moments; phase 10 serves 40), B 8 x 1024 tokens after 576 zero patches,
+#   at LLaVA-1.5's fine-tuning lr (arXiv:2310.03744), FAMILY_LR: from this
+#   seed at phase 11's 3e-3 the loss rose to 30 after two steps and ended
+#   above the first at 8, 12 and 16 steps, as it did at 8.6e-4, 5e-4, 3e-4
+#   and 1e-4 over 8 steps (NVIDIA H100 80GB HBM3, 700 W); at 3e-5 it fell.
+# Each: (arch, the depth cut or None for the whole model, batch, seq_len)
+FAMILY_RUNS = {
+    "ssm": ("falcon-mamba-7b", {"n_layers": 4}, 4, 4096),
+    "hybrid": ("jamba-v0.1-52b", {"n_layers": 2, "attn_every": 2,
+                                  "moe_every": 2}, 4, 4096),
+    "encdec": ("whisper-small", None, 32, 448),
+    "vlm": ("llava-next-34b", {"n_layers": 4}, 8, 1024),
+}
+FAMILY_LR = {"vlm": 2e-5}
+# falcon-mamba's layers whose scan calls (forward and remat's recompute)
+# the held step holds at the op (a plain scan at 4 x 4096 x 8192 is a loop
+# of 4096 steps); every scan and flash call of the other runs is held
+FAMILY_SSM_HELD_LAYERS = (0, 3)
+# the held step's plain fp32 attention, this many BH problems at a time
+# (jamba's 128 x 4096 x 4096 fp32 scores are 8.6 GB beside its 44 GB)
+FAMILY_HOLD_ROWS = 32
 # the attention Function's bf16 gradients against autograd through the
 # plain fp32 version on the same operands: the backward computes in fp32
 # (recomputing O in fp32) and rounds each gradient to bf16 once, so each
@@ -2469,16 +2541,19 @@ def hold_scan(op, i: int, args, kw, out) -> dict:
     backend: y and the final state against the plain version's on the
     same operands at rtol = atol = 1e-4.  Returns its record (``over``:
     the values beyond)."""
-    y, state = out
     t0 = time.perf_counter()
-    want_y, want_state = op(*args, **dict(kw, backend="torch"))
-    want_y = want_y.float()
-    over = sum(int(((g.float() - w).abs() > SCAN_ATOL + SCAN_RTOL * w.abs())
-                   .sum()) for g, w in ((y, want_y), (state, want_state)))
-    return {"call": i, "u": list(args[0].shape), "over": over,
-            "y_max_abs_err": float((y.float() - want_y).abs().max()),
-            "state_max_abs_err": float((state - want_state).abs().max()),
-            "hold_s": time.perf_counter() - t0}
+    with torch.no_grad():  # a training step's operands carry gradients
+        args = [a.detach() if torch.is_tensor(a) else a for a in args]
+        y, state = (t.detach() for t in out)
+        want_y, want_state = op(*args, **dict(kw, backend="torch"))
+        want_y = want_y.float()
+        over = sum(int(((g.float() - w).abs()
+                        > SCAN_ATOL + SCAN_RTOL * w.abs()).sum())
+                   for g, w in ((y, want_y), (state, want_state)))
+        rec = {"call": i, "u": list(args[0].shape), "over": over,
+               "y_max_abs_err": float((y.float() - want_y).abs().max()),
+               "state_max_abs_err": float((state - want_state).abs().max())}
+    return {**rec, "hold_s": time.perf_counter() - t0}
 
 
 @contextlib.contextmanager
@@ -2991,23 +3066,31 @@ def step_times(times: list):
         train.Watchdog = base
 
 
-def run_train(what: str, argv: list, dev) -> dict:
-    """``train.main(argv)`` on the card: its losses (each finite), JSON
-    line, launches, step times and peak memory."""
+def run_train(what: str, argv: list, dev, cfg=None) -> dict:
+    """``train.main(argv)`` on the card or, given ``cfg``, the trainer's
+    loop for that config on argv's flags (``train.run(cfg,
+    train.parse_args(argv))``): its losses (each finite), JSON line,
+    launches, step times, peak memory and the calls of each registry op
+    that resolved to its plain version (``plain``)."""
     import io
+    from repro_torch.backends import registry
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import train
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
+    registry.reset_resolution_counts()
     times, out = [], io.StringIO()
     t0 = time.perf_counter()
     with step_times(times), contextlib.redirect_stdout(out):
-        losses = train.main(argv, device=dev)
+        losses = (train.main(argv, device=dev) if cfg is None else
+                  train.run(cfg, train.parse_args(argv), device=dev))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launch_counts()
+    plain = {op: n for (op, backend), n in
+             registry.resolution_counts().items() if backend == "torch" and n}
     lines = out.getvalue().strip().splitlines()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"train {what}: {len(losses)} steps in {wall:.1f} s; losses "
@@ -3017,7 +3100,8 @@ def run_train(what: str, argv: list, dev) -> dict:
     check(all(np.isfinite(losses)), f"train {what}: a loss is not finite")
     line = json.loads(lines[-1]) if lines[-1].startswith("{") else None
     return {"losses": losses, "line": line, "launches": counts,
-            "times": times, "peak_gb": peak_gb, "wall_s": wall}
+            "times": times, "peak_gb": peak_gb, "wall_s": wall,
+            "plain": plain}
 
 
 def launched(what: str, counts: dict, want: dict) -> None:
@@ -3027,11 +3111,12 @@ def launched(what: str, counts: dict, want: dict) -> None:
 
 
 @contextlib.contextmanager
-def train_flash_held(held: list, kept: dict, keep):
+def train_flash_held(held: list, kept: dict, keep, rows: int = None):
     """``op_calls`` for ``flash_attention`` in a training step: every call
     held at the op right after it (the kernel's bf16 output against the
     plain version's fp32 result on the same operands, at the ops phase's
-    contract), and the operands of the calls in ``keep`` kept."""
+    contract; with ``rows``, ``rows`` of the BH problems at a time), and
+    the operands of the calls in ``keep`` kept."""
     from repro_torch.backends import registry
     count = [0]
 
@@ -3039,12 +3124,15 @@ def train_flash_held(held: list, kept: dict, keep):
         out = op(q, k, v, **kw)
         i, count[0] = count[0], count[0] + 1
         ops_in = [t.detach() for t in (q, k, v)]
+        step = rows or q.shape[0]
         with torch.no_grad(), registry.use_backend("torch"):
-            want32 = op(*(t.float() for t in ops_in), **kw)
+            want32 = torch.cat([op(*(t[j:j + step].float() for t in ops_in),
+                                   **kw) for j in range(0, q.shape[0], step)])
         g = out.detach().float()
         slack = bf16_ulp(torch.maximum(g.abs(), want32.abs())) \
             + FA_BF16_SLACK
-        held.append({"call": i, "q": list(q.shape),
+        held.append({"call": i, "q": list(q.shape), "kv": list(k.shape),
+                     "causal": kw.get("causal", True),
                      "over": int(((g - want32).abs() > slack).sum()),
                      "max_abs_err": float((g - want32).abs().max())})
         if i in keep:
@@ -3105,15 +3193,64 @@ def attention_grads_held(kept: dict, dev) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def backward_passes_timed(times: dict):
+    """Inside the block each call of ``kernels.grad``'s two backward
+    passes (``attention_backward``, ``scan_backward``) adds its time in
+    ms to ``times[name]`` when the block ends: CUDA events around it on
+    the stream it runs on (the host clock on the CPU)."""
+    from repro_torch.kernels import grad as kgrad
+    names = ("attention_backward", "scan_backward")
+    saved = {name: getattr(kgrad, name) for name in names}
+    marks = []
+
+    def timed(name, fn):
+        def call(*args, **kw):
+            if args[0].is_cuda:
+                start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(2))
+                start.record()
+                out = fn(*args, **kw)
+                end.record()
+            else:
+                start = time.perf_counter()
+                out = fn(*args, **kw)
+                end = time.perf_counter()
+            marks.append((name, start, end))
+            return out
+        return call
+
+    for name in names:
+        setattr(kgrad, name, timed(name, saved[name]))
+    try:
+        yield
+    finally:
+        for name in names:
+            setattr(kgrad, name, saved[name])
+    torch.cuda.synchronize()
+    for name, start, end in marks:
+        ms = (start.elapsed_time(end) if isinstance(start, torch.cuda.Event)
+              else 1e3 * (end - start))
+        times.setdefault(name, []).append(ms)
+
+
 def step_profile(model, cfg, state, opt_cfg, batch) -> dict:
     """One training step's forward, backward and optimizer update, each
-    under torch.profiler apart: device time, wall, the flash kernel's
-    device time a call in the forward and in the backward's recompute."""
+    under torch.profiler apart: device time, wall, the flash and scan
+    kernels' device time a call (in the backward: remat's recompute), and
+    in the backward each call's time of the two torch backward passes
+    (``bwd_ms``, ``backward_passes_timed``)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import transformer as tfm
     from repro_torch.optim import adamw
     params = dict(model.named_parameters())
     box = {}
+
+    def kernel(events, name):
+        hits = [e for e in events if name in e.key]
+        calls = sum(e.count for e in hits)
+        return calls, (sum(e.device_time_total for e in hits) / 1e3 / calls
+                       if calls else None)
 
     def region(fn):
         torch.cuda.synchronize()
@@ -3123,13 +3260,12 @@ def step_profile(model, cfg, state, opt_cfg, batch) -> dict:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         events = [e for e in prof.key_averages() if e.device_time_total > 0]
-        mma = [e for e in events if "flash_mma_kernel" in e.key]
-        calls = sum(e.count for e in mma)
+        mma_calls, mma_ms = kernel(events, "flash_mma_kernel")
+        scan_calls, scan_ms = kernel(events, "scan_kernel")
         return {"wall_s": wall,
                 "device_s": sum(e.device_time_total for e in events) / 1e6,
-                "mma_calls": calls,
-                "mma_device_ms": (sum(e.device_time_total for e in mma)
-                                  / 1e3 / calls if calls else None),
+                "mma_calls": mma_calls, "mma_device_ms": mma_ms,
+                "scan_calls": scan_calls, "scan_device_ms": scan_ms,
                 "top": [{"name": e.key[:72], "calls": e.count,
                          "s": e.device_time_total / 1e6} for e in sorted(
                              events, key=lambda e: -e.device_time_total)[:8]]}
@@ -3138,11 +3274,13 @@ def step_profile(model, cfg, state, opt_cfg, batch) -> dict:
         box["loss"], _ = tfm.loss_fn(model, batch, cfg)
 
     def backward():
-        box["grads"] = dict(zip(params, torch.autograd.grad(
-            box.pop("loss"), list(params.values()))))
+        with backward_passes_timed(box.setdefault("bwd_ms", {})):
+            box["grads"] = dict(zip(params, torch.autograd.grad(
+                box.pop("loss"), list(params.values()))))
 
-    def update():
-        adamw.update(box.pop("grads"), state.opt, params, opt_cfg)
+    def update():  # the train step's: the state consumed
+        adamw.update(box.pop("grads"), state.opt, params, opt_cfg,
+                     in_place=True)
 
     out = {name: region(fn) for name, fn in (("forward", forward),
                                               ("backward", backward),
@@ -3151,6 +3289,7 @@ def step_profile(model, cfg, state, opt_cfg, batch) -> dict:
     busy = sum(r["device_s"] for r in out.values())
     out["step"] = {"wall_s": wall, "device_s": busy,
                    "busy_share": busy / wall}
+    out["bwd_ms"] = box["bwd_ms"]
     return out
 
 
@@ -3393,7 +3532,8 @@ def train_phase(dev) -> dict:
                          10 * bh * cfg.head_dim * scores, PEAK_BF16)
     log(f"train step profile: " + "; ".join(
         f"{name} {r['wall_s']:.4f} s wall, {r['device_s']:.4f} s on the "
-        f"device" for name, r in prof.items() if name != "step")
+        f"device" for name, r in prof.items()
+        if name in ("forward", "backward", "optimizer"))
         + f"; busy share {prof['step']['busy_share']:.3f}; "
         f"flash_attention_mma {prof['forward']['mma_device_ms']:.4f} ms a "
         f"call in the forward, {prof['backward']['mma_device_ms']:.4f} in "
@@ -4512,6 +4652,292 @@ def moe_phase(dev, lm: dict) -> dict:
     return {"runs": runs, "launches": launches, "wall_s": wall}
 
 
+# -- phase 16: training the ssm, hybrid, encdec and vlm families --------------
+
+def family_config(name: str):
+    """The config of phase 16's ``name`` run: its arch at every published
+    width, cut in depth as ``FAMILY_RUNS`` says, ``tp`` 1 (as the trainer
+    sets it on one card)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    arch, cut, _, _ = FAMILY_RUNS[name]
+    return dataclasses.replace(get_config(arch), tp=1, **(cut or {}))
+
+
+def family_lr(name: str) -> float:
+    return FAMILY_LR.get(name, TRAIN_LR)
+
+
+def family_argv(name: str) -> list:
+    """The trainer's flags for ``name``'s run: phase 11's schedule (the
+    vlm's lr ``FAMILY_LR``'s)."""
+    arch, _, batch, seq = FAMILY_RUNS[name]
+    return ["--arch", arch, "--steps", str(TRAIN_STEPS), "--global-batch",
+            str(batch), "--seq-len", str(seq), "--lr", str(family_lr(name)),
+            "--seed", str(SEED), "--log-every", "1"]
+
+
+def family_launches(cfg) -> dict:
+    """A training step's launches: each flash call of the forward
+    (``flash_calls``: whisper's encoder layers and each decoder layer's
+    self and cross attention) and each Mamba layer's scan, once in the
+    forward and once more in remat's recompute."""
+    mult = 2 if cfg.remat else 1
+    return {"flash_attention_mma": mult * flash_calls(cfg)[0],
+            "mamba_scan": mult * cfg.layer_kinds().count("mamba")}
+
+
+def family_grad_calls(name: str, cfg) -> dict:
+    """The forward's flash calls whose operands the attention Function's
+    gradients are held on, by index, with (what, Sq, Skv, causal):
+    whisper's encoder layer 0 (non-causal square) and decoder layer 0's
+    cross attention (Sq != Skv), llava's GQA layer 0 (the patches and the
+    tokens)."""
+    _, _, _, seq = FAMILY_RUNS[name]
+    if name == "encdec":
+        f = cfg.n_frames
+        return {0: ("encoder layer 0", f, f, False),
+                cfg.encoder_layers + 1: ("decoder layer 0, cross", seq, f,
+                                         False)}
+    if name == "vlm":
+        s = seq + cfg.n_patches
+        return {0: ("GQA layer 0", s, s, True)}
+    return {}
+
+
+def attention_bwd_bound(bh: int, sq: int, skv: int, d: int, causal: bool):
+    """The least time of one bf16 attention backward: q, O, dO, dQ (Sq
+    rows) and K, V, dK, dV (Skv rows) moved once, against 10 x d products
+    a visible score (phase 11's count) at the bf16 rate."""
+    scores = sq * (skv - (sq - 1) / 2) if causal else sq * skv
+    return bound_ms(2 * bh * d * 4 * (sq + skv), 10 * bh * d * scores,
+                    PEAK_BF16)
+
+
+def scan_bwd_bound(cfg, batch: int, length: int):
+    """The least time of one layer's scan backward (fp32): u, dt, dy read
+    and du, dt's gradient written, B, C read and their gradients written,
+    against an exponential a (b, t, d, n) on the SFU (a_t recomputed) and
+    16 operations a (b, t, d, n) at the fp32 rate (the state, the
+    adjoint, and the five products of dC, dB, du, dt and dA)."""
+    bld = batch * length * cfg.d_inner
+    n = cfg.ssm_state
+    n_bytes = 4 * (5 * bld + 4 * batch * length * n)
+    sfu_rate = SFU_PER_CLOCK * torch.cuda.get_device_properties(
+        0).multi_processor_count * sm_clock_hz()
+    return max((n_bytes / PEAK_BYTES * 1e3, "bytes"),
+               (bld * n / sfu_rate * 1e3, "operations"),
+               (16 * bld * n / PEAK_FP32 * 1e3, "operations"))
+
+
+def family_held_step(name: str, cfg, dev) -> dict:
+    """One step of ``name``'s seeded model on the pipeline's first batch,
+    outside the timed run: every flash call held at the op
+    (``FAMILY_HOLD_ROWS`` problems at a time), every scan call held at the
+    op (falcon-mamba: those of ``FAMILY_SSM_HELD_LAYERS``, in the forward
+    and in the recompute, which runs the layers last to first), the MoE's
+    dropped share, the operands of ``family_grad_calls`` kept; then a step
+    profiled (``step_profile``).  The model is freed on return."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.data import DataConfig, TokenPipeline
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.moe import capacity
+    from repro_torch.optim import adamw
+    _, _, batch, seq = FAMILY_RUNS[name]
+    what = f"train {name} held step"
+    opt_cfg = adamw.AdamWConfig(lr=family_lr(name), warmup_steps=max(
+        2, TRAIN_STEPS // 10), decay_steps=TRAIN_STEPS)
+    model = tfm.init_model(cfg, seed=SEED, device=dev, train=True)
+    params = dict(model.named_parameters())
+    state = steps_mod.TrainState(model, adamw.init(params, opt_cfg),
+                                 torch.zeros((), dtype=torch.int32,
+                                             device=dev))
+    step_fn, _ = steps_mod.build_train_step(
+        cfg, ShapeCell("smoke", seq, batch, "train"), opt_cfg, device=dev)
+    pipe = TokenPipeline(DataConfig(seq_len=seq, global_batch=batch,
+                                    vocab_size=cfg.vocab_size, seed=SEED))
+    inputs = train.inputs(cfg, pipe.batch_at(0)[:, :seq], dev)
+    want = family_launches(cfg)
+    n_scan = want["mamba_scan"]
+    keep_scans = None
+    if name == "ssm":
+        L = cfg.n_layers
+        keep_scans = {i for i in range(n_scan) if (i if i < L else
+                      2 * L - 1 - i) in FAMILY_SSM_HELD_LAYERS}
+    grad_calls = family_grad_calls(name, cfg)
+    flash, kept, scans, routes = [], {}, [], []
+    reset_launch_counts()
+    with train_flash_held(flash, kept, keep=set(grad_calls),
+                          rows=FAMILY_HOLD_ROWS), \
+            scans_held(scans, keep=keep_scans), moe_routes(routes):
+        state, metrics = step_fn(state, inputs)
+    torch.cuda.synchronize()
+    launched(what, launch_counts(), want)
+    loss = float(metrics["loss"])
+    check(np.isfinite(loss), f"{what}: the loss is not finite")
+    if flash:
+        over = [h for h in flash if h["over"]]
+        log(f"{what}: {len(flash)} flash calls held at the op (q, kv "
+            f"{sorted({(tuple(h['q']), tuple(h['kv'])) for h in flash})}), "
+            f"max_abs_err {max(h['max_abs_err'] for h in flash):.3e}")
+        check(not over, f"{what}: a flash call off the plain version "
+              f"beyond one bf16 ulp + {FA_BF16_SLACK:g}: {over[:2]}")
+    check(len(flash) == want["flash_attention_mma"], f"{what}: "
+          f"{len(flash)} flash calls held of {want['flash_attention_mma']}")
+    if n_scan:
+        check_scans(scans, f"{what} (scan calls "
+                    f"{sorted(keep_scans) if keep_scans else 'all'})",
+                    len(keep_scans) if keep_scans else n_scan)
+    for i, (label, sq, skv, causal) in grad_calls.items():
+        (q, k, _), kw = kept[i]
+        check(q.shape[0] == batch * cfg.n_heads and q.shape[1] == sq
+              and k.shape[1] == skv and kw["causal"] == causal,
+              f"{what}: flash call {i} is not {label}: q {list(q.shape)}, "
+              f"k {list(k.shape)}, causal {kw['causal']}")
+    drops = None
+    if cfg.n_experts:
+        tokens = batch * seq
+        drops = dropped_share(routes, cfg, tokens)
+        n_moe = cfg.ffn_kinds().count("moe")
+        check(drops[1] == (2 if cfg.remat else 1) * n_moe * tokens
+              * cfg.top_k, f"{what}: MoE routings "
+              f"{[(t, tuple(i.shape)) for t, i in routes]} are not one a "
+              f"MoE layer in the forward and one in the recompute")
+        log(f"{what}: the MoE dropped {drops[0]} of {drops[1]} assignments "
+            f"({drops[0] / drops[1]:.4f}; the forward's and the "
+            f"recompute's routings, capacity {capacity(tokens, cfg)} an "
+            f"expert of {cfg.n_experts}, top-{cfg.top_k}; the reference's "
+            f"rule)")
+    del routes, scans
+    prof = step_profile(model, cfg, state, opt_cfg, inputs)
+    log(f"{what}: loss {loss:.7f}")
+    del model, state, params, step_fn, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss": loss, "flash_held": len(flash), "kept": kept,
+            "drops": drops, "profile": prof}
+
+
+def train_family(name: str, dev) -> dict:
+    """Phase 16's ``name`` run: the trainer for ``TRAIN_STEPS`` steps
+    (losses finite and falling, the launches the model gives, no plain
+    version resolved), its step time, tokens/s, model FLOP/s over the
+    bf16 peak and peak memory; then the held and profiled step
+    (``family_held_step``) and the attention Function's gradients on the
+    kept operands (``attention_grads_held``)."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import accounting
+    arch, cut, batch, seq = FAMILY_RUNS[name]
+    cfg = family_config(name)
+    layers = [f"{mix}/{ffn if cfg.d_ff else 'no FFN'}"
+              for mix, ffn in zip(cfg.layer_kinds(), cfg.ffn_kinds())]
+    if cfg.family == "encdec":
+        layers.append(f"{cfg.encoder_layers} encoder layers")
+    desc = (f"{arch} ({'whole' if cut is None else 'cut'}: "
+            f"{', '.join(layers)}), B {batch} x {seq}, lr {family_lr(name)}")
+    want = family_launches(cfg)
+    run = run_train(f"{name} {desc}", family_argv(name), dev,
+                    cfg=None if cut is None else cfg)
+    losses = run["losses"]
+    check(len(losses) == TRAIN_STEPS and losses[-1] < losses[0],
+          f"train {name}: the loss did not fall ({losses})")
+    launched(f"train {name}", run["launches"],
+             {k: TRAIN_STEPS * n for k, n in want.items()})
+    check(not run["plain"], f"train {name}: plain versions ran on the "
+          f"path: {run['plain']}")
+    step_s = float(np.median(run["times"][1:]))
+    flops = accounting.model_flops(cfg, ShapeCell("smoke", seq, batch,
+                                                  "train"))
+    params = accounting.param_counts(cfg)
+    tokens = batch * seq
+    mfu = flops / step_s / PEAK_BF16
+    log(f"train {name}: step {step_s:.4f} s (median of steps 2-{TRAIN_STEPS},"
+        f" host clock ending in a synchronize), {tokens / step_s:.1f} "
+        f"tokens/s, model FLOP/s {flops / step_s:.4e} = {mfu:.4f} of the "
+        f"bf16 peak ({flops:.4e} FLOP a step, 6 x {params['active']} active "
+        f"of {params['total']} parameters x {tokens} tokens); first step "
+        f"{run['times'][0]:.3f} s; peak device memory {run['peak_gb']:.2f} "
+        f"GB; launches a step {json.dumps(want)}; {json.dumps(run['line'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = family_held_step(name, cfg, dev)
+    kept = held.pop("kept")
+    attn = attention_grads_held(kept, dev) if kept else {}
+    del kept
+    torch.cuda.empty_cache()
+    d = cfg.head_dim
+    for i, (label, sq, skv, causal) in family_grad_calls(name, cfg).items():
+        bh = batch * cfg.n_heads
+        attn[i].update(label=label,
+                       fwd_bound=attention_bound(bh, sq, skv, d, causal),
+                       bwd_bound=attention_bwd_bound(bh, sq, skv, d, causal))
+        log(f"train {name}: {label} {attn[i]['shape']} x {skv} keys: "
+            f"forward kernel {attn[i]['fwd_ms']:.4f} ms (bound "
+            f"{attn[i]['fwd_bound'][0]:.4f}, {attn[i]['fwd_bound'][1]}), "
+            f"torch backward {attn[i]['bwd_torch_ms']:.3f} ms (a backward "
+            f"kernel's bound {attn[i]['bwd_bound'][0]:.4f}, "
+            f"{attn[i]['bwd_bound'][1]})")
+    prof = held["profile"]
+    step_wall_ms = 1e3 * prof["step"]["wall_s"]
+    shares = {k: sum(v) / step_wall_ms for k, v in prof["bwd_ms"].items()}
+    scan_bwd = prof["bwd_ms"].get("scan_backward", [])
+    extra = {}
+    if want["mamba_scan"]:
+        extra = {"scan_bound": scan_bound(cfg, batch, seq),
+                 "scan_bwd_bound": scan_bwd_bound(cfg, batch, seq),
+                 "scan_bwd_ms": float(np.mean(scan_bwd))}
+        log(f"train {name}: mamba_scan {prof['forward']['scan_device_ms']:.4f}"
+            f" ms a call on the device in the forward, "
+            f"{prof['backward']['scan_device_ms']:.4f} in the recompute "
+            f"(bound {extra['scan_bound'][0]:.4f}, {extra['scan_bound'][1]});"
+            f" torch scan backward {extra['scan_bwd_ms']:.3f} ms a layer "
+            f"(calls {json.dumps([round(t, 3) for t in scan_bwd])}; a "
+            f"backward kernel's bound {extra['scan_bwd_bound'][0]:.4f}, "
+            f"{extra['scan_bwd_bound'][1]})")
+    log(f"train {name} step profile: " + "; ".join(
+        f"{part} {prof[part]['wall_s']:.4f} s wall, "
+        f"{prof[part]['device_s']:.4f} s on the device"
+        for part in ("forward", "backward", "optimizer"))
+        + f"; busy share {prof['step']['busy_share']:.4f}; of the step's "
+        f"{step_wall_ms / 1e3:.4f} s wall: "
+        + ", ".join(f"{k} {v:.4f} ({len(prof['bwd_ms'][k])} calls)"
+                    for k, v in shares.items())
+        + (f"; flash_attention_mma {prof['forward']['mma_device_ms']:.4f} "
+           f"ms a call in the forward, "
+           f"{prof['backward']['mma_device_ms']:.4f} in the recompute"
+           if prof["forward"]["mma_calls"] else ""))
+    for part in ("forward", "backward", "optimizer"):
+        log(f"train {name} step {part} by device time: "
+            f"{json.dumps(prof[part]['top'])}")
+    return {"cfg": cfg.name, "losses": losses, "launches": run["launches"],
+            "step_s": step_s, "times": run["times"],
+            "tokens_per_s": tokens / step_s, "model_flops_per_s":
+            flops / step_s, "mfu": mfu, "peak_gb": run["peak_gb"],
+            "held_loss": held["loss"], "drops": held["drops"],
+            "attention": attn, "profile": prof, "bwd_shares": shares,
+            **extra}
+
+
+def train_families_phase(dev) -> dict:
+    """Phase 16: the ssm, hybrid, encdec and vlm families trained on the
+    card, one model after the other (the module docstring's item 16)."""
+    t_phase = time.perf_counter()
+    runs = {}
+    for name in FAMILY_RUNS:
+        runs[name] = train_family(name, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in runs["ssm"]["launches"]}
+    log(f"train families: launches {json.dumps({k: n for k, n in launches.items() if n})}"
+        f"; phase {wall:.1f} s")
+    return {"runs": runs, "launches": launches, "wall_s": wall}
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-worker":
         return mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
@@ -4591,6 +5017,7 @@ def main() -> int:
     mesh_lm = mesh_lm_phase(trained, lm, families, dev)
     pod = pod_phase(dev, card)
     moe = moe_phase(dev, lm)
+    families16 = train_families_phase(dev)
     prof = lm["profile"]
     rows["flash_attention_mma"].update(
         lm_device_ms=prof["mma_device_ms"], lm_bound_ms=prof["mma_bound"][0],
@@ -4635,6 +5062,25 @@ def main() -> int:
         train_fwd_ms=trained["scan"]["fwd_ms"],
         train_shape=f"{'x'.join(map(str, SCAN_GRAD_SHAPE[:3]))} N "
                     f"{SCAN_GRAD_SHAPE[3]} fp32 (falcon-mamba-7b widths)")
+    for name, run in families16["runs"].items():
+        fp = run["profile"]
+        if run["launches"]["flash_attention_mma"]:
+            rows["flash_attention_mma"][f"train_{name}"] = {
+                "device_ms": fp["forward"]["mma_device_ms"],
+                "recompute_device_ms": fp["backward"]["mma_device_ms"],
+                "bwd_torch_share": run["bwd_shares"].get(
+                    "attention_backward"),
+                **{f"bwd_torch_ms_{a['label']}": a["bwd_torch_ms"]
+                   for a in run["attention"].values()},
+                **{f"bwd_bound_ms_{a['label']}": a["bwd_bound"][0]
+                   for a in run["attention"].values()}}
+        if run["launches"]["mamba_scan"]:
+            rows["mamba_scan"][f"train_{name}"] = {
+                "device_ms": fp["forward"]["scan_device_ms"],
+                "bound_ms": run["scan_bound"][0],
+                "bwd_torch_ms": run["scan_bwd_ms"],
+                "bwd_bound_ms": run["scan_bwd_bound"][0],
+                "bwd_torch_share": run["bwd_shares"].get("scan_backward")}
     ssm_prof = families["ssm"]["profile"]
     rows["mamba_scan"].update(
         lm_device_ms=ssm_prof["scan_device_ms"],
@@ -4667,6 +5113,7 @@ def main() -> int:
         row["launches_mesh_lm"] = mesh_lm["launches"][k.name]
         row["launches_pod"] = pod["launches"][k.name]
         row["launches_moe"] = moe["launches"][k.name]
+        row["launches_train_families"] = families16["launches"][k.name]
         record.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))

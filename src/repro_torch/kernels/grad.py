@@ -22,7 +22,14 @@ so its memory is O(Sq x chunk) a problem, never Sq x Skv):
   the cost of one P V product a chunk;
 * D = rowsum(dO o O);
 * a second pass, for each chunk: P = exp(S - lse), dV += P^T dO, dP = dO
-  V^T, dS = P o (dP - D), dQ += scale dS K, dK += scale dS^T Q.
+  V^T, dS = P o (dP - D), dQ += scale dS (K - k_mean), dK += scale dS^T Q.
+
+Each row of dS sums to zero (sum_j P_ij dP_ij = D_i), so dQ = scale dS K
+= scale dS (K - c) for any key c; the rounding leaves each computed row a
+small sum, which dS K multiplies by the keys' common part.  Keys with a
+large common part (whisper's cross attention over its encoder's output:
+dQ 3.5e-5 x max |dQ| from the exact gradient) lose dQ's small entries,
+so dQ takes the keys less their mean over the problem's keys.
 
 The causal mask is the forward's (row i at position i + ``q_offset``
 sees keys 0..i + q_offset; a masked score is -1e30); a chunk is taken
@@ -103,6 +110,7 @@ def attention_backward(q, k, v, dout, *, causal: bool, scale: float,
     dq = torch.zeros_like(qf)
     dk = torch.zeros_like(kf)
     dv = torch.zeros_like(vf)
+    kc = kf - kf.mean(-2, keepdim=True)    # dQ's keys (module docstring)
     for r0, j0, j1 in chunks:
         kj, vj = kf[:, j0:j1], vf[:, j0:j1]
         qr, dor = qf[:, r0:], dof[:, r0:]
@@ -111,7 +119,7 @@ def attention_backward(q, k, v, dout, *, causal: bool, scale: float,
         dv[:, j0:j1] = torch.matmul(p.mT, dor)
         ds = p * (torch.matmul(dor, vj.mT) - delta[:, r0:])
         del p
-        dq[:, r0:] += torch.matmul(ds, kj) * scale
+        dq[:, r0:] += torch.matmul(ds, kc[:, j0:j1]) * scale
         dk[:, j0:j1] = torch.matmul(ds.mT, qr) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 

@@ -26,8 +26,10 @@ A train step is the reference's: ``loss_fn``, its gradients with respect
 to every parameter (zeros for one the loss does not reach), then, with
 ``comp_cfg``, ``optim.compression.compress_tree`` (on the card its Gram
 and sweep kernels), then ``adamw.update``, which writes the new values
-into the model's parameters.  ``TrainState.params`` is the model itself
-(``init_model(..., train=True)``).
+into the model's parameters and the new moments into the state's (the
+step consumes its state, as the reference's jitted step donates it).
+``TrainState.params`` is the model itself (``init_model(...,
+train=True)``).
 
 Compression sees the gradients in the reference's layout
 (``stack_layers``): a layer's leaf stacked over the layer groups, as the
@@ -286,8 +288,10 @@ def build_train_step(cfg: ModelConfig, shape: ShapeCell,
         if comp_cfg is not None:
             grads, new_comp = _compress_sharded(grads, state.comp, comp_cfg,
                                                 cfg, shardings)
+        # the state is consumed, as the reference's jitted step donates it
         _, new_opt, opt_metrics = adamw.update(grads, state.opt, params,
-                                               opt_cfg, shardings=shardings)
+                                               opt_cfg, shardings=shardings,
+                                               in_place=True)
         ce, aux = metrics["ce"].detach(), metrics["aux"].detach()
         metrics = dict(ce=ce, aux=aux, loss=ce + tfm.AUX_COEF * aux,
                        **opt_metrics)

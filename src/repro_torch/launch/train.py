@@ -36,6 +36,11 @@ no losses.  On 8 cards:
   PYTHONPATH=src torchrun --nproc-per-node 8 \\
       -m repro_torch.launch.train --arch olmo-1b \\
       --model-parallel 4 --global-batch 8 --seq-len 4096
+
+``run(cfg, parse_args(argv))`` is the CLI's body after the config: it
+trains any ``ModelConfig`` (a depth-cut one too) on the CLI's flags, so
+``main(argv)`` is ``run`` of ``--arch``'s config on the mesh ``main``
+picks.  ``inputs`` is a step's batch.
 """
 from __future__ import annotations
 
@@ -75,7 +80,8 @@ def world_mesh(model_parallel: int, global_batch: int, device: DeviceLike):
                      global_batch=global_batch), dev
 
 
-def main(argv=None, device: DeviceLike = None):
+def parse_args(argv=None) -> argparse.Namespace:
+    """The CLI's flags (the reference's, and ``--seed``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo-1b")
     ap.add_argument("--reduced", action="store_true")
@@ -93,13 +99,35 @@ def main(argv=None, device: DeviceLike = None):
                     help="simulate preemption: checkpoint + stop after N steps")
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
 
-    mesh, dev = world_mesh(args.model_parallel, args.global_batch, device)
-    if not mesh.member:
-        return []
-    cfg = (reduced_config(args.arch) if args.reduced
-           else get_config(args.arch))
+
+def inputs(cfg, tokens, device: DeviceLike = None) -> dict:
+    """A step's batch: ``tokens`` (B, S) as int64 on the device, and
+    zero ``patches`` (vlm) or ``frames`` (encdec) in the model's dtype."""
+    dev = resolve_device(device)
+    batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int64,
+                                       device=dev)}
+    extra = {"vlm": ("patches", cfg.n_patches),
+             "encdec": ("frames", cfg.n_frames)}.get(cfg.family)
+    if extra:
+        batch[extra[0]] = torch.zeros(
+            batch["tokens"].shape[0], extra[1], cfg.d_model,
+            dtype=cfg.torch_dtype(), device=dev)
+    return batch
+
+
+def run(cfg, args: argparse.Namespace, device: DeviceLike = None,
+        mesh=None) -> list:
+    """The trainer for any ``ModelConfig`` (a depth-cut one too): init or
+    resume, the pipeline, the steps under the watchdog, checkpoints and
+    the final JSON line, on ``args`` (``parse_args``; ``--arch``,
+    ``--reduced`` and ``--model-parallel`` are the caller's).  ``mesh``
+    (default: a (1, 1) mesh of ``device``) sets ``cfg.tp`` to its model
+    axis.  Returns the losses."""
+    dev = resolve_device(device)
+    if mesh is None:
+        mesh = pick_mesh(1, devices=[dev], global_batch=args.global_batch)
     cfg = dataclasses.replace(cfg, tp=mesh.shape["model"])
     shape = ShapeCell("cli", args.seq_len, args.global_batch, "train")
     opt_cfg = adamw.AdamWConfig(lr=args.lr, moment_dtype=args.moments,
@@ -161,23 +189,11 @@ def main(argv=None, device: DeviceLike = None):
                           metadata={"step": step, "data": pipe.state(),
                                     "arch": cfg.name}, shardings=shardings)
 
-    def inputs(step):
-        tokens = pipe.batch_at(step)[:, : args.seq_len]
-        batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int64,
-                                           device=dev)}
-        extra = {"vlm": ("patches", cfg.n_patches),
-                 "encdec": ("frames", cfg.n_frames)}.get(cfg.family)
-        if extra:
-            batch[extra[0]] = torch.zeros(
-                tokens.shape[0], extra[1], cfg.d_model,
-                dtype=cfg.torch_dtype(), device=dev)
-        return batch
-
     try:
         wd = Watchdog(on_stall=lambda: None)
         losses = []
         for step in range(start_step, args.steps):
-            batch = inputs(step)
+            batch = inputs(cfg, pipe.batch_at(step)[:, : args.seq_len], dev)
             wd.start_step(step)
             state, metrics = step_fn(state, batch)
             loss = float(metrics["loss"])
@@ -217,6 +233,16 @@ def main(argv=None, device: DeviceLike = None):
         for sig, handler in handlers.items():
             if handler is not None:
                 signal.signal(sig, handler)
+
+
+def main(argv=None, device: DeviceLike = None):
+    args = parse_args(argv)
+    mesh, dev = world_mesh(args.model_parallel, args.global_batch, device)
+    if not mesh.member:
+        return []
+    cfg = (reduced_config(args.arch) if args.reduced
+           else get_config(args.arch))
+    return run(cfg, args, device=dev, mesh=mesh)
 
 
 if __name__ == "__main__":

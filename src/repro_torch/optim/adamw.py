@@ -185,11 +185,17 @@ def global_norm(tree: Mapping[str, torch.Tensor],
 @torch.no_grad()
 def update(grads: Mapping[str, torch.Tensor], state: OptState,
            params: Mapping[str, torch.Tensor], cfg: AdamWConfig,
-           shardings: Optional[Mapping] = None
+           shardings: Optional[Mapping] = None, in_place: bool = False
            ) -> Tuple[Mapping[str, torch.Tensor], OptState, dict]:
     """One AdamW step: ``params`` updated in place (and returned), a new
     ``OptState`` and {"grad_norm", "lr"} as 0-d fp32 tensors.  On a mesh
-    ``shardings`` gives each leaf's ``Sharding`` (module docstring)."""
+    ``shardings`` gives each leaf's ``Sharding`` (module docstring).
+    ``in_place`` consumes ``state``: the new moments are written into its
+    tensors, which the returned ``OptState`` holds, as the reference's
+    train step donates its state to XLA (``donate_argnums``); so no
+    second set of moments lives during the update (for jamba's 2-layer
+    stand-in, 29.4 GB of fp32 moments).  The values are bitwise the
+    functional update's."""
     shardings = shardings or {}
     count = state.count + 1
     lr = lr_schedule(cfg, count)
@@ -199,6 +205,8 @@ def update(grads: Mapping[str, torch.Tensor], state: OptState,
     int8 = cfg.moment_dtype == "int8"
 
     def read_moment(mom, p, which, sh):
+        """The moment in fp32, a tensor this update may write into: the
+        state's own where it is fp32 and consumed, else a new one."""
         if int8 and which == "v":
             if sh is None or p.ndim == 0:
                 r = _dequantize(mom, p.shape)   # stores sqrt(v)
@@ -206,19 +214,28 @@ def update(grads: Mapping[str, torch.Tensor], state: OptState,
                 r = sh.local_dim(_dequantize(mom, p.shape[:-1] + (
                     _whole_last(sh, p.ndim, p.shape[-1]),)), p.ndim - 1)
             return r * r
-        return mom.to(torch.float32)
+        x = mom.to(torch.float32)
+        return x if in_place or x is not mom else x.clone()
 
-    def write_moment(x, which, sh):
-        if int8:
-            if which == "v":
-                r = torch.sqrt(torch.clamp(x, min=0.0))
-                if sh is not None and x.ndim:
-                    r = sh.gather_dim(r, x.ndim - 1)
-                return _quantize(r)
-            return x.to(torch.bfloat16)
-        dt = (torch.bfloat16 if cfg.moment_dtype == "bfloat16"
+    def write_moment(x, which, sh, old):
+        """The moment as the state keeps it, written into ``old`` where
+        the state is consumed."""
+        if int8 and which == "v":
+            r = torch.sqrt(torch.clamp(x, min=0.0))
+            if sh is not None and x.ndim:
+                r = sh.gather_dim(r, x.ndim - 1)
+            new = _quantize(r)
+            if in_place:
+                old["q"].copy_(new["q"])
+                old["s"].copy_(new["s"])
+                return old
+            return new
+        dt = (torch.bfloat16 if int8 or cfg.moment_dtype == "bfloat16"
               else torch.float32)
-        return x.to(dt)
+        new = x.to(dt)
+        if in_place and new is not old:
+            return old.copy_(new)
+        return new
 
     countf = count.to(torch.float32)
     b1c = 1 - torch.pow(cfg.b1, countf)
@@ -227,14 +244,20 @@ def update(grads: Mapping[str, torch.Tensor], state: OptState,
     for k, p in params.items():
         sh = shardings.get(k)
         g = grads[k].to(torch.float32) * clip
-        mf = cfg.b1 * read_moment(state.m[k], p, "m", sh) + (1 - cfg.b1) * g
-        vf = (cfg.b2 * read_moment(state.v[k], p, "v", sh)
-              + (1 - cfg.b2) * g * g)
-        upd = (mf / b1c) / (torch.sqrt(vf / b2c) + cfg.eps)
+        # b1 m + (1 - b1) g and b2 v + (1 - b2) g g, the same roundings
+        # in place
+        mf = read_moment(state.m[k], p, "m", sh).mul_(cfg.b1).add_(
+            (1 - cfg.b1) * g)
+        vf = read_moment(state.v[k], p, "v", sh).mul_(cfg.b2).add_(
+            (1 - cfg.b2) * g * g)
+        del g
+        # (m / b1c) / (sqrt(v / b2c) + eps), then p - lr (upd + wd p)
+        upd = (mf / b1c).div_((vf / b2c).sqrt_().add_(cfg.eps))
         pf = p.to(torch.float32)
-        p.copy_(pf - lr * (upd + cfg.weight_decay * pf))
-        new_m[k] = write_moment(mf, "m", sh)
-        new_v[k] = write_moment(vf, "v", sh)
+        p.copy_(pf - upd.add_(cfg.weight_decay * pf).mul_(lr))
+        del upd, pf
+        new_m[k] = write_moment(mf, "m", sh, state.m[k])
+        new_v[k] = write_moment(vf, "v", sh, state.v[k])
     return params, OptState(new_m, new_v, count), {"grad_norm": gnorm,
                                                     "lr": lr}
 

@@ -423,6 +423,42 @@ def test_flash_attention_bf16_gradients_round_once(shape):
         assert bool(((a - b).abs() <= slack).all())
 
 
+def _exact_attention_grads(q, k, v, dout, causal, scale, q_offset):
+    """Autograd through softmax attention in float64."""
+    a = [t.detach().double().requires_grad_(True) for t in (q, k, v)]
+    s = a[0] @ a[1].mT * scale
+    if causal:
+        rows = torch.arange(q.shape[1])[:, None] + q_offset
+        s = s.masked_fill(rows < torch.arange(k.shape[1])[None, :],
+                          float("-inf"))
+    return torch.autograd.grad(torch.softmax(s, -1) @ a[2], a,
+                               dout.double())
+
+
+@pytest.mark.parametrize("shape", ATTN_SHAPES, ids=str)
+def test_flash_attention_gradients_hold_with_a_common_key_part(shape):
+    """Keys with a common part (whisper's cross attention attends its
+    encoder's output, where it is large): every gradient within 2e-5 x
+    its max |exact| of the float64 gradients (chip_smoke's attention
+    gradient bound less the bf16 rounding).  Each row of dS sums to zero,
+    so dQ takes the keys less their mean; without that dQ was off by
+    7.8e-5 to 1.9e-4 x max |dQ| at a common part of 4 to 20."""
+    bh, sq, skv, d, causal, q_offset, chunk = shape
+    g = torch.Generator().manual_seed(sq * skv + d)
+    q = torch.randn(bh, sq, d, generator=g, requires_grad=True)
+    k = (0.3 * torch.randn(bh, skv, d, generator=g) + 8.0).requires_grad_()
+    v = (torch.randn(bh, skv, d, generator=g) + 2.0).requires_grad_()
+    dout = torch.randn(bh, sq, d, generator=g)
+    out = ops.flash_attention(q, k, v, causal=causal, scale=d ** -0.5,
+                              q_offset=q_offset, chunk=chunk)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    want = _exact_attention_grads(q, k, v, dout, causal, d ** -0.5,
+                                  q_offset)
+    for name, a, b in zip("qkv", got, want):
+        err = float((a.double() - b).abs().max() / b.abs().max())
+        assert err <= 2e-5, (name, err)
+
+
 @pytest.mark.parametrize("return_state", [False, True])
 @pytest.mark.parametrize("shape", [(2, 37, 6, 4, 8), (1, 16, 5, 3, 16),
                                    (3, 20, 4, 2, 256), (1, 9, 3, 5, 1)],

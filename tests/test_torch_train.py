@@ -275,13 +275,37 @@ def _decode_specs_match(got, want, cfg):
     assert (got.enc_kvs is None) == (want.enc_kvs is None)
 
 
-@pytest.mark.parametrize("arch", sorted(tconfigs.ARCH_IDS))
-def test_param_counts_and_flops_match_reference(arch):
-    cfg, tcfg = jconfigs.get_config(arch), tconfigs.get_config(arch)
+# the configurations chip_smoke.py's phase 16 trains on the card, each cut
+# in depth only, and its (seq_len, global_batch): falcon-mamba-7b at 4 of
+# 64 layers, jamba's 2-layer stand-in (a Mamba + MLP layer, then GQA
+# attention + the 16-expert MoE), whisper-small whole, llava-next-34b at 4
+# of 60 layers
+PHASE_CUTS = {
+    "falcon-mamba-7b-4-layers": ("falcon-mamba-7b", {"n_layers": 4},
+                                 (4096, 4)),
+    "jamba-v0.1-52b-stand-in": ("jamba-v0.1-52b", {
+        "n_layers": 2, "attn_every": 2, "moe_every": 2}, (4096, 4)),
+    "whisper-small-whole": ("whisper-small", {}, (448, 32)),
+    "llava-next-34b-4-layers": ("llava-next-34b", {"n_layers": 4},
+                                (1024, 8)),
+}
+
+
+@pytest.mark.parametrize("arch,cut,cell", [
+    *(pytest.param(a, {}, None, id=a) for a in sorted(tconfigs.ARCH_IDS)),
+    *(pytest.param(*v, id=k) for k, v in PHASE_CUTS.items())])
+def test_param_counts_and_flops_match_reference(arch, cut, cell):
+    cfg = dataclasses.replace(jconfigs.get_config(arch), **cut)
+    tcfg = dataclasses.replace(tconfigs.get_config(arch), **cut)
     assert taccounting.param_counts(tcfg) == jaccounting.param_counts(cfg)
-    for name in jshapes.SHAPES:
-        assert taccounting.model_flops(tcfg, tshapes.SHAPES[name]) == \
-            jaccounting.model_flops(cfg, jshapes.SHAPES[name])
+    cells = {name: (tshapes.SHAPES[name], jshapes.SHAPES[name])
+             for name in jshapes.SHAPES}
+    if cell:
+        cells["phase"] = (tshapes.ShapeCell("phase", *cell, "train"),
+                          jshapes.ShapeCell("phase", *cell, "train"))
+    for tshape, jshape in cells.values():
+        assert taccounting.model_flops(tcfg, tshape) == \
+            jaccounting.model_flops(cfg, jshape)
 
 
 @pytest.mark.parametrize("arch", sorted(tconfigs.ARCH_IDS))
@@ -461,6 +485,9 @@ def test_train_step_updates_the_model_in_place():
     new, metrics = step(state, {"tokens": tokens})
     assert new.params is model and int(new.step) == 1
     assert int(new.opt.count) == 1
+    # the moments too: the step consumes its state (adamw's in_place)
+    assert all(new.opt.m[k] is state.opt.m[k] and new.opt.v[k] is
+               state.opt.v[k] for k in params)
     assert set(metrics) == {"loss", "ce", "aux", "grad_norm", "lr"}
     assert all(not t.requires_grad for t in metrics.values())
     assert all(not torch.equal(p, before[k])
@@ -539,6 +566,39 @@ def test_cli_trains_every_family(arch):
                          "--global-batch", "2", "--seq-len", "16",
                          "--log-every", "100"], device="cpu")
     assert len(losses) == 3 and np.isfinite(losses).all()
+
+
+def test_run_is_the_cli_bitwise(tmp_path):
+    """``train.run`` of ``--arch``'s config on the CLI's flags gives the
+    CLI's losses and final checkpoint (parameters, moments, step) bit for
+    bit."""
+    argv = REDUCED + ["--steps", "3", "--ckpt-every", "100"]
+    want = train.main(argv + ["--ckpt-dir", str(tmp_path / "main")],
+                      device="cpu")
+    got = train.run(tconfigs.reduced_config("olmo-1b"), train.parse_args(
+        argv + ["--ckpt-dir", str(tmp_path / "run")]), device="cpu")
+    assert len(got) == 3 and got == want
+    a, b = tmp_path / "main" / "step_3", tmp_path / "run" / "step_3"
+    names = sorted(p.name for p in a.iterdir())
+    assert names == sorted(p.name for p in b.iterdir())
+    assert any(n.startswith("params__") for n in names)
+    for name in names:
+        assert (a / name).read_bytes() == (b / name).read_bytes(), name
+
+
+@pytest.mark.parametrize("arch,cut", [pytest.param(a, c, id=k) for k, (
+    a, c, _) in PHASE_CUTS.items()])
+def test_run_trains_the_cut_configs(arch, cut):
+    """Each layer pattern of phase 16 at reduced width, bf16, remat on:
+    3 steps through ``train.run``, every loss finite and the last below
+    the first."""
+    cfg = dataclasses.replace(tconfigs.reduced_config(arch), **cut,
+                              dtype="bfloat16", remat=True)
+    losses = train.run(cfg, train.parse_args(
+        ["--steps", "3", "--global-batch", "2", "--seq-len", "32", "--lr",
+         "1e-2", "--log-every", "100"]), device="cpu")
+    assert len(losses) == 3 and np.isfinite(losses).all()
+    assert losses[-1] < losses[0], losses
 
 
 def test_cli_defaults_to_the_card():
