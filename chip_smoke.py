@@ -287,6 +287,23 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    |want|), each call's forward kernel and torch backward timed beside
    their bounds.
 
+17. dry run: ``repro_torch.launch.dryrun``'s memory model held on the
+   card at a world of one: olmo-1b whole trained at B 4 x 4096 (phase
+   11's cell), falcon-mamba-7b cut to 4 layers trained at B 4 x 4096
+   (phase 16's), olmo-1b's prefill at B 4 x 4096 and one decode step
+   (phase 8's), each run once on the card with its state resident, the
+   peak of ``max_memory_allocated()`` above what was allocated before
+   the cell against the dry run's ``peak_bytes`` of the same cell (a
+   fake world of one, meta tensors), within ``DRY_PEAK_TOL``, and the
+   dry run's FLOPs against ``accounting.model_flops``; the four kernels'
+   fake branches (meta operands) against their launches at phase 8's
+   and phase 9's shapes, the outputs' shapes, dtypes and strides equal;
+   arctic-480b and llava-next-34b ``train_4k`` on 16 x 16 and
+   arctic-480b ``train_4k`` on 2 x 16 x 16 through the dry run's CLI,
+   each record's peak, ``fits``, collectives and dominant term printed.
+   The dry runs are worker processes (``--dryrun-worker``) started at the
+   phase's start, beside the card's work; no fake branch was taken
+   before the phase, and none by a CUDA tensor in it.
 Each path is checked against the kernels it runs: phase 3 against the
 three PCA/SVD kernels, phases 4, 6, 7 and 12 against those and the
 shared-memory sweep, phase 5 against the seven kernels of its five ops,
@@ -297,15 +314,17 @@ prefill kernel and, with compression, the Gram and shared-memory sweep,
 phase 13 against those, the split-KV kernel and the scan, phase 14
 against the bf16 prefill kernel, the Gram and the shared-memory sweep,
 phase 15 against the two flash kernels of bf16 serving, phase 16
-against the bf16 prefill kernel and the scan.
+against the bf16 prefill kernel and the scan, phase 17 against the bf16
+prefill kernel, the scan and the split-KV kernel.
 The last three lines are the kernels' JSON record (each kernel's
 launches from the phase that drives it, ``launches_serve`` from phase 6,
 ``launches_control`` from phase 7, ``launches_lm`` from the serve runs
 and consumers of phases 8 to 10, ``launches_train`` from phase 11's
 trainer runs, ``launches_mesh`` from phase 12, ``launches_mesh_lm``
 from phase 13, ``launches_pod`` from phase 14, ``launches_moe`` from
-phase 15's serve runs and ``launches_train_families`` from phase 16's
-trainer runs), the card's name and
+phase 15's serve runs, ``launches_train_families`` from phase 16's
+trainer runs and ``launches_dryrun`` from phase 17's three cells), the
+card's name and
 power limit, and ``{"ok": true,
 "device": {...}}``.
 Without a CUDA device the script exits with code 2 and prints no result.
@@ -600,6 +619,26 @@ SCAN_RTOL = SCAN_ATOL = 1e-4
 # ops phase's contract: two fp32 results 1e-7 apart round to bf16 values
 # one ulp apart)
 FA_BF16_SLACK = 2e-5
+# phase 17: the dry run's cells at a world of one, each (arch, its cut or
+# None, batch, seq_len, kind): phase 11's olmo-1b train, phase 16's
+# falcon-mamba-7b train at 4 layers, phase 8's olmo-1b prefill and one
+# decode step (its cache phase 8's prompt + generated tokens)
+DRY_CELLS = {
+    "olmo_train": ("olmo-1b", None, TRAIN_BATCH, TRAIN_SEQ, "train"),
+    "ssm_train": ("falcon-mamba-7b", {"n_layers": 4}, 4, 4096, "train"),
+    "olmo_serve": ("olmo-1b", None, LM_BATCH, LM_PROMPT, "prefill+decode"),
+}
+# the dry run's peak against the card's: the fake trace allocates what
+# the eager step allocates, storage by storage, rounded as the caching
+# allocator rounds; this much is left for what it cannot see
+DRY_PEAK_TOL = 0.10
+# the production cells no one card holds, through the dry run's CLI
+# (the 2 x 16 x 16 cell without costs, as its --all runs them)
+DRY_PRODUCTION = (("arctic-480b", "train_4k", False),
+                  ("llava-next-34b", "train_4k", False),
+                  ("arctic-480b", "train_4k", True))
+DRY_TIMEOUT = 150           # seconds a worker may take
+DRY_OUT = pathlib.Path(__file__).resolve().parent / "build" / "dryrun"
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
 # dense on the tensor cores, HBM3; the SFU's exponentials a clock an SM
 # (CUDA C++ Programming Guide, arithmetic instructions, compute 9.0)
@@ -4938,10 +4977,325 @@ def train_families_phase(dev) -> dict:
     return {"runs": runs, "launches": launches, "wall_s": wall}
 
 
+# -- phase 17: the dry run's memory model on the card --------------------------
+
+def dry_config(name: str):
+    """The config of phase 17's ``name`` cell: its arch at every published
+    width, cut as ``DRY_CELLS`` says, ``tp`` 1 (one card)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    arch, cut = DRY_CELLS[name][:2]
+    return dataclasses.replace(get_config(arch), tp=1, **(cut or {}))
+
+
+def dry_shapes(name: str):
+    """The ``ShapeCell``s of the cell: the train step's, or the prefill's
+    and the decode step's (its cache the prompt and ``LM_GEN`` tokens)."""
+    from repro_torch.configs.shapes import ShapeCell
+    _, _, batch, seq, kind = DRY_CELLS[name]
+    if kind == "train":
+        return {"train": ShapeCell(name, seq, batch, "train")}
+    return {"prefill": ShapeCell(name, seq, batch, "prefill"),
+            "decode": ShapeCell(name, seq + LM_GEN, batch, "decode")}
+
+
+def dry_cell(name: str) -> dict:
+    """The dry run of phase 17's cell ``name`` on a fake world of one:
+    the train step's record (``dryrun.run_cell``), or the prefill's and
+    then the decode step's traces on the prefill's state (the larger
+    peak)."""
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import steps as steps_mod
+    cfg, shapes = dry_config(name), dry_shapes(name)
+    one = ((1, 1), ("data", "model"))
+    if "train" in shapes:
+        return dryrun.run_cell(cfg.name, name, cfg=cfg, shape=shapes["train"],
+                               mesh_axes=one, verbose=False)
+    with dryrun.fake_world(1):
+        mesh = dryrun.Mesh.from_world(*one, device=dryrun.DEVICE)
+        step, (model, batch), live = dryrun.build_cell(
+            cfg, shapes["prefill"], mesh, "float32")
+        cache_len = shapes["decode"].seq_len
+        pre = dryrun.trace(lambda m, b: step(m, b, cache_len),
+                           (model, batch), live)
+        logits, state = pre["out"]
+        token = torch.argmax(logits, dim=-1)
+        del logits, pre["out"]
+        serve, _ = steps_mod.build_serve_step(cfg, shapes["decode"],
+                                              mesh=mesh)
+        dec = dryrun.trace(serve, (model, state, token),
+                           (model, batch, state, token))
+        flops = sum(t["aten_flops"] + sum(k["flops"] for k in
+                                          t["kernels"].values())
+                    for t in (pre, dec))
+        return {"memory": {"peak_bytes": max(pre["peak_bytes"],
+                                             dec["peak_bytes"])},
+                "flops_per_device": flops,
+                "trace_s": pre["trace_s"] + dec["trace_s"],
+                "kernel_calls": {k: pre["kernels"].get(k, {}).get("calls", 0)
+                                 + dec["kernels"].get(k, {}).get("calls", 0)
+                                 for k in set(pre["kernels"])
+                                 | set(dec["kernels"])}}
+
+
+def dryrun_worker(name: str, out: str) -> int:
+    """``chip_smoke.py --dryrun-worker NAME OUT``: phase 17's dry run of
+    cell ``name``, its record written to ``out``."""
+    pathlib.Path(out).write_text(json.dumps(dry_cell(name)))
+    return 0
+
+
+def dry_workers() -> dict:
+    """Phase 17's dry runs, started at once: a worker for each cell of
+    ``DRY_CELLS`` and the dry run's CLI for each of ``DRY_PRODUCTION``;
+    {name: (process, its record's path)}."""
+    from repro_torch.launch import dryrun
+    shutil.rmtree(DRY_OUT, ignore_errors=True)
+    DRY_OUT.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(pathlib.Path(__file__).resolve()
+                                          .parent / "src"))
+    cmds = {name: ([sys.executable, __file__, "--dryrun-worker", name,
+                    str(DRY_OUT / f"{name}.json")], DRY_OUT / f"{name}.json")
+            for name in DRY_CELLS}
+    for arch, shape, mp in DRY_PRODUCTION:
+        cid = dryrun.cell_id(arch, shape, mp)
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--out", str(DRY_OUT)]
+        if mp:
+            cmd += ["--multipod", "--no-cost"]
+        cmds[cid] = (cmd, DRY_OUT / f"{cid}.json")
+    procs = {}
+    for name, (cmd, path) in cmds.items():
+        with open(DRY_OUT / f"{name}.err", "w") as err:
+            procs[name] = (subprocess.Popen(cmd, env=env,
+                                            stdout=subprocess.DEVNULL,
+                                            stderr=err), path)
+    return procs
+
+
+def dry_record(procs: dict, name: str, deadline: float) -> dict:
+    """Worker ``name``'s record once it has exited 0; it is killed past
+    ``deadline``."""
+    proc, path = procs[name]
+    try:
+        proc.wait(timeout=max(1.0, deadline - time.perf_counter()))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    err = (DRY_OUT / f"{name}.err").read_text()[-3000:]
+    check(proc.returncode == 0 and path.exists(),
+          f"dry run {name}: worker exited {proc.returncode}\n{err}")
+    return json.loads(path.read_text())
+
+
+def dry_real(name: str, dev) -> dict:
+    """Phase 17's cell ``name`` run once on the card, the state resident
+    before the peak is reset: the step's peak of ``max_memory_allocated``
+    above what was allocated before the cell, and its launches."""
+    from repro_torch.backends import registry
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import steps as steps_mod
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw
+    cfg, shapes = dry_config(name), dry_shapes(name)
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    shape = shapes.get("train") or shapes["prefill"]
+    tokens = torch.randint(0, cfg.vocab_size, (shape.global_batch,
+                                               shape.seq_len), generator=g,
+                           device=dev, dtype=torch.int32)
+    train = "train" in shapes
+    model = tfm.init_model(cfg, seed=SEED, device=dev, train=train)
+    if train:
+        step, _ = steps_mod.build_train_step(cfg, shape, device=dev)
+        args = (steps_mod.TrainState(model, adamw.init(
+            dict(model.named_parameters()), adamw.AdamWConfig()),
+            torch.zeros((), dtype=torch.int32, device=dev)),
+            {"tokens": tokens})
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated() - base
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    registry.reset_resolution_counts()
+    t0 = time.perf_counter()
+    if train:
+        _, metrics = step(*args)
+        loss = float(metrics["loss"])
+        check(np.isfinite(loss), f"dry run {name}: the loss is {loss}")
+    else:
+        pre, _ = steps_mod.build_prefill(cfg, shape, device=dev)
+        logits, state = pre(model, {"tokens": tokens},
+                            shapes["decode"].seq_len)
+        token = torch.argmax(logits, dim=-1)
+        del logits
+        serve, _ = steps_mod.build_serve_step(cfg, shapes["decode"],
+                                              device=dev)
+        serve(model, state, token)
+        del state, token
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    plain = {op: n for (op, b), n in registry.resolution_counts().items()
+             if b == "torch" and n}
+    check(not plain, f"dry run {name}: plain versions resolved on the "
+          f"card: {plain}")
+    out = {"peak_bytes": peak, "resident_bytes": resident, "wall_s": wall,
+           "launches": launch_counts()}
+    del model, tokens
+    if train:
+        del args
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def fake_branches_held(dev) -> dict:
+    """Each of the four kernels on the dry run's path at a phase's shape
+    (phase 8's bf16 prefill, its fp32 prefill and its decode step over the
+    cache, phase 9's falcon-mamba scan with its state): the fake branch on
+    meta copies of the operands gives outputs of the launch's shapes,
+    dtypes and strides, counts one fake call and launches nothing."""
+    from repro_torch.kernels import (fake_counts, launch_counts, ops,
+                                     reset_fake_counts)
+    cfg = lm_config()
+    bh, d = LM_BATCH * cfg.n_heads, cfg.head_dim
+    cache = LM_PROMPT + LM_GEN
+    g = torch.Generator(device=dev).manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+    scfg = ssm_config()
+    di, n = scfg.d_inner, scfg.ssm_state
+    cases = {
+        "flash_attention_mma": ("flash_attention", tuple(
+            randn(bh, LM_PROMPT, d) for _ in range(3)), {"causal": True}),
+        "flash_attention_tf32x3": ("flash_attention", tuple(
+            randn(bh, LM_PROMPT, d, dtype=torch.float32) for _ in range(3)),
+            {"causal": True}),
+        "flash_attention_splitkv": ("flash_attention", (
+            randn(bh, 1, d), randn(bh, cache, d), randn(bh, cache, d)),
+            {"causal": True, "q_offset": LM_PROMPT}),
+        "mamba_scan": ("mamba_scan", (
+            randn(LM_BATCH, LM_PROMPT, di, dtype=torch.float32),
+            torch.rand(LM_BATCH, LM_PROMPT, di, generator=g, device=dev)
+            * 0.19 + 0.01,
+            -(torch.rand(di, n, generator=g, device=dev) * 1.5 + 0.5),
+            randn(LM_BATCH, LM_PROMPT, n, dtype=torch.float32),
+            randn(LM_BATCH, LM_PROMPT, n, dtype=torch.float32),
+            randn(di, dtype=torch.float32)), {"return_state": True}),
+    }
+    held = {}
+    for kernel, (op, args, kw) in cases.items():
+        before = launch_counts()
+        real = getattr(ops, op)(*args, **kw)
+        launched_ = {k: c - before[k] for k, c in launch_counts().items()
+                     if c != before[k]}
+        check(launched_ == {kernel: 1}, f"fake branch {kernel}: the real "
+              f"call launched {launched_}")
+        reset_fake_counts()
+        before = launch_counts()
+        fake = getattr(ops, op)(*(a.to("meta") for a in args), **kw)
+        real = real if isinstance(real, tuple) else (real,)
+        fake = fake if isinstance(fake, tuple) else (fake,)
+        got = [(tuple(f.shape), str(f.dtype), f.stride()) for f in fake]
+        want = [(tuple(r.shape), str(r.dtype), r.stride()) for r in real]
+        counts = fake_counts()
+        log(f"fake branch {kernel}: outputs {got}; launch {want}; "
+            f"{counts[kernel]['flops']:.4e} FLOPs, "
+            f"{counts[kernel]['bytes']:.4e} bytes counted")
+        check(got == want, f"fake branch {kernel}: {got} != {want}")
+        check(launch_counts() == before and set(counts) == {kernel}
+              and counts[kernel]["calls"] == 1,
+              f"fake branch {kernel}: launched or miscounted ({counts})")
+        held[kernel] = {"outputs": got, **counts[kernel]}
+        del args, real, fake
+    reset_fake_counts()
+    torch.cuda.empty_cache()
+    return held
+
+
+def dryrun_phase(dev, card: str) -> dict:
+    """Phase 17: the dry run's memory model held on the card (the module
+    docstring's item 17)."""
+    from repro_torch.kernels import fake_counts
+    from repro_torch.launch import accounting
+    from repro_torch.launch import dryrun
+    t_phase = time.perf_counter()
+    taken = fake_counts()
+    check(not taken, f"dry run: a fake branch was taken before phase 17: "
+          f"{taken}")
+    procs = dry_workers()
+    log(f"dry run: the card's total_memory "
+        f"{torch.cuda.get_device_properties(0).total_memory} B, the dry "
+        f"run's H100_BYTES {dryrun.H100_BYTES} B ({card})")
+    deadline = time.perf_counter() + DRY_TIMEOUT
+    try:
+        real = {name: dry_real(name, dev) for name in DRY_CELLS}
+        check(not fake_counts(), f"dry run: a CUDA tensor took the fake "
+              f"branch: {fake_counts()}")
+        launches = {k: sum(r["launches"][k] for r in real.values())
+                    for k in real["olmo_train"]["launches"]}
+        branches = fake_branches_held(dev)
+        cells = {}
+        for name in DRY_CELLS:
+            dry = dry_record(procs, name, deadline)
+            got, want = dry["memory"]["peak_bytes"], real[name]["peak_bytes"]
+            ratio = got / want
+            cfg, shapes = dry_config(name), dry_shapes(name)
+            model_f = sum(accounting.model_flops(cfg, s)
+                          for s in shapes.values())
+            log(f"dry run {name} ({card}): peak predicted {got} B, measured "
+                f"{want} B on the card (state {real[name]['resident_bytes']}"
+                f" B), ratio {ratio:.4f}; FLOPs {dry['flops_per_device']:.4e}"
+                f" against model FLOPs {model_f:.4e} (ratio "
+                f"{model_f / dry['flops_per_device']:.4f}); kernel calls "
+                f"{json.dumps(dry['kernel_calls'])}; trace "
+                f"{dry['trace_s']:.1f} s, card step {real[name]['wall_s']:.2f}"
+                f" s")
+            check(abs(ratio - 1) <= DRY_PEAK_TOL,
+                  f"dry run {name}: predicted peak {got} B is not within "
+                  f"{DRY_PEAK_TOL:.0%} of the card's {want} B")
+            cells[name] = {"predicted": got, "measured": want,
+                           "ratio": ratio,
+                           "flops": dry["flops_per_device"],
+                           "model_flops": model_f,
+                           "trace_s": dry["trace_s"]}
+        production = {}
+        for arch, shape, mp in DRY_PRODUCTION:
+            cid = dryrun.cell_id(arch, shape, mp)
+            rec = dry_record(procs, cid, deadline)
+            mem = rec["memory"]
+            log(f"dry run {arch} x {shape} on {rec['mesh']} ({card}): "
+                f"argument {mem['argument_bytes']} B, peak "
+                f"{mem['peak_bytes']} B, fits {mem['fits']}, collectives "
+                f"{json.dumps(rec['collectives'])}, roofline "
+                f"{json.dumps(rec['roofline'])} -> {rec['dominant']}; "
+                f"trace {rec['trace_s']} s")
+            check(mem["peak_bytes"] > mem["argument_bytes"] > 0
+                  and rec["collective_bytes_per_device"] > 0,
+                  f"dry run {cid}: an empty record")
+            production[cid] = rec
+    finally:
+        for proc, _ in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t_phase
+    log(f"dry run: launches {json.dumps({k: n for k, n in launches.items() if n})}"
+        f"; phase {wall:.1f} s")
+    return {"cells": cells, "branches": branches, "production": production,
+            "launches": launches, "wall_s": wall}
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-worker":
         return mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                            sys.argv[5])
+    if len(sys.argv) > 1 and sys.argv[1] == "--dryrun-worker":
+        return dryrun_worker(sys.argv[2], sys.argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs a CUDA card", file=sys.stderr)
@@ -5018,6 +5372,7 @@ def main() -> int:
     pod = pod_phase(dev, card)
     moe = moe_phase(dev, lm)
     families16 = train_families_phase(dev)
+    dry = dryrun_phase(dev, card)
     prof = lm["profile"]
     rows["flash_attention_mma"].update(
         lm_device_ms=prof["mma_device_ms"], lm_bound_ms=prof["mma_bound"][0],
@@ -5114,6 +5469,7 @@ def main() -> int:
         row["launches_pod"] = pod["launches"][k.name]
         row["launches_moe"] = moe["launches"][k.name]
         row["launches_train_families"] = families16["launches"][k.name]
+        row["launches_dryrun"] = dry["launches"][k.name]
         record.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))

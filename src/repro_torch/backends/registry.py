@@ -13,8 +13,9 @@ Resolution order for the backend name:
   2. scoped override (``use_backend``), then the process default
      (``set_default_backend``);
   3. the ``REPRO_TORCH_BACKEND`` environment variable;
-  4. auto: follow the tensor -- ``cuda`` for a CUDA tensor, ``torch`` for a
-     CPU tensor.
+  4. auto: follow the tensor -- ``cuda`` for a CUDA tensor or a ``meta``
+     one (the dry run's, which stands for one), ``torch`` for a CPU
+     tensor.
 """
 from __future__ import annotations
 
@@ -99,7 +100,8 @@ def default_backend(like: Optional[torch.Tensor] = None) -> str:
     env = os.environ.get(ENV_VAR)
     if env:
         return _check_backend(env)
-    return "cuda" if like is not None and like.is_cuda else "torch"
+    return ("cuda" if like is not None and (like.is_cuda or like.is_meta)
+            else "torch")
 
 
 def set_default_backend(name: Optional[str]) -> None:

@@ -29,4 +29,17 @@ def launch_counts() -> dict:
     return {kernel.name: kernel.launches for kernel in KERNELS}
 
 
-__all__ = ["KERNELS", "KernelInfo", "launch_counts", "reset_launch_counts"]
+def reset_fake_counts() -> None:
+    for kernel in KERNELS:
+        kernel.fake_calls, kernel.fake_flops, kernel.fake_bytes = 0, 0.0, 0.0
+
+
+def fake_counts() -> dict:
+    """{kernel: {"calls", "flops", "bytes"}} of the dry run's fake branch,
+    for the kernels it took."""
+    return {k.name: {"calls": k.fake_calls, "flops": k.fake_flops,
+                     "bytes": k.fake_bytes} for k in KERNELS if k.fake_calls}
+
+
+__all__ = ["KERNELS", "KernelInfo", "fake_counts", "launch_counts",
+           "reset_fake_counts", "reset_launch_counts"]

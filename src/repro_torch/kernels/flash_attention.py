@@ -34,7 +34,8 @@ padded keys in when ``q_offset > Skv - Sq``).
 
 On a CPU tensor it returns the plain version
 (``kernels.ref.flash_attention``); on a CUDA tensor it launches a kernel or
-raises.
+raises; on the dry run's meta tensors it takes the fake branch
+(``kernels.launch``), counted under the kernel the call would launch.
 """
 from __future__ import annotations
 
@@ -44,7 +45,8 @@ import torch
 
 from . import build
 from . import ref as _ref
-from .launch import KernelInfo, copy_width, require, require_cuda, stream
+from .launch import (KernelInfo, copy_width, is_fake, require,
+                     require_cuda, stream)
 
 _TPU = "src/repro/kernels/flash_attention.py:92"
 _CSRC = "src/repro_torch/csrc/"
@@ -92,17 +94,39 @@ def visible_keys(sq: int, skv: int, causal: bool, q_offset: int) -> int:
     return skv
 
 
+def attention_flops(bh: int, sq: int, skv: int, d: int, causal: bool,
+                    q_offset: int) -> float:
+    """FLOPs of one call, as ``PERF.md`` bounds it: 4 x d a visible score
+    (QK^T and PV, a multiply and an add each), the scores those of the
+    keys the kernel visits (``visible_keys``), a causal call's rows each
+    seeing keys up to its diagonal."""
+    keys = visible_keys(sq, skv, causal, q_offset)
+    scores = sq * (keys - (sq - 1) / 2) if causal else sq * keys
+    return 4.0 * bh * d * scores
+
+
+def attention_bytes(q: torch.Tensor, bh: int, sq: int, skv: int, d: int,
+                    causal: bool, q_offset: int) -> float:
+    """Bytes one call must move: q read and the output written (Sq rows a
+    problem), the visited keys of K and V read once."""
+    keys = visible_keys(sq, skv, causal, q_offset)
+    return float(q.element_size() * bh * d * (2 * sq + 2 * keys))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, scale: Optional[float] = None,
                     q_offset: int = 0) -> torch.Tensor:
     """Attention of q (BH, Sq, D) over k, v (BH, Skv, D), all float32 or
     all bfloat16; query row i sits at position i + ``q_offset``.  The
-    default scale is D^-1/2."""
+    default scale is D^-1/2.  On the dry run's meta tensors the kernel
+    that would serve the call makes the same checks and allocations,
+    counts the call's FLOPs and bytes and launches nothing."""
     if all(t.device.type == "cpu" for t in (q, k, v)):
         return _ref.flash_attention(q, k, v, causal=causal, scale=scale,
                                     q_offset=q_offset)
     what = "flash_attention"
-    dev = require_cuda(what, q, k, v)
+    fake = is_fake(q)
+    dev = require_cuda(what, q, k, v, fake_ok=fake)
     require(q.ndim == 3 and k.ndim == 3 and k.shape == v.shape, what,
             f"expected q (BH, Sq, D) and k, v (BH, Skv, D), got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -128,13 +152,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel() == 0:  # an empty grid is no launch
         return out
     kernel = choose_kernel(sq, q.dtype)
+    if kernel is FLASH_SPLITKV:
+        kv_end = visible_keys(sq, skv, causal, q_offset)
+        n_split = -(-kv_end // SPLIT_KEYS)
+        part = torch.empty(bh * sq * n_split * (d + 2),
+                           dtype=torch.float32, device=dev)
+    if fake:
+        kernel.fake_call(attention_flops(bh, sq, skv, d, causal, q_offset),
+                         attention_bytes(q, bh, sq, skv, d, causal,
+                                         q_offset))
+        return out
     lib = build.library()
     with torch.cuda.device(dev):
         if kernel is FLASH_SPLITKV:
-            kv_end = visible_keys(sq, skv, causal, q_offset)
-            n_split = -(-kv_end // SPLIT_KEYS)
-            part = torch.empty(bh * sq * n_split * (d + 2),
-                               dtype=torch.float32, device=dev)
             status = lib.repro_flash_decode(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 part.data_ptr(), int(q.dtype == torch.bfloat16), bh, sq, skv,

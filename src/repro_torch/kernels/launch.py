@@ -1,5 +1,13 @@
 """What every kernel wrapper shares: its record (with the launch count)
-and the checks it makes before it hands pointers to a CUDA kernel."""
+and the checks it makes before it hands pointers to a CUDA kernel.
+
+The dry run (``launch.dryrun``) traces the models on tensors of the
+``meta`` device, which hold shapes and no data.  The wrappers of the
+kernels on its path (``flash_attention``, ``mamba_scan``) take a fake
+branch for them (``is_fake``): the same checks and allocations as a
+launch, the call's FLOPs and bytes added to the record (``fake_call``),
+no launch.  Every other wrapper refuses a meta operand
+(``require_cuda``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,16 +26,37 @@ class KernelInfo:
     source: str      # its CUDA source, relative to the repository root
     replaces: str    # the TPU kernel's pallas_call, file:line
     launches: int = 0
+    # the dry run's fake branch: calls taken and their FLOPs and bytes
+    # (never a launch; ``launches`` does not move)
+    fake_calls: int = 0
+    fake_flops: float = 0.0
+    fake_bytes: float = 0.0
+
+    def fake_call(self, flops: float, n_bytes: float) -> None:
+        self.fake_calls += 1
+        self.fake_flops += flops
+        self.fake_bytes += n_bytes
 
 
-def require_cuda(what: str, *tensors: torch.Tensor) -> torch.device:
-    """The one CUDA device all ``tensors`` lie on; raises otherwise."""
+def is_fake(t: torch.Tensor) -> bool:
+    """Whether ``t`` is one of the dry run's tensors: on the ``meta``
+    device, a shape and no data."""
+    return t.is_meta
+
+
+def require_cuda(what: str, *tensors: torch.Tensor,
+                 fake_ok: bool = False) -> torch.device:
+    """The one CUDA device all ``tensors`` lie on; raises otherwise.
+    ``fake_ok``: a wrapper with a fake branch also takes the dry run's
+    meta tensors."""
     dev = tensors[0].device
     for t in tensors:
-        if t.device.type != "cuda":
+        if t.device.type != "cuda" and not (fake_ok and is_fake(t)):
+            fake = (" (the dry run's: only flash_attention and mamba_scan "
+                    "have a fake branch)" if is_fake(t) else "")
             raise ValueError(
                 f"{what}: the CUDA kernel needs CUDA tensors, got one on "
-                f"{t.device}")
+                f"{t.device}{fake}")
         if t.device != dev:
             raise ValueError(f"{what}: tensors on {dev} and {t.device}")
     return dev

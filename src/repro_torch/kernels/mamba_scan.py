@@ -17,7 +17,8 @@ GHz) and 403 MB of u, dt and y (0.120 ms at 3.35 TB/s); the kernel takes
 0.25 ms there on an H100 SXM at 700 W.
 
 On a CPU tensor it returns the plain version (``kernels.ref.mamba_scan``);
-on a CUDA tensor it launches the kernel or raises.
+on a CUDA tensor it launches the kernel or raises; on the dry run's meta
+tensors it takes the fake branch (``kernels.launch``).
 """
 from __future__ import annotations
 
@@ -27,8 +28,8 @@ import torch
 
 from . import build
 from . import ref as _ref
-from .launch import (KernelInfo, copy_width, require, require_cuda,
-                     stream)
+from .launch import (KernelInfo, copy_width, is_fake, require,
+                     require_cuda, stream)
 
 MAMBA_SCAN = KernelInfo("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
                         "src/repro/kernels/mamba_scan.py:67")
@@ -48,6 +49,23 @@ def scan_copies(u: torch.Tensor, delta: torch.Tensor, B: torch.Tensor,
             copy_width(N, es, widths, (B, C)))
 
 
+def scan_flops(batch: int, length: int, d: int, n: int) -> float:
+    """Operations of one call at the fp32 rate, as ``PERF.md`` bounds it:
+    7 N + 3 a (b, t, d) (the N exponentials run on the SFU and are not
+    counted)."""
+    return float(batch * length * d * (7 * n + 3))
+
+
+def scan_bytes(u: torch.Tensor, batch: int, length: int, d: int, n: int,
+               return_state: bool) -> float:
+    """Bytes one call must move: u, delta and B, C read and y written in
+    the operands' dtype, A and D_skip in fp32, the final state (fp32)
+    written with ``return_state``."""
+    es = u.element_size()
+    return float(es * (3 * batch * length * d + 2 * batch * length * n)
+                 + 4 * d * (n + 1) + 4 * batch * d * n * return_state)
+
+
 def mamba_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
                B: torch.Tensor, C: torch.Tensor, D_skip: torch.Tensor,
                return_state: bool = False):
@@ -55,13 +73,16 @@ def mamba_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     (batch, L, N) and D_skip (D,).  u, delta, B and C share one dtype,
     float32 or bfloat16, which y takes; A and D_skip are used in fp32.
     With ``return_state``, (y, state): the final state x_{L-1}, (batch,
-    D, N) in fp32, stored by the same launch."""
+    D, N) in fp32, stored by the same launch.  On the dry run's meta
+    tensors the same checks and allocations, the call's FLOPs and bytes
+    counted, nothing launched."""
     tensors = (u, delta, A, B, C, D_skip)
     if all(t.device.type == "cpu" for t in tensors):
         return _ref.mamba_scan(u, delta, A, B, C, D_skip,
                                return_state=return_state)
     what = "mamba_scan"
-    dev = require_cuda(what, *tensors)
+    fake = is_fake(u)
+    dev = require_cuda(what, *tensors, fake_ok=fake)
     require(u.ndim == 3 and delta.shape == u.shape, what,
             f"u and delta must be (batch, L, D), got {tuple(u.shape)} and "
             f"{tuple(delta.shape)}")
@@ -94,6 +115,10 @@ def mamba_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     # the reference kernel also takes A and D_skip in fp32; both are small
     A32 = A.to(torch.float32).contiguous()
     D32 = D_skip.to(torch.float32).contiguous()
+    if fake:
+        MAMBA_SCAN.fake_call(scan_flops(batch, L, D, N),
+                             scan_bytes(u, batch, L, D, N, return_state))
+        return (y, state) if return_state else y
     lib = build.library()
     with torch.cuda.device(dev):
         build.check(lib.repro_mamba_scan(

@@ -7,7 +7,9 @@ standalone ops (``dle_find_pivot``, ``cordic_rotate``, ``flash_attention``,
 Each op resolves a named backend per call (``repro_torch.backends``):
 
   ``cuda``   the hand-written CUDA kernel; raises on a tensor that is not
-             on a CUDA device
+             on a CUDA device, except the dry run's meta tensors, which
+             ``flash_attention`` and ``mamba_scan`` take (their fake
+             branch) and the other ops refuse
   ``torch``  the plain PyTorch version (``kernels.ref``), on any device
 
 ``backend=None`` follows the registry's resolution order, whose last rule
@@ -205,7 +207,7 @@ cordic_rotate = cordic_rotation_params  # registry op name alias
 def _fa_cuda(q, k, v, *, causal, scale, block_q=128, block_k=128,
              q_offset=0):
     del block_q, block_k  # each kernel's tiles are fixed (64 x 64 keys)
-    require_cuda("flash_attention", q, k, v)
+    require_cuda("flash_attention", q, k, v, fake_ok=True)
     return _fa.flash_attention(q, k, v, causal=causal, scale=scale,
                                q_offset=q_offset)
 
@@ -244,7 +246,7 @@ def flash_attention(q, k, v, causal: bool = True, scale=None,
 def _ms_cuda(u, delta, A, B, C, D_skip, *, chunk: int = 128,
              return_state: bool = False):
     del chunk  # the kernel runs each channel over all of L
-    require_cuda("mamba_scan", u, delta, A, B, C, D_skip)
+    require_cuda("mamba_scan", u, delta, A, B, C, D_skip, fake_ok=True)
     return _ms.mamba_scan(u, delta, A, B, C, D_skip,
                           return_state=return_state)
 

@@ -18,9 +18,12 @@ projections and the conv run in the model's dtype, ``x_proj``'s output is
 cast to fp32, ``dt`` is ``softplus(dt_r @ dt_w + dt_b)`` in fp32, the scan
 takes u = the conv output, dt, B and C in fp32, and the gate ``silu(z)``
 is applied in fp32 before the cast back.  ``ssm_dtype="bfloat16"`` (the
-reference then keeps a bf16 state; the kernel keeps fp32) and
-``ssm_impl="kernel_proxy"`` (the reference's dry-run stand-in for the
-kernel's memory traffic, not a numerics path) raise.
+reference then keeps a bf16 state; the kernel keeps fp32) raises.
+``ssm_impl="kernel_proxy"`` is the reference's dry-run stand-in for the
+scan kernel's memory traffic, not a numerics path: prefill reads each
+scan input once and writes y once (y = u dt (B . C) + D u), calls no
+kernel, and leaves a zero final state; decode is the plain recurrence
+either way.
 
 On a mesh (``rules``; ``REPLICATED`` by default) the layer is
 tensor-parallel over ``d_inner`` with the reference's roles: ``in_proj``
@@ -55,11 +58,6 @@ class MambaCache(NamedTuple):
 
 
 def _unsupported(cfg: ModelConfig) -> None:
-    if cfg.ssm_impl != "scan":
-        raise NotImplementedError(
-            f"{cfg.name}: ssm_impl {cfg.ssm_impl!r} is the reference's "
-            f"dry-run stand-in for the scan kernel's memory traffic, not a "
-            f"numerics path; not ported (ROADMAP queue 1, deferred)")
     if cfg.ssm_dtype != "float32":
         raise NotImplementedError(
             f"{cfg.name}: ssm_dtype {cfg.ssm_dtype!r} keeps the scan's "
@@ -157,10 +155,17 @@ def apply_mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
     xc = F.silu(xc + p.conv_b)
 
     dt, B_ssm, C_ssm = _ssm_params(p, xc, cfg, rules)
-    A = -torch.exp(p.A_log)
-    y, state = ops.mamba_scan(xc.float().contiguous(), dt.contiguous(), A,
-                              B_ssm.contiguous(), C_ssm.contiguous(), p.D,
-                              chunk or cfg.mamba_chunk, return_state=True)
+    if cfg.ssm_impl == "kernel_proxy":
+        xf = xc.float()
+        mix = torch.einsum("bsn,bsn->bs", B_ssm, C_ssm)
+        y = xf * dt * mix[..., None] + p.D * xf
+        state = xf.new_zeros(x.shape[0], xf.shape[-1], cfg.ssm_state)
+    else:
+        A = -torch.exp(p.A_log)
+        y, state = ops.mamba_scan(xc.float().contiguous(), dt.contiguous(),
+                                  A, B_ssm.contiguous(), C_ssm.contiguous(),
+                                  p.D, chunk or cfg.mamba_chunk,
+                                  return_state=True)
     y = (y * F.silu(z.float())).to(x.dtype)
     out = C.reduce_from(y @ C.fsdp_gather(p.out_proj, rules, 1), rules)
     if not return_cache:

@@ -117,10 +117,13 @@ class Mesh:
 
     @classmethod
     def from_world(cls, shape: Sequence[int], axis_names: Sequence[str],
-                   ranks: Optional[Sequence[int]] = None) -> "Mesh":
+                   ranks: Optional[Sequence[int]] = None,
+                   device: DeviceLike = None) -> "Mesh":
         """A mesh of ``shape`` over world ranks ``ranks`` (default the
         first prod(shape)), bound to the started process group.  Every
-        rank of the world calls it (it creates the groups)."""
+        rank of the world calls it (it creates the groups).  ``device``:
+        this rank's device (default ``collectives.world_device()``; the
+        dry run's fake world passes ``meta``)."""
         from . import collectives as C
         import torch.distributed as dist
         from torch.distributed.device_mesh import DeviceMesh
@@ -132,7 +135,7 @@ class Mesh:
         if len(ranks) != need or max(ranks) >= world:
             raise ValueError(f"a mesh of shape {shape} needs {need} of the "
                              f"world's {world} ranks; got {ranks}")
-        me = C.world_device()
+        me = C.world_device() if device is None else torch.device(device)
         devs = [None] * world
         dist.all_gather_object(devs, str(me))
         grid = np.asarray(ranks).reshape(shape)

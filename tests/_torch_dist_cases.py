@@ -431,5 +431,54 @@ def pod_compression_world(tmp: pathlib.Path, layers: int, seq: int,
     return out
 
 
+# ---------------------------------------------------------------------------
+# the dry run's cells, run for real: each rank's collective bytes
+# ---------------------------------------------------------------------------
+
+def dryrun_cells(tmp: pathlib.Path, cells: dict):
+    """Each cell's step (``launch.steps.build_step``) on its mesh of this
+    world, with seeded weights, as the dry run builds it: rank 0's
+    ``collectives.byte_counts()`` of the step."""
+    out = {}
+    for name, cell in cells.items():
+        dims, names = tuple(cell["mesh"]), tuple(cell["axes"])
+        cfg = _cfg(cell["arch"], cell["overrides"])
+        shape = ShapeCell(*cell["shape"])
+        mesh = Mesh.from_world(dims, names)
+        kw = {}
+        if shape.kind == "train":
+            kw["opt_cfg"] = adamw.AdamWConfig(moment_dtype=cell["moments"])
+        step, specs = steps.build_step(shape.kind, cfg, shape, mesh=mesh,
+                                       **kw)
+        rules = step.rules
+        model = tfm.init_model(cfg, seed=0, device="cpu",
+                               train=shape.kind == "train", rules=rules)
+        g = torch.Generator().manual_seed(1)
+        nb = rules.size("batch")
+
+        def local(shp, dt):
+            shp = (shp[0] // nb,) + tuple(shp[1:])
+            if dt == torch.int32:
+                return torch.randint(0, cfg.vocab_size, shp, generator=g,
+                                     dtype=dt)
+            return torch.randn(shp, generator=g).to(dt)
+        if shape.kind == "decode":
+            state = tfm.make_decode_state(cfg, shape.global_batch,
+                                          shape.seq_len, device="cpu",
+                                          rules=rules)
+            args = (model, state, local(*specs["token"]))
+        else:
+            batch = {k: local(*v) for k, v in specs.items()}
+            if shape.kind == "train":
+                args = (_train_state(model, kw["opt_cfg"], rules), batch)
+            else:
+                args = (model, batch)
+        C.reset_counts()
+        step(*args)
+        out[name] = C.byte_counts()
+    return out
+
+
 CASES = {"lm": lm, "trainer": trainer, "rules_shard": rules_shard,
-         "pod_compression_world": pod_compression_world}
+         "pod_compression_world": pod_compression_world,
+         "dryrun_cells": dryrun_cells}

@@ -37,6 +37,7 @@ def test_import_leaves_jax_and_reference_out():
             "repro_torch.optim.compression, repro_torch.launch.serve, "
             "repro_torch.launch.train, repro_torch.launch.steps, "
             "repro_torch.launch.pod_compression, "
+            "repro_torch.launch.dryrun, "
             "repro_torch.optim.adamw, repro_torch.kernels.grad, "
             "repro_torch.checkpoint, repro_torch.data, repro_torch.runtime, "
             "repro_torch.configs.shapes, repro_torch.launch.accounting, "
@@ -213,6 +214,14 @@ def test_standalone_wrapper_takes_its_plain_version_only_on_the_cpu(op):
           "cordic_rotate": lambda: cordic.cordic_rotation_params(*meta),
           "flash_attention": lambda: flash_attention.flash_attention(*meta),
           "mamba_scan": lambda: mamba_scan.mamba_scan(*meta)}[op]
+    if op in ("flash_attention", "mamba_scan"):
+        # the dry run's meta tensors take the fake branch: the launch's
+        # outputs, no launch
+        got = fn()
+        assert (got.device.type, got.shape, got.dtype) == (
+            "meta", want.shape, want.dtype)
+        assert launch_counts() == before
+        return
     with pytest.raises(ValueError, match="CUDA"):
         fn()
 

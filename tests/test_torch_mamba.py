@@ -210,8 +210,7 @@ def test_scan_op_return_state_of_an_empty_sequence():
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"ssm_impl": "kernel_proxy"}, "not a numerics path"),
-    ({"ssm_dtype": "bfloat16"}, "fp32"),
+    pytest.param({"ssm_dtype": "bfloat16"}, "fp32", id="override1-fp32"),
 ])
 def test_unported_scan_options_raise(override, match):
     tcfg = tconfigs.reduced_config(ARCH, **override)
@@ -226,3 +225,50 @@ def test_unported_scan_options_raise(override, match):
     x = torch.zeros(1, 3, good.d_model)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tmamba.apply_mamba(block, x, tcfg)
+
+
+# ssm_impl="kernel_proxy": the reference's dry-run stand-in for the scan
+# kernel's memory traffic (y = u dt (B . C) + D u, a zero final state)
+@pytest.mark.parametrize("s", [16, 37])
+def test_kernel_proxy_prefill_matches_reference(s):
+    cfg, tcfg, params, block = _pair(ssm_impl="kernel_proxy")
+    x = _x(2, s, cfg.d_model, seed=7)
+    y, _ = jmamba.apply_mamba(params, jnp.asarray(x), cfg, REPLICATED)
+    ty, none = tmamba.apply_mamba(block, torch.from_numpy(x), tcfg)
+    assert none is None
+    np.testing.assert_allclose(ty.numpy(), np.asarray(y), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_kernel_proxy_cache_matches_reference():
+    """The cache: the conv inputs as the scan path keeps them, and the
+    reference's zero state; a decode step from it, the plain recurrence
+    in both."""
+    cfg, tcfg, params, block = _pair(ssm_impl="kernel_proxy")
+    x = _x(2, 9, cfg.d_model, seed=8)
+    _, cache = jmamba.apply_mamba(params, jnp.asarray(x), cfg, REPLICATED,
+                                  return_cache=True)
+    _, tcache = tmamba.apply_mamba(block, torch.from_numpy(x), tcfg,
+                                   return_cache=True)
+    assert tcache.state.shape == (2, cfg.d_inner, cfg.ssm_state)
+    assert tcache.state.dtype == torch.float32 and not tcache.state.any()
+    np.testing.assert_array_equal(np.asarray(cache.state), 0)
+    np.testing.assert_array_equal(tcache.conv.numpy(), np.asarray(cache.conv))
+    xt = _x(2, 1, cfg.d_model, seed=9)
+    y, cache = jmamba.decode_mamba(params, jnp.asarray(xt), cache, cfg,
+                                   REPLICATED)
+    ty, tcache = tmamba.decode_mamba(block, torch.from_numpy(xt), tcache,
+                                     tcfg)
+    np.testing.assert_allclose(ty.numpy(), np.asarray(y), rtol=1e-5,
+                               atol=1e-5)
+    np.testing.assert_allclose(tcache.state.numpy(), np.asarray(cache.state),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_proxy_launches_no_scan():
+    """The proxy calls no scan: neither the op nor a kernel runs."""
+    from repro_torch.backends import registry
+    _, tcfg, _, block = _pair(ssm_impl="kernel_proxy")
+    registry.reset_resolution_counts()
+    tmamba.apply_mamba(block, torch.zeros(1, 5, tcfg.d_model), tcfg)
+    assert ("mamba_scan", "torch") not in registry.resolution_counts()
