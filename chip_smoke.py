@@ -304,6 +304,26 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    The dry runs are worker processes (``--dryrun-worker``) started at the
    phase's start, beside the card's work; no fake branch was taken
    before the phase, and none by a CUDA tensor in it.
+18. bf16 state: ``ssm_dtype="bfloat16"`` (the reference keeps the scan's
+   state in bf16 and rounds it every step; the port runs the scan
+   kernel's bf16-state instance, ``mamba_scan_bf16_state``).
+   falcon-mamba-7b whole with it through ``serve.generate`` at phase 9's
+   cell (B 4 x 4096, 32 generated): its line (``prefill_s``,
+   ``decode_per_token_s``), exactly 64 bf16-state scans a prefill and
+   none in decode, the served prefill's scan calls of layers 0, 31 and
+   63 held at the op to the plain version in bf16-state mode (every
+   final-state value within one bf16 ulp, y within 2^-8 relative
+   Frobenius); on the same weights and prompt a prefill with the bf16
+   state and one with the fp32 state, their last logits' distance
+   printed.  falcon-mamba-7b cut to 4 layers with it trained as phase
+   16's ssm run (``train.run``, 8 steps at B 4 x 4096): losses finite
+   and falling (printed beside phase 16's fp32-state losses), exactly 8
+   bf16-state scans a step (forward and remat) and nothing else, no
+   plain version resolved; one held step with layers 0 and 3's scan
+   calls held at the op.  The instance at 4 x 4096 x 8192, N 16 (fp32
+   operands, as the model passes them) held at the op and timed with
+   CUDA events beside the fp32 state's kernel on the same operands, each
+   with its bound.
 Each path is checked against the kernels it runs: phase 3 against the
 three PCA/SVD kernels, phases 4, 6, 7 and 12 against those and the
 shared-memory sweep, phase 5 against the seven kernels of its five ops,
@@ -315,7 +335,8 @@ phase 13 against those, the split-KV kernel and the scan, phase 14
 against the bf16 prefill kernel, the Gram and the shared-memory sweep,
 phase 15 against the two flash kernels of bf16 serving, phase 16
 against the bf16 prefill kernel and the scan, phase 17 against the bf16
-prefill kernel, the scan and the split-KV kernel.
+prefill kernel, the scan and the split-KV kernel, phase 18 against the
+scan's bf16-state instance.
 The last three lines are the kernels' JSON record (each kernel's
 launches from the phase that drives it, ``launches_serve`` from phase 6,
 ``launches_control`` from phase 7, ``launches_lm`` from the serve runs
@@ -323,7 +344,9 @@ and consumers of phases 8 to 10, ``launches_train`` from phase 11's
 trainer runs, ``launches_mesh`` from phase 12, ``launches_mesh_lm``
 from phase 13, ``launches_pod`` from phase 14, ``launches_moe`` from
 phase 15's serve runs, ``launches_train_families`` from phase 16's
-trainer runs and ``launches_dryrun`` from phase 17's three cells), the
+trainer runs, ``launches_dryrun`` from phase 17's three cells and
+``launches_bf16_state`` from phase 18's serve and trainer runs; the
+bf16-state instance's ``launches`` are phase 18's serve run's), the
 card's name and
 power limit, and ``{"ok": true,
 "device": {...}}``.
@@ -639,6 +662,25 @@ DRY_PRODUCTION = (("arctic-480b", "train_4k", False),
                   ("arctic-480b", "train_4k", True))
 DRY_TIMEOUT = 150           # seconds a worker may take
 DRY_OUT = pathlib.Path(__file__).resolve().parent / "build" / "dryrun"
+# phase 18: ssm_dtype="bfloat16", the reference's bf16 scan state (the
+# scan kernel's bf16-state instance): falcon-mamba-7b whole served at
+# phase 9's cell (LM_BATCH x LM_PROMPT, LM_GEN generated), the scan calls
+# of BF16_SERVE_HELD_LAYERS held at the op (a plain bf16-state scan at 4 x
+# 4096 x 8192 is a loop of 4096 steps, 1.7 s on the card); falcon-mamba-7b
+# cut to 4 layers trained as phase 16's ssm run (FAMILY_RUNS["ssm"],
+# TRAIN_STEPS steps), its held step's scans those of
+# FAMILY_SSM_HELD_LAYERS; the kernel timed at phase 9's shape beside the
+# fp32 state's
+BF16_SERVE_HELD_LAYERS = (0, 31, 63)
+# a bf16-state scan call against the plain version in bf16-state mode on
+# the same operands: the two round the same values at the same points
+# (expf for the exponential, round to nearest even), so the final state's
+# bf16 values agree to the bit unless an exponential rounds the other way;
+# the contract lets each be one bf16 ulp apart.  y sums 16 products of the
+# state and C in fp32 in another order (about 1e-7 apart); if every state
+# were one ulp (2^-8 to 2^-7 relative) apart, y could move by up to 2^-7
+# relative: y is held to half of that
+SCAN_BF16_Y_TOL = 2.0 ** -8
 # H100 SXM peaks (NVIDIA data sheet): fp32 outside the tensor cores, bf16
 # dense on the tensor cores, HBM3; the SFU's exponentials a clock an SM
 # (CUDA C++ Programming Guide, arithmetic instructions, compute 9.0)
@@ -757,13 +799,16 @@ def sm_clock_hz() -> float:
 
 
 def scan_instance(entry: str) -> str:
-    """A mamba_scan.cu instance by dtype and copy widths, e.g. "fp32
-    wide"; any other kernel by its mangled name."""
-    inst = re.search(r"scan_kernelI(f|13__nv_bfloat16)Lb([01])E", entry)
+    """A mamba_scan.cu instance by dtype, copy widths and state, e.g.
+    "fp32 wide" or "fp32 wide bf16-state"; any other kernel by its
+    mangled name."""
+    inst = re.search(r"scan_kernelI(f|13__nv_bfloat16)Lb([01])ELb([01])E",
+                     entry)
     if not inst:
         return entry
     dtype = "fp32" if inst.group(1) == "f" else "bf16"
-    return f"{dtype} {'wide' if inst.group(2) == '1' else 'any'}"
+    return (f"{dtype} {'wide' if inst.group(2) == '1' else 'any'}"
+            + (" bf16-state" if inst.group(3) == "1" else ""))
 
 
 def flash_instance(entry: str):
@@ -2578,20 +2623,34 @@ def hybrid_config():
 def hold_scan(op, i: int, args, kw, out) -> dict:
     """One call of the ``mamba_scan`` op ``op`` replayed on its ``torch``
     backend: y and the final state against the plain version's on the
-    same operands at rtol = atol = 1e-4.  Returns its record (``over``:
-    the values beyond)."""
+    same operands, at rtol = atol = 1e-4 (an fp32 state) or, for a bf16
+    state (``state_dtype``), the final state's bf16 values within one
+    bf16 ulp and y within ``SCAN_BF16_Y_TOL`` relative Frobenius.
+    Returns its record (``over``: the values beyond)."""
     t0 = time.perf_counter()
+    bf16_state = kw.get("state_dtype") == torch.bfloat16
     with torch.no_grad():  # a training step's operands carry gradients
         args = [a.detach() if torch.is_tensor(a) else a for a in args]
         y, state = (t.detach() for t in out)
         want_y, want_state = op(*args, **dict(kw, backend="torch"))
         want_y = want_y.float()
-        over = sum(int(((g.float() - w).abs()
-                        > SCAN_ATOL + SCAN_RTOL * w.abs()).sum())
-                   for g, w in ((y, want_y), (state, want_state)))
+        if bf16_state:
+            ulp = bf16_ulp(torch.maximum(state.abs(), want_state.abs()))
+            y_rel = errors(y.float(), want_y)[2]
+            over = (int(((state - want_state).abs() > ulp).sum())
+                    + int(not torch.equal(state.bfloat16().float(), state))
+                    + int(y_rel > SCAN_BF16_Y_TOL))
+        else:
+            over = sum(int(((g.float() - w).abs()
+                            > SCAN_ATOL + SCAN_RTOL * w.abs()).sum())
+                       for g, w in ((y, want_y), (state, want_state)))
         rec = {"call": i, "u": list(args[0].shape), "over": over,
+               "bf16_state": bf16_state,
                "y_max_abs_err": float((y.float() - want_y).abs().max()),
                "state_max_abs_err": float((state - want_state).abs().max())}
+        if bf16_state:
+            rec.update(y_rel_frobenius=y_rel, state_bitwise=int(
+                (state != want_state).sum()) == 0)
     return {**rec, "hold_s": time.perf_counter() - t0}
 
 
@@ -2618,17 +2677,31 @@ def scans_held(held: list, keep=None, now: bool = True):
         held.append(hold_scan(*pending.pop(0)))
 
 
+def scan_rule(held: list) -> str:
+    """The contract the held scan calls were held to."""
+    if held and all(h["bf16_state"] for h in held):
+        return (f"bf16 state: the state within one bf16 ulp, y within "
+                f"{SCAN_BF16_Y_TOL:g} relative Frobenius")
+    return f"rtol = atol = {SCAN_RTOL:g}"
+
+
 def check_scans(held: list, what: str, calls: int) -> None:
+    rule = scan_rule(held)
+    bf16 = [h for h in held if h["bf16_state"]]
     log(f"{what}: {len(held)} mamba_scan calls held at the op (y and the "
-        f"final state, rtol = atol = {SCAN_RTOL:g}), operands u "
+        f"final state, {rule}), operands u "
         f"{held[0]['u'] if held else None}, max_abs_err y "
         f"{max((h['y_max_abs_err'] for h in held), default=0):.3e}, state "
         f"{max((h['state_max_abs_err'] for h in held), default=0):.3e} "
-        f"(the holds {sum(h['hold_s'] for h in held):.3f} s)")
+        + (f"(y relative Frobenius up to "
+           f"{max(h['y_rel_frobenius'] for h in bf16):.3e}, "
+           f"{sum(h['state_bitwise'] for h in bf16)} of {len(bf16)} "
+           f"states bitwise the plain version's) " if bf16 else "")
+        + f"(the holds {sum(h['hold_s'] for h in held):.3f} s)")
     over = [h for h in held if h["over"]]
     check(len(held) == calls and not over, f"{what}: {len(held)} of {calls} "
-          f"mamba_scan calls held; off the plain version beyond rtol = "
-          f"atol = {SCAN_RTOL:g} at the op: {over[:2]}")
+          f"mamba_scan calls held; off the plain version beyond {rule} at "
+          f"the op: {over[:2]}")
 
 
 @contextlib.contextmanager
@@ -2664,10 +2737,12 @@ def dropped_share(routes: list, cfg, tokens: int):
     return dropped, total
 
 
-def scan_bound(cfg, batch: int, length: int):
+def scan_bound(cfg, batch: int, length: int, bf16_state: bool = False):
     """The least time of one layer's scan at the model's shapes (fp32
     operands): u, dt, B, C read, y and the state written, against N
-    exponentials a (b, t, d) on the SFU and the rest at the fp32 rate."""
+    exponentials a (b, t, d) on the SFU and the rest at the fp32 rate
+    (7 N + 3 a (b, t, d); a bf16 state rounds as many values again:
+    3 a (b, t, d) and 7 a (b, t, d, n), csrc/mamba_scan.cu's header)."""
     bld = batch * length * cfg.d_inner
     n = cfg.ssm_state
     n_bytes = 4 * (3 * bld + 2 * batch * length * n
@@ -2676,7 +2751,7 @@ def scan_bound(cfg, batch: int, length: int):
     sfu_rate = SFU_PER_CLOCK * torch.cuda.get_device_properties(
         0).multi_processor_count * sm_clock_hz()
     t_sfu = bld * n / sfu_rate * 1e3
-    t_ops = bld * (7 * n + 3) / PEAK_FP32 * 1e3
+    t_ops = (2 if bf16_state else 1) * bld * (7 * n + 3) / PEAK_FP32 * 1e3
     return max((t_bytes, "bytes"), (t_sfu, "operations"),
                (t_ops, "operations"))
 
@@ -3069,7 +3144,7 @@ def encdec_vlm_phase(dev) -> dict:
             "wall_s": wall}
 
 
-# -- phase 11: training ---------------------------------------------------------
+# -- phase 11: training -------------------------------------------------------
 
 def train_config():
     """olmo-1b whole, ``tp`` 1 (as the trainer CLI sets it)."""
@@ -4353,7 +4428,7 @@ def pod_phase(dev, card: str) -> dict:
             "wall_s": wall}
 
 
-# -- phase 15: the moe family at 128 experts -----------------------------------
+# -- phase 15: the moe family at 128 experts ----------------------------------
 
 def moe_config(arch: str):
     """``arch`` at every published width and all 128 experts, cut in depth
@@ -4723,7 +4798,14 @@ def family_launches(cfg) -> dict:
     forward and once more in remat's recompute."""
     mult = 2 if cfg.remat else 1
     return {"flash_attention_mma": mult * flash_calls(cfg)[0],
-            "mamba_scan": mult * cfg.layer_kinds().count("mamba")}
+            scan_kernel(cfg): mult * cfg.layer_kinds().count("mamba")}
+
+
+def scan_kernel(cfg) -> str:
+    """The scan kernel record a config's Mamba layers launch: the
+    bf16-state instance for ``ssm_dtype="bfloat16"``."""
+    return ("mamba_scan_bf16_state" if cfg.ssm_dtype == "bfloat16"
+            else "mamba_scan")
 
 
 def family_grad_calls(name: str, cfg) -> dict:
@@ -4769,14 +4851,15 @@ def scan_bwd_bound(cfg, batch: int, length: int):
                (16 * bld * n / PEAK_FP32 * 1e3, "operations"))
 
 
-def family_held_step(name: str, cfg, dev) -> dict:
+def family_held_step(name: str, cfg, dev, profile: bool = True) -> dict:
     """One step of ``name``'s seeded model on the pipeline's first batch,
     outside the timed run: every flash call held at the op
     (``FAMILY_HOLD_ROWS`` problems at a time), every scan call held at the
     op (falcon-mamba: those of ``FAMILY_SSM_HELD_LAYERS``, in the forward
     and in the recompute, which runs the layers last to first), the MoE's
-    dropped share, the operands of ``family_grad_calls`` kept; then a step
-    profiled (``step_profile``).  The model is freed on return."""
+    dropped share, the operands of ``family_grad_calls`` kept; then, with
+    ``profile``, a step profiled (``step_profile``).  The model is freed
+    on return."""
     from repro_torch.configs.shapes import ShapeCell
     from repro_torch.data import DataConfig, TokenPipeline
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -4800,7 +4883,7 @@ def family_held_step(name: str, cfg, dev) -> dict:
                                     vocab_size=cfg.vocab_size, seed=SEED))
     inputs = train.inputs(cfg, pipe.batch_at(0)[:, :seq], dev)
     want = family_launches(cfg)
-    n_scan = want["mamba_scan"]
+    n_scan = want[scan_kernel(cfg)]
     keep_scans = None
     if name == "ssm":
         L = cfg.n_layers
@@ -4851,7 +4934,8 @@ def family_held_step(name: str, cfg, dev) -> dict:
             f"expert of {cfg.n_experts}, top-{cfg.top_k}; the reference's "
             f"rule)")
     del routes, scans
-    prof = step_profile(model, cfg, state, opt_cfg, inputs)
+    prof = (step_profile(model, cfg, state, opt_cfg, inputs) if profile
+            else None)
     log(f"{what}: loss {loss:.7f}")
     del model, state, params, step_fn, inputs
     gc.collect()
@@ -4977,7 +5061,7 @@ def train_families_phase(dev) -> dict:
     return {"runs": runs, "launches": launches, "wall_s": wall}
 
 
-# -- phase 17: the dry run's memory model on the card --------------------------
+# -- phase 17: the dry run's memory model on the card -------------------------
 
 def dry_config(name: str):
     """The config of phase 17's ``name`` cell: its arch at every published
@@ -5153,9 +5237,10 @@ def dry_real(name: str, dev) -> dict:
 
 
 def fake_branches_held(dev) -> dict:
-    """Each of the four kernels on the dry run's path at a phase's shape
+    """Each of the five kernels on the dry run's path at a phase's shape
     (phase 8's bf16 prefill, its fp32 prefill and its decode step over the
-    cache, phase 9's falcon-mamba scan with its state): the fake branch on
+    cache, phase 9's falcon-mamba scan with its state, in fp32 and, phase
+    18's, in bf16): the fake branch on
     meta copies of the operands gives outputs of the launch's shapes,
     dtypes and strides, counts one fake call and launches nothing."""
     from repro_torch.kernels import (fake_counts, launch_counts, ops,
@@ -5187,6 +5272,9 @@ def fake_branches_held(dev) -> dict:
             randn(LM_BATCH, LM_PROMPT, n, dtype=torch.float32),
             randn(di, dtype=torch.float32)), {"return_state": True}),
     }
+    # phase 18's bf16 state on the same operands
+    cases["mamba_scan_bf16_state"] = ("mamba_scan", cases["mamba_scan"][1], {
+        "return_state": True, "state_dtype": torch.bfloat16})
     held = {}
     for kernel, (op, args, kw) in cases.items():
         before = launch_counts()
@@ -5290,6 +5378,207 @@ def dryrun_phase(dev, card: str) -> dict:
             "launches": launches, "wall_s": wall}
 
 
+# -- phase 18: ssm_dtype="bfloat16" -------------------------------------------
+
+def bf16_state_config(cfg):
+    """``cfg`` with the reference's bf16 scan state."""
+    import dataclasses
+    return dataclasses.replace(cfg, ssm_dtype="bfloat16")
+
+
+def bf16_serve(dev) -> dict:
+    """falcon-mamba-7b whole with ``ssm_dtype="bfloat16"`` through
+    ``serve.generate`` at phase 9's cell: one bf16-state scan a layer a
+    prefill and none in decode, the served prefill's scan calls of
+    ``BF16_SERVE_HELD_LAYERS`` held at the op; then on the same weights
+    and prompt a prefill with the bf16 state and one with the fp32 state,
+    their logits' distance."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+
+    cfg = bf16_state_config(ssm_config())
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = []
+    with scans_held(held, keep=set(BF16_SERVE_HELD_LAYERS), now=False):
+        reset_launch_counts()
+        gen, line = serve.generate(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                                   gen_len=LM_GEN, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_scan = counts["mamba_scan_bf16_state"]
+    log(f"ssm bf16 state serve: {json.dumps(line)}; prefill_s "
+        f"{line['prefill_s']}, decode_per_token_s "
+        f"{line['decode_per_token_s']}; mamba_scan_bf16_state launches "
+        f"{n_scan} (the prefill's; none in decode); peak device memory "
+        f"{peak_gb:.2f} GB")
+    served("ssm bf16 state", gen, cfg, counts,
+           {"mamba_scan_bf16_state": cfg.n_layers})
+    check_scans(held, f"ssm bf16 state serve ({LM_PROMPT}-token prefill, "
+                f"layers {list(BF16_SERVE_HELD_LAYERS)})",
+                len(BF16_SERVE_HELD_LAYERS))
+
+    model = tfm.init_model(cfg, seed=SEED, device=dev)  # serve's weights
+    tokens = torch.as_tensor(lm_prompt(cfg), dtype=torch.int64, device=dev)
+    logits = {}
+    for name, c in (("bf16", cfg), ("fp32", ssm_config())):
+        reset_launch_counts()
+        out, _ = tfm.prefill(model, {"tokens": tokens}, c,
+                             cache_len=LM_PROMPT + LM_GEN)
+        torch.cuda.synchronize()
+        launched(f"ssm {name} state prefill", launch_counts(),
+                 {scan_kernel(c): cfg.n_layers})
+        logits[name] = out[:, :cfg.vocab_size].float()
+        del out
+    del model
+    torch.cuda.empty_cache()
+    l16, l32 = logits["bf16"], logits["fp32"]
+    check(bool(torch.isfinite(l16).all() and torch.isfinite(l32).all()),
+          "ssm bf16 state: non-finite logits")
+    first = l16.argmax(-1).cpu().numpy()
+    check(np.array_equal(first, gen[:, 0]), "ssm bf16 state: the prefill "
+          "does not give the served first token")
+    dist = errors(l16, l32)
+    same = int((l16.argmax(-1) == l32.argmax(-1)).sum())
+    log(f"ssm bf16 state: the prefill's last logits against the fp32 "
+        f"state's on the same weights and prompt: relative Frobenius "
+        f"{dist[2]:.4e}, max_abs_err {dist[0]:.4e} ({dist[1]:.4e} of max "
+        f"|logit|); the same next token in {same} of {LM_BATCH} rows")
+    return {"serve": line, "launches": counts, "peak_gb": peak_gb,
+            "held": held, "logits_rel": dist[2], "logits_max_abs": dist[0],
+            "same_argmax": same}
+
+
+def bf16_train(dev, fp32_losses: list) -> dict:
+    """falcon-mamba-7b cut to 4 layers with ``ssm_dtype="bfloat16"``
+    trained as phase 16's ssm run (``train.run``, ``TRAIN_STEPS`` steps):
+    losses finite and falling, two bf16-state scans a layer a step
+    (forward, remat), no plain version resolved; then the held step
+    (``family_held_step``: layers 0 and 3's scan calls at the op)."""
+    from repro_torch.configs.shapes import ShapeCell
+    from repro_torch.launch import accounting
+    arch, _, batch, seq = FAMILY_RUNS["ssm"]
+    cfg = bf16_state_config(family_config("ssm"))
+    want = family_launches(cfg)
+    run = run_train(f"ssm bf16 state {arch} (cut to {cfg.n_layers} "
+                    f"layers), B {batch} x {seq}, lr {family_lr('ssm')}",
+                    family_argv("ssm"), dev, cfg=cfg)
+    losses = run["losses"]
+    check(len(losses) == TRAIN_STEPS and losses[-1] < losses[0],
+          f"train ssm bf16 state: the loss did not fall ({losses})")
+    launched("train ssm bf16 state", run["launches"],
+             {k: TRAIN_STEPS * n for k, n in want.items()})
+    check(not run["plain"], f"train ssm bf16 state: plain versions ran on "
+          f"the path: {run['plain']}")
+    step_s = float(np.median(run["times"][1:]))
+    tokens = batch * seq
+    flops = accounting.model_flops(cfg, ShapeCell("smoke", seq, batch,
+                                                  "train"))
+    gap = max(abs(a - b) / abs(b) for a, b in zip(losses, fp32_losses))
+    log(f"train ssm bf16 state: step {step_s:.4f} s (median of steps "
+        f"2-{TRAIN_STEPS}), {tokens / step_s:.1f} tokens/s, "
+        f"{flops / step_s / PEAK_BF16:.4f} of the bf16 peak; peak device "
+        f"memory {run['peak_gb']:.2f} GB; losses against phase 16's fp32 "
+        f"state {json.dumps(fp32_losses)}: up to {gap:.4e} relative")
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = family_held_step("ssm", cfg, dev, profile=False)
+    held.pop("kept")
+    return {"losses": losses, "launches": run["launches"], "step_s": step_s,
+            "times": run["times"], "peak_gb": run["peak_gb"],
+            "fp32_loss_gap": gap, "held_loss": held["loss"]}
+
+
+def bf16_kernel(dev, rows: dict) -> dict:
+    """The bf16-state instance at phase 9's shape (fp32 operands, as the
+    model passes them): held at the op to the plain version in bf16-state
+    mode, timed with CUDA events beside the fp32 state's kernel on the
+    same operands, each with its bound."""
+    from repro_torch.kernels import launch_counts, ref
+    from repro_torch.kernels import mamba_scan as ms
+    cfg = ssm_config()
+    b, L, di, n = LM_BATCH, LM_PROMPT, cfg.d_inner, cfg.ssm_state
+    gen = torch.Generator(device=dev).manual_seed(SEED + 18)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device=dev)
+    args = (randn(b, L, di), rand(b, L, di) * 0.19 + 0.01,
+            -(rand(di, n) * 1.5 + 0.5), randn(b, L, n), randn(b, L, n),
+            randn(di))
+    bf16 = torch.bfloat16
+    before = launch_counts()
+    y, state = ms.mamba_scan(*args, return_state=True, state_dtype=bf16)
+    moved = {k: c - before[k] for k, c in launch_counts().items()
+             if c != before[k]}
+    check(moved == {"mamba_scan_bf16_state": 1}, f"mamba_scan[bf16 state] "
+          f"launched {moved}")
+    plain = []
+    t_p = time_ms(lambda: plain.append(ref.mamba_scan(
+        *args, return_state=True, state_dtype=bf16)), 1, warmup=0)
+    # held against the timed plain call's result (not a second 1.2 s run)
+    held = hold_scan(lambda *a, **k: plain[0], 0, args,
+                     {"return_state": True, "state_dtype": bf16},
+                     (y, state))
+    want_y, want_state = plain.pop()
+    err = max(float((y - want_y).abs().max()),
+              float((state - want_state).abs().max()))
+    del want_y, want_state
+    t16 = time_ms(lambda: ms.mamba_scan(*args, return_state=True,
+                                        state_dtype=bf16), 10)
+    t32 = time_ms(lambda: ms.mamba_scan(*args, return_state=True), 10)
+    d16 = device_ms(lambda: ms.mamba_scan(*args, return_state=True,
+                                          state_dtype=bf16), 3)
+    d32 = device_ms(lambda: ms.mamba_scan(*args, return_state=True), 3)
+    b16 = scan_bound(cfg, b, L, bf16_state=True)
+    b32 = scan_bound(cfg, b, L)
+    shape = f"{b}x{L}x{di} N {n} fp32 operands (falcon-mamba-7b)"
+    log(f"mamba_scan_bf16_state[{shape}]: max_abs_err {err:.3e}, y "
+        f"relative Frobenius {held['y_rel_frobenius']:.3e} (tol "
+        f"{SCAN_BF16_Y_TOL:g}), final state bitwise the plain version's: "
+        f"{held['state_bitwise']} (within one bf16 ulp: "
+        f"{held['over'] == 0}); kernel_ms {t16:.4f} (device "
+        f"{'not measured' if d16 is None else f'{d16:.4f}'}) plain_ms "
+        f"{t_p:.4f} library_ms null bound_ms {b16[0]:.4f} ({b16[1]}); the "
+        f"fp32 state's kernel on the same operands {t32:.4f} ms (device "
+        f"{'not measured' if d32 is None else f'{d32:.4f}'}), bound "
+        f"{b32[0]:.4f} ({b32[1]}); bf16 / fp32 state {t16 / t32:.2f}x")
+    check(held["over"] == 0, f"mamba_scan_bf16_state: off the plain "
+          f"version beyond its contract: {held}")
+    rows["mamba_scan_bf16_state"].update(
+        max_abs_err=err, ms=t16, plain_ms=t_p, library_ms=None,
+        bound_ms=b16[0], bound_by=b16[1], device_ms=d16, shape=shape,
+        y_rel_frobenius=held["y_rel_frobenius"],
+        state_bitwise=held["state_bitwise"], fp32_state_ms=t32,
+        fp32_state_device_ms=d32, fp32_state_bound_ms=b32[0])
+    return {"ms": t16, "fp32_ms": t32, "plain_ms": t_p, "bound": b16,
+            "fp32_bound": b32}
+
+
+def bf16_state_phase(dev, rows: dict, fp32_losses: list) -> dict:
+    """Phase 18: ``ssm_dtype="bfloat16"`` on the card (the module
+    docstring's item 18)."""
+    t_phase = time.perf_counter()
+    served_run = bf16_serve(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = bf16_train(dev, fp32_losses)
+    kernel = bf16_kernel(dev, rows)
+    launches = {k: served_run["launches"][k] + trained["launches"][k]
+                for k in served_run["launches"]}
+    wall = time.perf_counter() - t_phase
+    log(f"bf16 state: launches "
+        f"{json.dumps({k: n for k, n in launches.items() if n})}; phase "
+        f"{wall:.1f} s")
+    return {"serve": served_run, "train": trained, "kernel": kernel,
+            "launches": launches, "wall_s": wall}
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-worker":
         return mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
@@ -5341,6 +5630,7 @@ def main() -> int:
     log(f"mamba_scan ptxas by instance: {json.dumps(regs)}")
     rows["mamba_scan"]["ptxas"] = regs.get("fp32 wide")
     rows["mamba_scan"]["bf16_ptxas"] = regs.get("bf16 wide")
+    rows["mamba_scan_bf16_state"]["ptxas"] = regs.get("fp32 wide bf16-state")
     regs = ptxas_report(build_log, "jacobi_sweep.cu", key=sweep_kernel)
     log(f"jacobi_sweep ptxas by kernel: {json.dumps(regs)}")
     for name in ("jacobi_sweep", "jacobi_sweep_smem"):
@@ -5373,6 +5663,7 @@ def main() -> int:
     moe = moe_phase(dev, lm)
     families16 = train_families_phase(dev)
     dry = dryrun_phase(dev, card)
+    bf16 = bf16_state_phase(dev, rows, families16["runs"]["ssm"]["losses"])
     prof = lm["profile"]
     rows["flash_attention_mma"].update(
         lm_device_ms=prof["mma_device_ms"], lm_bound_ms=prof["mma_bound"][0],
@@ -5455,6 +5746,9 @@ def main() -> int:
         elif k.name in FLUSH_KERNELS:
             row["launches"] = flush["launches"][k.name]
             row["path"] = "batched flush"
+        elif k.name == "mamba_scan_bf16_state":
+            row["launches"] = bf16["serve"]["launches"][k.name]
+            row["path"] = "phase 18 serve (falcon-mamba-7b, bf16 state)"
         else:
             row["launches"] = ops_run["launches"][k.name]
             row["path"] = "ops phase"
@@ -5470,6 +5764,7 @@ def main() -> int:
         row["launches_moe"] = moe["launches"][k.name]
         row["launches_train_families"] = families16["launches"][k.name]
         row["launches_dryrun"] = dry["launches"][k.name]
+        row["launches_bf16_state"] = bf16["launches"][k.name]
         record.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))

@@ -4,9 +4,22 @@
 //
 // for u, dt (batch, L, D), A (D, N) fp32, B, C (batch, L, N), D_skip (D,)
 // fp32; u, dt, B and C share one dtype (fp32 or bf16), y takes it; the
-// state is fp32; N <= 16.  With a state_out (batch, D, N) fp32, the final
-// state x_{L-1} is stored there as well (a model's prefill keeps it for
-// decode); state_out may be null.
+// state is fp32 (bf16 in the bf16-state instance below); N <= 16.  With a
+// state_out (batch, D, N) fp32, the final state x_{L-1} is stored there as
+// well (a model's prefill keeps it for decode); state_out may be null.
+//
+// A bf16-state instance (BF16_STATE, a model's ssm_dtype="bfloat16")
+// keeps the state in bf16 and rounds (round to nearest even) where the
+// reference's bf16 scan rounds: with r() a rounding to bf16,
+//
+//   a_t = r(exp(r(r(dt_t) r(A))))    b_t = r(r(r(dt_t) r(u_t)) r(B_t))
+//   x_t = r(r(a_t x_{t-1}) + b_t)    y_t = x_t . r(C_t) + D u_t
+//
+// each product and sum of two bf16 values in fp32 (__fmul_rn, __fadd_rn:
+// nothing contracted into an FMA across a rounding point), exp as expf
+// (the fp32 exp of the plain version, not ex2.approx), y summed in fp32
+// and D u on the unrounded u.  The final state is stored in fp32 (bf16
+// values).
 //
 // Replaces the TPU kernel repro/kernels/mamba_scan.py::mamba_scan (body
 // _scan_kernel): a (batch, chunk) grid whose chunk dimension runs in order
@@ -20,6 +33,13 @@
 // Measured there on an H100 SXM (700 W): 0.25 ms, twice the bound.  Not
 // the SFU (exponentials replaced by an FMA save 1%): the cross-lane sum of
 // y, the ring's copies, the B and C loads and the y store each take 8-20%.
+// The bf16-state instance adds 3 roundings a (b, t, d) (dt, u, dt u) and
+// 7 a (b, t, d, n) (B, C, dt A, a_t, b_t, a_t x, x_t), each a convert to
+// bf16 and a shift back, and takes expf (a range reduction around one
+// ex2.approx) for the ex2 of the fp32 state: at 4 x 4096 x 8192, N 16,
+// 2.15e9 (b, t, d, n), 1.5e10 roundings more.  Its bound counts the
+// roundings as operations beside the fp32 state's 7 N + 3.  It is not
+// tuned: a simple instance that rounds where the reference rounds.
 //
 // Design.  A thread owns one (b, d) channel and G = 4 of its states: a
 // channel is S = 4 adjacent lanes, NP = 16 states (with N < 16 the states
@@ -134,12 +154,18 @@ __device__ __forceinline__ void store_chunk(void* dst, const void* src,
   }
 }
 
+// bf16 round to nearest even, back in fp32
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
 // vec_ud, vec_bc, vec_y: elements a copy of u and dt, of B and C, and a
 // store of y (each dividing its row width, D or N, with every row start
 // aligned to it).  WIDE instances take every operand 16 bytes a copy, a
 // width known at compile time: the copies and the y store of a chunk are
 // straight-line code, with no division or branch on the width.
-template <typename T, bool WIDE>
+// BF16_STATE: the state in bf16, rounded as the header says.
+template <typename T, bool WIDE, bool BF16_STATE>
 __global__ void __launch_bounds__(THREADS, 512 / THREADS)
 scan_kernel(const T* __restrict__ u, const T* __restrict__ dt,
             const float* __restrict__ A, const T* __restrict__ Bm,
@@ -159,7 +185,10 @@ scan_kernel(const T* __restrict__ u, const T* __restrict__ dt,
 #pragma unroll
   for (int j = 0; j < G; ++j) {
     const int n = g * G + j;
-    a[j] = live && n < N ? A[static_cast<size_t>(d) * N + n] * kLog2e : 0.f;
+    const float an = live && n < N ? A[static_cast<size_t>(d) * N + n] : 0.f;
+    // the fp32 state takes exp(dt A) as ex2(dt A log2(e)); the bf16 state
+    // rounds A to bf16 and takes expf
+    a[j] = BF16_STATE ? bf16r(an) : an * kLog2e;
     x[j] = 0.f;
   }
   // D u joins the partial sum of the channel's first lane
@@ -236,15 +265,27 @@ scan_kernel(const T* __restrict__ u, const T* __restrict__ dt,
     for (int tt = 0; tt < TCH; ++tt) {
       const float dd = repro::to_float(ds[tt * CH]);
       const float uu = repro::to_float(us[tt * CH]);
-      const float du = dd * uu;
       float bv[G], cv[G];
       load_group(bs + tt * NP, bv);
       load_group(cs + tt * NP, cv);
-      float p = dskip * uu;
+      float p = dskip * uu;  // D u on the unrounded u in either state
+      if constexpr (BF16_STATE) {
+        const float dr = bf16r(dd);
+        const float du = bf16r(__fmul_rn(dr, bf16r(uu)));
 #pragma unroll
-      for (int j = 0; j < G; ++j) {
-        x[j] = fmaf(ex2(dd * a[j]), x[j], du * bv[j]);
-        p = fmaf(x[j], cv[j], p);
+        for (int j = 0; j < G; ++j) {
+          const float decay = bf16r(expf(bf16r(__fmul_rn(dr, a[j]))));
+          const float bt = bf16r(__fmul_rn(du, bf16r(bv[j])));
+          x[j] = bf16r(__fadd_rn(bf16r(__fmul_rn(decay, x[j])), bt));
+          p = fmaf(x[j], bf16r(cv[j]), p);
+        }
+      } else {
+        const float du = dd * uu;
+#pragma unroll
+        for (int j = 0; j < G; ++j) {
+          x[j] = fmaf(ex2(dd * a[j]), x[j], du * bv[j]);
+          p = fmaf(x[j], cv[j], p);
+        }
       }
       acc[tt] = p;
     }
@@ -265,7 +306,7 @@ scan_kernel(const T* __restrict__ u, const T* __restrict__ dt,
   }
 }
 
-template <typename T>
+template <typename T, bool BF16_STATE>
 int launch(const void* u, const void* dt, const float* A, const void* B,
            const void* C, const float* Dskip, void* y, float* state_out,
            int batch, int L, int D, int N, int vec_ud, int vec_bc, int vec_y,
@@ -273,8 +314,8 @@ int launch(const void* u, const void* dt, const float* A, const void* B,
   const dim3 grid((D + CH - 1) / CH, batch);
   constexpr int wide = 16 / sizeof(T);
   auto kernel = vec_ud == wide && vec_bc == wide && vec_y == wide
-                    ? scan_kernel<T, true>
-                    : scan_kernel<T, false>;
+                    ? scan_kernel<T, true, BF16_STATE>
+                    : scan_kernel<T, false, BF16_STATE>;
   kernel<<<grid, THREADS, 0, s>>>(
       static_cast<const T*>(u), static_cast<const T*>(dt), A,
       static_cast<const T*>(B), static_cast<const T*>(C), Dskip,
@@ -303,13 +344,14 @@ int widest(const void* base, int width, int elem_bytes) {
 // vec_ud, vec_bc: elements a copy of u and dt, and of B and C
 // (kernels/mamba_scan.py::scan_copies); y's store takes the widest width
 // its base and D allow.  state_out: null, or (batch, D, N) fp32 for the
-// final state
+// final state.  bf16_state: keep the state in bf16 (the header's
+// rounding points)
 extern "C" int repro_mamba_scan(const void* u, const void* dt, const float* A,
                                 const void* B, const void* C,
                                 const float* Dskip, void* y,
-                                float* state_out, int is_bf16, int batch,
-                                int L, int D, int N, int vec_ud, int vec_bc,
-                                void* stream) {
+                                float* state_out, int is_bf16, int bf16_state,
+                                int batch, int L, int D, int N, int vec_ud,
+                                int vec_bc, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int es = is_bf16 ? 2 : 4;
   if (N < 1 || N > NP || !copy_ok(u, vec_ud, D, es) ||
@@ -317,9 +359,10 @@ extern "C" int repro_mamba_scan(const void* u, const void* dt, const float* A,
       !copy_ok(C, vec_bc, N, es))
     return static_cast<int>(cudaErrorInvalidValue);
   const int vec_y = widest(y, D, es);
-  if (is_bf16)
-    return launch<__nv_bfloat16>(u, dt, A, B, C, Dskip, y, state_out, batch,
-                                 L, D, N, vec_ud, vec_bc, vec_y, s);
-  return launch<float>(u, dt, A, B, C, Dskip, y, state_out, batch, L, D, N,
-                       vec_ud, vec_bc, vec_y, s);
+  auto run = is_bf16 ? (bf16_state ? launch<__nv_bfloat16, true>
+                                   : launch<__nv_bfloat16, false>)
+                     : (bf16_state ? launch<float, true>
+                                   : launch<float, false>);
+  return run(u, dt, A, B, C, Dskip, y, state_out, batch, L, D, N, vec_ud,
+             vec_bc, vec_y, s);
 }

@@ -5,7 +5,8 @@ PyTorch versions (``ref``) and the registry-dispatched ops over both
 (``ops``).
 
 ``KERNELS`` lists every kernel with its launch count (two kernels serve
-``jacobi_sweep`` and three ``flash_attention``); nothing here builds
+``jacobi_sweep``, three ``flash_attention`` and two ``mamba_scan``: its
+fp32-state and bf16-state instances); nothing here builds
 or loads a kernel until a wrapper is called on a CUDA tensor.
 """
 from .cordic import CORDIC
@@ -13,11 +14,11 @@ from .dle import DLE_SCAN
 from .flash_attention import FLASH_KERNELS
 from .fused import COVARIANCE, JACOBI_SWEEP, JACOBI_SWEEP_SMEM
 from .launch import KernelInfo
-from .mamba_scan import MAMBA_SCAN
+from .mamba_scan import MAMBA_SCAN, MAMBA_SCAN_BF16
 from .mm_engine import MM_KERNELS
 
 KERNELS = (COVARIANCE, JACOBI_SWEEP, JACOBI_SWEEP_SMEM, *MM_KERNELS, DLE_SCAN, CORDIC,
-           *FLASH_KERNELS, MAMBA_SCAN)
+           *FLASH_KERNELS, MAMBA_SCAN, MAMBA_SCAN_BF16)
 
 
 def reset_launch_counts() -> None:

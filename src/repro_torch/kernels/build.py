@@ -53,7 +53,7 @@ SIGNATURES = {
     "repro_flash_decode": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                            _I, _I, _I, _P],
     "repro_mamba_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _I, _I, _P],
+                         _I, _I, _I, _I, _P],
 }
 
 _LOCK = threading.Lock()

@@ -50,13 +50,20 @@ dC_t = x_t^T dy_t, dB_t = lambda_t^T (dt_t u_t), du_t = dt_t
 (lambda_t B_t) + D dy_t, d(dt)_t = u_t (lambda_t B_t) + sum_n lambda_t
 x_{t-1} a_t A, dA = sum_t dt_t lambda_t x_{t-1} a_t, dD = sum_t u_t
 dy_t, with a_t = exp(dt_t A).  Memory is a few (batch, chunk, D, N)
-fp32 tensors.
+fp32 tensors.  With a bf16 state (``state_dtype=torch.bfloat16``, the
+reference's ``ssm_dtype="bfloat16"``) the states are recomputed with the
+forward's rounding points (``kernels.ref.mamba_scan``), and the adjoint
+takes the rounded values (dt, A, B, C, u in b_t's product, a_t, x_t) in
+fp32, each rounding's derivative the identity, as ``jax.grad`` takes the
+reference's casts; D dy_t and dD stay on the unrounded u.
 """
 from __future__ import annotations
 
 from typing import Callable, Optional
 
 import torch
+
+from .ref import bf16_round
 
 _NEG_INF = -1e30  # the forward's masked score
 
@@ -156,32 +163,53 @@ def flash_attention(fn: Callable, q, k, v, *, causal: bool,
 
 # -- selective scan -----------------------------------------------------------
 
-def _chunk_terms(u, dt, A, B, c0: int, c1: int):
+def _chunk_terms(u, dt, A, B, c0: int, c1: int, bf16: bool = False):
     """a_t = exp(dt_t A) and b_t = dt_t u_t B_t over steps c0..c1, each
-    (batch, T, D, N) fp32."""
+    (batch, T, D, N) fp32; with ``bf16`` (u, dt, A, B already rounded)
+    each product and the exponential rounded to bf16."""
     dtc = dt[:, c0:c1]
-    a = torch.exp(dtc[..., None] * A)
-    b = (dtc * u[:, c0:c1])[..., None] * B[:, c0:c1, None, :]
+    if not bf16:
+        a = torch.exp(dtc[..., None] * A)
+        b = (dtc * u[:, c0:c1])[..., None] * B[:, c0:c1, None, :]
+        return a, b
+    a = bf16_round(torch.exp(bf16_round(dtc[..., None] * A)))
+    b = bf16_round(bf16_round(dtc * u[:, c0:c1])[..., None]
+                   * B[:, c0:c1, None, :])
     return a, b
 
 
-def _states(a, b, x0):
+def _step(a_t, b_t, x, bf16: bool):
+    """x_t = a_t x_{t-1} + b_t, with ``bf16`` the product and the sum each
+    rounded to bf16."""
+    if bf16:
+        return bf16_round(bf16_round(a_t * x) + b_t)
+    return a_t * x + b_t
+
+
+def _states(a, b, x0, bf16: bool = False):
     """x_t = a_t x_{t-1} + b_t over a chunk from x0: (batch, T, D, N)."""
     xs = torch.empty_like(a)
     x = x0
     for t in range(a.shape[1]):
-        x = a[:, t] * x + b[:, t]
+        x = _step(a[:, t], b[:, t], x, bf16)
         xs[:, t] = x
     return xs
 
 
-def scan_backward(u, delta, A, B, C, D_skip, dy, dstate, *, chunk: int):
+def scan_backward(u, delta, A, B, C, D_skip, dy, dstate, *, chunk: int,
+                  state_dtype: torch.dtype = torch.float32):
     """Gradients of (u, delta, A, B, C, D_skip) of the selective scan, in
     fp32 and then each input's dtype (the module docstring's adjoint).
     ``dy`` (batch, L, D) or None, ``dstate`` (batch, D, N) or None."""
     f32 = torch.float32
     u32, dt32, A32, B32, C32, D32 = (t.to(f32) for t in
                                      (u, delta, A, B, C, D_skip))
+    bf16 = state_dtype == torch.bfloat16
+    # the values the states and the adjoint take: rounded with a bf16
+    # state (D dy and dD keep the unrounded u)
+    ub = bf16_round(u32) if bf16 else u32
+    if bf16:
+        dt32, A32, B32, C32 = (bf16_round(t) for t in (dt32, A32, B32, C32))
     bsz, length, d = u.shape
     n = A.shape[1]
     dy32 = (torch.zeros_like(u32) if dy is None else dy.to(f32))
@@ -191,25 +219,28 @@ def scan_backward(u, delta, A, B, C, D_skip, dy, dstate, *, chunk: int):
     starts, x = [], torch.zeros(bsz, d, n, dtype=f32, device=u.device)
     for c0, c1 in bounds:
         starts.append(x)
-        a, b = _chunk_terms(u32, dt32, A32, B32, c0, c1)
+        a, b = _chunk_terms(ub, dt32, A32, B32, c0, c1, bf16)
         for t in range(c1 - c0):
-            x = a[:, t] * x + b[:, t]
+            x = _step(a[:, t], b[:, t], x, bf16)
     du, ddt = torch.empty_like(u32), torch.empty_like(dt32)
     dB, dC = torch.empty_like(B32), torch.empty_like(C32)
     dA = torch.zeros_like(A32)
     carry = (torch.zeros(bsz, d, n, dtype=f32, device=u.device)
              if dstate is None else dstate.to(f32))
     for (c0, c1), x0 in zip(reversed(bounds), reversed(starts)):
-        a, b = _chunk_terms(u32, dt32, A32, B32, c0, c1)
-        xs = _states(a, b, x0)
+        a, b = _chunk_terms(ub, dt32, A32, B32, c0, c1, bf16)
+        xs = _states(a, b, x0, bf16)
         del b
-        dyc, uc, dtc = dy32[:, c0:c1], u32[:, c0:c1], dt32[:, c0:c1]
+        dyc, uc, dtc = dy32[:, c0:c1], ub[:, c0:c1], dt32[:, c0:c1]
         lam = dyc[..., None] * C32[:, c0:c1, None, :]    # C_t dy_t
         for t in range(c1 - c0 - 1, -1, -1):
             lam[:, t] += carry
             carry = a[:, t] * lam[:, t]
         dC[:, c0:c1] = torch.einsum("btdn,btd->btn", xs, dyc)
-        dB[:, c0:c1] = torch.einsum("btdn,btd->btn", lam, dtc * uc)
+        du_dt = dtc * uc
+        if bf16:  # b_t's product, as the forward rounded it
+            du_dt = bf16_round(du_dt)
+        dB[:, c0:c1] = torch.einsum("btdn,btd->btn", lam, du_dt)
         w = torch.einsum("btdn,btn->btd", lam, B32[:, c0:c1])
         xprev = torch.cat([x0[:, None], xs[:, :-1]], dim=1)
         del xs
@@ -228,25 +259,29 @@ class MambaScan(torch.autograd.Function):
     the chunked adjoint backward; returns (y, final state)."""
 
     @staticmethod
-    def forward(ctx, u, delta, A, B, C, D_skip, fn: Callable, chunk: int):
+    def forward(ctx, u, delta, A, B, C, D_skip, fn: Callable, chunk: int,
+                state_dtype: torch.dtype):
         ctx.set_materialize_grads(False)
         y, state = fn(u, delta, A, B, C, D_skip, chunk=chunk,
-                      return_state=True)
+                      return_state=True, state_dtype=state_dtype)
         ctx.save_for_backward(u, delta, A, B, C, D_skip)
         ctx.chunk = chunk
+        ctx.state_dtype = state_dtype
         return y, state
 
     @staticmethod
     def backward(ctx, dy, dstate):
         grads = scan_backward(*ctx.saved_tensors, dy, dstate,
-                              chunk=ctx.chunk)
-        return (*grads, None, None)
+                              chunk=ctx.chunk, state_dtype=ctx.state_dtype)
+        return (*grads, None, None, None)
 
 
 def mamba_scan(fn: Callable, u, delta, A, B, C, D_skip, *, chunk: int,
-               return_state: bool = False):
+               return_state: bool = False,
+               state_dtype: torch.dtype = torch.float32):
     """``fn``'s selective scan with the backward above."""
-    y, state = MambaScan.apply(u, delta, A, B, C, D_skip, fn, max(1, chunk))
+    y, state = MambaScan.apply(u, delta, A, B, C, D_skip, fn, max(1, chunk),
+                               state_dtype)
     return (y, state) if return_state else y
 
 

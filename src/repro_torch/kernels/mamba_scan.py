@@ -11,6 +11,11 @@ one bf16 element) at a time as its width and base allow (``scan_copies``);
 y is stored from a shared tile the same way, as wide as D and y's base
 allow; with ``return_state`` each lane also stores its 4 final states
 (``models.mamba``'s prefill keeps them for decode).  Nothing is padded.
+With ``state_dtype=torch.bfloat16`` (a model's ``ssm_dtype="bfloat16"``)
+the launch takes the kernel's bf16-state instance (``MAMBA_SCAN_BF16``,
+its own launch count): the state kept in bf16 and rounded where the
+reference's bf16 scan rounds (``kernels.ref.mamba_scan``'s rounding
+points), y summed in fp32, the final state stored in fp32.
 Bound at falcon-mamba-7b's d_inner 8192, N 16, L 4096 in fp32: 5.4e8
 exponentials on the SFU (0.128 ms at 16 a clock an SM on 132 SMs at 1.98
 GHz) and 403 MB of u, dt and y (0.120 ms at 3.35 TB/s); the kernel takes
@@ -33,6 +38,10 @@ from .launch import (KernelInfo, copy_width, is_fake, require,
 
 MAMBA_SCAN = KernelInfo("mamba_scan", "src/repro_torch/csrc/mamba_scan.cu",
                         "src/repro/kernels/mamba_scan.py:67")
+
+MAMBA_SCAN_BF16 = KernelInfo("mamba_scan_bf16_state",
+                             "src/repro_torch/csrc/mamba_scan.cu",
+                             "src/repro/kernels/mamba_scan.py:67")
 
 MAX_STATE = 16   # N limit of csrc/mamba_scan.cu (4 lanes of 4 states)
 
@@ -68,19 +77,24 @@ def scan_bytes(u: torch.Tensor, batch: int, length: int, d: int, n: int,
 
 def mamba_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
                B: torch.Tensor, C: torch.Tensor, D_skip: torch.Tensor,
-               return_state: bool = False):
+               return_state: bool = False,
+               state_dtype: torch.dtype = torch.float32):
     """y (batch, L, D) for u, delta (batch, L, D), A (D, N), B, C
     (batch, L, N) and D_skip (D,).  u, delta, B and C share one dtype,
     float32 or bfloat16, which y takes; A and D_skip are used in fp32.
-    With ``return_state``, (y, state): the final state x_{L-1}, (batch,
-    D, N) in fp32, stored by the same launch.  On the dry run's meta
-    tensors the same checks and allocations, the call's FLOPs and bytes
-    counted, nothing launched."""
+    ``state_dtype``: the state's, float32 or bfloat16 (the bf16-state
+    instance).  With ``return_state``, (y, state): the final state
+    x_{L-1}, (batch, D, N) in fp32, stored by the same launch.  On the
+    dry run's meta tensors the same checks and allocations, the call's
+    FLOPs and bytes counted, nothing launched."""
     tensors = (u, delta, A, B, C, D_skip)
     if all(t.device.type == "cpu" for t in tensors):
         return _ref.mamba_scan(u, delta, A, B, C, D_skip,
-                               return_state=return_state)
+                               return_state=return_state,
+                               state_dtype=state_dtype)
     what = "mamba_scan"
+    require(state_dtype in (torch.float32, torch.bfloat16), what,
+            f"state_dtype must be float32 or bfloat16, got {state_dtype}")
     fake = is_fake(u)
     dev = require_cuda(what, *tensors, fake_ok=fake)
     require(u.ndim == 3 and delta.shape == u.shape, what,
@@ -115,9 +129,11 @@ def mamba_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
     # the reference kernel also takes A and D_skip in fp32; both are small
     A32 = A.to(torch.float32).contiguous()
     D32 = D_skip.to(torch.float32).contiguous()
+    bf16_state = state_dtype == torch.bfloat16
+    kernel = MAMBA_SCAN_BF16 if bf16_state else MAMBA_SCAN
     if fake:
-        MAMBA_SCAN.fake_call(scan_flops(batch, L, D, N),
-                             scan_bytes(u, batch, L, D, N, return_state))
+        kernel.fake_call(scan_flops(batch, L, D, N),
+                         scan_bytes(u, batch, L, D, N, return_state))
         return (y, state) if return_state else y
     lib = build.library()
     with torch.cuda.device(dev):
@@ -125,7 +141,7 @@ def mamba_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
             u.data_ptr(), delta.data_ptr(), A32.data_ptr(), B.data_ptr(),
             C.data_ptr(), D32.data_ptr(), y.data_ptr(),
             None if state is None else state.data_ptr(),
-            int(u.dtype == torch.bfloat16), batch, L, D, N,
+            int(u.dtype == torch.bfloat16), int(bf16_state), batch, L, D, N,
             *scan_copies(u, delta, B, C), stream(dev)), what)
-    MAMBA_SCAN.launches += 1
+    kernel.launches += 1
     return (y, state) if return_state else y

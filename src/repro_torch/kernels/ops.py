@@ -244,31 +244,37 @@ def flash_attention(q, k, v, causal: bool = True, scale=None,
 
 @registry.register("mamba_scan", "cuda")
 def _ms_cuda(u, delta, A, B, C, D_skip, *, chunk: int = 128,
-             return_state: bool = False):
+             return_state: bool = False,
+             state_dtype: torch.dtype = torch.float32):
     del chunk  # the kernel runs each channel over all of L
     require_cuda("mamba_scan", u, delta, A, B, C, D_skip, fake_ok=True)
     return _ms.mamba_scan(u, delta, A, B, C, D_skip,
-                          return_state=return_state)
+                          return_state=return_state, state_dtype=state_dtype)
 
 
 @registry.register("mamba_scan", "torch")
 def _ms_torch(u, delta, A, B, C, D_skip, *, chunk: int = 0,
-              return_state: bool = False):
+              return_state: bool = False,
+              state_dtype: torch.dtype = torch.float32):
     del chunk
     return _ref.mamba_scan(u, delta, A, B, C, D_skip,
-                           return_state=return_state)
+                           return_state=return_state, state_dtype=state_dtype)
 
 
 def mamba_scan(u, delta, A, B, C, D_skip, chunk: int = 128, *,
-               return_state: bool = False, backend: Optional[str] = None):
+               return_state: bool = False, backend: Optional[str] = None,
+               state_dtype: torch.dtype = torch.float32):
     """Selective scan y (batch, L, D) of u, delta (batch, L, D), A (D, N),
-    B, C (batch, L, N) and D_skip (D,), with an fp32 state; with
-    ``return_state``, (y, the final state (batch, D, N) fp32).  ``chunk``:
-    the backward's recompute chunk, where gradients flow (the models pass
+    B, C (batch, L, N) and D_skip (D,), with a ``state_dtype`` state
+    (float32, or bfloat16: the reference's ``ssm_dtype="bfloat16"``,
+    ``kernels.ref.mamba_scan``'s rounding points); with ``return_state``,
+    (y, the final state (batch, D, N) fp32).  ``chunk``: the backward's
+    recompute chunk, where gradients flow (the models pass
     ``cfg.mamba_chunk``)."""
     fn = registry.resolve("mamba_scan", backend, like=u)
     if _needs_grad(u, delta, A, B, C, D_skip):
         return _grad.mamba_scan(fn, u, delta, A, B, C, D_skip, chunk=chunk,
-                                return_state=return_state)
+                                return_state=return_state,
+                                state_dtype=state_dtype)
     return fn(u, delta, A, B, C, D_skip, chunk=chunk,
-              return_state=return_state)
+              return_state=return_state, state_dtype=state_dtype)

@@ -179,23 +179,50 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(p, v.to(f32)).to(q.dtype)
 
 
-def mamba_scan(u, delta, A, B, C, D_skip, return_state: bool = False):
-    """Selective scan, one step of t at a time with an fp32 (batch, D, N)
-    state: x_t = exp(dt_t A) x_{t-1} + (dt_t u_t) B_t and
+def bf16_round(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bfloat16 (to nearest, ties to even), back in fp32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def mamba_scan(u, delta, A, B, C, D_skip, return_state: bool = False,
+               state_dtype: torch.dtype = torch.float32):
+    """Selective scan, one step of t at a time with a (batch, D, N) state:
+    x_t = exp(dt_t A) x_{t-1} + (dt_t u_t) B_t and
     y_t = x_t . C_t + D_skip u_t, for u, delta (batch, L, D), A (D, N),
     B, C (batch, L, N).  Out in u's dtype; with ``return_state``, (y,
-    x_{L-1}), the state fp32."""
+    x_{L-1}), the state fp32.
+
+    ``state_dtype``: float32, or bfloat16, the reference's
+    ``ssm_dtype="bfloat16"`` scan: dt, A, B, C rounded to bf16 (r below),
+    a_t = r(exp(r(dt_t A))), b_t = r(r(dt_t r(u_t)) B_t), the state
+    x_t = r(r(a_t x_{t-1}) + b_t), each product and sum in fp32 and then
+    rounded; y_t = x_t . C_t summed in fp32, plus D_skip u_t on the
+    unrounded u.  The state returned holds bf16 values in fp32."""
+    if state_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"mamba_scan: state_dtype must be float32 or "
+                         f"bfloat16, got {state_dtype}")
     f32 = torch.float32
     u32, dt32, B32, C32 = (t.to(f32) for t in (u, delta, B, C))
     A32 = A.to(f32)
     D32 = D_skip.to(f32)
+    bf16 = state_dtype == torch.bfloat16
+    if bf16:
+        ub, dt32, A32, B32, C32 = (bf16_round(t) for t in
+                                   (u32, dt32, A32, B32, C32))
     x = torch.zeros(u.shape[0], u.shape[2], A.shape[1], dtype=f32,
                     device=u.device)
     ys = []
     for t in range(u.shape[1]):
         u_t, dt_t = u32[:, t], dt32[:, t]
-        decay = torch.exp(dt_t[:, :, None] * A32[None])
-        x = decay * x + (dt_t * u_t)[:, :, None] * B32[:, t, None, :]
+        if bf16:
+            decay = bf16_round(torch.exp(bf16_round(dt_t[:, :, None]
+                                                    * A32[None])))
+            b_t = bf16_round(bf16_round(dt_t * ub[:, t])[:, :, None]
+                             * B32[:, t, None, :])
+            x = bf16_round(bf16_round(decay * x) + b_t)
+        else:
+            decay = torch.exp(dt_t[:, :, None] * A32[None])
+            x = decay * x + (dt_t * u_t)[:, :, None] * B32[:, t, None, :]
         ys.append((x * C32[:, t, None, :]).sum(dim=2) + D32[None, :] * u_t)
     y = torch.stack(ys, dim=1) if ys else torch.zeros_like(u32)
     return (y.to(u.dtype), x) if return_state else y.to(u.dtype)

@@ -74,6 +74,12 @@ class ModelConfig:
         return {"bfloat16": torch.bfloat16, "float32": torch.float32}[
             self.dtype]
 
+    def ssm_torch_dtype(self) -> torch.dtype:
+        """The scan's state dtype; any other ``ssm_dtype`` raises a
+        ``KeyError``, as the reference's ``apply_mamba`` does."""
+        return {"float32": torch.float32, "bfloat16": torch.bfloat16}[
+            self.ssm_dtype]
+
     @property
     def d_inner(self) -> int:   # mamba inner width
         return 2 * self.d_model

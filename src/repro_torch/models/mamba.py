@@ -5,9 +5,10 @@ Prefill (``apply_mamba``) runs the causal depthwise conv, the SSM
 parameters and then ONE ``kernels.ops.mamba_scan(..., return_state=True)``
 call a layer, where the reference runs its chunked associative scan
 (``_chunked_scan``): on the card that is the ``mamba_scan`` kernel, on the
-CPU its plain version.  Both compute the same recurrence with an fp32
-state, so ``mamba_chunk`` (the reference's chunk length) changes no
-result here; the two sum in other orders, within fp32 rounding.  Where
+CPU its plain version.  Both compute the same recurrence in the state
+dtype ``ssm_dtype`` gives, so ``mamba_chunk`` (the reference's chunk
+length) changes no result here; the two sum in other orders, within that
+dtype's rounding.  Where
 gradients flow, the op's backward (``kernels.grad``) recomputes the
 states in chunks of ``mamba_chunk``.  Decode
 (``decode_mamba``) is the reference's plain one-step recurrence in
@@ -17,8 +18,15 @@ Dtypes follow the reference's default ``ssm_dtype="float32"``: the
 projections and the conv run in the model's dtype, ``x_proj``'s output is
 cast to fp32, ``dt`` is ``softplus(dt_r @ dt_w + dt_b)`` in fp32, the scan
 takes u = the conv output, dt, B and C in fp32, and the gate ``silu(z)``
-is applied in fp32 before the cast back.  ``ssm_dtype="bfloat16"`` (the
-reference then keeps a bf16 state; the kernel keeps fp32) raises.
+is applied in fp32 before the cast back.  ``ssm_dtype="bfloat16"`` keeps
+the scan's state in bf16 as the reference does: the op's bf16-state
+scan (``state_dtype=torch.bfloat16``: dt, A, B, C and the state rounded
+where the reference's bf16 scan rounds, y summed in fp32, D u on the
+unrounded u; on the card the kernel's bf16-state instance).  The cache
+keeps that final state in fp32 (bf16 values), which decode, the
+reference's fp32 recurrence either way, takes as the reference's
+promotes its bf16 one.  Any other ``ssm_dtype`` raises a ``KeyError``,
+as the reference does.
 ``ssm_impl="kernel_proxy"`` is the reference's dry-run stand-in for the
 scan kernel's memory traffic, not a numerics path: prefill reads each
 scan input once and writes y once (y = u dt (B . C) + D u), calls no
@@ -54,15 +62,8 @@ from .layers import _normal, _param
 
 class MambaCache(NamedTuple):
     conv: torch.Tensor   # (B, d_conv - 1, d_inner), the last raw inputs
-    state: torch.Tensor  # (B, d_inner, N) fp32
-
-
-def _unsupported(cfg: ModelConfig) -> None:
-    if cfg.ssm_dtype != "float32":
-        raise NotImplementedError(
-            f"{cfg.name}: ssm_dtype {cfg.ssm_dtype!r} keeps the scan's "
-            f"state in that dtype in the reference, and the scan kernel "
-            f"keeps it in fp32; not ported (ROADMAP queue 1, deferred)")
+    state: torch.Tensor  # (B, d_inner, N) fp32 (bf16 values after a bf16
+                         # prefill)
 
 
 class Mamba(nn.Module):
@@ -73,7 +74,7 @@ class Mamba(nn.Module):
 
     def __init__(self, cfg: ModelConfig, device=None):
         super().__init__()
-        _unsupported(cfg)
+        cfg.ssm_torch_dtype()  # an unknown ssm_dtype raises
         dt = cfg.torch_dtype()
         d, di, N, R, K = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
                           cfg.dt_rank, cfg.d_conv)
@@ -141,7 +142,7 @@ def apply_mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
     forward runs each channel over all of S.  The cache's conv part is the
     last d_conv - 1 raw inputs, zero-padded in front for a shorter prompt;
     its state is the scan's final state."""
-    _unsupported(cfg)
+    state_dtype = cfg.ssm_torch_dtype()
     s = x.shape[1]
     K = cfg.d_conv
     in_proj = C.fsdp_gather(p.in_proj, rules, 0)
@@ -165,7 +166,7 @@ def apply_mamba(p: Mamba, x: torch.Tensor, cfg: ModelConfig, *,
         y, state = ops.mamba_scan(xc.float().contiguous(), dt.contiguous(),
                                   A, B_ssm.contiguous(), C_ssm.contiguous(),
                                   p.D, chunk or cfg.mamba_chunk,
-                                  return_state=True)
+                                  return_state=True, state_dtype=state_dtype)
     y = (y * F.silu(z.float())).to(x.dtype)
     out = C.reduce_from(y @ C.fsdp_gather(p.out_proj, rules, 1), rules)
     if not return_cache:
@@ -179,7 +180,6 @@ def decode_mamba(p: Mamba, x: torch.Tensor, cache: MambaCache,
                  cfg: ModelConfig, rules=REPLICATED):
     """One-token decode, the reference's plain recurrence.  x (B, 1, d)
     -> (y (B, 1, d), a new ``MambaCache``)."""
-    _unsupported(cfg)
     in_proj = C.fsdp_gather(p.in_proj, rules, 0)
     xin, z = torch.split((x @ in_proj)[:, 0], in_proj.shape[1] // 2, dim=-1)
     window = torch.cat([cache.conv, xin[:, None, :]], dim=1)  # (B, K, di)

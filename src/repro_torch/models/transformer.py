@@ -91,10 +91,11 @@ AUX_COEF = 0.01  # MoE load-balance loss weight
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not serve yet: the scan options
-    ``mamba`` raises for."""
+    """Raise for a config no model can be built from: an ``ssm_dtype``
+    other than float32 and bfloat16 in a model with Mamba layers (a
+    ``KeyError``, as the reference's ``apply_mamba`` raises)."""
     if "mamba" in cfg.layer_kinds():
-        mamba_mod._unsupported(cfg)
+        cfg.ssm_torch_dtype()
 
 
 def period(cfg: ModelConfig) -> int:

@@ -763,13 +763,43 @@ def test_mamba_scan_store_stays_inside_y(cuda_device, dtype, D):
     status = build.library().repro_mamba_scan(
         u.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
         Cm.data_ptr(), Dskip.data_ptr(), y.data_ptr(), None,
-        int(dtype == torch.bfloat16), b, L, D, N,
+        int(dtype == torch.bfloat16), 0, b, L, D, N,
         *mamba_scan.scan_copies(u, dt, Bm, Cm), launch.stream(cuda_device))
     build.check(status, "mamba_scan")
     torch.cuda.synchronize()
     assert float(buf[0]) == sentinel
     assert bool((buf[1 + n:] == sentinel).all())
     assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_kernel_bf16_state(cuda_device, dtype):
+    """The bf16-state instance (``state_dtype=torch.bfloat16``) against
+    the plain version in bf16-state mode on the same inputs: one launch
+    on its own record, the final state (bf16 values in fp32) within one
+    bf16 ulp of the plain version's, y within 2^-8 relative Frobenius
+    (both round the same values at the same points; y is summed in fp32
+    in other orders), and away from the fp32 state's result."""
+    g = torch.Generator(device=cuda_device).manual_seed(7)
+    for b, L, D, N in SCAN_SHAPES:
+        args = _scan_inputs(cuda_device, b, L, D, N, g, dtype=dtype)
+        before = launch_counts()
+        y, state = mamba_scan.mamba_scan(*args, return_state=True,
+                                         state_dtype=torch.bfloat16)
+        assert _launched(before) == {"mamba_scan_bf16_state": 1}
+        assert state.dtype == torch.float32 and y.dtype == dtype
+        assert torch.equal(state.bfloat16().float(), state)
+        want_y, want_state = ref.mamba_scan(*args, return_state=True,
+                                            state_dtype=torch.bfloat16)
+        ulp = bf16_ulp(torch.maximum(state.abs(), want_state.abs()))
+        assert bool(((state - want_state).abs() <= ulp).all())
+        assert rel_frobenius(y.float(), want_y.float()) <= 2.0 ** -8
+        y32 = mamba_scan.mamba_scan(*args)
+        assert not torch.equal(y32, y)
+        # the op passes state_dtype through
+        y_op, state_op = ops.mamba_scan(*args, return_state=True,
+                                        state_dtype=torch.bfloat16)
+        assert torch.equal(y_op, y) and torch.equal(state_op, state)
 
 
 # -- configurations the smoke test's main path does not take -----------------

@@ -325,6 +325,8 @@ def _branch_cases():
             randn(3, 1, 16, dtype=bf), randn(3, 600, 16, dtype=bf),
             randn(3, 600, 16, dtype=bf)), {"causal": True, "q_offset": 599}),
         "mamba_scan": ("mamba_scan", scan, {"return_state": True}),
+        "mamba_scan_bf16_state": ("mamba_scan", scan, {
+            "return_state": True, "state_dtype": torch.bfloat16}),
     }
 
 
@@ -356,6 +358,29 @@ def test_fake_branch_gives_the_plain_outputs(kernel):
         assert counts[kernel]["flops"] == kscan.scan_flops(
             *args[0].shape, args[2].shape[1])
     assert counts[kernel]["bytes"] > 0
+
+
+@pytest.mark.parametrize("return_state", [True, False])
+def test_fake_branch_takes_the_state_dtype(return_state):
+    """A bf16 state (``ssm_dtype="bfloat16"``) in the dry run: the fake
+    branch counts the call on the bf16-state instance's record, with the
+    fp32 state's outputs (shapes, dtypes, strides), FLOPs and bytes (the
+    state never leaves registers)."""
+    _, scan, _ = _branch_cases()["mamba_scan"]
+    meta = [a.to("meta") for a in scan]
+    out = {}
+    for sd in (torch.float32, torch.bfloat16):
+        reset_fake_counts()
+        got = ops.mamba_scan(*meta, return_state=return_state,
+                             state_dtype=sd)
+        got = got if isinstance(got, tuple) else (got,)
+        out[sd] = ([(g.shape, g.dtype, g.stride()) for g in got],
+                   fake_counts())
+    (shapes32, counts32), (shapes16, counts16) = out.values()
+    assert shapes16 == shapes32
+    assert set(counts32) == {"mamba_scan"}
+    assert set(counts16) == {"mamba_scan_bf16_state"}
+    assert counts16["mamba_scan_bf16_state"] == counts32["mamba_scan"]
 
 
 def test_other_ops_refuse_a_meta_operand():

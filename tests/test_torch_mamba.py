@@ -209,22 +209,32 @@ def test_scan_op_return_state_of_an_empty_sequence():
     assert not state.any()
 
 
-@pytest.mark.parametrize("override,match", [
-    pytest.param({"ssm_dtype": "bfloat16"}, "fp32", id="override1-fp32"),
-])
-def test_unported_scan_options_raise(override, match):
-    tcfg = tconfigs.reduced_config(ARCH, **override)
-    with pytest.raises(NotImplementedError, match=match):
-        tmamba.Mamba(tcfg, "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttfm.init_model(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttfm.make_decode_state(tcfg, 1, 4, device="cpu")
+# ssm_dtype takes "float32" and "bfloat16" (tests/test_torch_mamba_bf16.py);
+# any other value raises a KeyError in both packages: the reference's
+# apply_mamba looks the dtype up, the port's Mamba, apply_mamba,
+# init_model and make_decode_state too
+@pytest.mark.parametrize("package", ["reference", "port"])
+@pytest.mark.parametrize("ssm_dtype", ["float16", "float64"])
+def test_unknown_ssm_dtype_raises(package, ssm_dtype):
+    cfg, tcfg, params, block = _pair()
+    x = _x(1, 3, cfg.d_model)
+    bad = {"ssm_dtype": ssm_dtype}
+    if package == "reference":
+        with pytest.raises(KeyError):
+            jmamba.apply_mamba(params, jnp.asarray(x),
+                               jconfigs.reduced_config(ARCH, **bad),
+                               REPLICATED)
+        return
+    tbad = tconfigs.reduced_config(ARCH, **bad)
+    with pytest.raises(KeyError):
+        tmamba.Mamba(tbad, "cpu")
+    with pytest.raises(KeyError):
+        ttfm.init_model(tbad, device="cpu")
+    with pytest.raises(KeyError):
+        ttfm.make_decode_state(tbad, 1, 4, device="cpu")
     # a block built under the default options refuses the call too
-    _, good, _, block = _pair()
-    x = torch.zeros(1, 3, good.d_model)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tmamba.apply_mamba(block, x, tcfg)
+    with pytest.raises(KeyError):
+        tmamba.apply_mamba(block, torch.from_numpy(x), tbad)
 
 
 # ssm_impl="kernel_proxy": the reference's dry-run stand-in for the scan
