@@ -320,10 +320,15 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    and falling (printed beside phase 16's fp32-state losses), exactly 8
    bf16-state scans a step (forward and remat) and nothing else, no
    plain version resolved; one held step with layers 0 and 3's scan
-   calls held at the op.  The instance at 4 x 4096 x 8192, N 16 (fp32
-   operands, as the model passes them) held at the op and timed with
+   calls held at the op; a step profiled as phase 16's, its bf16-state
+   scan forward and torch scan backward against phase 16's fp32-state
+   step (the extra time a step split between them).  The instance at 4 x
+   4096 x 8192, N 16 (fp32 operands, as the model passes them) held at
+   the op (its final state bitwise the plain version's) and timed with
    CUDA events beside the fp32 state's kernel on the same operands, each
-   with its bound.
+   with its bound, its ptxas spills (none); the instance's packed bf16
+   primitives held to their plain counterparts at every input
+   (``mamba_scan.bf16_primitive_mismatches``: 0 mismatches).
 Each path is checked against the kernels it runs: phase 3 against the
 three PCA/SVD kernels, phases 4, 6, 7 and 12 against those and the
 shared-memory sweep, phase 5 against the seven kernels of its five ops,
@@ -5452,12 +5457,15 @@ def bf16_serve(dev) -> dict:
             "same_argmax": same}
 
 
-def bf16_train(dev, fp32_losses: list) -> dict:
+def bf16_train(dev, fp32_run: dict) -> dict:
     """falcon-mamba-7b cut to 4 layers with ``ssm_dtype="bfloat16"``
-    trained as phase 16's ssm run (``train.run``, ``TRAIN_STEPS`` steps):
-    losses finite and falling, two bf16-state scans a layer a step
-    (forward, remat), no plain version resolved; then the held step
-    (``family_held_step``: layers 0 and 3's scan calls at the op)."""
+    trained as phase 16's ssm run (``fp32_run``; ``train.run``,
+    ``TRAIN_STEPS`` steps): losses finite and falling, two bf16-state
+    scans a layer a step (forward, remat), no plain version resolved;
+    then the held and profiled step (``family_held_step``: layers 0 and
+    3's scan calls at the op) and the extra time a step split
+    (``bf16_step_split``)."""
+    fp32_losses = fp32_run["losses"]
     from repro_torch.configs.shapes import ShapeCell
     from repro_torch.launch import accounting
     arch, _, batch, seq = FAMILY_RUNS["ssm"]
@@ -5485,11 +5493,52 @@ def bf16_train(dev, fp32_losses: list) -> dict:
         f"state {json.dumps(fp32_losses)}: up to {gap:.4e} relative")
     gc.collect()
     torch.cuda.empty_cache()
-    held = family_held_step("ssm", cfg, dev, profile=False)
+    held = family_held_step("ssm", cfg, dev)
     held.pop("kept")
+    split = bf16_step_split(held["profile"], fp32_run, step_s, cfg.n_layers)
     return {"losses": losses, "launches": run["launches"], "step_s": step_s,
             "times": run["times"], "peak_gb": run["peak_gb"],
-            "fp32_loss_gap": gap, "held_loss": held["loss"]}
+            "fp32_loss_gap": gap, "held_loss": held["loss"],
+            "split": split}
+
+
+def bf16_step_split(prof: dict, fp32_run: dict, step_s: float,
+                    n_layers: int) -> dict:
+    """The bf16-state train step's extra time over phase 16's fp32-state
+    step (medians of the timed runs), split by the two profiled steps:
+    the scan kernel's forward and recompute calls (device time a call x
+    2 n_layers) and the torch scan backward (its calls' CUDA-event time);
+    the rest is the step's other work."""
+    f32 = fp32_run["profile"]
+
+    def scan_s(p):
+        return sum(p[part]["scan_device_ms"] * p[part]["scan_calls"]
+                   for part in ("forward", "backward")
+                   if p[part]["scan_device_ms"] is not None) / 1e3
+
+    def bwd_s(p):
+        return sum(p["bwd_ms"].get("scan_backward", [])) / 1e3
+    extra = step_s - fp32_run["step_s"]
+    out = {"extra_s": extra, "scan_kernel_s": scan_s(prof) - scan_s(f32),
+           "scan_backward_s": bwd_s(prof) - bwd_s(f32),
+           "bf16": {"scan_fwd_device_ms": prof["forward"]["scan_device_ms"],
+                    "scan_recompute_device_ms":
+                        prof["backward"]["scan_device_ms"],
+                    "scan_backward_ms_a_layer": bwd_s(prof) * 1e3 / n_layers,
+                    "step_wall_s": prof["step"]["wall_s"]},
+           "fp32": {"scan_fwd_device_ms": f32["forward"]["scan_device_ms"],
+                    "scan_recompute_device_ms":
+                        f32["backward"]["scan_device_ms"],
+                    "scan_backward_ms_a_layer": bwd_s(f32) * 1e3 / n_layers,
+                    "step_wall_s": f32["step"]["wall_s"]}}
+    out["other_s"] = extra - out["scan_kernel_s"] - out["scan_backward_s"]
+    log(f"train ssm bf16 state: the step's extra {extra:.4f} s over phase "
+        f"16's fp32 state ({step_s:.4f} against {fp32_run['step_s']:.4f}) "
+        f"splits into the scan kernel {out['scan_kernel_s']:.4f} s "
+        f"(forward and recompute, device time), the torch scan backward "
+        f"{out['scan_backward_s']:.4f} s, the rest {out['other_s']:.4f} s; "
+        f"profiled steps {json.dumps({k: out[k] for k in ('bf16', 'fp32')})}")
+    return out
 
 
 def bf16_kernel(dev, rows: dict) -> dict:
@@ -5532,9 +5581,20 @@ def bf16_kernel(dev, rows: dict) -> dict:
     t16 = time_ms(lambda: ms.mamba_scan(*args, return_state=True,
                                         state_dtype=bf16), 10)
     t32 = time_ms(lambda: ms.mamba_scan(*args, return_state=True), 10)
+    # the profiler's device time or, if its trace holds none (as after
+    # phase 16's and this phase's profiled steps), the CUDA events' time
+    # over the back-to-back calls: at a millisecond a call the host keeps
+    # the queue full, so that is the kernels' time on the card
     d16 = device_ms(lambda: ms.mamba_scan(*args, return_state=True,
                                           state_dtype=bf16), 3)
     d32 = device_ms(lambda: ms.mamba_scan(*args, return_state=True), 3)
+    by16 = by32 = "profiler"
+    if d16 is None:
+        d16, by16 = t16, "CUDA events over back-to-back calls"
+    if d32 is None:
+        d32, by32 = t32, "CUDA events over back-to-back calls"
+    prims = ms.bf16_primitive_mismatches(dev)
+    spills = rows["mamba_scan_bf16_state"].get("ptxas") or {}
     b16 = scan_bound(cfg, b, L, bf16_state=True)
     b32 = scan_bound(cfg, b, L)
     shape = f"{b}x{L}x{di} N {n} fp32 operands (falcon-mamba-7b)"
@@ -5543,31 +5603,43 @@ def bf16_kernel(dev, rows: dict) -> dict:
         f"{SCAN_BF16_Y_TOL:g}), final state bitwise the plain version's: "
         f"{held['state_bitwise']} (within one bf16 ulp: "
         f"{held['over'] == 0}); kernel_ms {t16:.4f} (device "
-        f"{'not measured' if d16 is None else f'{d16:.4f}'}) plain_ms "
+        f"{d16:.4f}, {by16}) plain_ms "
         f"{t_p:.4f} library_ms null bound_ms {b16[0]:.4f} ({b16[1]}); the "
         f"fp32 state's kernel on the same operands {t32:.4f} ms (device "
-        f"{'not measured' if d32 is None else f'{d32:.4f}'}), bound "
+        f"{d32:.4f}, {by32}), bound "
         f"{b32[0]:.4f} ({b32[1]}); bf16 / fp32 state {t16 / t32:.2f}x")
-    check(held["over"] == 0, f"mamba_scan_bf16_state: off the plain "
-          f"version beyond its contract: {held}")
+    log(f"mamba_scan_bf16_state: packed primitives against their plain "
+        f"counterparts at every input: {json.dumps(prims)}; ptxas "
+        f"{json.dumps(spills)}")
+    check(held["over"] == 0 and held["state_bitwise"], f"mamba_scan_bf16_"
+          f"state: off the plain version beyond its contract or its final "
+          f"state not bitwise: {held}")
+    check(all(p["mismatches"] == 0 for p in prims.values()),
+          f"mamba_scan_bf16_state: a packed primitive differs from its "
+          f"plain counterpart: {prims}")
+    check(spills.get("spill_stores", 0) == spills.get("spill_loads", 0)
+          == 0, f"mamba_scan_bf16_state: ptxas spills {spills}")
     rows["mamba_scan_bf16_state"].update(
         max_abs_err=err, ms=t16, plain_ms=t_p, library_ms=None,
-        bound_ms=b16[0], bound_by=b16[1], device_ms=d16, shape=shape,
+        bound_ms=b16[0], bound_by=b16[1], device_ms=d16,
+        device_ms_by=by16, shape=shape,
         y_rel_frobenius=held["y_rel_frobenius"],
         state_bitwise=held["state_bitwise"], fp32_state_ms=t32,
-        fp32_state_device_ms=d32, fp32_state_bound_ms=b32[0])
+        fp32_state_device_ms=d32, fp32_state_bound_ms=b32[0],
+        primitive_mismatches={k: p["mismatches"] for k, p in prims.items()})
     return {"ms": t16, "fp32_ms": t32, "plain_ms": t_p, "bound": b16,
-            "fp32_bound": b32}
+            "fp32_bound": b32, "device_ms": d16, "fp32_device_ms": d32,
+            "primitives": prims}
 
 
-def bf16_state_phase(dev, rows: dict, fp32_losses: list) -> dict:
+def bf16_state_phase(dev, rows: dict, fp32_run: dict) -> dict:
     """Phase 18: ``ssm_dtype="bfloat16"`` on the card (the module
-    docstring's item 18)."""
+    docstring's item 18); ``fp32_run``: phase 16's ssm run."""
     t_phase = time.perf_counter()
     served_run = bf16_serve(dev)
     gc.collect()
     torch.cuda.empty_cache()
-    trained = bf16_train(dev, fp32_losses)
+    trained = bf16_train(dev, fp32_run)
     kernel = bf16_kernel(dev, rows)
     launches = {k: served_run["launches"][k] + trained["launches"][k]
                 for k in served_run["launches"]}
@@ -5663,7 +5735,7 @@ def main() -> int:
     moe = moe_phase(dev, lm)
     families16 = train_families_phase(dev)
     dry = dryrun_phase(dev, card)
-    bf16 = bf16_state_phase(dev, rows, families16["runs"]["ssm"]["losses"])
+    bf16 = bf16_state_phase(dev, rows, families16["runs"]["ssm"])
     prof = lm["profile"]
     rows["flash_attention_mma"].update(
         lm_device_ms=prof["mma_device_ms"], lm_bound_ms=prof["mma_bound"][0],

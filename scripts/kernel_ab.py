@@ -47,6 +47,13 @@ then one JSON line a tree.  CASES is one of:
     launched, and the outputs beyond the contracts (fp32: rtol = atol =
     1e-4 of the plain version; bf16: one bf16 ulp + 1e-4 of the plain
     version's fp32 result on the same bf16 inputs), which must be 0.
+    Then ``chip_smoke.py``'s phase-18 shape, batch 4 x 4096 x 8192, N 16,
+    fp32 operands, with ``return_state``: the fp32 state (``fp32_b4``) and
+    the bf16 state (``bf16_state_b4``: its final state bitwise the plain
+    bf16-state version's or not, y's relative Frobenius distance from
+    it).  Then the SASS of the two fp32-operand wide instances
+    (``scan_sass``: ``sass_loop``, the chunk loop's opcodes, each count
+    also a (t, j), a step of one of a thread's G = 4 states).
 
 ``jacobi``
     One Jacobi sweep through ``core.jacobi._sweep_scan`` with the fused
@@ -118,6 +125,12 @@ M, N, K = 70000, 784, 32
 BATCH, BM, BN = 32, 2048, 256
 GRAM_BLOCKS_PER_SM = (2, 4, 8, 8, 4, 2)
 SCAN_L, SCAN_D, SCAN_N = 4096, 8192, 16  # falcon-mamba-7b, one sequence
+SCAN_B4 = 4                    # chip_smoke.py's phase 18 (LM_BATCH)
+# the scan kernel's steps a chunk x states a thread (csrc/mamba_scan.cu's
+# TCH x G): the chunk loop's body is unrolled over both
+SCAN_STEP_STATES = 32 * 4
+SCAN_INSTANCES = {"fp32_state": "scan_kernelIfLb1ELb0E",
+                  "bf16_state": "scan_kernelIfLb1ELb1E"}
 DLE_TILE = 128                 # chip_smoke.py's OPS_TILE
 CORDIC_K, CORDIC_RATE_K = N // 2, 1 << 20  # one round's pivots at n = 784
 SMALL_REPS, HOST_REPS, TRACE_REPS = 2000, 10000, 100
@@ -414,22 +427,28 @@ def jacobi(tree: str) -> dict:
 
 def scan(tree: str) -> dict:
     import torch
-    from repro_torch.kernels import launch_counts, ref
+    from repro_torch.kernels import build, launch_counts, ref
     from repro_torch.kernels import mamba_scan as ms
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def inputs(d, dtype):
+    def inputs(d, dtype, batch=1):
         def randn(*shape):
             return torch.randn(*shape, generator=gen, device=dev)
-        u, b, c = randn(1, SCAN_L, d), randn(1, SCAN_L, SCAN_N), \
-            randn(1, SCAN_L, SCAN_N)
-        dt = torch.rand(1, SCAN_L, d, generator=gen, device=dev) * 0.19 \
-            + 0.01
+        u, b, c = randn(batch, SCAN_L, d), randn(batch, SCAN_L, SCAN_N), \
+            randn(batch, SCAN_L, SCAN_N)
+        dt = torch.rand(batch, SCAN_L, d, generator=gen, device=dev) \
+            * 0.19 + 0.01
         a = -(torch.rand(d, SCAN_N, generator=gen, device=dev) * 1.5 + 0.5)
         return (u.to(dtype), dt.to(dtype), a, b.to(dtype), c.to(dtype),
                 randn(d))
+
+    def launched_by(fn):
+        before = launch_counts()
+        got = fn()
+        return got, [k for k, c in launch_counts().items()
+                     if c != before[k]]
 
     cases = {"fp32": (SCAN_D, torch.float32, 20),
              "bf16": (SCAN_D, torch.bfloat16, 20),
@@ -437,9 +456,7 @@ def scan(tree: str) -> dict:
     out = {"tree": tree}
     for name, (d, dtype, reps) in cases.items():
         args = inputs(d, dtype)
-        before = launch_counts()
-        got = ms.mamba_scan(*args).float()
-        launched = [k for k, c in launch_counts().items() if c != before[k]]
+        got, launched = launched_by(lambda: ms.mamba_scan(*args).float())
         want = ref.mamba_scan(*(t.float() for t in args))
         err = (got - want).abs()
         if dtype == torch.bfloat16:
@@ -452,6 +469,27 @@ def scan(tree: str) -> dict:
                      "kernel": launched, "max_abs_err": float(err.max()),
                      "beyond_contract": int((err > slack).sum())}
         del args, got, want, err, slack
+    # phase 18's shape: both states on the same fp32 operands
+    args = inputs(SCAN_D, torch.float32, SCAN_B4)
+    for name, kw in (("fp32_b4", {}),
+                     ("bf16_state_b4", {"state_dtype": torch.bfloat16})):
+        (y, state), launched = launched_by(
+            lambda: ms.mamba_scan(*args, return_state=True, **kw))
+        row = {"ms": time_ms(lambda: ms.mamba_scan(
+            *args, return_state=True, **kw), 10), "kernel": launched}
+        if kw:  # the plain bf16-state scan: 4096 steps, about 1.5 s
+            want_y, want_state = ref.mamba_scan(*args, return_state=True,
+                                                **kw)
+            row.update(state_bitwise=bool(torch.equal(state, want_state)),
+                       state_mismatches=int((state != want_state).sum()),
+                       y_rel_frobenius=rel_frobenius(y, want_y))
+            del want_y, want_state
+        out[name] = row
+        del y, state
+    del args
+    lib = str(build.build_dir() / build.LIB_NAME)
+    out["scan_sass"] = {name: sass_loop(lib, kernel, SCAN_STEP_STATES)
+                        for name, kernel in SCAN_INSTANCES.items()}
     return out
 
 
@@ -499,6 +537,28 @@ def host_us(fn, reps: int = HOST_REPS) -> float:
     return (t1 - t0) / reps / 1e3
 
 
+def sass(lib_path: str, kernel: str) -> list:
+    """(address, predicate or None, opcode with its modifiers, operands)
+    of each instruction of ``kernel`` in the library's SASS
+    (``cuobjdump -sass``)."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    text = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, check=True).stdout
+    out, here = [], False
+    for line in text.splitlines():
+        if "Function :" in line:
+            here = kernel in line
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                      r"([A-Z0-9_.]+)\s*([^;]*);", line)
+        if here and m:
+            out.append((int(m.group(1), 16), m.group(2), m.group(3),
+                        m.group(4)))
+    return out
+
+
 def sass_chain(lib_path: str, kernel: str) -> dict:
     """The longest chain of dependent instructions in ``kernel``'s SASS
     (straight-line code: the CORDIC kernel's stages are unrolled), each
@@ -506,24 +566,8 @@ def sass_chain(lib_path: str, kernel: str) -> dict:
     instruction that writes it is dispatched; the first operand of an
     instruction that writes is its destination."""
     import re
-    import shutil
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                          text=True, check=True).stdout
-    body, here = [], False
-    for line in sass.splitlines():
-        if "Function :" in line:
-            here = kernel in line
-            continue
-        if here:
-            body.append(line)
     ready, longest, count, n_instr = {}, 0, {}, 0
-    for line in body:
-        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)"
-                      r"\s*([^;]*);", line)
-        if not m:
-            continue
-        pred, op, args = m.group(1), m.group(2), m.group(3)
+    for _, pred, op, args in sass(lib_path, kernel):
         base = op.split(".")[0]
         if base in ("NOP", "EXIT", "BRA", "RET"):
             continue
@@ -545,6 +589,34 @@ def sass_chain(lib_path: str, kernel: str) -> dict:
     depth = max((d for _, d in ready.values()), default=0)
     return {"instructions": n_instr, "chain_cycles": longest,
             "chain_instructions": depth, "opcodes": count}
+
+
+def sass_loop(lib_path: str, kernel: str, per: int) -> dict:
+    """Opcodes (with their modifiers) of the longest loop in ``kernel``'s
+    SASS -- the instructions from a backward branch's target to the
+    branch (the whole function if no branch is read) -- and each count
+    over ``per`` (the loop body's unrolled steps)."""
+    import re
+    instrs = sass(lib_path, kernel)
+    loop = (0, -1)
+    for addr, _, op, args in instrs:
+        target = re.match(r"\s*0x([0-9a-f]+)", args)
+        if op.startswith("BRA") and target:
+            start = int(target.group(1), 16)
+            if start < addr and addr - start > loop[1] - loop[0]:
+                loop = (start, addr)
+    if loop[1] < 0:  # no backward branch read: the whole function
+        loop = (0, instrs[-1][0] if instrs else -1)
+    count = {}
+    for addr, _, op, _ in instrs:
+        if loop[0] <= addr <= loop[1] and op != "NOP":
+            count[op] = count.get(op, 0) + 1
+    ranked = sorted(count.items(), key=lambda kv: -kv[1])
+    return {"loop": [hex(a) for a in loop],
+            "instructions": sum(count.values()),
+            "per_step_state": sum(count.values()) / per,
+            "opcodes": dict(ranked),
+            "opcodes_per_step_state": {k: v / per for k, v in ranked}}
 
 
 def busy_sm_clock_mhz() -> float:

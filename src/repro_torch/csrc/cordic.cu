@@ -19,10 +19,14 @@
 // Bound: 24 bytes a pivot (three fp32 in, three out) against about 500
 // integer and float operations; at k = 2^20 bytes and operations take
 // microseconds either way.  At one round's k = 392 the floor is latency:
-// a pivot's longest chain of dependent instructions (262 in the SASS,
-// about 1100 cycles, 0.56 us at 1.98 GHz) after the load of its inputs,
-// inside a launch that alone takes about 1 us on the device.  The three
-// outputs are the rows of one (3, k) buffer: the wrapper allocates once.
+// a pivot's longest chain of dependent instructions (233 in the SASS,
+// about 980 cycles, 0.49 us at 1.98 GHz; 262 and 1100 when from_fixed
+// was an IEEE division and each mode spelled its stage) after the load
+// of its inputs, inside a launch that alone takes about 1 us on the
+// device: 0.0020 ms a call there on an H100 SXM (700 W), from 0.0021.
+// Both candidates of a stage selected on the sign (a shorter chain by
+// the SASS, more constant loads) ran slower.  The three outputs are the
+// rows of one (3, k) buffer: the wrapper allocates once.
 #include <stdint.h>
 
 #include "common.cuh"
@@ -46,14 +50,8 @@ cordic_kernel(const float* __restrict__ apq, const float* __restrict__ app,
   int32_t xr = kX0;
   int32_t yr = 0;
 #pragma unroll
-  for (int i = 0; i < CORDIC_ITERS; ++i) {
-    const int32_t d = zr >= 0 ? 1 : -1;
-    const int32_t xs = xr >> i;
-    const int32_t ys = yr >> i;
-    xr = xr - d * ys;
-    yr = yr + d * xs;
-    zr = zr - d * kAtanFixed[i];
-  }
+  for (int i = 0; i < CORDIC_ITERS; ++i)
+    cordic_stage(zr >= 0, i, kAtanFixed[i], xr, yr, zr);
   const size_t row = static_cast<size_t>(k);
   out[j] = theta;
   out[row + j] = from_fixed(xr);

@@ -23,14 +23,33 @@ __constant__ int32_t kAtanFixed[CORDIC_ITERS] = {
     2048,      1024,      512,       256,      128,      64,
     32,        16,        8,         4,        2,        1};
 constexpr float kOne = 536870912.0f;  // 2^29
+constexpr float kInvOne = 1.0f / 536870912.0f;  // 2^-29, exact
 constexpr float kPi = 3.14159274101257324f;        // float32(pi)
 
 __device__ __forceinline__ int32_t to_fixed(float x) {
   return __float2int_rn(__fmul_rn(x, kOne));  // round half to even
 }
 
+// x / 2^29 as a product: 2^-29 is a power of two, so the product has the
+// IEEE division's bits for every int32 (the quotient is 0 or at least
+// 2^-29, normal), without the division's iterations and slow-path branch
 __device__ __forceinline__ float from_fixed(int32_t x) {
-  return __fdiv_rn(__int2float_rn(x), kOne);
+  return __fmul_rn(__int2float_rn(x), kInvOne);
+}
+
+// One CORDIC stage in direction d (+1 if `up`, else -1):
+// (x, y, z) -> (x - d (y >> i), y + d (x >> i), z - d t), the shift
+// arithmetic on int32.  Vectoring mode is the stage in direction
+// -sign(y), rotation mode the one in direction sign(z) (sign(0) = +1).
+__device__ __forceinline__ void cordic_stage(bool up, int i, int32_t t,
+                                             int32_t& x, int32_t& y,
+                                             int32_t& z) {
+  const int32_t xs = x >> i;
+  const int32_t ys = y >> i;
+  const int32_t d = up ? 1 : -1;
+  x = x - d * ys;
+  y = y + d * xs;
+  z = z - d * t;
 }
 
 // 2^-ceil(log2(mag)) from the exponent bits of a positive normal float:
@@ -52,14 +71,8 @@ __device__ float cordic_atan2(float y, float x) {
   int32_t yi = to_fixed(neg_x ? -yn : yn);
   int32_t zi = 0;
 #pragma unroll
-  for (int i = 0; i < CORDIC_ITERS; ++i) {
-    const int32_t d = yi >= 0 ? 1 : -1;
-    const int32_t xs = xi >> i;  // arithmetic shift on int32
-    const int32_t ys = yi >> i;
-    xi = xi + d * ys;
-    yi = yi - d * xs;
-    zi = zi + d * kAtanFixed[i];
-  }
+  for (int i = 0; i < CORDIC_ITERS; ++i)
+    cordic_stage(yi < 0, i, kAtanFixed[i], xi, yi, zi);
   const float ang = from_fixed(zi);
   if (!neg_x) return ang;
   return y >= 0.f ? __fadd_rn(ang, kPi) : __fsub_rn(ang, kPi);

@@ -54,6 +54,7 @@ SIGNATURES = {
                            _I, _I, _I, _P],
     "repro_mamba_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                          _I, _I, _I, _I, _P],
+    "repro_scan_bf16_check": [_I, _P, _P],
 }
 
 _LOCK = threading.Lock()

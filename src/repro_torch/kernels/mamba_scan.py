@@ -45,6 +45,13 @@ MAMBA_SCAN_BF16 = KernelInfo("mamba_scan_bf16_state",
 
 MAX_STATE = 16   # N limit of csrc/mamba_scan.cu (4 lanes of 4 states)
 
+# the bf16-state instance's packed primitives, in the order of the
+# entry's ``which`` (csrc/mamba_scan.cu, check_kernel), each with the
+# inputs its check covers: every bf16 pair for mul and add, every fp32
+# bit pattern for the convert, every bf16 for r(expf(x))
+BF16_PRIMITIVES = {"mul": 2 ** 32, "add": 2 ** 32, "cvt": 2 ** 32,
+                   "exp": 2 ** 16}
+
 
 def scan_copies(u: torch.Tensor, delta: torch.Tensor, B: torch.Tensor,
                 C: torch.Tensor) -> Tuple[int, int]:
@@ -145,3 +152,27 @@ def mamba_scan(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor,
             *scan_copies(u, delta, B, C), stream(dev)), what)
     kernel.launches += 1
     return (y, state) if return_state else y
+
+
+def bf16_primitive_mismatches(device) -> dict:
+    """Each packed primitive of the bf16-state instance held on the card
+    to its plain counterpart at every input (``BF16_PRIMITIVES``):
+    ``{name: {"inputs": n, "mismatches": m, "first": the first
+    mismatching item or None}}`` (NaN against NaN is a match).  It runs
+    device code, so it needs a CUDA device; the plain version has nothing
+    to check on the CPU."""
+    dev = torch.device(device)
+    require(dev.type == "cuda", "bf16_primitive_mismatches",
+            f"needs a CUDA device, got {dev}")
+    lib = build.library()
+    out = {}
+    with torch.cuda.device(dev):
+        for which, (name, n) in enumerate(BF16_PRIMITIVES.items()):
+            res = torch.tensor([0, -1], dtype=torch.int64, device=dev)
+            build.check(lib.repro_scan_bf16_check(which, res.data_ptr(),
+                                                  stream(dev)),
+                        f"bf16 check {name}")
+            bad, first = (int(v) for v in res.cpu())
+            out[name] = {"inputs": n, "mismatches": bad,
+                         "first": None if first == -1 else first}
+    return out

@@ -22,7 +22,10 @@ sums 1e-7 apart round to bf16 values many ulps apart near zero); the
 selective scan within rtol = atol = 1e-4 in fp32 and, in bf16, within one
 bf16 ulp plus 1e-4 of the plain version's fp32 result, bitwise the same
 whatever its operands' alignment, its final state within rtol = atol =
-1e-4.  The ssm and hybrid LM (reduced falcon-mamba and the 2-layer jamba
+1e-4; the bf16-state instance's final state within one bf16 ulp of the
+plain bf16-state version's (its contract) and, at shapes the models do
+not give, equal to it, with its packed bf16 primitives equal to their
+plain counterparts at every input.  The ssm and hybrid LM (reduced falcon-mamba and the 2-layer jamba
 stand-in): one scan launch a mamba layer a prefill, none in decode, each
 scan call held at the op; logits as the dense LM's, fp32 within n_layers
 x 1e-4.  The encdec and vlm LM (reduced whisper with 80 frames and
@@ -800,6 +803,67 @@ def test_mamba_scan_kernel_bf16_state(cuda_device, dtype):
         y_op, state_op = ops.mamba_scan(*args, return_state=True,
                                         state_dtype=torch.bfloat16)
         assert torch.equal(y_op, y) and torch.equal(state_op, state)
+
+
+def test_bf16_state_primitives_match_their_plain_counterparts(cuda_device):
+    """The bf16-state instance's packed primitives at every input: bf16x2
+    mul and add at every bf16 pair against __float2bfloat16_rn of
+    __fmul_rn / __fadd_rn, the packed convert at every fp32 bit pattern
+    against __float2bfloat16_rn, r(expf(x)) at every bf16 x; subnormals,
+    infinities and NaN included (a NaN matches a NaN)."""
+    got = mamba_scan.bf16_primitive_mismatches(cuda_device)
+    assert set(got) == set(mamba_scan.BF16_PRIMITIVES)
+    for name, rec in got.items():
+        assert rec["inputs"] == mamba_scan.BF16_PRIMITIVES[name]
+        assert rec["mismatches"] == 0 and rec["first"] is None, (name, rec)
+
+
+# shapes the models do not give the bf16-state instance: N below 16, D not
+# a whole number of 32-channel blocks, L not one of 32-step chunks
+SCAN_BF16_STATE_SHAPES = [(2, 50, 16, 8), (1, 300, 200, 16), (3, 33, 8, 4),
+                          (3, 70, 45, 1), (3, 70, 45, 13), (4, 129, 96, 16)]
+
+
+@pytest.mark.parametrize("shape", SCAN_BF16_STATE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mamba_scan_bf16_state_final_state_bitwise(cuda_device, dtype,
+                                                   shape):
+    """The bf16-state instance's final state equal to the plain version's
+    in bf16-state mode on the card, value for value, y within 2^-8
+    relative Frobenius; without ``return_state`` the same y, bitwise."""
+    g = torch.Generator(device=cuda_device).manual_seed(8)
+    args = _scan_inputs(cuda_device, *shape, g, dtype=dtype)
+    bf16 = torch.bfloat16
+    before = launch_counts()
+    y, state = mamba_scan.mamba_scan(*args, return_state=True,
+                                     state_dtype=bf16)
+    y_only = mamba_scan.mamba_scan(*args, state_dtype=bf16)
+    assert _launched(before) == {"mamba_scan_bf16_state": 2}
+    want_y, want_state = ref.mamba_scan(*args, return_state=True,
+                                        state_dtype=bf16)
+    assert torch.equal(state, want_state)
+    assert rel_frobenius(y.float(), want_y.float()) <= 2.0 ** -8
+    assert torch.equal(y_only, y)
+
+
+@pytest.mark.parametrize("k", [1, 392, 1 << 20])
+def test_cordic_kernel_bitwise_at_path_sizes(cuda_device, k):
+    """k = 1, one round's 392 pivots at n = 784 and 2^20: bitwise the
+    plain version, zeros and equal diagonals included."""
+    g = torch.Generator(device=cuda_device).manual_seed(k)
+    scale = 10.0 ** torch.randint(-6, 7, (3, k), generator=g,
+                                  device=cuda_device)
+    apq, app, aqq = (torch.randn(3, k, generator=g, device=cuda_device)
+                     * scale)
+    apq[::17] = 0.0
+    aqq[::13] = app[::13]
+    apq, app, aqq = (t.contiguous() for t in (apq, app, aqq))
+    before = launch_counts()
+    got = cordic.cordic_rotation_params(apq, app, aqq)
+    assert _launched(before) == {"cordic_rotate": 1}
+    want = ref.cordic_rotation_params_q29(apq, app, aqq)
+    for gg, w in zip(got, want):
+        assert_contract(gg, w, "bitwise")
 
 
 # -- configurations the smoke test's main path does not take -----------------
