@@ -329,6 +329,33 @@ Phases, each of which raises (and exits nonzero) on a failed check:
    with its bound, its ptxas spills (none); the instance's packed bf16
    primitives held to their plain counterparts at every input
    (``mamba_scan.bf16_primitive_mismatches``: 0 mismatches).
+19. cold start: the persistent executable tier
+   (``PCAServer.from_spec`` with ``CacheSpec(cache_dir=...)``: a CUDA
+   graph a flush key, its record and the kernel library kept in the
+   cache directory).  (a) Three fresh replicas, each a process of its
+   own (``--cold-start-worker``) with an empty build directory, serving
+   phase 6's 96 requests at ``max_inflight=3``: ``cold`` on an empty
+   cache directory (nvcc builds the library; every key captured, held
+   bitwise to its eager solve and stored), ``warm_disk`` on the
+   directory it seeded (every key captured again from its record),
+   ``warmup`` on it with ``warmup(profile)`` of the burst's shapes
+   before the first request.  Each prints its time to the first result
+   from process start and from server construction, the burst's wall,
+   requests/s and p50/p99, nvcc's runs and seconds, its warmup counts and
+   ``cache_summary()``, and the SHA-256 of its results; the holds: nvcc
+   0 times in ``warm_disk`` and ``warmup``, ``warmup``'s disk hits equal
+   to its executables and no compile, ``cold`` storing every key, every
+   result within the fp32 budgets of float64 numpy, the three digests
+   equal to each other and to phase 6's results.  (b) Phase 6's burst in
+   this process through a server with the tier armed at depths 1 and 3
+   (the first captures every key, the second loads them from disk), a
+   cold and a warm pass each with ``executor.submit`` under
+   ``set_sync_debug_mode("error")``, every pass bitwise phase 6's eager
+   results; each pass's dispatch a flush, requests/s and p50/p99 printed
+   beside phase 6's eager numbers; one warm pass profiled: one graph
+   launch a flush, the four kernels named in the trace (no more of each
+   than the graphs replayed, 50 sweeps a flush), the device's idle
+   share.
 Each path is checked against the kernels it runs: phase 3 against the
 three PCA/SVD kernels, phases 4, 6, 7 and 12 against those and the
 shared-memory sweep, phase 5 against the seven kernels of its five ops,
@@ -341,7 +368,8 @@ against the bf16 prefill kernel, the Gram and the shared-memory sweep,
 phase 15 against the two flash kernels of bf16 serving, phase 16
 against the bf16 prefill kernel and the scan, phase 17 against the bf16
 prefill kernel, the scan and the split-KV kernel, phase 18 against the
-scan's bf16-state instance.
+scan's bf16-state instance, phase 19 against the flush's four kernels
+as the profiler names them in a graph's replay.
 The last three lines are the kernels' JSON record (each kernel's
 launches from the phase that drives it, ``launches_serve`` from phase 6,
 ``launches_control`` from phase 7, ``launches_lm`` from the serve runs
@@ -349,8 +377,13 @@ and consumers of phases 8 to 10, ``launches_train`` from phase 11's
 trainer runs, ``launches_mesh`` from phase 12, ``launches_mesh_lm``
 from phase 13, ``launches_pod`` from phase 14, ``launches_moe`` from
 phase 15's serve runs, ``launches_train_families`` from phase 16's
-trainer runs, ``launches_dryrun`` from phase 17's three cells and
-``launches_bf16_state`` from phase 18's serve and trainer runs; the
+trainer runs, ``launches_dryrun`` from phase 17's three cells,
+``launches_bf16_state`` from phase 18's serve and trainer runs and
+``launches_cold_start`` from phase 19's profiled graphed pass, counted
+by kernel name in the profiler's trace (a replay makes no wrapper call),
+and ``launches_cold_start_replayed``, the same pass's graph replays
+times each graph's launches of one solve (the trace can lose a replay's
+kernels); the
 bf16-state instance's ``launches`` are phase 18's serve run's), the
 card's name and
 power limit, and ``{"ok": true,
@@ -1198,17 +1231,10 @@ def reference_values(op: str, a: np.ndarray) -> np.ndarray:
     return np.linalg.eigvalsh(xs.T @ xs)[::-1]
 
 
-def batched_flush(dev) -> dict:
-    from repro_torch.core.pca import PCAConfig
-    from repro_torch.core.precision import ERROR_BUDGETS
-    from repro_torch.kernels import launch_counts, reset_launch_counts
-    from repro_torch.serving.batching import BucketPolicy, stack_requests
-    from repro_torch.serving.solver import build_solver_fn
-
+def flush_requests() -> dict:
+    """Phase 4's seeded requests, {op: [matrix, ...]} (FLUSH_REQUESTS an
+    op): the burst of phases 6, 12 and 19."""
     rng = np.random.default_rng(SEED + 1)
-    policy = BucketPolicy(T=FLUSH_T, mode="pow2")
-    config = PCAConfig(fused=True, backend=BACKEND, sweeps=SWEEPS)
-    budget = ERROR_BUDGETS["fp32"]
     requests = {"eigh": [], "svd": [], "pca": []}
     for _ in range(FLUSH_REQUESTS):
         n = int(rng.integers(FLUSH_EIGH_N[0], FLUSH_EIGH_N[1] + 1))
@@ -1221,6 +1247,20 @@ def batched_flush(dev) -> dict:
         m = int(rng.integers(FLUSH_PCA_M[0], FLUSH_PCA_M[1] + 1))
         seed = int(rng.integers(1 << 30))
         requests["pca"].append(synthetic_dataset(m, d, seed))
+    return requests
+
+
+def batched_flush(dev) -> dict:
+    from repro_torch.core.pca import PCAConfig
+    from repro_torch.core.precision import ERROR_BUDGETS
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving.batching import BucketPolicy, stack_requests
+    from repro_torch.serving.solver import build_solver_fn
+
+    policy = BucketPolicy(T=FLUSH_T, mode="pow2")
+    config = PCAConfig(fused=True, backend=BACKEND, sweeps=SWEEPS)
+    budget = ERROR_BUDGETS["fp32"]
+    requests = flush_requests()
 
     torch.cuda.synchronize()
     reset_launch_counts()
@@ -5651,12 +5691,311 @@ def bf16_state_phase(dev, rows: dict, fp32_run: dict) -> dict:
             "launches": launches, "wall_s": wall}
 
 
+# -- phase 19: cold start, the persistent executable tier ---------------------
+
+COLD_ROWS = ("cold", "warm_disk", "warmup")   # the three fresh replicas
+COLD_DIR = pathlib.Path(__file__).resolve().parent / "build" / "cold_start"
+COLD_DEPTH = 3               # max_inflight of the fresh replicas
+COLD_TIMEOUT = 300           # seconds a replica may take, nvcc included
+# the flush's four kernels as the profiler names them
+GRAPH_KERNELS = {"covariance": r"\bgram_kernel\b",
+                 "jacobi_sweep": r"\bsweep_grid_kernel\b",
+                 "jacobi_sweep_smem": r"\bsweep_smem_kernel\b",
+                 "mm_engine_matmul": r"\bmm_kernel\b"}
+
+
+def cold_spec(cache_dir, depth: int):
+    """Phase 6's server as a ``ServerSpec`` with the persistent tier armed
+    at ``cache_dir``."""
+    from repro_torch.serving import (CacheSpec, ExecutionSpec,
+                                     SchedulingSpec, ServerSpec)
+    return ServerSpec(
+        scheduling=SchedulingSpec(mode="pow2", T=FLUSH_T,
+                                  max_batch=FLUSH_REQUESTS,
+                                  max_inflight=depth),
+        execution=ExecutionSpec(backend=BACKEND, fused=True, sweeps=SWEEPS),
+        cache=CacheSpec(cache_dir=str(cache_dir)))
+
+
+def served_digest(served: list) -> str:
+    """SHA-256 of served results, field by field in order."""
+    import dataclasses
+    import hashlib
+    h = hashlib.sha256()
+    for res in served:
+        for f in dataclasses.fields(res):
+            h.update(np.ascontiguousarray(getattr(res, f.name)).tobytes())
+    return h.hexdigest()
+
+
+def burst_profile(burst: list):
+    from repro_torch.serving import TrafficProfile
+    return TrafficProfile.from_shapes([(op, a.shape, 1) for op, a in burst])
+
+
+def cold_start_worker(row: str, cache_dir: str, out: str,
+                      t_launch: str) -> int:
+    """``chip_smoke.py --cold-start-worker ROW CACHE_DIR OUT T_LAUNCH``: one
+    fresh replica of phase 19 (``row`` of ``COLD_ROWS``) serving phase 6's
+    burst through ``PCAServer.from_spec`` with ``cache_dir`` armed; its
+    record is written to ``out``.  ``T_LAUNCH`` is the parent's
+    ``time.time()`` when it started this process."""
+    t_start = time.monotonic() - (time.time() - float(t_launch))
+    from repro_torch.core.precision import ERROR_BUDGETS
+    from repro_torch.kernels import build
+    from repro_torch.serving import PCAServer
+    t_imported = time.monotonic()
+    requests = flush_requests()
+    burst = [(op, a) for op, mats in requests.items() for a in mats]
+    t_server = time.monotonic()
+    srv = PCAServer.from_spec(cold_spec(cache_dir, COLD_DEPTH),
+                              device="cuda")
+    warm = srv.warmup(burst_profile(burst)) if row == "warmup" else None
+    t_burst = time.monotonic()
+    tickets = [srv.submit(a, op=op) for op, a in burst]
+    srv.drain()
+    served = [t.result() for t in tickets]
+    t_end = time.monotonic()
+    first = min(r.t_done for r in srv.stats.records)
+    summary = srv.stats.summary()
+    budget = ERROR_BUDGETS["fp32"]
+    worst = {}
+    for (op, a), res in zip(burst, served):
+        got = res.S if op == "svd" else res.eigenvalues
+        err = rel_frobenius(got, reference_values(op, a))
+        worst[op] = max(worst.get(op, 0.0), err)
+        check(np.isfinite(got).all() and got.shape == (a.shape[1],)
+              and err <= budget["svd" if op == "svd" else "eigh"],
+              f"cold start {row} {op} {a.shape}: rel-Frobenius {err:.3e} "
+              f"over budget")
+    pathlib.Path(out).write_text(json.dumps({
+        "row": row, "ttfr_process_s": first - t_start,
+        "ttfr_server_s": first - t_server,
+        "import_s": t_imported - t_start,
+        "requests_s": t_server - t_imported, "warmup": warm,
+        "burst_wall_s": t_end - t_burst,
+        "requests_per_s": len(burst) / (t_end - t_burst),
+        "latency_p50_ms": summary["latency_p50_ms"],
+        "latency_p99_ms": summary["latency_p99_ms"],
+        "flushes": summary["flushes"], "cache_hits": srv.stats.cache_hits,
+        "nvcc_runs": build.nvcc_runs(), "nvcc_s": build.nvcc_seconds(),
+        "cache": srv.cache_summary(), "sha256": served_digest(served),
+        "worst": worst}))
+    return 0
+
+
+def cold_replicas() -> dict:
+    """Phase 19 (a): the three fresh replicas one after the other, each a
+    process of its own with an empty build directory: ``cold`` on an empty
+    cache directory (nvcc runs, every key captured and stored), then
+    ``warm_disk`` and ``warmup`` on the directory ``cold`` seeded."""
+    cache = COLD_DIR / "cache"
+    cache.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(pathlib.Path(__file__).resolve()
+                                          .parent / "src"))
+    from repro_torch.kernels import build
+    rows = {}
+    for row in COLD_ROWS:
+        out = COLD_DIR / f"{row}.json"
+        env[build.BUILD_ENV] = str(COLD_DIR / f"build_{row}")
+        proc = subprocess.run(
+            [sys.executable, __file__, "--cold-start-worker", row,
+             str(cache), str(out), repr(time.time())],
+            env=env, capture_output=True, text=True, timeout=COLD_TIMEOUT)
+        check(proc.returncode == 0, f"cold start {row}: exit "
+              f"{proc.returncode}\n{proc.stdout[-2000:]}"
+              f"{proc.stderr[-4000:]}")
+        rec = rows[row] = json.loads(out.read_text())
+        disk = rec["cache"]["disk"]
+        log(f"cold start {row}: first result {rec['ttfr_process_s']:.3f} s "
+            f"after process start, {rec['ttfr_server_s']:.3f} s after "
+            f"server construction (imports {rec['import_s']:.3f} s, the "
+            f"requests {rec['requests_s']:.3f} s); burst "
+            f"{rec['burst_wall_s']:.3f} s, "
+            f"{rec['requests_per_s']:.1f} requests/s, p50 "
+            f"{rec['latency_p50_ms']:.1f} ms p99 {rec['latency_p99_ms']:.1f} "
+            f"ms; nvcc {rec['nvcc_runs']} runs, {rec['nvcc_s']:.1f} s; "
+            f"warmup {json.dumps(rec['warmup'])}; disk {json.dumps(disk)}; "
+            f"cache hits {rec['cache_hits']} of {rec['flushes']} flushes; "
+            f"worst {json.dumps(rec['worst'])}; sha256 {rec['sha256']}")
+    cold, warm = rows["cold"], rows["warmup"]
+    check(cold["nvcc_runs"] > 0, "cold start cold: nvcc never ran")
+    for row in ("warm_disk", "warmup"):
+        check(rows[row]["nvcc_runs"] == 0, f"cold start {row}: nvcc ran "
+              f"{rows[row]['nvcc_runs']} times")
+    keys = cold["flushes"] - cold["cache_hits"]
+    check(cold["cache"]["disk"]["stores"] == keys > 0, f"cold start cold: "
+          f"stored {cold['cache']['disk']['stores']} of {keys} keys")
+    check(rows["warm_disk"]["cache"]["disk"]["hits"] == keys,
+          "cold start warm_disk: not every key a disk hit")
+    check(warm["warmup"]["disk"] == warm["warmup"]["executables"] == keys
+          and warm["warmup"]["compile"] == 0, f"cold start warmup: "
+          f"{json.dumps(warm['warmup'])}")
+    check(warm["cache_hits"] == warm["flushes"], "cold start warmup: a "
+          "flush missed the cache after the warmup")
+    digests = {rec["sha256"] for rec in rows.values()}
+    check(len(digests) == 1, f"cold start: the replicas' results differ "
+          f"({json.dumps({r: rec['sha256'] for r, rec in rows.items()})})")
+    return rows
+
+
+def graph_replays(srv) -> dict:
+    """{kernel: launches} the graphs in ``srv``'s cache have replayed so
+    far: each graph's replays times its record's launches of one solve."""
+    from repro_torch.serving.sharded import GraphedSolver
+    counts = {}
+    for key in srv._cache:
+        graphed = srv._cache[key]
+        check(isinstance(graphed, GraphedSolver), f"cold start: {key} is "
+              f"served by {type(graphed).__name__}, not a CUDA graph")
+        for name, n in graphed.record["launches"].items():
+            counts[name] = counts.get(name, 0) + n * graphed.replays
+    return counts
+
+
+def graph_profile(srv, burst: list) -> dict:
+    """One warm pass of ``srv`` under torch.profiler (CPU and CUDA): graph
+    launches and the flush kernels' launches by name from its Chrome
+    trace, the same counted from the graphs' replays (the trace can lose
+    a replay's kernels), the device's busy time (kernels, copies, sets)
+    against the wall."""
+    from torch.profiler import ProfilerActivity, profile
+    before = graph_replays(srv)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, _, stats = serve_pass(srv, burst)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    path = COLD_DIR / "graph_profile.pt.trace.json"
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    device = [e for e in events if e.get("cat") in
+              ("kernel", "gpu_memcpy", "gpu_memset")]
+    runtime = [e["name"] for e in events if e.get("cat") == "cuda_runtime"]
+    counts = {name: sum(1 for e in kernels if re.search(pat, e["name"]))
+              for name, pat in GRAPH_KERNELS.items()}
+    busy = sum(float(e.get("dur", 0.0)) for e in device) / 1e6
+    flushes = stats.summary()["flushes"]
+    launches = {name: runtime.count(name) for name in sorted(set(runtime))
+                if "Launch" in name}
+    replayed = {name: n - before.get(name, 0)
+                for name, n in graph_replays(srv).items()}
+    doc = {"wall_s": wall, "busy_s": busy, "idle_share": 1 - busy / wall,
+           "flushes": flushes, "kernels": counts, "replayed": replayed,
+           "graph_launches": sum(1 for name in runtime
+                                 if name.startswith("cudaGraphLaunch")),
+           "runtime_launches": launches}
+    log(f"cold start, profiled warm pass of the graphed server: wall "
+        f"{wall:.3f} s, device busy {busy:.3f} s, idle share "
+        f"{doc['idle_share']:.3f}; {flushes} flushes, "
+        f"{doc['graph_launches']} graph launches; kernels by name in the "
+        f"trace {json.dumps(counts)}, replayed by the graphs "
+        f"{json.dumps(replayed)}; runtime launch calls "
+        f"{json.dumps(launches)}")
+    return doc
+
+
+def cold_start_phase(dev, serve: dict) -> dict:
+    """Phase 19: (a) ``cold_replicas``; (b) phase 6's burst in this
+    process through a server with the tier armed, at depths 1 and 3 (the
+    first captures and stores every key, the second loads them), each a
+    cold and a warm pass with ``executor.submit`` under the sync guard,
+    every pass bitwise phase 6's eager results, the warm passes' numbers
+    beside phase 6's, and one profiled warm pass."""
+    import dataclasses
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.serving import PCAServer
+    t0 = time.perf_counter()
+    shutil.rmtree(COLD_DIR, ignore_errors=True)
+    COLD_DIR.mkdir(parents=True)
+    replicas = cold_replicas()
+    want = serve["served"]
+    check(replicas["cold"]["sha256"] == served_digest(want),
+          "cold start: the replicas' results differ from phase 6's")
+    burst = serve["burst"]
+    guarded = [0]
+    runs = {}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for depth in SERVE_DEPTHS:
+        srv = PCAServer.from_spec(cold_spec(COLD_DIR / "inproc", depth),
+                                  device=dev)
+        srv.executor.submit = no_sync(srv.executor.submit, guarded)
+        run = runs[depth] = {}
+        for name in ("cold", "warm"):
+            served, wall, stats = serve_pass(srv, burst)
+            summary = stats.summary()
+            flushes = list(stats.flush_records)
+            for (op, _), g, w in zip(burst, served, want):
+                for f in dataclasses.fields(w):
+                    check(np.array_equal(getattr(g, f.name),
+                                         getattr(w, f.name)),
+                          f"cold start max_inflight={depth} {name}: "
+                          f"{op}.{f.name} differs bitwise from phase 6")
+            run[name] = {
+                "wall_s": wall, "requests_per_s": summary["requests_per_s"],
+                "latency_p50_ms": summary["latency_p50_ms"],
+                "latency_p99_ms": summary["latency_p99_ms"],
+                "mean_dispatch_ms": 1e3 * float(np.mean(
+                    [f.dispatch_s for f in flushes])),
+                "cache_hits": stats.cache_hits, "flushes": len(flushes),
+                "disk": srv.cache_summary()["disk"]["hits"]}
+            eager = serve["runs"][depth][name]
+            log(f"cold start[max_inflight={depth} {name}]: graphed wall "
+                f"{wall:.3f} s, {summary['requests_per_s']:.1f} requests/s, "
+                f"p50 {summary['latency_p50_ms']:.1f} ms p99 "
+                f"{summary['latency_p99_ms']:.1f} ms, dispatch "
+                f"{run[name]['mean_dispatch_ms']:.2f} ms a flush; phase 6 "
+                f"eager {eager['wall_s']:.3f} s, "
+                f"{eager['requests_per_s']:.1f} requests/s, p50 "
+                f"{eager['latency_p50_ms']:.1f} ms p99 "
+                f"{eager['latency_p99_ms']:.1f} ms, dispatch "
+                f"{eager['mean_dispatch_ms']:.2f} ms; disk hits "
+                f"{run[name]['disk']}")
+        check(run["warm"]["cache_hits"] == run["warm"]["flushes"] > 0,
+              f"cold start[max_inflight={depth}]: the warm pass missed")
+    check(runs[SERVE_DEPTHS[-1]]["cold"]["disk"] > 0, "cold start: the "
+          "second in-process server loaded nothing from disk")
+    torch.cuda.synchronize()
+    captured = launch_counts()
+    log(f"cold start: {guarded[0]} executor.submit calls under "
+        f"set_sync_debug_mode('error'), none synced the host; wrapper "
+        f"counts (captures, not replays) {json.dumps(captured)}")
+    profile = graph_profile(srv, burst)
+    for name, n in profile["kernels"].items():
+        check(n > 0, f"cold start: the graphed pass's trace names no "
+              f"{name} kernel")
+    check(profile["graph_launches"] == profile["flushes"],
+          f"cold start: {profile['graph_launches']} graph launches for "
+          f"{profile['flushes']} flushes")
+    replayed = profile["replayed"]
+    check(replayed.get("jacobi_sweep", 0) + replayed.get(
+        "jacobi_sweep_smem", 0) == SWEEPS * profile["flushes"],
+          f"cold start: the graphs replayed {json.dumps(replayed)}, not "
+          f"{SWEEPS} sweeps a flush")
+    for name, n in profile["kernels"].items():
+        check(n <= replayed.get(name, 0), f"cold start: the trace names "
+              f"{n} {name} kernels, the graphs replayed "
+              f"{replayed.get(name, 0)}")
+    launches = {name: profile["kernels"].get(name, 0)
+                for name in captured}
+    wall = time.perf_counter() - t0
+    log(f"cold start: phase {wall:.1f} s")
+    return {"replicas": replicas, "runs": runs, "profile": profile,
+            "launches": launches, "replayed": replayed, "wall_s": wall}
+
+
 def main() -> int:
     if len(sys.argv) > 1 and sys.argv[1] == "--mesh-worker":
         return mesh_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                            sys.argv[5])
     if len(sys.argv) > 1 and sys.argv[1] == "--dryrun-worker":
         return dryrun_worker(sys.argv[2], sys.argv[3])
+    if len(sys.argv) > 1 and sys.argv[1] == "--cold-start-worker":
+        return cold_start_worker(*sys.argv[2:6])
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke "
               "test needs a CUDA card", file=sys.stderr)
@@ -5736,6 +6075,7 @@ def main() -> int:
     families16 = train_families_phase(dev)
     dry = dryrun_phase(dev, card)
     bf16 = bf16_state_phase(dev, rows, families16["runs"]["ssm"])
+    cold = cold_start_phase(dev, serve)
     prof = lm["profile"]
     rows["flash_attention_mma"].update(
         lm_device_ms=prof["mma_device_ms"], lm_bound_ms=prof["mma_bound"][0],
@@ -5837,6 +6177,9 @@ def main() -> int:
         row["launches_train_families"] = families16["launches"][k.name]
         row["launches_dryrun"] = dry["launches"][k.name]
         row["launches_bf16_state"] = bf16["launches"][k.name]
+        row["launches_cold_start"] = cold["launches"].get(k.name, 0)
+        row["launches_cold_start_replayed"] = cold["replayed"].get(k.name,
+                                                                   0)
         record.append(row)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": record}))

@@ -15,7 +15,9 @@ kernel launch per sweep instead).  The public single-problem entry point is
 """
 from __future__ import annotations
 
+import contextlib
 import functools
+import threading
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -27,6 +29,23 @@ from . import precision as prec
 from .cordic import ANGLE_MODES
 
 DEFAULT_SWEEPS = 50  # paper Sec. VII-D: fixed 50-sweep factor of safety
+
+_CAPTURE = threading.local()
+
+
+@contextlib.contextmanager
+def capture_form():
+    """Solve in the form a CUDA graph can hold: no host sync.  Under
+    ``tol`` every sweep then runs under the per-problem masks, without the
+    early ``break`` once all problems converged -- bitwise the early-exit
+    solve, because a finished problem keeps its (C, V) and so stays
+    finished.  ``serving.sharded`` captures its graphs in this form."""
+    before = getattr(_CAPTURE, "on", False)
+    _CAPTURE.on = True
+    try:
+        yield
+    finally:
+        _CAPTURE.on = before
 
 
 class EighResult(NamedTuple):
@@ -263,9 +282,10 @@ def _solve(C, sweeps, pivot, rotation, angle, matmul_fn, tol,
     history = None
     if tol is not None:
         # per-problem early exit: a finished problem keeps its (C, V)
+        sync = not getattr(_CAPTURE, "on", False)
         for _ in range(sweeps):
             active = relative_offdiag(C) > tol
-            if not bool(active.any()):
+            if sync and not bool(active.any()):
                 break
             Cn, Vn = one_sweep(C, V)
             keep = active[..., None, None]

@@ -537,9 +537,34 @@ extern "C" int repro_jacobi_sweep(const float* C, const float* V,
     int status = repro::allow_smem(sweep_grid_kernel, bytes);
     if (status) return status;
   }
+  // Under stream capture (a CUDA graph of the serving engine) the launch
+  // becomes a kernel node that keeps the cooperative attribute: the grid
+  // barrier needs every block resident at once at each replay too.
+  cudaStreamCaptureStatus capturing = cudaStreamCaptureStatusNone;
+  cudaError_t err = cudaStreamIsCapturing(s, &capturing);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (capturing != cudaStreamCaptureStatusNone) {
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(grid);
+    config.blockDim = dim3(UX, UY);
+    config.dynamicSmemBytes = bytes;
+    config.stream = s;
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeCooperative;
+    attr[0].val.cooperative = 1;
+    config.attrs = attr;
+    config.numAttrs = 1;
+    err = cudaLaunchKernelEx(&config, sweep_grid_kernel, C, V, pairs, Co, Vo,
+                             Cs, Vs, barrier, batch, n, k, rounds, mode);
+    if (err != cudaSuccess) {
+      (void)cudaGetLastError();
+      return static_cast<int>(err);
+    }
+    return repro::launch_status();
+  }
   void* args[] = {&C,  &V,       &pairs, &Co, &Vo, &Cs,     &Vs,
                   &barrier, &batch, &n,  &k,  &rounds, &mode};
-  cudaError_t err = cudaLaunchCooperativeKernel(
+  err = cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(sweep_grid_kernel), dim3(grid),
       dim3(UX, UY), args, bytes, s);
   if (err != cudaSuccess) {

@@ -68,7 +68,12 @@ mesh, ``mesh(data=1; 1 shards)``):
   PYTHONPATH=src python -m repro_torch.launch.serve_pca --spec server.json \
       --mesh auto
 
-Not ported: ``--cache-dir`` (the persistent executable tier raises).
+Cold start (a replica that pre-builds its executables before the first
+request -- with a warm ``--cache-dir`` it captures its CUDA graphs again
+from their records, with the kernel library from the same directory, and
+runs nvcc no time):
+  PYTHONPATH=src python -m repro_torch.launch.serve_pca \
+      --cache-dir /var/cache/pca --warmup profile.json
 
 Smoke (``--selftest``): mixed shapes through every op against numpy, a
 mesh leg (``auto``: every visible card, or the one CPU device; it prints
@@ -77,9 +82,10 @@ the synchronous engine), an autotune leg (the tuned plan and a mid-stream
 ``apply_plan`` hot-swap bit-identical to a cold server on the plan), an
 observability leg, a frontend leg (a seeded open-loop run under a virtual
 clock bit-identical across two invocations; WFQ bounds the starved
-tenant's p99 where FIFO does not), a spec leg and a controller leg
-(deterministic, dwell-guarded hot-swaps with admission feedback).  The
-cold-start leg prints ``{"skipped": true}``: there is no persistent tier.
+tenant's p99 where FIFO does not), a cold-start leg (a fresh replica warms
+every key from a seeded ``--cache-dir`` and serves bit-identical results),
+a spec leg and a controller leg (deterministic, dwell-guarded hot-swaps
+with admission feedback).
   PYTHONPATH=src python -m repro_torch.launch.serve_pca --selftest
 """
 from __future__ import annotations
@@ -97,13 +103,14 @@ from ..core.memory_model import VIRTEX_US
 from ..core.pca import PCAConfig
 from ..obs import TenantAccounting, device_profile, validate_trace
 from ..serving import (ADMISSION_MODES, ARRIVALS, BucketPolicy,
-                       ControllerSpec, CostModel, ExecutionSpec,
+                       CacheSpec, ControllerSpec, CostModel, ExecutionSpec,
                        LocalExecutor, ObsSpec, PCAServer, POLICIES,
                        SCHEDULERS, SchedulingSpec, ServerSpec,
                        SpecConflictError, TenantSpec, TrafficFrontend,
                        TrafficProfile, VirtualClock, autotune, build_server,
                        generate, materialize, merge, parse_tenants,
-                       plan_grid, profile_of, resolve_spec, server_for_plan)
+                       aot_supported, plan_grid, profile_of, resolve_spec,
+                       server_for_plan)
 from ..serving.autotune import synthesize
 
 
@@ -278,12 +285,45 @@ def selftest(device: DeviceLike = None) -> int:
     slo = obs.summary()["slo"]
     assert slo["requests"] == len(mats) + len(svd_in), slo
 
-    # cold-start leg: the reference seeds a persistent --cache-dir with one
-    # replica's AOT executables and warms a fresh replica from it.  The
-    # port has no persistent tier (PCAServer(cache_dir=...) raises), so
-    # the leg is skipped, as the reference skips it on a jax build that
-    # cannot serialize executables
+    # cold-start leg: seed a persistent --cache-dir with one replica's
+    # executables, then a *fresh* replica pointed at the same directory
+    # must warm up entirely from disk (every warmup key a disk hit, zero
+    # compiles) and serve the identical burst *bit-for-bit* equal to the
+    # cold replica -- capturing a graph again from its record must never
+    # touch the math
     cold_info = {"skipped": True}
+    if aot_supported():
+        import tempfile
+        seed_profile = TrafficProfile.from_shapes(
+            [("eigh", m.shape, 1) for m in mats]
+            + [("svd", a.shape, 1) for a in svd_in])
+        with tempfile.TemporaryDirectory() as cdir:
+            cache_spec = dataclasses.replace(
+                base_spec, cache=CacheSpec(cache_dir=cdir))
+            seeder = PCAServer.from_spec(cache_spec, device=dev)
+            seeded = seeder.warmup(seed_profile)
+            assert seeded["compile"] == seeded["executables"], seeded
+            stores = seeder.cache_summary()["disk"]["stores"]
+            assert stores == seeded["executables"], seeder.cache_summary()
+            warm = PCAServer.from_spec(cache_spec, device=dev)
+            warmed = warm.warmup(seed_profile)
+            assert warmed["disk"] == warmed["executables"], warmed
+            assert warmed["compile"] == 0, warmed
+            for op, traffic in (("eigh", mats), ("svd", svd_in)):
+                got = warm.solve_many(traffic, op=op)
+                want = srv.solve_many(traffic, op=op)
+                for g, w in zip(got, want):
+                    for field in (f.name for f in dataclasses.fields(g)):
+                        np.testing.assert_array_equal(
+                            np.asarray(getattr(g, field)),
+                            np.asarray(getattr(w, field)),
+                            err_msg=f"warm-vs-cold {op}.{field}")
+            warm_summary = warm.stats.summary()
+            assert warm_summary["cache_hit_rate"] == 1.0, warm_summary
+            cold_info = {"skipped": False,
+                         "executables": warmed["executables"],
+                         "disk_hits": warmed["disk"],
+                         "warmup_s": round(warmed["seconds"], 4)}
 
     # frontend leg: the open-loop path must be *reproducible* -- a seeded
     # arrival stream through admission + WFQ under a virtual clock gives
@@ -545,13 +585,18 @@ def main(argv=None, device: DeviceLike = None) -> int:
                          "served within the target) and miss counts next "
                          "to raw throughput; implies observability on")
     ap.add_argument("--cache-dir", default=None,
-                    help="the reference's persistent executable-cache "
-                         "directory; not ported (the eager solvers have no "
-                         "serialized form), so setting it raises")
+                    help="persistent executable-cache directory: each "
+                         "solver's CUDA graph record and the kernel "
+                         "library are written here, so a restarted (or "
+                         "newly scaled-out) replica warms from disk with "
+                         "no nvcc run instead of building on its first "
+                         "requests")
     ap.add_argument("--warmup", default=None, metavar="PROFILE",
                     help="pre-build every solver this traffic-profile "
                          "JSON (--profile-out format) implies, before any "
-                         "request is accepted")
+                         "request is accepted; pairs with --cache-dir so "
+                         "the warmup is a disk load on every replica after "
+                         "the first")
     ap.add_argument("--arrivals", default=None, choices=ARRIVALS,
                     help="open-loop mode: drive the server with this "
                          "seeded arrival process (continuous paced "
@@ -628,7 +673,8 @@ def main(argv=None, device: DeviceLike = None) -> int:
         return open_loop_run(args, srv, obs, dims, spec)
     warmup_info = None
     if spec.cache.warmup_profile:
-        # pre-build the profile's solvers before the first request
+        # pre-build the profile's solvers before the first request --
+        # with a warm --cache-dir each is a disk load, not a build
         warmup_info = srv.warmup(
             TrafficProfile.load(spec.cache.warmup_profile))
     mats = mixed_traffic(args.requests, args.op, dims, args.seed)

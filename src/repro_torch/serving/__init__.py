@@ -4,8 +4,11 @@
 Heterogeneous requests are padded into T-multiple shape buckets
 (``batching``), up to S same-bucket requests stack into one batched solve
 (``solver``), and ``engine.PCAServer`` runs the queue with deadline-aware
-microbatching, a solver cache (``cache``: a bounded in-memory LRU keyed by
-``SolverKey``) and telemetry (``stats``).  Flush placement is an executor
+microbatching, a two-tier solver cache (``cache``: a bounded in-memory LRU
+keyed by ``SolverKey``, and with ``cache_dir`` the persistent tier: one
+record a CUDA graph of an (op, bucket, batch) key, and the kernel library,
+from which a fresh replica warms with no nvcc run) and telemetry
+(``stats``).  Flush placement is an executor
 (``sharded.LocalExecutor``: one device, ``cuda`` by default;
 ``sharded.MeshExecutor``: the flush's batch sharded over a device mesh,
 ``host_mesh`` the 1-D mesh over the visible cards); flush timing
@@ -24,10 +27,6 @@ onto a live server (on the server's own device); one frozen
 re-profiles a sliding telemetry window and hot-swaps behind hysteresis and
 dwell guards; ``frontend.TrafficFrontend`` drives a server with open-loop
 multi-tenant arrivals through WFQ and admission control.
-
-Not exported, because not ported yet: ``DiskCache``, ``aot_supported`` and
-``content_hash`` (the persistent executable tier serializes XLA
-executables; ``PCAServer(cache_dir=...)`` raises).
 """
 from .autotune import (AutotuneResult, CostModel, ServingPlan,
                        TrafficProfile, TRACE_KINDS, autotune, bandit_search,
@@ -35,8 +34,8 @@ from .autotune import (AutotuneResult, CostModel, ServingPlan,
                        subsample, synthetic_trace, trace_dims)
 from .batching import (BucketPolicy, POLICIES, pad_to_bucket, padding_waste,
                        stack_requests)
-from .cache import (ExecutableCache, LRUCache, SolverKey,
-                    environment_fingerprint)
+from .cache import (DiskCache, ExecutableCache, LRUCache, SolverKey,
+                    aot_supported, content_hash, environment_fingerprint)
 from .controller import ServingController
 from .engine import (BackendRouter, OPS, PCAServer, ServedEigh, ServedPCA,
                      ServedSVD, Ticket, threshold_router)
@@ -65,15 +64,16 @@ __all__ = [
     "parse_tenants", "profile_of",
     "AutotuneResult", "BackendRouter", "BatchedEighResult",
     "BatchedPCAResult", "BatchedSVDResult", "BucketPolicy", "CacheSpec",
-    "ControllerSpec", "CostModel", "ExecutableCache",
+    "ControllerSpec", "CostModel", "DiskCache", "ExecutableCache",
     "ExecutionSpec", "FlushRecord", "InFlightFlush", "InFlightQueue",
     "LRUCache", "LocalExecutor", "MeshExecutor", "OPS", "ObsSpec",
     "PCAServer", "POLICIES", "RequestRecord", "SchedulingSpec",
     "ServedEigh", "ServedPCA", "ServedSVD", "ServerSpec",
     "ServingController", "ServingPlan", "ServingStats", "SolverKey",
     "SpecConflictError", "Ticket", "TrafficProfile", "TRACE_KINDS",
-    "autotune", "bandit_search", "build_server",
-    "build_solver_fn", "environment_fingerprint", "host_mesh",
+    "aot_supported", "autotune", "bandit_search", "build_server",
+    "build_solver_fn", "content_hash", "environment_fingerprint",
+    "host_mesh",
     "jacobi_eigh_batched", "jacobi_svd_batched",
     "mesh_executor", "pad_to_bucket", "padding_waste", "pca_fit_batched",
     "pca_transform_batched", "percentile", "plan_grid", "replay",

@@ -34,10 +34,14 @@ Where a flush *runs* is the executor's business (``sharded``): the default
 engine only asks the executor to round the batch, build the solver, and
 launch it -- queueing/bucketing/deadlines never see devices.
 
-Not ported yet: the persistent executable tier (``cache_dir`` raises:
-PyTorch has no serialized form of the eager solvers) and multi-device
-executors.  ``from_spec`` builds through ``serving.spec.build_server``;
-the ``obs`` bundle is the port's ``repro_torch.obs.Observability``.
+With ``cache_dir`` the engine arms the persistent tier
+(``serving.cache.DiskCache``): a miss builds the key's executable ahead of
+time (``executor.aot_compile``: a CUDA graph of the whole solve on a card)
+and writes its record, and a fresh replica pointed at the same directory
+captures its graphs again from the records, with the kernel library from
+the same directory -- no nvcc run, no eager solve.  ``from_spec`` builds
+through ``serving.spec.build_server``; the ``obs`` bundle is the port's
+``repro_torch.obs.Observability``.
 """
 from __future__ import annotations
 
@@ -305,10 +309,13 @@ class PCAServer:
         uninstrumented fast path: one attribute check per stage.  Give the
         bundle the same ``clock`` as the server so spans line up with
         telemetry.
-      cache_dir: the reference's persistent executable tier; not ported
-        (it serializes XLA executables, which the eager solvers have no
-        counterpart of), so anything but ``None`` raises
-        ``NotImplementedError``.
+      cache_dir: optional directory for the persistent executable tier.
+        When set, every solver miss builds its (op, bucket, batch)
+        executable ahead of time (on a card a CUDA graph of the solve) and
+        writes its record there, and the kernel library is kept there too,
+        so the *next* replica pointed at the same directory warms from
+        disk: no nvcc run, no eager solve (see ``serving.cache``).  ``None``
+        (the default) keeps the eager solvers.
       max_cached_executables: in-memory solver cap; least-recently-
         dispatched entries are evicted beyond it.  ``None`` = unbounded.
       clock: injectable monotonic clock (tests drive deadlines manually).
@@ -361,13 +368,6 @@ class PCAServer:
                                   else max_cached_executables)
         if max_inflight < 1:
             raise ValueError(f"max_inflight must be >= 1, got {max_inflight}")
-        if cache_dir is not None:
-            raise NotImplementedError(
-                "cache_dir: the persistent executable tier (DiskCache) is "
-                "not ported -- it serializes compiled XLA executables "
-                "through jax.experimental.serialize_executable, which has "
-                "no PyTorch counterpart for the eager solvers; serve with "
-                "the in-memory cache (cache_dir=None)")
         self.config = config
         self.policy = policy or BucketPolicy(T=config.T)
         self.max_batch = max_batch or config.S
@@ -381,7 +381,8 @@ class PCAServer:
         self.stats = ServingStats(clock=clock)
         self._queues: Dict[Tuple, List[_Pending]] = {}
         self._inflight = InFlightQueue()
-        self._cache = ExecutableCache(max_entries=max_cached_executables)
+        self._cache = ExecutableCache(max_entries=max_cached_executables,
+                                      cache_dir=cache_dir)
         self._rid = itertools.count()
         self._lock = threading.RLock()  # see _serialized
         self._seq = itertools.count()
@@ -445,8 +446,6 @@ class PCAServer:
         self._m_exec_cached = m.gauge(
             "serve_executables_cached",
             "Executables held in the in-memory cache tier.").labels()
-        # no persistent tier: the family stays empty, kept so a scrape
-        # lists the reference's families
         self._m_disk = m.counter(
             "serve_cache_disk_total",
             "Persistent executable-tier lookups by outcome.", ("event",))
@@ -706,10 +705,11 @@ class PCAServer:
             t0 = self.clock()
             fn, source = self._executable(op, bucket, bp, backend, sweeps)
             if source != "memory":
-                # the solver *build*: a closure over the config (the
-                # kernels themselves build once a process, at first use)
+                # the solver *build* (a closure over the config, or with a
+                # disk tier the key's graph captured: "compile"), or a
+                # graph captured again from its record ("aot_load")
                 obs.tracer.complete(
-                    "compile",
+                    "compile" if source == "compile" else "aot_load",
                     ts=t0, end=self.clock(), cat="compile",
                     track="flushes", parent=flush_span, op=op,
                     bucket=list(bucket), batch=bp, backend=str(backend))
@@ -863,11 +863,14 @@ class PCAServer:
                         sweeps: Optional[int] = None) -> Tuple[Callable, str]:
         """Solver lookup under explicit plan facts.
 
-        Returns (fn, source) with source ``"memory"`` (steady state) or
-        ``"compile"`` (built by the executor and cached).  The key is
-        ``SolverKey``-based -- the numerics subset the solver actually
-        depends on -- so configs that differ only in scheduling facts
-        (T, S) share one entry.  The explicit (config, executor) arguments
+        Returns (fn, source) with source ``"memory"`` (steady state),
+        ``"disk"`` (built from its record, promoted into memory) or
+        ``"compile"``.  The key is ``SolverKey``-based -- the numerics
+        subset the solver actually depends on -- so configs that differ
+        only in scheduling facts (T, S) share one entry.  With a disk tier
+        armed, misses build ahead of time (``executor.aot_compile``: the
+        result has a record to persist); without one, the executor's
+        shared eager solver.  The explicit (config, executor) arguments
         let ``apply_plan`` pre-warm an *incoming* plan's solvers before
         the swap.
         """
@@ -876,12 +879,19 @@ class PCAServer:
             sweeps=config.sweeps if sweeps is None else sweeps)
         key = (op, bucket, batch, SolverKey.from_config(cfg),
                executor.cache_token())
-        fn, source = self._cache.lookup(key)
+        fn, source = self._cache.lookup(key, executor)
         if fn is None:
             source = "compile"
-            fn = executor.compile(op, cfg, bucket, batch)
-            self._cache.store(key, fn)
+            if self._cache.disk is not None:
+                fn = executor.aot_compile(op, cfg, bucket, batch)
+                self._cache.store(key, fn, persist=True)
+            else:
+                fn = executor.compile(op, cfg, bucket, batch)
+                self._cache.store(key, fn)
         if self.obs is not None:
+            if self._cache.disk is not None and source != "memory":
+                self._m_disk.labels(
+                    "hit" if source == "disk" else "miss").inc()
             self._m_exec_cached.set(len(self._cache))
         return fn, source
 
@@ -936,10 +946,11 @@ class PCAServer:
         """Pre-build every solver ``profile`` implies.
 
         Each key resolves through the same path a live flush uses: memory
-        hit (already warm) or compile.  Returns a summary dict (``disk``
-        stays 0: no persistent tier); with obs attached the pass is traced
-        as one ``warmup`` span with per-source counters in the metric
-        registry.
+        hit (already warm), disk hit (the graph captured again from its
+        record -- the cold-start win) or compile (which, with a disk tier
+        armed, also writes the record for the *next* replica).  Returns a
+        summary dict; with obs attached the pass is traced as one
+        ``warmup`` span with per-source counters in the metric registry.
         """
         t0 = self.clock()
         keys = self.warmup_keys(profile)

@@ -30,22 +30,43 @@ solver, the placement and the launch to an executor:
 Solvers cache under a key that includes ``cache_token()`` (the device, or
 the mesh's axis sizes and devices), so one server can swap meshes without
 reusing a solver built for another placement.
+
+The persistent tier (``PCAServer(cache_dir=...)``) asks instead for one
+executable a concrete (op, bucket, batch) key: ``aot_compile``.  On a card
+that is a ``GraphedSolver``, the key's solve captured into a
+``torch.cuda.CUDAGraph`` over static input tensors (about 50 sweep
+launches and a few small ones replayed with no host work a kernel; a mesh
+gets one graph a shard, on the shard's card); on the CPU the eager solver.
+Either carries its ``record`` (``serving.cache``), from which
+``from_record`` builds the executable again in a fresh process with no
+compile: the kernel library from the cache directory, the graph captured
+again with no eager solve and held to the record's output digest.  A
+capture that fails, or a replay that differs from the eager solve, raises;
+nothing serves the eager path in a graph's place.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Optional, Sequence, Tuple
+import dataclasses
+import hashlib
+from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from .._device import DeviceLike, resolve_device
+from ..core import jacobi
 from ..core.pca import PCAConfig
 from ..parallel.sharding import (Mesh, pad_to_multiple, rules_for_mesh,
                                  visible_devices)
-from .cache import SolverKey
+from .cache import SolverKey, StaleRecord
 from .inflight import InFlightFlush, copy_to_host
-from .solver import build_solver_fn
+from .solver import (BatchedEighResult, BatchedPCAResult, BatchedSVDResult,
+                     build_solver_fn)
+
+RESULTS = {cls.__name__: cls for cls in (BatchedEighResult,
+                                         BatchedSVDResult, BatchedPCAResult)}
+CHECK_SEED = 0  # seed of the inputs a record's output digest is taken on
 
 
 def _stage(a: np.ndarray, dtype: torch.dtype, device: torch.device):
@@ -88,6 +109,254 @@ def _flush(shards, n_shards: int) -> InFlightFlush:
         staged=tuple(t for ts in staged for t in ts))
 
 
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _config_of(solver: Dict) -> PCAConfig:
+    """A ``PCAConfig`` with the numerics of a record's ``SolverKey``."""
+    fields = dict(solver)
+    block = fields.pop("block")
+    if block is not None:
+        fields["T"] = block
+    return dataclasses.replace(PCAConfig(), **fields)
+
+
+def _seeded(op: str, bucket: Tuple[int, ...], rows: int):
+    """The inputs a record's output digest is taken on: a seeded (rows,
+    *bucket) slab (symmetric for eigh) and its full true sizes."""
+    rng = np.random.default_rng(CHECK_SEED)
+    x = rng.standard_normal((rows, *bucket)).astype(np.float32)
+    if op == "eigh":
+        x = (x + x.transpose(0, 2, 1)) / 2
+    sizes = np.array([[bucket[0]] * rows, [bucket[-1]] * rows], np.int32)
+    return x, sizes
+
+
+def _digest(out) -> str:
+    """SHA-256 of a result tree's bytes (field by field, in order)."""
+    h = hashlib.sha256()
+    for t in out:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _structure(out) -> Dict:
+    return {"type": type(out).__name__,
+            "fields": [[name, list(t.shape), _dtype_name(t.dtype)]
+                       for name, t in zip(out._fields, out)]}
+
+
+def _bitwise(a, b) -> bool:
+    return all(x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+        x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8))
+        for x, y in zip(a, b))
+
+
+def _sweep_width(config: PCAConfig, bucket: Tuple[int, ...]) -> int:
+    """The width the sweeps of a bucket run at: its last dim, made even
+    for the parallel pivot."""
+    n = bucket[-1]
+    return n + n % 2 if config.pivot == "parallel" else n
+
+
+def plan_facts(device: torch.device, op: str, config: PCAConfig,
+               bucket: Tuple[int, ...], rows: int,
+               launched: Dict[str, int]) -> Dict:
+    """The kernel plan of one key's solve on ``device`` that a record
+    keeps: the sweep kernel and its grid (``fused.sweep_plan`` from the
+    card's limits, ``repro_jacobi_sweep_limits``) where a sweep kernel
+    launched, the Gram's m-axis slices where ``covariance`` did.  Empty
+    off a card."""
+    if device.type != "cuda":
+        return {}
+    from ..kernels import fused
+    facts = {}
+    if launched.get("jacobi_sweep") or launched.get("jacobi_sweep_smem"):
+        n = _sweep_width(config, bucket)
+        k = n // 2 if config.pivot == "parallel" else 1
+        limits = fused._sweep_limits(device.index, n, k)
+        plan = fused.sweep_plan(rows, n, k, *limits)
+        facts["sweep"] = {"n": n, "k": k, "kernel": plan.kernel.name,
+                          "grid": plan.grid, "limits": list(limits)}
+    if launched.get("covariance"):
+        slices, per = fused.cov_slices(bucket[0], bucket[-1], rows, 1024,
+                                       fused._sm_count(device.index))
+        facts["covariance"] = {"slices": slices, "rows": per}
+    return facts
+
+
+def _input_spec(bucket: Tuple[int, ...], rows: int) -> list:
+    """A shard's static inputs: the slab and its true sizes."""
+    return [["x", [rows, *bucket], "float32"], ["n_rows", [rows], "int32"],
+            ["n_cols", [rows], "int32"]]
+
+
+def make_record(op: str, config: PCAConfig, bucket: Tuple[int, ...],
+                batch: int, rows: int, out, launched: Dict[str, int],
+                device: torch.device) -> Dict:
+    """The record of one key's executable (see ``serving.cache``): key
+    material, a shard's static inputs, the output structure, the kernel
+    plan, the launches of one solve and the output digest on the seeded
+    inputs."""
+    return {
+        "op": op, "bucket": list(bucket), "batch": int(batch),
+        "solver": dataclasses.asdict(SolverKey.from_config(config)),
+        "rows": int(rows), "inputs": _input_spec(bucket, rows),
+        "outputs": _structure(out),
+        "plan": plan_facts(device, op, config, bucket, rows, launched),
+        "launches": {k: n for k, n in sorted(launched.items()) if n},
+        "check": {"seed": CHECK_SEED, "sha256": _digest(out)},
+    }
+
+
+class EagerSolver:
+    """The eager solver of one key with its record: the persistent tier's
+    executable on the CPU, where there is no graph."""
+
+    def __init__(self, fn: Callable, record: Dict):
+        self.fn = fn
+        self.record = record
+
+    def __call__(self, x, n_rows, n_cols):
+        return self.fn(x, n_rows, n_cols)
+
+
+class GraphedSolver:
+    """One key's solve captured into a ``torch.cuda.CUDAGraph``.
+
+    It owns static device inputs for the key's (rows, *bucket) slab and
+    its true sizes, and the graph's outputs.  A call copies the staged
+    batch into the static inputs on the current stream, replays, and
+    returns the outputs -- the same tensors every call, overwritten by the
+    next replay; callers copy them out on the same stream first
+    (``inflight.copy_to_host``, enqueued right behind the replay).  The
+    kernel wrappers count Python calls, so their launch counts move once,
+    at capture, and never at a replay: the profiler's kernel names show
+    what a replay ran, and ``replays`` times the record's ``launches``
+    counts it.
+    """
+
+    def __init__(self, fn: Callable, record: Dict, device: torch.device):
+        self.fn = fn
+        self.record = record
+        self.device = device
+        self.static = tuple(
+            torch.zeros(shape, dtype=getattr(torch, dtype), device=device)
+            for _, shape, dtype in record["inputs"])
+        self.graph = None
+        self.out = None
+        self.replays = 0
+
+    def fill(self, x: np.ndarray, sizes: np.ndarray) -> None:
+        """Copy host inputs into the static inputs (synchronously)."""
+        self.static[0].copy_(torch.from_numpy(x))
+        self.static[1].copy_(torch.from_numpy(sizes[0]))
+        self.static[2].copy_(torch.from_numpy(sizes[-1]))
+
+    def capture(self) -> None:
+        """Capture ``fn`` on the static inputs, on a side stream, in the
+        solve's sync-free form (``core.jacobi.capture_form``); raises
+        whatever the capture raised."""
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.device):
+            main = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(main)
+            with torch.cuda.stream(side), jacobi.capture_form():
+                graph.capture_begin()
+                try:
+                    out = self.fn(*self.static)
+                except BaseException:
+                    with contextlib.suppress(Exception):
+                        graph.capture_end()
+                    raise
+                graph.capture_end()
+            main.wait_stream(side)
+        self.graph, self.out = graph, out
+
+    def __call__(self, x, n_rows, n_cols):
+        for dst, src in zip(self.static, (x, n_rows, n_cols)):
+            dst.copy_(src, non_blocking=True)
+        self.graph.replay()
+        self.replays += 1
+        return self.out
+
+
+def _launched_by(fn: Callable, *args):
+    """(fn(*args), launches of each kernel during the call)."""
+    from ..kernels import launch_counts
+    before = launch_counts()
+    out = fn(*args)
+    return out, {k: n - before[k] for k, n in launch_counts().items()}
+
+
+def _aot_build(fn: Callable, op: str, config: PCAConfig,
+               bucket: Tuple[int, ...], batch: int, rows: int,
+               device: torch.device):
+    """One shard's executable on ``device`` and its record.  On a card:
+    the eager solve on the seeded inputs, the capture, one replay, held
+    bitwise to the eager solve (a mismatch raises)."""
+    x, sizes = _seeded(op, bucket, rows)
+    if device.type != "cuda":
+        out, launched = _launched_by(fn, torch.from_numpy(x),
+                                     *torch.from_numpy(sizes))
+        return EagerSolver(fn, make_record(op, config, bucket, batch, rows,
+                                           out, launched, device))
+    with torch.cuda.device(device):
+        probe = GraphedSolver(fn, {"inputs": _input_spec(bucket, rows)},
+                              device)
+        probe.fill(x, sizes)
+        eager, launched = _launched_by(fn, *probe.static)
+        eager = type(eager)(*(t.clone() for t in eager))
+        probe.capture()
+        probe.graph.replay()
+        torch.cuda.synchronize(device)
+        if not _bitwise(probe.out, eager):
+            raise RuntimeError(
+                f"aot_compile({op}, {tuple(bucket)}, {batch}): the CUDA "
+                f"graph's replay differs from the eager solve on {device}")
+        probe.record = make_record(op, config, bucket, batch, rows,
+                                   probe.out, launched, device)
+    return probe
+
+
+def _from_record(fn: Callable, record: Dict, config: PCAConfig,
+                 device: torch.device):
+    """One shard's executable from ``record`` on ``device`` with no
+    compile and no eager solve: the graph captured again and one replay on
+    the seeded inputs held to the record's digest.  ``StaleRecord`` where
+    the record does not describe what this process builds."""
+    op, bucket = record["op"], tuple(record["bucket"])
+    rows = record["rows"]
+    if device.type != "cuda":
+        return EagerSolver(fn, record)
+    from ..kernels import build
+    with torch.cuda.device(device):
+        build.library()  # the cache's copy where the process has none
+        if record["plan"] != plan_facts(device, op, config, bucket, rows,
+                                        record["launches"]):
+            raise StaleRecord(f"kernel plan {record['plan']} is not this "
+                              f"card's")
+        # the pivot pairs' one copy to the card is made now: a copy from
+        # a pinned temporary inside the capture would replay stale memory
+        if config.pivot in ("parallel", "cyclic"):
+            jacobi.pair_table(config.pivot, _sweep_width(config, bucket),
+                              device)
+        graphed = GraphedSolver(fn, record, device)
+        graphed.fill(*_seeded(op, bucket, rows))
+        torch.cuda.synchronize(device)
+        graphed.capture()
+        graphed.graph.replay()
+        torch.cuda.synchronize(device)
+    if (_structure(graphed.out) != record["outputs"]
+            or _digest(graphed.out) != record["check"]["sha256"]):
+        raise StaleRecord(
+            f"the graph of ({op}, {bucket}, {record['batch']}) replays "
+            f"to other outputs than its record's")
+    return graphed
+
+
 class LocalExecutor:
     """Single-device flush execution.
 
@@ -126,6 +395,41 @@ class LocalExecutor:
             fn = self._solvers[key] = build_solver_fn(op, config,
                                                       device=self.device)
         return fn
+
+    def aot_compile(self, op: str, config: PCAConfig,
+                    bucket: Tuple[int, ...], batch: int):
+        """One concrete (bucket, batch) executable with its record, what
+        the persistent tier stores and ``PCAServer.warmup`` pre-builds: on
+        a card a ``GraphedSolver`` (a call replays the key's whole solve),
+        on the CPU the eager solver."""
+        return _aot_build(self.compile(op, config, bucket, batch), op,
+                          config, tuple(bucket), batch, batch, self.device)
+
+    def from_record(self, record: Dict):
+        """The executable of a record written by ``aot_compile`` (in this
+        process or another), built without a compile: the disk hit."""
+        config = self._check_record(record)
+        fn = self.compile(record["op"], config, tuple(record["bucket"]),
+                          record["batch"])
+        return _from_record(fn, record, config, self.device)
+
+    def _check_record(self, record: Dict) -> PCAConfig:
+        """The record's config; ``StaleRecord`` where the record is
+        malformed or not of this executor's batch split."""
+        try:
+            fits = (record["op"] in ("eigh", "svd", "pca")
+                    and record["outputs"]["type"] in RESULTS
+                    and record["rows"] * self.n_shards == record["batch"]
+                    and all(k in record for k in ("bucket", "inputs", "plan",
+                                                  "launches", "check")))
+            config = _config_of(record["solver"])
+        except (KeyError, TypeError, ValueError) as err:
+            raise StaleRecord(f"malformed record: {err!r}") from err
+        if not fits:
+            raise StaleRecord(f"record of ({record['op']}, "
+                              f"{record['rows']} rows) is not this "
+                              f"executor's")
+        return config
 
     def submit(self, fn: Callable, batch, n_active) -> InFlightFlush:
         """Launch a flush without blocking (the pipeline's dispatch stage).
@@ -232,6 +536,24 @@ class MeshExecutor(LocalExecutor):
             fns.append(fn)
         return tuple(fns)
 
+    def aot_compile(self, op: str, config: PCAConfig,
+                    bucket: Tuple[int, ...], batch: int):
+        """One executable a shard (a graph on each shard's card), in shard
+        order, with the first shard's record (every shard runs the same
+        slab shape)."""
+        fns = self.compile(op, config, bucket, batch)
+        rows = batch // self.n_shards
+        return ShardExecutables(
+            _aot_build(fn, op, config, tuple(bucket), batch, rows, dev)
+            for fn, dev in zip(fns, self.shard_devices))
+
+    def from_record(self, record: Dict):
+        config = self._check_record(record)
+        fns = self.compile(record["op"], config, tuple(record["bucket"]),
+                           record["batch"])
+        return ShardExecutables(_from_record(fn, record, config, dev)
+                                for fn, dev in zip(fns, self.shard_devices))
+
     def submit(self, fn: Sequence[Callable], batch,
                n_active) -> InFlightFlush:
         """Launch a flush shard by shard, without blocking the host: the
@@ -254,6 +576,15 @@ class MeshExecutor(LocalExecutor):
     def describe(self) -> str:
         shape = "x".join(f"{k}={v}" for k, v in self.mesh.shape.items())
         return f"mesh({shape}; {self.n_shards} shards)"
+
+
+class ShardExecutables(tuple):
+    """A mesh key's executables, one a shard in shard order; ``record`` is
+    the first shard's."""
+
+    @property
+    def record(self) -> Dict:
+        return self[0].record
 
 
 def host_mesh(n_devices: Optional[int] = None, data_axis: str = "data",

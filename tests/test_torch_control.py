@@ -1534,7 +1534,7 @@ def test_controller_swaps_keep_a_cpu_server_on_the_cpu(no_card, measure):
         assert ctrl.last_result.measured_evals >= 2
 
 
-def test_from_spec_builds_obs_and_controller_of_the_port(no_card):
+def test_from_spec_builds_obs_and_controller_of_the_port(no_card, tmp_path):
     s = PKGS["port"].serving
     from repro_torch.obs import Observability
     from repro_torch.serving.controller import ServingController
@@ -1547,9 +1547,9 @@ def test_from_spec_builds_obs_and_controller_of_the_port(no_card):
     assert srv.executor.obs is srv.obs
     srv.solve_many([_sym(6, seed=i) for i in range(3)])
     assert srv.obs.summary()["slo"]["requests"] == 3
-    with pytest.raises(NotImplementedError, match="DiskCache"):
-        s.PCAServer.from_spec(s.ServerSpec(cache=s.CacheSpec(
-            cache_dir="somewhere")), device="cpu")
+    cached = s.PCAServer.from_spec(s.ServerSpec(cache=s.CacheSpec(
+        cache_dir=str(tmp_path / "cache"))), device="cpu")
+    assert cached.cache_summary()["disk"]["dir"] == str(tmp_path / "cache")
 
 
 @pytest.mark.parametrize("name", NAMES)

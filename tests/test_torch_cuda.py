@@ -50,7 +50,11 @@ plain fp32 gradients, the scan within 1e-5; a reduced olmo-1b step's
 gradients within n_layers x 2e-5 of plain attention's, with one flash
 launch a layer forward and one in the remat recompute.  The mesh: a
 ``MeshExecutor`` over ``cuda:0`` bitwise the ``LocalExecutor`` for every
-op, and ``fit_distributed`` over one card bitwise the plain ``fit``.
+op, and ``fit_distributed`` over one card bitwise the plain ``fit``.  The
+persistent tier (on a capability-(9, 0) card): each serve-phase key's CUDA
+graph replays bitwise the eager solve, the cooperative grid sweep
+included; in-flight flushes of one key do not alias; a fresh process
+warms from the cache directory with no nvcc run.
 """
 import contextlib
 
@@ -1645,3 +1649,179 @@ def test_world_of_one_nccl_train_step_on_the_card(cuda_device, tmp_path):
     assert (la, ga) == (lb, gb) and ca == {}
     for a, b in zip(pa, pb):
         assert torch.equal(a, b)
+
+
+# -- the persistent executable tier: a CUDA graph a flush key -----------------
+
+SERVE_CFG = dict(fused=True, backend="cuda", sweeps=50, T=64, S=32)
+
+
+@pytest.fixture
+def hopper(cuda_device):
+    """The card, where its capability is (9, 0): the graphs hold sm_90a
+    kernels."""
+    if torch.cuda.get_device_capability(cuda_device) != (9, 0):
+        pytest.skip("the captured kernels are built for sm_90a: needs a "
+                    "capability-(9, 0) card")
+    return cuda_device
+
+
+def _phase6_buckets(op):
+    """Every bucket chip_smoke.py's serve phase gives ``op``, with the
+    stacked (batch, n_active) of its requests."""
+    import importlib.util
+    import pathlib
+    from repro_torch.serving import BucketPolicy
+    from repro_torch.serving.batching import stack_requests
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    policy = BucketPolicy(T=64, mode="pow2")
+    buckets = {}
+    for a in smoke.flush_requests()[op]:
+        buckets.setdefault(policy.bucket_shape(a.shape), []).append(a)
+    return {shape: stack_requests(mats, shape)
+            for shape, mats in sorted(buckets.items())}
+
+
+def _padded(batch, n_active, rows):
+    b = batch.shape[0]
+    return (np.concatenate([batch, np.zeros((rows - b, *batch.shape[1:]),
+                                            batch.dtype)]),
+            np.concatenate([n_active, np.zeros((2, rows - b), np.int32)],
+                           axis=1))
+
+
+@pytest.mark.parametrize("op", ["eigh", "svd", "pca"])
+def test_graph_replay_is_bitwise_the_eager_solve(hopper, op):
+    """For every (op, bucket) of the serve phase, the key's CUDA graph
+    (``aot_compile``: captured, replayed once and held to the eager solve
+    on seeded inputs) replays the served requests bitwise as the eager
+    solver solves them."""
+    from repro_torch.serving import LocalExecutor
+    from repro_torch.serving.sharded import GraphedSolver
+    ex = LocalExecutor()
+    cfg = tpca.PCAConfig(**SERVE_CFG)
+    for shape, (batch, n_active) in _phase6_buckets(op).items():
+        graphed = ex.aot_compile(op, cfg, shape, 32)
+        assert isinstance(graphed, GraphedSolver)
+        x, sizes = _padded(batch, n_active, 32)
+        xt = torch.from_numpy(x).to(hopper)
+        nt = torch.from_numpy(sizes).to(hopper)
+        want = ex.compile(op, cfg, shape, 32)(xt, nt[0], nt[-1])
+        got = graphed(xt, nt[0], nt[-1])
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), (op, shape)
+
+
+def test_cooperative_grid_sweep_is_captured(hopper):
+    """At n = 256 the sweep runs on the cooperative grid kernel: its launch
+    is captured as a cooperative node and every replay matches the eager
+    solve, on the seeded inputs and on others."""
+    from repro_torch.serving import LocalExecutor
+    ex = LocalExecutor()
+    cfg = tpca.PCAConfig(**SERVE_CFG)
+    graphed = ex.aot_compile("eigh", cfg, (256, 256), 8)
+    assert graphed.record["plan"]["sweep"]["kernel"] == "jacobi_sweep"
+    assert graphed.record["launches"] == {"jacobi_sweep": 50}
+    fn = ex.compile("eigh", cfg, (256, 256), 8)
+    sizes = torch.tensor([256, 200, 256, 3, 256, 256, 128, 255],
+                         dtype=torch.int32, device=hopper)
+    for seed in range(3):
+        x = torch.from_numpy(np.stack(
+            [sym(256, seed=8 * seed + i) for i in range(8)])).to(hopper)
+        want = fn(x, sizes, sizes)
+        got = graphed(x, sizes, sizes)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert graphed.replays == 3
+
+
+def test_inflight_flushes_of_one_key_do_not_alias(hopper, tmp_path):
+    """Depth 3 with back-to-back flushes of one key (each replay
+    overwrites the graph's outputs) serves bitwise what depth 1 and the
+    eager server serve."""
+    import dataclasses
+    from repro_torch.serving import (CacheSpec, ExecutionSpec, PCAServer,
+                                     SchedulingSpec, ServerSpec)
+    mats = [sym(100 + (i % 28), seed=i) for i in range(4 * 32)]
+    runs = []
+    for depth, cache in ((1, None), (1, tmp_path), (3, tmp_path)):
+        srv = PCAServer.from_spec(ServerSpec(
+            scheduling=SchedulingSpec(mode="pow2", T=64, max_batch=32,
+                                      max_inflight=depth),
+            execution=ExecutionSpec(backend="cuda", fused=True, sweeps=50),
+            cache=CacheSpec(cache_dir=None if cache is None
+                            else str(cache))))
+        tickets = [srv.submit(m, op="eigh") for m in mats]
+        if depth == 3:
+            assert srv.inflight() == 2   # four flushes, two still in flight
+        srv.drain()
+        runs.append([t.result() for t in tickets])
+    for eager, graphed1, graphed3 in zip(*runs):
+        for f in dataclasses.fields(eager):
+            np.testing.assert_array_equal(getattr(graphed1, f.name),
+                                          getattr(eager, f.name))
+            np.testing.assert_array_equal(getattr(graphed3, f.name),
+                                          getattr(eager, f.name))
+
+
+_FRESH = """\
+import json, sys, warnings
+warnings.simplefilter("ignore")
+import numpy as np
+from repro_torch.core.pca import PCAConfig
+from repro_torch.kernels import build
+from repro_torch.serving import BucketPolicy, PCAServer, TrafficProfile
+srv = PCAServer(PCAConfig(fused=True, backend="cuda", sweeps=50, T=64, S=4),
+                policy=BucketPolicy(T=64, mode="pow2"), cache_dir=sys.argv[1])
+doc = srv.warmup(TrafficProfile.from_shapes(json.loads(sys.argv[2])))
+mats = [np.load(p) for p in sys.argv[3:]]
+res = srv.solve_many(mats[:2], op="eigh") + srv.solve_many(mats[2:], op="svd")
+print(json.dumps({"warmup": doc, "nvcc_runs": build.nvcc_runs(),
+                  "values": [np.asarray(r.eigenvalues if hasattr(
+                      r, "eigenvalues") else r.S).tolist() for r in res]}))
+"""
+
+
+def test_disk_hit_in_a_fresh_process_runs_no_nvcc(hopper, tmp_path):
+    """A replica in a fresh process with an empty build directory warms
+    every key from the cache directory: no nvcc run, no compile, and its
+    results are this process's bit for bit."""
+    import json
+    import os
+    import pathlib
+    import subprocess
+    import sys
+    from repro_torch.serving import BucketPolicy, PCAServer, TrafficProfile
+    shapes = [("eigh", (100, 100), 1), ("svd", (300, 200), 1)]
+    mats = [sym(100, seed=1), sym(90, seed=2),
+            data(300, 200, seed=3), data(260, 150, seed=4)]
+    seeder = PCAServer(tpca.PCAConfig(fused=True, backend="cuda", sweeps=50,
+                                      T=64, S=4),
+                       policy=BucketPolicy(T=64, mode="pow2"),
+                       cache_dir=str(tmp_path / "cache"))
+    seeded = seeder.warmup(TrafficProfile.from_shapes(shapes))
+    assert seeded["compile"] == seeded["executables"] == 2
+    want = (seeder.solve_many(mats[:2], op="eigh")
+            + seeder.solve_many(mats[2:], op="svd"))
+    paths = []
+    for i, m in enumerate(mats):
+        paths.append(str(tmp_path / f"m{i}.npy"))
+        np.save(paths[-1], m)
+    root = pathlib.Path(__file__).resolve().parent.parent
+    env = dict(os.environ, PYTHONPATH=str(root / "src"))
+    env[build.BUILD_ENV] = str(tmp_path / "empty_build")
+    out = subprocess.run(
+        [sys.executable, "-c", _FRESH, str(tmp_path / "cache"),
+         json.dumps(shapes), *paths], env=env, capture_output=True,
+        text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-4000:]
+    doc = json.loads(out.stdout.splitlines()[-1])
+    assert doc["nvcc_runs"] == 0
+    assert doc["warmup"]["disk"] == doc["warmup"]["executables"] == 2
+    assert doc["warmup"]["compile"] == 0
+    for got, res in zip(doc["values"], want):
+        w = res.eigenvalues if hasattr(res, "eigenvalues") else res.S
+        np.testing.assert_array_equal(np.asarray(got, np.float32), w)

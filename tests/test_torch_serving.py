@@ -5,7 +5,8 @@ The port runs on the CPU (``LocalExecutor(device="cpu")``).  Three groups:
 
   * engine behaviour: the reference's own engine and cache tests
     (``tests/test_serving.py``, ``tests/test_serving_cache.py``; the disk
-    tier is not ported) replayed on the port's server, with the same
+    tier's own in ``tests/test_torch_serving_cache.py``) replayed on the
+    port's server, with the same
     assertions -- flush on full and on timeout, cache hits, bucketing,
     stats, the dispatch / in-flight / retire pipeline, warmup and
     ``apply_plan``;
@@ -14,7 +15,8 @@ The port runs on the CPU (``LocalExecutor(device="cpu")``).  Three groups:
     misses, in the same order) and serves results within the fp32
     ``ERROR_BUDGETS`` of the reference's and of float64 numpy;
   * the port's own seams: the default executor is ``cuda`` and raises
-    without a card, the features not ported raise, the executor's host
+    without a card, a ``cache_dir`` server arms its disk tier, the
+    executor's host
     tree, the copied modules (``stats``, ``core.memory_model``) equal to
     the reference's.
 
@@ -38,6 +40,7 @@ from repro_torch import backends as tbackends
 from repro_torch.core import memory_model as tmm
 from repro_torch.core.pca import PCAConfig
 from repro_torch.core.precision import ERROR_BUDGETS
+from repro_torch.kernels import build
 from repro_torch.serving import (BucketPolicy, CacheSpec, ExecutionSpec,
                                  InFlightFlush, InFlightQueue, LRUCache,
                                  LocalExecutor, MeshExecutor, PCAServer,
@@ -579,14 +582,14 @@ def test_default_server_runs_on_cuda_and_raises_without_a_card(monkeypatch):
     assert srv.describe_plan()["executor"] == "local(cuda)"
 
 
-def test_features_not_ported_raise(monkeypatch):
-    with pytest.raises(NotImplementedError, match="DiskCache"):
-        _server(cache_dir="somewhere")
-    # from_spec is ported; the persistent tier and a mesh over more than
-    # one device are not, through it either
-    with pytest.raises(NotImplementedError, match="DiskCache"):
-        PCAServer.from_spec(ServerSpec(cache=CacheSpec(
-            cache_dir="somewhere")), device="cpu")
+def test_features_not_ported_raise(monkeypatch, tmp_path):
+    # the persistent tier is ported: a cache_dir server arms its disk tier,
+    # built directly and through from_spec
+    srv = _server(cache_dir=str(tmp_path / "direct"))
+    assert srv.cache_summary()["disk"]["dir"] == str(tmp_path / "direct")
+    srv = PCAServer.from_spec(ServerSpec(cache=CacheSpec(
+        cache_dir=str(tmp_path / "spec"))), device="cpu")
+    assert srv.cache_summary()["disk"]["entries"] == 0
     # a mesh over more than one device is served by the MeshExecutor
     # (built, not run: nothing touches CUDA)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
@@ -632,7 +635,8 @@ def test_pad_to_multiple_is_the_reference(n, k):
 
 def test_environment_fingerprint_names_torch_cuda_and_device():
     fp = environment_fingerprint("cpu")
-    assert fp == (torch.__version__, torch.version.cuda, "cpu", None)
+    assert fp == (torch.__version__, torch.version.cuda, "cpu", None,
+                  build.source_hash())
     if not torch.cuda.is_available():
         assert environment_fingerprint() == fp
 
