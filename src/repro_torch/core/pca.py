@@ -18,6 +18,7 @@ from typing import Callable, NamedTuple, Optional
 import torch
 
 from .._device import DeviceLike, as_input
+from ..obs.tracing import stage
 from .covariance import (blocked_covariance, distributed_covariance,
                          standardize)
 from .jacobi import DEFAULT_SWEEPS, EighResult, jacobi_eigh
@@ -91,29 +92,33 @@ def fit(X, config: PCAConfig = PCAConfig(),
     taken as float32 (bfloat16 kept), or as float64 under
     ``precision="fp64"`` (``_device.as_input``)."""
     X = as_input(X, device, config.precision)
-    if config.standardize:
-        Xs, mean, scale = standardize(X)
-    else:
-        Xs = X
-        mean = torch.zeros((X.shape[1],), dtype=X.dtype, device=X.device)
-        scale = torch.ones((X.shape[1],), dtype=X.dtype, device=X.device)
+    with stage("repro.fit.standardize"):
+        if config.standardize:
+            Xs, mean, scale = standardize(X)
+        else:
+            Xs = X
+            mean = torch.zeros((X.shape[1],), dtype=X.dtype, device=X.device)
+            scale = torch.ones((X.shape[1],), dtype=X.dtype, device=X.device)
     mm = config.matmul_fn()
-    C = blocked_covariance(Xs, block_m=config.T, matmul_fn=mm,
-                           fused=config.fused, precision=config.precision,
-                           backend=config.backend)
-    res: EighResult = jacobi_eigh(
-        C,
-        sweeps=config.sweeps,
-        tol=config.tol,
-        pivot=config.pivot,
-        rotation=config.rotation,
-        angle=config.angle,
-        matmul_fn=mm,
-        fused=config.fused,
-        fused_backend=config.backend,
-        precision=config.precision,
-    )
-    evcr, cvcr = evcr_cvcr(res.eigenvalues)
+    with stage("repro.fit.covariance"):
+        C = blocked_covariance(Xs, block_m=config.T, matmul_fn=mm,
+                               fused=config.fused,
+                               precision=config.precision,
+                               backend=config.backend)
+    with stage("repro.fit.eigh"):
+        res: EighResult = jacobi_eigh(
+            C,
+            sweeps=config.sweeps,
+            tol=config.tol,
+            pivot=config.pivot,
+            rotation=config.rotation,
+            angle=config.angle,
+            matmul_fn=mm,
+            fused=config.fused,
+            fused_backend=config.backend,
+            precision=config.precision,
+        )
+        evcr, cvcr = evcr_cvcr(res.eigenvalues)
     return PCAResult(res.eigenvectors, res.eigenvalues, mean, scale, evcr,
                      cvcr, res.off_norm)
 
@@ -121,16 +126,23 @@ def fit(X, config: PCAConfig = PCAConfig(),
 def transform(X, result: PCAResult, k: int, config: PCAConfig = PCAConfig(),
               device: DeviceLike = None):
     """Project onto the top-k subspace: O = X_std V_k (paper eq. 5)."""
-    Xs = (as_input(X, device, config.precision) - result.mean) / result.scale
-    mm = config.matmul_fn() or torch.matmul
-    return mm(Xs, result.components[:, :k])
+    with stage("repro.fit.transform"):
+        Xs = ((as_input(X, device, config.precision) - result.mean)
+              / result.scale)
+        mm = config.matmul_fn() or torch.matmul
+        return mm(Xs, result.components[:, :k])
 
 
 def fit_transform(X, k: int, config: PCAConfig = PCAConfig(),
                   device: DeviceLike = None):
-    X = as_input(X, device, config.precision)
-    res = fit(X, config)
-    return transform(X, res, k, config), res
+    """``fit`` then ``transform`` of one (m, d) X: (the (m, k) projection,
+    the fit).  Under a profiler the call is a ``repro.fit`` range over the
+    four stages' ranges, ``repro.fit.standardize``, ``.covariance``,
+    ``.eigh`` and ``.transform``."""
+    with stage("repro.fit"):
+        X = as_input(X, device, config.precision)
+        res = fit(X, config)
+        return transform(X, res, k, config), res
 
 
 def fit_distributed(X, mesh, config: PCAConfig = PCAConfig(),

@@ -23,6 +23,15 @@ long-running server's trace is the *most recent* window, never unbounded.
 serving engine skips instrumentation entirely when no observability object
 is attached -- the disabled fast path costs one attribute check.
 
+Beside the ring, ``stage(name)`` marks the same stages, split finer, as
+``torch.profiler`` ranges (``repro.dispatch``, ``repro.launch:...``,
+``repro.fit.eigh``, ...; README and PERF.md list them), and a garbage
+collector hook marks each collection as ``repro.gc:<generation>``.  They
+live in the profiler's own events, on the clock of its device trace, so a
+gap on the card can be put down to a stage of the host.  A profiler that
+records is the only switch (``recording()``): with none, ``stage`` returns
+a shared no-op and formats no name.
+
 ``export()`` emits the Chrome trace-event format (the JSON
 ``chrome://tracing`` and https://ui.perfetto.dev load directly): complete
 ``"X"`` events with microsecond timestamps, plus ``"M"`` metadata events
@@ -38,12 +47,15 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import itertools
 import json
 import pathlib
 import time
 from collections import deque
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Callable, Deque, Dict, List, Optional, Tuple, Union
+
+import torch
 
 # export-time comparison slack for float timestamps (seconds)
 _EPS = 1e-9
@@ -345,14 +357,59 @@ def validate_trace(doc: Dict) -> List[str]:
     return errors
 
 
+# -- profiler ranges -------------------------------------------------------
+_NO_RANGE = contextlib.nullcontext()
+
+
+def recording() -> bool:
+    """Whether a ``torch.profiler`` (or any autograd profiler) records on
+    this process: the check torch's own data pipes and RPC make before a
+    range (torch has no public one)."""
+    return torch.autograd._profiler_enabled()
+
+
+def stage(name: Union[str, Callable[[], str]]):
+    """A ``torch.profiler.record_function`` range named ``name`` while a
+    profiler records, else a shared no-op context.  ``name`` may be a
+    callable that returns the name: it is called only while recording, so
+    a name built from arguments costs nothing otherwise."""
+    if not recording():
+        return _NO_RANGE
+    return torch.profiler.record_function(name() if callable(name) else name)
+
+
+class _GcRanges:
+    """``gc.callbacks`` hook: each collection that starts while a profiler
+    records is a ``repro.gc:<generation>`` range, closed when it stops."""
+
+    def __init__(self):
+        self.open = None
+
+    def __call__(self, phase: str, info: Dict) -> None:
+        if phase == "start":
+            if recording():
+                r = torch.profiler.record_function(
+                    f"repro.gc:{info['generation']}")
+                r.__enter__()
+                self.open = r
+        elif self.open is not None:
+            r, self.open = self.open, None
+            r.__exit__(None, None, None)
+
+
+if not any(isinstance(cb, _GcRanges) for cb in gc.callbacks):
+    gc.callbacks.append(_GcRanges())
+
+
 @contextlib.contextmanager
 def device_profile(logdir: Optional[str] = None):
     """Optional ``torch.profiler`` run around a traced serve run.
 
     With a log directory, profiles the CPU and, where a card is present,
     the CUDA activity (the hand-written kernels' launches and device
-    times), and on exit writes one Chrome trace (``*.pt.trace.json``,
-    Perfetto-loadable) into ``logdir``, next to the host-side span trace.
+    times, beside the program's ``stage`` ranges), and on exit writes
+    one Chrome trace (``*.pt.trace.json``, Perfetto-loadable) into
+    ``logdir``, next to the host-side span trace.
     A ``None``/empty logdir is a no-op, so callers can wrap
     unconditionally.  A profiler that fails to start raises: nothing
     drops the device picture quietly.
@@ -360,7 +417,6 @@ def device_profile(logdir: Optional[str] = None):
     if not logdir:
         yield
         return
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     out = pathlib.Path(logdir)

@@ -28,6 +28,12 @@ its own flush -- exactly the synchronous engine this pipeline replaced --
 so the clock-injectable deterministic test story is unchanged: callers
 drive time via ``submit``/``poll``/``drain``.
 
+While a ``torch.profiler`` records, each stage is also a range on its
+clock (``obs.tracing.stage``): ``repro.dispatch`` over ``repro.stack``,
+``repro.lookup`` and the executor's ``repro.stage`` and
+``repro.launch:...``; ``repro.retire`` over ``repro.wait`` and
+``repro.fulfil``.  With none recording they cost one check each.
+
 Where a flush *runs* is the executor's business (``sharded``): the default
 ``LocalExecutor()`` runs on ``cuda`` (and raises on a host without a card;
 ``LocalExecutor(device="cpu")`` runs the plain PyTorch versions).  The
@@ -57,6 +63,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..core.pca import PCAConfig
+from ..obs.tracing import stage
 from .batching import BucketPolicy, padding_waste, stack_requests
 from .cache import DEFAULT_MAX_ENTRIES, ExecutableCache, SolverKey
 from .inflight import InFlightFlush, InFlightQueue
@@ -453,6 +460,9 @@ class PCAServer:
             "serve_warmup_executables_total",
             "Executables pre-built by warmup(), by cache source.",
             ("source",))
+        self._m_launches = m.counter(
+            "serve_launches_total", "Device launches by executor.",
+            ("executor",))
         if getattr(self.executor, "obs", None) is None:
             self.executor.obs = self.obs
 
@@ -682,46 +692,22 @@ class PCAServer:
         queue = self._queues.pop(key, [])
         if not queue:
             return 0
-        t_dispatch = self.clock()
-        batch, n_active = stack_requests([e.matrix for e in queue], bucket)
+        with stage("repro.dispatch"):
+            t_dispatch = self.clock()
+            with stage("repro.stack"):
+                batch, n_active, bp = self._stack(queue, bucket)
+            with stage("repro.lookup"):
+                backend, fn, source, flush_span = self._lookup(
+                    op, bucket, bp, sweeps)
+            flush = self.executor.submit(fn, batch, n_active)
+            flush.t_launched = self.clock()
         b = len(queue)
-        bp = max(self.max_batch if self.pad_batches else b, b)
-        # the executor may demand a larger batch (a mesh pads up to the
-        # next data-axis multiple so every shard gets an identical slab)
-        bp = self.executor.round_batch(bp)
-        if bp > b:  # inert filler: zero matrices with zero live coordinates
-            batch = np.concatenate(
-                [batch, np.zeros((bp - b, *bucket), batch.dtype)])
-            n_active = np.concatenate(
-                [n_active, np.zeros((n_active.shape[0], bp - b), np.int32)],
-                axis=1)
-        backend = self.backend_for(op, bucket)
-        obs = self.obs
-        if obs is not None:
-            # reserve the flush span's id now so the compile/launch spans
-            # recorded below can name it as their parent; the span itself
-            # is recorded at retire time, when its end is known
-            flush_span = obs.tracer.new_id()
-            t0 = self.clock()
-            fn, source = self._executable(op, bucket, bp, backend, sweeps)
-            if source != "memory":
-                # the solver *build* (a closure over the config, or with a
-                # disk tier the key's graph captured: "compile"), or a
-                # graph captured again from its record ("aot_load")
-                obs.tracer.complete(
-                    "compile" if source == "compile" else "aot_load",
-                    ts=t0, end=self.clock(), cat="compile",
-                    track="flushes", parent=flush_span, op=op,
-                    bucket=list(bucket), batch=bp, backend=str(backend))
-        else:
-            fn, source = self._executable(op, bucket, bp, backend, sweeps)
         hit = source != "compile"
-        flush = self.executor.submit(fn, batch, n_active)
+        obs = self.obs
         flush.seq = next(self._seq)
         flush.key = key
         flush.entries = tuple(queue)
         flush.t_dispatch = t_dispatch
-        flush.t_launched = self.clock()
         flush.backend = backend
         flush.batch_size = b
         flush.padded_batch = bp
@@ -734,6 +720,7 @@ class PCAServer:
         self.stats.record_dispatch(self._inflight.depth, t_dispatch)
         if obs is not None:
             flush.span_id = flush_span
+            self._m_launches.labels(self._exec_label).inc()
             self._m_flushes.labels(
                 op, bucket, backend, self._exec_label,
                 "hit" if hit else "miss").inc(now=t_dispatch)
@@ -747,6 +734,50 @@ class PCAServer:
         # injected-clock test story exact.
         return self._inflight.retire_to_depth(self.max_inflight - 1)
 
+    def _stack(self, queue: List["_Pending"], bucket: Tuple[int, ...]):
+        """(batch, n_active, padded batch) of one queue: its matrices
+        stacked into the bucket, padded with inert filler up to the flush
+        size the server and the executor ask for."""
+        batch, n_active = stack_requests([e.matrix for e in queue], bucket)
+        b = len(queue)
+        bp = max(self.max_batch if self.pad_batches else b, b)
+        # the executor may demand a larger batch (a mesh pads up to the
+        # next data-axis multiple so every shard gets an identical slab)
+        bp = self.executor.round_batch(bp)
+        if bp > b:  # inert filler: zero matrices with zero live coordinates
+            batch = np.concatenate(
+                [batch, np.zeros((bp - b, *bucket), batch.dtype)])
+            n_active = np.concatenate(
+                [n_active, np.zeros((n_active.shape[0], bp - b), np.int32)],
+                axis=1)
+        return batch, n_active, bp
+
+    def _lookup(self, op: str, bucket: Tuple[int, ...], bp: int,
+                sweeps: int):
+        """(backend, solver, cache source, flush span id or None) of one
+        flush key."""
+        backend = self.backend_for(op, bucket)
+        obs = self.obs
+        if obs is None:
+            fn, source = self._executable(op, bucket, bp, backend, sweeps)
+            return backend, fn, source, None
+        # reserve the flush span's id now so the compile/launch spans
+        # recorded below can name it as their parent; the span itself is
+        # recorded at retire time, when its end is known
+        flush_span = obs.tracer.new_id()
+        t0 = self.clock()
+        fn, source = self._executable(op, bucket, bp, backend, sweeps)
+        if source != "memory":
+            # the solver *build* (a closure over the config, or with a
+            # disk tier the key's graph captured: "compile"), or a graph
+            # captured again from its record ("aot_load")
+            obs.tracer.complete(
+                "compile" if source == "compile" else "aot_load",
+                ts=t0, end=self.clock(), cat="compile",
+                track="flushes", parent=flush_span, op=op,
+                bucket=list(bucket), batch=bp, backend=str(backend))
+        return backend, fn, source, flush_span
+
     # -- retire stage -------------------------------------------------------
     def _retire(self, flush: InFlightFlush) -> int:
         """Force one flush's device batch home and fulfil its tickets.
@@ -758,35 +789,40 @@ class PCAServer:
         """
         if flush.retired:
             return 0
-        op, bucket, sweeps = flush.key
-        t_wait = self.clock()
-        out = flush.result()
-        t_retire = self.clock()
-        flush.retired = True
-        self._inflight.remove(flush)
-        self.stats.record_flush(
-            flush.cache_hit, t_dispatch=flush.t_dispatch,
-            t_launched=flush.t_launched, t_wait=t_wait, t_retire=t_retire,
-            batch_size=flush.batch_size,
-            inflight_depth=flush.inflight_depth,
-            op=op, bucket=bucket, padded_batch=flush.padded_batch)
-        records = []
-        for i, e in enumerate(flush.entries):
-            rec = RequestRecord(
-                rid=e.rid, op=op, shape=e.matrix.shape, bucket=bucket,
-                batch_size=flush.batch_size, cache_hit=flush.cache_hit,
-                t_submit=e.t_submit, t_done=t_retire,
-                queue_s=flush.t_dispatch - e.t_submit,
-                padding_waste=padding_waste(e.matrix.shape, bucket),
-                backend=flush.backend, n_shards=flush.n_shards,
-                t_dispatch=flush.t_dispatch,
+        with stage("repro.retire"):
+            op, bucket, sweeps = flush.key
+            t_wait = self.clock()
+            with stage("repro.wait"):
+                out = flush.result()
+            t_retire = self.clock()
+            flush.retired = True
+            self._inflight.remove(flush)
+            self.stats.record_flush(
+                flush.cache_hit, t_dispatch=flush.t_dispatch,
+                t_launched=flush.t_launched, t_wait=t_wait,
+                t_retire=t_retire, batch_size=flush.batch_size,
                 inflight_depth=flush.inflight_depth,
-                deadline=e.flush_by, sweeps=sweeps)
-            e.ticket._fulfil(self._unpack(op, out, i, e.matrix.shape), rec)
-            self.stats.record_request(rec)
-            records.append(rec)
-        if self.obs is not None:
-            self._record_obs(flush, records, t_wait, t_retire)
+                op=op, bucket=bucket, padded_batch=flush.padded_batch)
+            records = []
+            with stage("repro.fulfil"):
+                for i, e in enumerate(flush.entries):
+                    rec = RequestRecord(
+                        rid=e.rid, op=op, shape=e.matrix.shape,
+                        bucket=bucket, batch_size=flush.batch_size,
+                        cache_hit=flush.cache_hit, t_submit=e.t_submit,
+                        t_done=t_retire,
+                        queue_s=flush.t_dispatch - e.t_submit,
+                        padding_waste=padding_waste(e.matrix.shape, bucket),
+                        backend=flush.backend, n_shards=flush.n_shards,
+                        t_dispatch=flush.t_dispatch,
+                        inflight_depth=flush.inflight_depth,
+                        deadline=e.flush_by, sweeps=sweeps)
+                    e.ticket._fulfil(
+                        self._unpack(op, out, i, e.matrix.shape), rec)
+                    self.stats.record_request(rec)
+                    records.append(rec)
+            if self.obs is not None:
+                self._record_obs(flush, records, t_wait, t_retire)
         return len(flush.entries)
 
     def _record_obs(self, flush: InFlightFlush, records: List[RequestRecord],

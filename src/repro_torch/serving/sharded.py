@@ -57,6 +57,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 from ..core import jacobi
 from ..core.pca import PCAConfig
+from ..obs.tracing import stage
 from ..parallel.sharding import (Mesh, pad_to_multiple, rules_for_mesh,
                                  visible_devices)
 from .cache import SolverKey, StaleRecord
@@ -84,17 +85,21 @@ def _launch(fn: Callable, batch: np.ndarray, n_active: np.ndarray,
             device: torch.device):
     """One slab's launch on ``device``: (result tree, its host copy in
     flight, the event after it, the pinned inputs) -- the last three None
-    or empty on the CPU, where the solve has finished on return."""
+    or empty on the CPU, where the solve has finished on return.  Under a
+    profiler the staging is a ``repro.stage`` range and the rest a
+    ``launch_name`` range."""
     on_card = device.type == "cuda"
     with torch.cuda.device(device) if on_card else contextlib.nullcontext():
-        xb, pinned_b = _stage(batch, torch.float32, device)
-        na, pinned_n = _stage(n_active, torch.int32, device)
-        out = fn(xb, *na)
-        copy = event = None
-        if on_card:
-            copy = copy_to_host(out)
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(device))
+        with stage("repro.stage"):
+            xb, pinned_b = _stage(batch, torch.float32, device)
+            na, pinned_n = _stage(n_active, torch.int32, device)
+        with stage(lambda: launch_name(fn, batch, n_active, device)):
+            out = fn(xb, *na)
+            copy = event = None
+            if on_card:
+                copy = copy_to_host(out)
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(device))
     staged = tuple(t for t in (pinned_b, pinned_n) if t is not None)
     return out, copy, event, staged
 
@@ -160,6 +165,56 @@ def _sweep_width(config: PCAConfig, bucket: Tuple[int, ...]) -> int:
     return n + n % 2 if config.pivot == "parallel" else n
 
 
+def _sweep_plan(device: torch.device, config: PCAConfig, n: int,
+                rows: int):
+    """(k, the card's limits, ``fused.sweep_plan``) of a (rows, n, n)
+    sweep on CUDA ``device``: the kernel and grid the op itself takes."""
+    from ..kernels import fused
+    k = n // 2 if config.pivot == "parallel" else 1
+    limits = fused._sweep_limits(device.index, n, k)
+    return k, limits, fused.sweep_plan(rows, n, k, *limits)
+
+
+def sweep_kernel(device: torch.device, config: PCAConfig, n: int,
+                 rows: int) -> str:
+    """The sweep kernel a (rows, n, n) solve under ``config`` launches on
+    ``device``: ``"smem"`` or ``"grid"`` as ``fused.sweep_plan`` picks, or
+    ``"none"`` where its sweeps are no fused kernel (off a card, unfused,
+    the matmul datapath, the paper's pivot, a plain backend)."""
+    if (device.type != "cuda" or not config.fused
+            or config.rotation != "rowcol" or config.pivot == "paper"):
+        return "none"
+    from ..backends import registry
+    # the op resolves a None backend by its tensor's device; an empty
+    # tensor with no device resolves as a card's does
+    backend = config.backend or registry.default_backend(
+        torch.empty(0, device="meta"))
+    if backend != "cuda":
+        return "none"
+    from ..kernels import fused
+    plan = _sweep_plan(device, config, n, rows)[2]
+    return "smem" if plan.kernel is fused.JACOBI_SWEEP_SMEM else "grid"
+
+
+def launch_name(fn: Callable, batch: np.ndarray, n_active: np.ndarray,
+                device: torch.device) -> str:
+    """The profiler range of one slab's launch:
+    ``repro.launch:<op>:<bucket>:<live>/<padded>:n<width>:s<sweeps>:<kernel>``
+    (``512x128``, the live and padded problems of the slab, the sweeps'
+    width, their count, ``sweep_kernel``); ``repro.launch`` for a solver
+    that no executor built."""
+    solver = fn if isinstance(fn, Solver) else getattr(fn, "fn", None)
+    if not isinstance(solver, Solver):
+        return "repro.launch"
+    rows, bucket = batch.shape[0], batch.shape[1:]
+    config = solver.config
+    n = _sweep_width(config, bucket)
+    live = int(np.count_nonzero(n_active[0]))
+    return (f"repro.launch:{solver.op}:{'x'.join(map(str, bucket))}:"
+            f"{live}/{rows}:n{n}:s{config.sweeps}:"
+            f"{sweep_kernel(device, config, n, rows)}")
+
+
 def plan_facts(device: torch.device, op: str, config: PCAConfig,
                bucket: Tuple[int, ...], rows: int,
                launched: Dict[str, int]) -> Dict:
@@ -174,9 +229,7 @@ def plan_facts(device: torch.device, op: str, config: PCAConfig,
     facts = {}
     if launched.get("jacobi_sweep") or launched.get("jacobi_sweep_smem"):
         n = _sweep_width(config, bucket)
-        k = n // 2 if config.pivot == "parallel" else 1
-        limits = fused._sweep_limits(device.index, n, k)
-        plan = fused.sweep_plan(rows, n, k, *limits)
+        k, limits, plan = _sweep_plan(device, config, n, rows)
         facts["sweep"] = {"n": n, "k": k, "kernel": plan.kernel.name,
                           "grid": plan.grid, "limits": list(limits)}
     if launched.get("covariance"):
@@ -208,6 +261,21 @@ def make_record(op: str, config: PCAConfig, bucket: Tuple[int, ...],
         "launches": {k: n for k, n in sorted(launched.items()) if n},
         "check": {"seed": CHECK_SEED, "sha256": _digest(out)},
     }
+
+
+class Solver:
+    """The batched solver of one (op, config) as an executor builds it
+    (``build_solver_fn``), with the facts its launch range names."""
+
+    __slots__ = ("op", "config", "fn")
+
+    def __init__(self, op: str, config: PCAConfig, fn: Callable):
+        self.op = op
+        self.config = config
+        self.fn = fn
+
+    def __call__(self, x, n_rows, n_cols):
+        return self.fn(x, n_rows, n_cols)
 
 
 class EagerSolver:
@@ -392,8 +460,8 @@ class LocalExecutor:
         key = (op, SolverKey.from_config(config))
         fn = self._solvers.get(key)
         if fn is None:
-            fn = self._solvers[key] = build_solver_fn(op, config,
-                                                      device=self.device)
+            fn = self._solvers[key] = Solver(op, config, build_solver_fn(
+                op, config, device=self.device))
         return fn
 
     def aot_compile(self, op: str, config: PCAConfig,
@@ -453,9 +521,6 @@ class LocalExecutor:
             "launch", ts=t0, end=obs.clock(), cat="launch",
             track="launch", executor=self.describe(),
             batch=int(np.shape(batch)[0]), n_shards=self.n_shards)
-        obs.metrics.counter(
-            "serve_launches_total", "Device launches by executor.",
-            ("executor", )).labels(self.describe()).inc()
 
     def run(self, fn: Callable, batch, n_active):
         """Blocking compatibility path: ``submit(...).result()``."""
@@ -531,8 +596,8 @@ class MeshExecutor(LocalExecutor):
         for dev in self.shard_devices:
             fn = self._solvers.get(key + (dev,))
             if fn is None:
-                fn = self._solvers[key + (dev,)] = build_solver_fn(
-                    op, config, device=dev)
+                fn = self._solvers[key + (dev,)] = Solver(
+                    op, config, build_solver_fn(op, config, device=dev))
             fns.append(fn)
         return tuple(fns)
 

@@ -1825,3 +1825,34 @@ def test_disk_hit_in_a_fresh_process_runs_no_nvcc(hopper, tmp_path):
     for got, res in zip(doc["values"], want):
         w = res.eigenvalues if hasattr(res, "eigenvalues") else res.S
         np.testing.assert_array_equal(np.asarray(got, np.float32), w)
+
+
+def test_launch_range_names_the_sweep_kernel_the_card_runs(cuda_device):
+    """Under a profiler each flush's ``repro.launch:`` range names the
+    sweep kernel its solve launches (``fused.sweep_plan`` at the flush's
+    padded batch and width): 128 wide on the shared-memory kernel, 256
+    wide on the grid kernel, and each launch range holds its flush's
+    sweeps on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import BucketPolicy, PCAServer
+    srv = PCAServer(tpca.PCAConfig(fused=True, backend="cuda", sweeps=4,
+                                   T=64, S=2),
+                    policy=BucketPolicy(T=64, mode="pow2"), max_batch=2,
+                    max_delay_s=1e9)
+    mats = [sym(100, seed=1), sym(120, seed=2), sym(200, seed=3)]
+    srv.solve_many(mats)  # the kernels build outside the trace
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        srv.solve_many(mats)
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    names = sorted(e.name() for e in events
+                   if e.device_type() != torch.autograd.DeviceType.CUDA
+                   and e.name().startswith("repro.launch:"))
+    assert names == ["repro.launch:eigh:128x128:2/2:n128:s4:smem",
+                     "repro.launch:eigh:256x256:1/2:n256:s4:grid"]
+    kernels = [e.name() for e in events
+               if e.device_type() == torch.autograd.DeviceType.CUDA]
+    assert sum("sweep_smem_kernel" in k for k in kernels) == 4
+    assert sum("sweep_grid_kernel" in k for k in kernels) == 4
