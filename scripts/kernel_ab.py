@@ -60,9 +60,11 @@ then one JSON line a tree.  CASES is one of:
     ``cuda`` backend (the Rutishauser angle, the parallel pivot's n - 1
     rounds), whatever number of calls the tree makes for it: at the main
     path's n = 784, and on the batched flush's 32 x 256 x 256 and
-    32 x 128 x 128 buckets.  Milliseconds a sweep, and whether the result
-    is bitwise the plain version's round-by-round loop.  Then
-    ``fit_transform`` as for ``gemm``.
+    32 x 128 x 128 buckets.  Milliseconds a sweep, whether the result
+    is bitwise the plain version's round-by-round loop, and the grid
+    barriers a grid-kernel launch took (``JACOBI_SWEEP.barriers``; null
+    for a tree without that count or a sweep off the grid kernel).  Then
+    ``fit_transform`` as for ``gemm``, with its barriers a launch.
 
 ``serve``
     ``chip_smoke.py``'s serve phase (this checkout's script, the tree's
@@ -395,7 +397,15 @@ def jacobi(tree: str) -> dict:
     import torch
     from repro_torch.core import jacobi as jac
     from repro_torch.core.cordic import ANGLE_MODES
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import fused, launch_counts, ref
+
+    def counts():  # (grid barriers, grid launches); no barrier count before
+        return (getattr(fused.JACOBI_SWEEP, "barriers", None),
+                launch_counts()["jacobi_sweep"])
+
+    def per_launch(before):
+        (b0, l0), (b1, l1) = before, counts()
+        return None if b0 is None or l1 == l0 else (b1 - b0) / (l1 - l0)
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -413,15 +423,19 @@ def jacobi(tree: str) -> dict:
             return jac._sweep_scan(C, V, rounds, ANGLE_MODES["rutishauser"],
                                    "rowcol", None, fused=True,
                                    fused_backend="cuda")
+        before = counts()
         got = sweep()
+        barriers = per_launch(before)
         want = (C, V)
         for pairs in rounds:
             want = ref.jacobi_sweep_step(*want, pairs)
         out[name] = {
             "bitwise": all(bool(torch.equal(a, b))
                            for a, b in zip(got, want)),
-            "ms": time_ms(sweep, reps)}
+            "ms": time_ms(sweep, reps), "barriers_a_launch": barriers}
+    before = counts()
     out["fit_wall_s"] = fit_wall_s(dev)
+    out["fit_barriers_a_launch"] = per_launch(before)
     return out
 
 

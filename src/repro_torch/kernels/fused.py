@@ -22,10 +22,23 @@ one-call Jacobi sweep (``csrc/covariance.cu``, ``csrc/jacobi_sweep.cu``).
     shared memory, where they fit: n <= 128 on the H100) or
     ``jacobi_sweep`` (a persistent cooperative grid, C and V in L2, each
     thread owning the 2 x 2 blocks of C and V at (pair i, pair j), reading
-    one (C, V) pair and writing the other each round, one grid barrier a
-    round).  Bound of a sweep by operations, 9 n^2 (n - 1) flops (64 us at
-    n = 784); each round's barrier and L2 round trips keep the grid kernel
-    far from it.
+    one (C, V) pair and writing the other each step, one grid barrier a
+    step), and the grid's depth: two rounds a step where the pairs can
+    cover every coordinate and every tile is resident at once.  The circle
+    method moves each coordinate by at most one pair a round, so a block
+    computes round r on its tile widened by one pair a side, keeps it in
+    shared memory and stores round r + 1 alone: 391 barriers a sweep at
+    n = 784, not 782, each value the same arithmetic on the same operands
+    (a step of any other table runs one round a barrier, bitwise all the
+    same; the kernel checks every step once a launch).  Bound of a sweep
+    by operations, 9 n^2 (n - 1) flops (64 us at n = 784); the step's
+    barrier and L2 round trips keep the grid kernel far from it.  On the
+    H100 a sweep at n = 784 took 4.18-4.24 ms against 4.74-4.84 at one
+    round a barrier (``scripts/kernel_ab.py jacobi``): a step of two
+    rounds 10.7 us, its grid barrier 2.6, its stores' drain 2.0 and its
+    loads, angles and staging 6.1, against 4.2, 4.1 and 4.0 for two
+    rounds one barrier apart.  ``JACOBI_SWEEP.barriers`` reads the grid
+    barriers the launches passed, as the kernel counts them.
 
 On a CPU tensor each wrapper returns its plain version (``kernels.ref``); on
 a CUDA tensor it launches its kernel or raises.
@@ -44,9 +57,25 @@ from .launch import KernelInfo, copy_bytes, require, require_cuda, stream
 
 COVARIANCE = KernelInfo("covariance", "src/repro_torch/csrc/covariance.cu",
                         "src/repro/kernels/fused.py:102")
-JACOBI_SWEEP = KernelInfo("jacobi_sweep",
-                          "src/repro_torch/csrc/jacobi_sweep.cu",
-                          "src/repro/kernels/fused.py:162")
+
+
+class GridSweepInfo(KernelInfo):
+    """The cooperative grid sweep's record, with ``barriers``: the grid
+    barriers its launches passed, as the kernel counts them on the card
+    (read back when asked: a device synchronization).  Launches under
+    stream capture, and a CUDA graph's replays, are not counted."""
+
+    @property
+    def barriers(self) -> int:
+        return sum(int(t.item()) for t in _BARRIERS.values())
+
+
+# device index -> the int64 word the grid kernel adds its barriers to
+_BARRIERS: dict = {}
+
+JACOBI_SWEEP = GridSweepInfo("jacobi_sweep",
+                             "src/repro_torch/csrc/jacobi_sweep.cu",
+                             "src/repro/kernels/fused.py:162")
 JACOBI_SWEEP_SMEM = KernelInfo("jacobi_sweep_smem",
                                "src/repro_torch/csrc/jacobi_sweep.cu",
                                "src/repro/kernels/fused.py:162")
@@ -124,6 +153,7 @@ def fused_covariance(x: torch.Tensor, *, block_m: int = 1024) -> torch.Tensor:
 class SweepPlan(NamedTuple):
     kernel: KernelInfo  # JACOBI_SWEEP_SMEM or JACOBI_SWEEP
     grid: int           # blocks: one per problem, or the persistent grid
+    depth: int = 1      # rounds a grid barrier (the grid kernel)
 
 
 def sweep_smem_bytes(n: int, k: int) -> int:
@@ -134,15 +164,26 @@ def sweep_smem_bytes(n: int, k: int) -> int:
 
 
 def sweep_plan(batch: int, n: int, k: int, smem_optin: int, sms: int,
-               blocks_per_sm: int) -> SweepPlan:
+               blocks_per_sm: int, staged_blocks_per_sm: int = 0
+               ) -> SweepPlan:
     """Where a sweep over (batch, n, n) with k pairs a round runs: in
     shared memory, one block per problem, where C and V fit one block's
     opt-in shared memory (n <= 128 on the H100's 227 KiB); otherwise on
     the cooperative grid, one block per tile of every problem but never
-    more than the ``blocks_per_sm`` x ``sms`` blocks that can be resident
-    at once (a grid barrier waits for every block).  A tile is 16 x 32
-    units, a unit being a pair or, where the k pairs cannot cover all n
-    coordinates (the cyclic pivot), also each coordinate."""
+    more than the blocks that can be resident at once (a grid barrier
+    waits for every block).  A tile is 16 x 32 units, a unit being a pair
+    or, where the k pairs cannot cover all n coordinates (the cyclic
+    pivot), also each coordinate.
+
+    The grid takes two rounds a barrier (depth 2) where the pairs can
+    cover every coordinate (2k >= n, the circle method's rounds) and the
+    ``staged_blocks_per_sm`` x ``sms`` blocks of that instance hold every
+    tile at once (0 where its staging does not fit a block's shared
+    memory), so that each block's two-round work is paid once a barrier;
+    otherwise one round a barrier (``blocks_per_sm`` blocks an SM).  On
+    the H100 at 32 x 256 x 256 (1024 tiles, two or three a block) two
+    rounds a barrier took 3.95 ms a sweep against 3.14-3.20 at one
+    (``scripts/kernel_ab.py jacobi``)."""
     if sweep_smem_bytes(n, k) <= smem_optin:
         return SweepPlan(JACOBI_SWEEP_SMEM, batch)
     resident = blocks_per_sm * sms
@@ -152,14 +193,17 @@ def sweep_plan(batch: int, n: int, k: int, smem_optin: int, sms: int,
     units = k if 2 * k >= n else k + n
     rows, cols = SWEEP_TILE
     tiles = batch * (-(-units // rows)) * (-(-units // cols))
+    if 2 * k >= n and tiles <= staged_blocks_per_sm * sms:
+        return SweepPlan(JACOBI_SWEEP, tiles, 2)
     return SweepPlan(JACOBI_SWEEP, min(tiles, resident))
 
 
 @functools.lru_cache(maxsize=None)
-def _sweep_limits(index: int, n: int, k: int) -> Tuple[int, int, int]:
-    """(opt-in shared memory a block, SMs, grid-kernel blocks an SM) of
-    CUDA device ``index`` at (n, k), from the CUDA runtime."""
-    vals = [ctypes.c_int(0) for _ in range(3)]
+def _sweep_limits(index: int, n: int, k: int) -> Tuple[int, int, int, int]:
+    """(opt-in shared memory a block, SMs, grid-kernel blocks an SM at one
+    round a barrier, and at two) of CUDA device ``index`` at (n, k), from
+    the CUDA runtime."""
+    vals = [ctypes.c_int(0) for _ in range(4)]
     with torch.cuda.device(index):
         build.check(build.library().repro_jacobi_sweep_limits(
             n, k, *(ctypes.byref(v) for v in vals)), "jacobi_sweep_step")
@@ -212,16 +256,33 @@ def jacobi_sweep_step(C: torch.Tensor, V: torch.Tensor, pairs: torch.Tensor,
                 "out must not alias C or V")
     plan = sweep_plan(batch, n, k, *_sweep_limits(dev.index, n, k))
     grid = plan.kernel is JACOBI_SWEEP
-    spare = (Co, Vo)  # unused by the smem kernel and by a single round
+    # the spare of the ping-pong, and at depth 2 the third buffer of a step
+    # that runs one round a barrier; unused by the smem kernel and by a
+    # single round
+    spare = third = (Co, Vo)
     if grid and rounds > 1:
-        spare = (torch.empty_like(C), torch.empty_like(V))
-    barrier = torch.zeros(1 if grid else 0, dtype=torch.int32, device=dev)
+        work = torch.empty((4 if plan.depth > 1 and rounds > 2 else 2,
+                            *C.shape), dtype=C.dtype, device=dev)
+        spare = third = (work[0], work[1])
+        if len(work) == 4:
+            third = (work[2], work[3])
+    # the grid barrier's word, and at depth 2 a flag a two-round step
+    words = 1 + (rounds // 2 if plan.depth > 1 else 0)
+    barrier = torch.zeros(words if grid else 0, dtype=torch.int32,
+                          device=dev)
+    issued = 0
+    if grid and not torch.cuda.is_current_stream_capturing():
+        if dev.index not in _BARRIERS:
+            _BARRIERS[dev.index] = torch.zeros(1, dtype=torch.int64,
+                                               device=dev)
+        issued = _BARRIERS[dev.index].data_ptr()
     lib = build.library()
     with torch.cuda.device(dev):
         build.check(lib.repro_jacobi_sweep(
             C.data_ptr(), V.data_ptr(), pairs.data_ptr(), Co.data_ptr(),
             Vo.data_ptr(), spare[0].data_ptr(), spare[1].data_ptr(),
-            barrier.data_ptr(), batch, n, k, rounds, ANGLE_CODES[angle],
-            int(not grid), plan.grid, stream(dev)), what)
+            third[0].data_ptr(), third[1].data_ptr(), barrier.data_ptr(),
+            issued, batch, n, k, rounds, ANGLE_CODES[angle], int(not grid),
+            plan.grid, plan.depth, stream(dev)), what)
     plan.kernel.launches += 1
     return Co, Vo

@@ -219,9 +219,9 @@ def plan_facts(device: torch.device, op: str, config: PCAConfig,
                bucket: Tuple[int, ...], rows: int,
                launched: Dict[str, int]) -> Dict:
     """The kernel plan of one key's solve on ``device`` that a record
-    keeps: the sweep kernel and its grid (``fused.sweep_plan`` from the
-    card's limits, ``repro_jacobi_sweep_limits``) where a sweep kernel
-    launched, the Gram's m-axis slices where ``covariance`` did.  Empty
+    keeps: the sweep kernel, its grid and depth (``fused.sweep_plan``
+    from the card's limits, ``repro_jacobi_sweep_limits``) where a sweep
+    kernel launched, the Gram's m-axis slices where ``covariance`` did.  Empty
     off a card."""
     if device.type != "cuda":
         return {}
@@ -231,7 +231,8 @@ def plan_facts(device: torch.device, op: str, config: PCAConfig,
         n = _sweep_width(config, bucket)
         k, limits, plan = _sweep_plan(device, config, n, rows)
         facts["sweep"] = {"n": n, "k": k, "kernel": plan.kernel.name,
-                          "grid": plan.grid, "limits": list(limits)}
+                          "grid": plan.grid, "depth": plan.depth,
+                          "limits": list(limits)}
     if launched.get("covariance"):
         slices, per = fused.cov_slices(bucket[0], bucket[-1], rows, 1024,
                                        fused._sm_count(device.index))

@@ -183,6 +183,155 @@ def test_jacobi_sweep_kernel_out_buffers_and_bad_pairs(cuda_device, n):
         assert_contract(g, w, "bitwise")
 
 
+def _grid_sweep(C, V, pairs):
+    """One grid-sweep call counted on ``jacobi_sweep`` alone, and the grid
+    barriers the kernel counted passing."""
+    barriers = fused.JACOBI_SWEEP.barriers
+    before = launch_counts()
+    got = fused.jacobi_sweep_step(C, V, pairs)
+    assert _launched(before) == {"jacobi_sweep": 1}
+    return got, fused.JACOBI_SWEEP.barriers - barriers
+
+
+def _grid_depth(batch, n, k):
+    dev = torch.cuda.current_device()
+    plan = fused.sweep_plan(batch, n, k, *fused._sweep_limits(dev, n, k))
+    assert plan.kernel is fused.JACOBI_SWEEP
+    return plan.depth
+
+
+def test_grid_sweep_two_rounds_a_barrier_at_the_fit_shape(cuda_device):
+    """The fit's whole sweep (n = 784, batch 1, 783 rounds) takes two
+    rounds a grid barrier, 391 barriers, and is bitwise the plain loop."""
+    n = 784
+    C, V = _sweep_case(cuda_device, n, batch=1, seed=11)
+    rounds = torch.from_numpy(round_robin_rounds(n)).to(cuda_device)
+    assert _grid_depth(1, n, n // 2) == 2
+    got, barriers = _grid_sweep(C, V, rounds)
+    assert barriers == 391
+    want = ref.jacobi_sweep_step(C, V, rounds)
+    for g, w in zip(got, want):
+        assert_contract(g, w, "bitwise")
+
+
+def test_grid_sweep_on_a_padded_flush(cuda_device):
+    """A 32 x 256 flush as the engine stacks one: three live problems
+    zero-padded from their widths to 256, the rest its zero filler, V the
+    identity.  One sweep in the barriers its plan's depth gives
+    (ceil(R / depth) - 1), bitwise the plain loop; the padded coordinates
+    stay exactly zero in C and off the live block in V."""
+    n, widths = 256, (200, 256, 131)
+    C = torch.zeros(32, n, n, device=cuda_device)
+    for b, w in enumerate(widths):
+        C[b, :w, :w] = torch.from_numpy(sym(w, seed=20 + b)).to(cuda_device)
+    V = torch.eye(n, device=cuda_device).expand(32, n, n).contiguous()
+    rounds = torch.from_numpy(round_robin_rounds(n)).to(cuda_device)
+    depth = _grid_depth(32, n, n // 2)
+    got, barriers = _grid_sweep(C, V, rounds)
+    assert barriers == -(-(n - 1) // depth) - 1
+    want = ref.jacobi_sweep_step(C, V, rounds)
+    for g, w in zip(got, want):
+        assert_contract(g, w, "bitwise")
+    Co, Vo = got
+    for b, w in enumerate(widths):
+        assert bool((Co[b, w:] == 0).all()) and bool((Co[b, :, w:] == 0).all())
+        assert bool((Vo[b, w:, :w] == 0).all())
+        assert bool((Vo[b, :w, w:] == 0).all())
+    assert bool((Co[len(widths):] == 0).all())
+
+
+@pytest.mark.parametrize("R", [1, 2, 7])
+def test_grid_sweep_two_rounds_a_barrier_odd_and_even_ends(cuda_device, R):
+    """R rounds of a 258-wide table: an odd R ends on one single round, an
+    even one on a two-round step; ceil(R / 2) - 1 barriers a launch."""
+    n = 258
+    C, V = _sweep_case(cuda_device, n, seed=R)
+    rounds = torch.from_numpy(round_robin_rounds(n)[:R].copy()).to(
+        cuda_device)
+    assert _grid_depth(2, n, n // 2) == 2
+    got, barriers = _grid_sweep(C, V, rounds)
+    assert barriers == -(-R // 2) - 1
+    want = ref.jacobi_sweep_step(C, V, rounds)
+    for g, w in zip(got, want):
+        assert_contract(g, w, "bitwise")
+
+
+def _matching(n, rng):
+    return rng.permutation(n).reshape(-1, 2)
+
+
+def _two_round_barriers(rounds, n):
+    """The grid barriers a depth-2 launch over ``rounds`` takes: one
+    between steps, and one more inside each two-round step whose rounds
+    leave a coordinate out or move one by more than one pair (run one
+    round a barrier)."""
+    def live(r):
+        return [(int(p), int(q)) for p, q in r if 0 <= p < n and 0 <= q < n]
+
+    def staged(r0, r1):
+        if any(sum(1 if p == q else 2 for p, q in live(r)) != n
+               for r in (r0, r1)):
+            return False
+        k = len(r0)
+        for u, (p, q) in enumerate(r1):
+            if not (0 <= p < n and 0 <= q < n):
+                return False
+            near = [c for v in range(max(u - 1, 0), min(u + 2, k))
+                    if 0 <= r0[v][0] < n and 0 <= r0[v][1] < n
+                    for c in r0[v]]
+            if p not in near or q not in near:
+                return False
+        return True
+
+    R = len(rounds)
+    extra = sum(not staged(rounds[2 * s], rounds[2 * s + 1])
+                for s in range(R // 2))
+    return -(-R // 2) - 1 + extra
+
+
+@pytest.mark.parametrize("table", ["degenerate", "out_of_range", "mixed",
+                                   "swapped"])
+def test_grid_sweep_two_rounds_a_barrier_any_pairs_table(cuda_device,
+                                                         table):
+    """Tables the depth-2 grid must hold bitwise, at k >= n / 2 (the depth
+    the plan gives the circle method): the same rounds again with two
+    degenerate pairs (two rounds a barrier); with an out-of-range pair and
+    coordinates in no pair (no rotation: the plain version runs without
+    it; one round a barrier); the circle method with every third round a
+    random matching (those steps one round a barrier), or with a pair's
+    order swapped.  The kernel's own count of its barriers shows which
+    steps ran one round a barrier."""
+    n = 258
+    rng = np.random.default_rng(7)
+    C, V = _sweep_case(cuda_device, n, seed=5)
+    circle = round_robin_rounds(n)
+    if table == "degenerate":
+        base = [[2 * i, 2 * i + 1] for i in range(128)] + [[256, 256],
+                                                           [257, 257]]
+        rounds = np.asarray([base] * 9)
+    elif table == "out_of_range":
+        base = [[2 * i, 2 * i + 1] for i in range(127)] + [[254, 254],
+                                                           [255, 900]]
+        rounds = np.asarray([base] * 7)
+    elif table == "mixed":
+        rounds = circle[:40].copy()
+        rounds[::3] = [_matching(n, rng) for _ in rounds[::3]]
+    else:
+        rounds = circle[:40].copy()
+        rounds[:, 5] = rounds[:, 5, ::-1]
+    k = rounds.shape[1]
+    assert _grid_depth(2, n, k) == 2
+    pairs = torch.from_numpy(rounds.astype(np.int32)).to(cuda_device)
+    got, barriers = _grid_sweep(C, V, pairs)
+    assert barriers == _two_round_barriers(rounds, n)
+    live = torch.from_numpy(np.stack([
+        [p for p in r if p[0] < n and p[1] < n] for r in rounds]).astype(
+            np.int32)).to(cuda_device)
+    want = ref.jacobi_sweep_step(C, V, live)
+    for g, w in zip(got, want):
+        assert_contract(g, w, "bitwise")
+
+
 def test_covariance_kernel_against_the_unfused_gram(cuda_device):
     """The CUDA Gram (3xTF32, the m axis in ``cov_splits`` slices) against
     ``blocked_covariance`` at the same ``block_m`` (one cuBLAS product a

@@ -179,6 +179,98 @@ def test_plan_never_exceeds_the_resident_blocks():
         tfused.sweep_plan(1, 784, 392, H100_SMEM, 132, 0)
 
 
+# blocks of each grid-kernel instance an H100 SM holds (the staging's
+# registers and shared memory bound the two-round one)
+H100_GRID_PER_SM, H100_STAGED_PER_SM = 4, 3
+
+
+@pytest.mark.parametrize("n", [64, 66, 128])
+def test_plan_keeps_small_buckets_in_shared_memory_at_any_depth(n):
+    plan = tfused.sweep_plan(32, n, n // 2, H100_SMEM, H100_SMS,
+                             H100_GRID_PER_SM, H100_STAGED_PER_SM)
+    assert plan.kernel is tfused.JACOBI_SWEEP_SMEM and plan.depth == 1
+
+
+@pytest.mark.parametrize("batch,n", [(1, 784), (1, 600), (1, 256),
+                                     (2, 512)])
+def test_plan_takes_two_rounds_a_barrier_where_every_tile_is_resident(
+        batch, n):
+    """The fit's (1, 784, 392), among others: two rounds a barrier on a
+    grid that holds every tile at once (the fit's 325 tiles)."""
+    plan = tfused.sweep_plan(batch, n, n // 2, H100_SMEM, H100_SMS,
+                             H100_GRID_PER_SM, H100_STAGED_PER_SM)
+    assert plan.kernel is tfused.JACOBI_SWEEP and plan.depth == 2
+    rows, cols = tfused.SWEEP_TILE
+    tiles = batch * -(-(n // 2) // rows) * -(-(n // 2) // cols)
+    assert plan.grid == tiles <= H100_STAGED_PER_SM * H100_SMS
+    if (batch, n) == (1, 784):
+        assert plan.grid == 325
+
+
+@pytest.mark.parametrize("batch,n", [(32, 256), (4, 784), (2, 1024)])
+def test_plan_takes_one_round_a_barrier_where_blocks_take_several_tiles(
+        batch, n):
+    """The 256 bucket's (32, 256, 128): 1024 tiles, two or three a block
+    of the staged grid, so one round a barrier on the resident grid."""
+    plan = tfused.sweep_plan(batch, n, n // 2, H100_SMEM, H100_SMS,
+                             H100_GRID_PER_SM, H100_STAGED_PER_SM)
+    assert plan.kernel is tfused.JACOBI_SWEEP and plan.depth == 1
+    assert plan.grid == H100_GRID_PER_SM * H100_SMS
+
+
+@pytest.mark.parametrize("batch,n", [(1, 784), (1, 512)])
+def test_plan_drops_to_one_round_a_barrier_where_the_staging_does_not_fit(
+        batch, n):
+    """The limits report no block of the two-round instance an SM where
+    its staging does not fit the opt-in shared memory: one round a
+    barrier, on the resident grid of the one-round instance."""
+    k = n // 2
+    plan = tfused.sweep_plan(batch, n, k, H100_SMEM, H100_SMS,
+                             H100_GRID_PER_SM, 0)
+    assert plan.kernel is tfused.JACOBI_SWEEP and plan.depth == 1
+    assert 1 <= plan.grid <= H100_GRID_PER_SM * H100_SMS
+    plan = tfused.sweep_plan(batch, n, k, H100_SMEM, H100_SMS,
+                             H100_GRID_PER_SM, H100_STAGED_PER_SM)
+    assert plan.depth == 2
+
+
+@pytest.mark.parametrize("k", [1, 100])
+def test_plan_runs_pairs_leaving_coordinates_out_one_round_a_barrier(k):
+    """Where the k pairs cannot cover n coordinates (the cyclic pivot's
+    k = 1), a coordinate's unit jumps between rounds: one round a
+    barrier."""
+    plan = tfused.sweep_plan(1, 300, k, H100_SMEM, H100_SMS,
+                             H100_GRID_PER_SM, H100_STAGED_PER_SM)
+    assert plan.kernel is tfused.JACOBI_SWEEP and plan.depth == 1
+
+
+def test_plan_keeps_two_rounds_only_where_every_tile_is_resident():
+    """The same shape takes two rounds a barrier where the card holds all
+    its tiles at once, and one where it does not."""
+    assert tfused.sweep_plan(1, 784, 392, H100_SMEM, H100_SMS, 4, 3).depth \
+        == 2
+    plan = tfused.sweep_plan(1, 784, 392, H100_SMEM, H100_SMS, 4, 2)
+    assert plan.depth == 1 and plan.grid == 325  # 264 staged < 325 tiles
+    plan = tfused.sweep_plan(32, 256, 128, H100_SMEM, 1024, 4, 1)
+    assert plan.depth == 2 and plan.grid == 1024
+
+
+def test_grid_sweep_counts_no_barrier_off_the_card():
+    """A CPU tensor takes the plain version: no launch, and the grid
+    sweep's barrier count (read from the card's counters) stays put."""
+    before = (tfused.JACOBI_SWEEP.launches, tfused.JACOBI_SWEEP.barriers)
+    C = torch.from_numpy(sym(258, seed=3))
+    V = torch.eye(258)
+    pairs = torch.from_numpy(tjacobi.round_robin_rounds(258)[:3].copy())
+    Co, Vo = tfused.jacobi_sweep_step(C, V, pairs)
+    assert (tfused.JACOBI_SWEEP.launches,
+            tfused.JACOBI_SWEEP.barriers) == before
+    want = (C, V)
+    for r in pairs:
+        want = tfused.jacobi_sweep_step(*want, r)
+    assert torch.equal(Co, want[0]) and torch.equal(Vo, want[1])
+
+
 def test_reference_rounds_are_the_ports():
     for n in (12, 784):
         np.testing.assert_array_equal(tjacobi.round_robin_rounds(n),
